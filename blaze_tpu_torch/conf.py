@@ -47,8 +47,6 @@ MIN_CAPACITY = ConfEntry("spark.blaze.tpu.minBatchCapacity", 1024, int)
 # hand-written device kernels for hot loops (kernels/): the shuffle
 # partition ids of fixed-width keys go through murmur3_pids
 PALLAS_ENABLE = ConfEntry("spark.blaze.tpu.pallas.enable", True, _bool)
-# hash-join probe inner loop through the sorted_lookup kernel
-PALLAS_JOIN_PROBE = ConfEntry("spark.blaze.tpu.pallas.joinProbe", False, _bool)
 # exchanges keep map output in device memory, in process (the only
 # exchange path of this port so far)
 EXCHANGE_IN_PROCESS = ConfEntry("spark.blaze.exchange.inProcess", True, _bool)

@@ -80,6 +80,30 @@ def mul_i64(a: torch.Tensor, b: torch.Tensor):
     return torch.where(sign, nhi, hi), torch.where(sign, nlo, lo)
 
 
+def mul_small(hi, lo, m: int):
+    """(hi, lo) * m for 0 < m < 2^31, sign carried by hi; exact while
+    the true product fits 128 bits."""
+    neg_in = hi < 0
+    ah, al = abs128(hi, lo)
+    l0 = (al & _M32) * m
+    l1 = srl(al, 32) * m
+    mid = srl(l0, 32) + (l1 & _M32)
+    lo_out = (l0 & _M32) | ((mid & _M32) << 32)
+    hi_out = ah * m + srl(l1, 32) + srl(mid, 32)
+    nh, nl = neg(hi_out, lo_out)
+    return torch.where(neg_in, nh, hi_out), torch.where(neg_in, nl, lo_out)
+
+
+def mul_pow10(hi, lo, k: int):
+    """(hi, lo) * 10^k for k >= 0, in factors of at most 10^9 (each
+    below 2^31)."""
+    while k > 0:
+        step = min(k, 9)
+        hi, lo = mul_small(hi, lo, 10**step)
+        k -= step
+    return hi, lo
+
+
 def _to_f64(hi, lo):
     """Approximate signed-128 -> float64 without cancellation:
     v = (hi + carry) * 2^64 + lo_signed, carry = lo >= 2^63."""

@@ -25,7 +25,7 @@ from typing import List, Optional
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "kernels" / "_build"
-SOURCES = ("murmur3_pids.cu", "sorted_lookup.cu")
+SOURCES = ("murmur3_pids.cu", "sorted_lookup.cu", "pid_histogram.cu", "fused_group_sums.cu")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMPILE_FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 LIB_NAME = "libblaze_tpu_torch_kernels.so"
@@ -35,6 +35,8 @@ _P = ctypes.c_void_p
 SIGNATURES = {
     "blaze_murmur3_pids": [_P, _P, _P, ctypes.c_int32, ctypes.c_int64, _P, ctypes.c_int32, _P, _P],
     "blaze_sorted_lookup": [_P, ctypes.c_int64, _P, ctypes.c_int64, _P, _P, _P],
+    "blaze_pid_histogram": [_P, ctypes.c_int64, ctypes.c_int32, _P, _P],
+    "blaze_fused_group_sums": [_P, _P, ctypes.c_int32, ctypes.c_int32, ctypes.c_int64, _P, _P],
 }
 
 

@@ -22,7 +22,9 @@ from ..batch import Column
 from ..exprs.hash import fixed_width_words, murmur3_hash_int32, murmur3_hash_int64
 from ..exprs.int128 import SIGN
 
-LAUNCHES: Dict[str, int] = {"murmur3_pids": 0, "sorted_lookup": 0}
+LAUNCHES: Dict[str, int] = {
+    "murmur3_pids": 0, "sorted_lookup": 0, "pid_histogram": 0, "fused_group_sums": 0,
+}
 # key columns one murmur3_pids launch takes (kMaxKeys in the source);
 # longer key lists chain launches through the running hash
 KEYS_PER_LAUNCH = 8
@@ -180,7 +182,96 @@ def sorted_lookup(table: torch.Tensor, probe: torch.Tensor):
     return lo, hi
 
 
+# ----------------------------------------------------------- pid histogram
+
+
+def pid_histogram_plain(pids: torch.Tensor, n_parts: int) -> torch.Tensor:
+    """Plain version: a masked scatter-add of ones."""
+    counted = (pids >= 0) & (pids < n_parts)
+    out = torch.zeros(n_parts, dtype=torch.int32, device=pids.device)
+    return out.scatter_add_(0, torch.where(counted, pids, 0).to(torch.int64), counted.to(torch.int32))
+
+
+def pid_histogram(pids: torch.Tensor, n_parts: int) -> torch.Tensor:
+    """Rows per partition of (N,) int32 ``pids``; a pid outside
+    ``[0, n_parts)`` (padding's -1) is not counted.  Returns
+    (n_parts,) int32."""
+    if pids.dtype != torch.int32 or pids.dim() != 1:
+        raise ValueError(f"pid_histogram: 1-D int32 pids, not {pids.dtype}{tuple(pids.shape)}")
+    if n_parts < 1:
+        raise ValueError(f"pid_histogram: n_parts {n_parts} < 1")
+    if pids.shape[0] >= 2**31:
+        raise ValueError("pid_histogram: too many rows for int32 counts")
+    dev = pids.device
+    _check(dev, "pid_histogram", [pids])
+    if dev.type == "cpu":
+        return pid_histogram_plain(pids, n_parts)
+    out = torch.zeros(n_parts, dtype=torch.int32, device=dev)
+    if pids.shape[0] == 0:
+        return out
+    from .build import library
+
+    _launch(library().blaze_pid_histogram, pids.data_ptr(), pids.shape[0], n_parts,
+            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    LAUNCHES["pid_histogram"] += 1
+    return out
+
+
+# -------------------------------------------------------- fused group sums
+
+# value columns one fused_group_sums launch takes (kMaxValues in the
+# source); more columns take one launch per group of them
+VALUES_PER_LAUNCH = 8
+
+
+def fused_group_sums_plain(gids: torch.Tensor, values: Sequence[torch.Tensor], n_groups: int) -> torch.Tensor:
+    """Plain version: one-hot (rows, G) membership times each value
+    column, summed over the rows (the TPU kernel's one-hot form), over
+    chunks of rows that keep the one-hot block near 2^24 entries."""
+    groups = torch.arange(n_groups, device=gids.device)
+    out = torch.zeros((len(values), n_groups), dtype=torch.float32, device=gids.device)
+    rows = max(1, (1 << 24) // n_groups)
+    for r0 in range(0, gids.shape[0], rows):
+        onehot = (gids[r0:r0 + rows].unsqueeze(1) == groups).to(torch.float32)
+        out += torch.stack([(onehot * v[r0:r0 + rows].unsqueeze(1)).sum(0) for v in values])
+    return out
+
+
+def fused_group_sums(gids: torch.Tensor, values: Sequence[torch.Tensor], n_groups: int) -> torch.Tensor:
+    """Sums of K (N,) float32 ``values`` per group id in
+    ``[0, n_groups)``; a gid outside it (a filtered-out row's -1)
+    contributes nothing.  Returns (K, n_groups) float32."""
+    k = len(values)
+    if gids.dtype != torch.int32 or gids.dim() != 1:
+        raise ValueError(f"fused_group_sums: 1-D int32 gids, not {gids.dtype}{tuple(gids.shape)}")
+    if k < 1 or n_groups < 1:
+        raise ValueError(f"fused_group_sums: {k} value columns, {n_groups} groups")
+    n = gids.shape[0]
+    for v in values:
+        if v.dtype != torch.float32 or v.shape != (n,):
+            raise ValueError(f"fused_group_sums: values {v.dtype}{tuple(v.shape)}, want float32 ({n},)")
+    dev = gids.device
+    _check(dev, "fused_group_sums", [gids, *values])
+    if dev.type == "cpu":
+        return fused_group_sums_plain(gids, values, n_groups)
+    out = torch.zeros((k, n_groups), dtype=torch.float32, device=dev)
+    if n == 0:
+        return out
+    from .build import library
+
+    lib = library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for c0 in range(0, k, VALUES_PER_LAUNCH):
+        c1 = min(c0 + VALUES_PER_LAUNCH, k)
+        ptrs = (ctypes.c_void_p * (c1 - c0))(*[v.data_ptr() for v in values[c0:c1]])
+        _launch(lib.blaze_fused_group_sums, gids.data_ptr(), ctypes.cast(ptrs, ctypes.c_void_p),
+                c1 - c0, n_groups, n, out[c0].data_ptr(), stream)
+        LAUNCHES["fused_group_sums"] += 1
+    return out
+
+
 __all__: List[str] = [
-    "LAUNCHES", "column_word_planes", "murmur3_pids", "murmur3_pids_plain",
-    "reset_launch_counts", "sorted_lookup", "sorted_lookup_plain",
+    "LAUNCHES", "column_word_planes", "fused_group_sums",
+    "fused_group_sums_plain", "murmur3_pids", "murmur3_pids_plain", "pid_histogram",
+    "pid_histogram_plain", "reset_launch_counts", "sorted_lookup", "sorted_lookup_plain",
 ]

@@ -12,7 +12,9 @@ concatenate and re-reduce (PARTIAL and FINAL states share one layout),
 and FINAL mode finalizes.  Wide decimal sums (result precision > 18)
 accumulate on two radix-2^32 int64 limbs, ``#sum_hi`` and
 ``#sum_lo<p>``, summed independently and combined into int128 at
-finalize, like the reference.  Functions: sum, count, count_star.
+finalize, like the reference.  Functions: sum, count, count_star, avg
+(avg keeps a sum beside its ``#count`` and divides at finalize, with
+Spark's HALF_UP decimal rounding).
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ from ..exprs.compile import infer_dtype, lower
 from ..exprs.ir import Expr
 from ..exprs.strings import packed_be
 from ..runtime.context import TaskContext
-from ..schema import DataType, Field, Schema, decimal_sum_agg_type
+from ..schema import DataType, Field, Schema, decimal_avg_agg_type, decimal_sum_agg_type
 from .base import BatchStream, ExecNode
 
 
@@ -46,7 +48,7 @@ class GroupingExpr:
 
 @dataclass
 class AggFunction:
-    """One aggregate call: ``fn`` in sum/count/count_star."""
+    """One aggregate call: ``fn`` in sum/count/count_star/avg."""
 
     fn: str
     expr: Optional[Expr]
@@ -69,6 +71,8 @@ def agg_result_type(fn: str, in_t: Optional[DataType]) -> DataType:
         return DataType.int64()
     if fn == "sum":
         return sum_result_type(in_t)
+    if fn == "avg":
+        return decimal_avg_agg_type(in_t) if in_t.is_decimal else DataType.float64()
     raise NotImplementedError(f"agg fn {fn}")
 
 
@@ -79,26 +83,28 @@ def sum_is_wide(in_t: Optional[DataType]) -> bool:
 
 
 def agg_state_fields(fn: str, in_t: Optional[DataType], name: str) -> List[Field]:
+    """State columns: a count; or a sum (one column, or the wide
+    ``#sum_hi``/``#sum_lo<p>`` limbs) beside its count of non-null
+    inputs, ``#nonnull`` for sum and ``#count`` for avg."""
     if fn in ("count", "count_star"):
         return [Field(f"{name}#count", DataType.int64())]
-    if fn == "sum":
-        if sum_is_wide(in_t):
-            # the lo limb's name carries the true input precision
-            return [
-                Field(f"{name}#sum_hi", sum_result_type(in_t)),
-                Field(f"{name}#sum_lo{in_t.precision}", DataType.int64()),
-                Field(f"{name}#nonnull", DataType.int64()),
-            ]
+    if fn not in ("sum", "avg"):
+        raise NotImplementedError(f"agg fn {fn}")
+    count = Field(f"{name}#nonnull" if fn == "sum" else f"{name}#count", DataType.int64())
+    if sum_is_wide(in_t):
+        # the lo limb's name carries the true input precision
         return [
-            Field(f"{name}#sum", sum_result_type(in_t)),
-            Field(f"{name}#nonnull", DataType.int64()),
+            Field(f"{name}#sum_hi", sum_result_type(in_t)),
+            Field(f"{name}#sum_lo{in_t.precision}", DataType.int64()),
+            count,
         ]
-    raise NotImplementedError(f"agg fn {fn}")
+    return [Field(f"{name}#sum", sum_result_type(in_t)), count]
 
 
 def _state_input_type(a: AggFunction, in_schema: Schema) -> Optional[DataType]:
     """The input value type of ``a``, recovered from its state columns
-    (a state sum is decimal(p + 10, s); wide states name p)."""
+    (sum and avg states both hold decimal(p + 10, s); wide states name
+    p)."""
     if a.fn in ("count", "count_star"):
         return None
     if f"{a.name}#sum" in in_schema.names:
@@ -181,6 +187,11 @@ def seg_sum(values: torch.Tensor, valid: torch.Tensor, seg: Optional[Segments]) 
     incl = torch.cumsum(z, 0, dtype=z.dtype)
     at_end = incl[seg.ends]
     return at_end - torch.cat([at_end.new_zeros(1), at_end[:-1]])
+
+
+def _combine_limbs(hi: Column, lo: Column):
+    """Wide-sum limbs (hi * 2^32 + lo) -> int128 (hi64, lo64)."""
+    return I.add(hi.data >> 32, hi.data << 32, *I.from_i64(lo.data))
 
 
 # ---------------------------------------------------------------- AggExec
@@ -293,21 +304,49 @@ class AggExec(ExecNode):
             if a.fn in ("count", "count_star"):
                 out.append(env[f"{a.name}#count"])
                 continue
+            if a.fn == "avg":
+                out.append(self._finalize_avg(env, a.name, t))
+                continue
             nn = env[f"{a.name}#nonnull"]
             if sum_is_wide(t):
                 hc = env[f"{a.name}#sum_hi"]
-                lc = env[f"{a.name}#sum_lo{t.precision}"]
-                # (hi * 2^32 + lo) limbs -> int128 -> int64; values past
-                # int64 overflow to null
-                h128 = (hc.data >> 32, hc.data << 32)
-                vh, vl = I.add(*h128, *I.from_i64(lc.data))
-                data, fits = I.to_i64(vh, vl)
+                # values past int64 overflow to null
+                data, fits = I.to_i64(*_combine_limbs(hc, env[f"{a.name}#sum_lo{t.precision}"]))
                 out.append(Column(hc.dtype, torch.where(fits, data, 0),
                                   hc.validity & fits & (nn.data > 0)))
             else:
                 s = env[f"{a.name}#sum"]
                 out.append(Column(s.dtype, s.data, s.validity & (nn.data > 0)))
         return RecordBatch(self._schema, out, state.num_rows)
+
+    @staticmethod
+    def _finalize_avg(env, name: str, t: DataType) -> Column:
+        """sum / count: a decimal sum rescaled to the result scale and
+        divided with HALF_UP (away from zero) on int128, a float sum
+        divided in float64.  A zero count, or a decimal quotient past
+        int64, gives null."""
+        res_t = agg_result_type("avg", t)
+        c = env[f"{name}#count"].data
+        den = torch.where(c == 0, torch.ones_like(c), c)
+        if sum_is_wide(t):
+            hc = env[f"{name}#sum_hi"]
+            vh, vl = I.mul_pow10(*_combine_limbs(hc, env[f"{name}#sum_lo{t.precision}"]),
+                                 res_t.scale - hc.dtype.scale)
+            q, fits = I.div_round_half_up(vh, vl, den)
+            return Column(res_t, torch.where(fits, q, 0), hc.validity & (c > 0) & fits)
+        s = env[f"{name}#sum"]
+        valid = s.validity & (c > 0)
+        if not res_t.is_decimal:
+            return Column(res_t, s.data.to(torch.float64) / den.to(torch.float64), valid)
+        shift = res_t.scale - s.dtype.scale
+        if s.dtype.precision + shift <= 18:
+            # the shifted sum provably fits int64
+            num = s.data * 10**shift
+            adj = torch.where(num >= 0, num + den // 2, num - den // 2)
+            q = torch.where(adj >= 0, adj // den, -((-adj) // den))
+            return Column(res_t, q, valid)
+        q, fits = I.div_round_half_up(*I.mul_pow10(*I.from_i64(s.data), shift), den)
+        return Column(res_t, torch.where(fits, q, 0), valid & fits)
 
     # ------------------------------------------------------ execute
 

@@ -15,7 +15,6 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
-from ... import conf
 from ...batch import Column, RecordBatch, bucket_capacity
 from ...exprs.compile import lower
 from ...exprs.hash import xxhash64_columns
@@ -64,18 +63,12 @@ def build_join_map(batch: RecordBatch, keys: Sequence[Expr]) -> JoinMap:
     return JoinMap(s.values ^ SIGN, s.indices, batch, key_cols)
 
 
-def probe_counts(table: torch.Tensor, probe: torch.Tensor, use_kernel: bool):
+def probe_counts(table: torch.Tensor, probe: torch.Tensor):
     """(lo, counts): the first candidate position in the sorted table
-    and the number of candidates, per probe key.  ``use_kernel`` runs
-    the ``sorted_lookup`` kernel; otherwise two searchsorted calls on
-    sign-flipped keys, the reference's XLA path."""
-    if use_kernel:
-        lo, hi = cuda_ops.sorted_lookup(table, probe)
-        lo, hi = lo.to(torch.int64), hi.to(torch.int64)
-    else:
-        tb, qb = table ^ SIGN, probe ^ SIGN
-        lo = torch.searchsorted(tb, qb, side="left")
-        hi = torch.searchsorted(tb, qb, side="right")
+    and the number of candidates, per probe key, from the
+    ``sorted_lookup`` kernel (its plain version on the CPU)."""
+    lo, hi = cuda_ops.sorted_lookup(table, probe)
+    lo, hi = lo.to(torch.int64), hi.to(torch.int64)
     return lo, torch.where(probe == SENTINEL, 0, hi - lo)
 
 
@@ -115,8 +108,6 @@ class Joiner:
         self.probe_is_left = probe_is_left
         left, right = (probe_schema, build_schema) if probe_is_left else (build_schema, probe_schema)
         self.out_schema = Schema(list(left.fields) + list(right.fields))
-        # read once, like the reference's joiner cache key
-        self.use_kernel = bool(conf.PALLAS_ENABLE.get()) and bool(conf.PALLAS_JOIN_PROBE.get())
 
     def build_map(self, batch: RecordBatch) -> JoinMap:
         return build_join_map(batch, self.build_keys)
@@ -124,7 +115,7 @@ class Joiner:
     def probe_batch(self, jmap: JoinMap, batch: RecordBatch) -> Optional[RecordBatch]:
         n = batch.num_rows
         probe_cols = _key_cols(self.probe_schema, self.probe_keys, batch)
-        lo, counts = probe_counts(jmap.sorted_keys, key_hash(probe_cols), self.use_kernel)
+        lo, counts = probe_counts(jmap.sorted_keys, key_hash(probe_cols))
         p_idx, pos = expand_pairs(lo, counts)
         b_idx = jmap.sorted_rows[pos]
         keep = torch.ones(p_idx.shape, dtype=torch.bool, device=p_idx.device)

@@ -5,7 +5,8 @@ places every row where vanilla Spark would.  Fixed-width keys go
 through the ``murmur3_pids`` kernel when ``spark.blaze.tpu.pallas.enable``
 is on; string keys take the plain murmur3 path, as in the reference.
 The choice is by key dtype alone: a kernel that fails to build or
-launch raises.
+launch raises.  Every batch's per-partition row counts come from the
+``pid_histogram`` kernel.
 """
 
 from __future__ import annotations
@@ -57,9 +58,9 @@ def hash_pids(schema: Schema, exprs: Sequence[Expr], cols: Sequence[Column], n: 
 def sort_by_pid(batch: RecordBatch, pids: torch.Tensor, n_out: int) -> Tuple[RecordBatch, torch.Tensor]:
     """The batch's live rows stably sorted by partition id (rows of one
     partition keep their order, as with ``lax.sort``), and the (n_out,)
-    per-partition row counts, still on the device."""
+    int32 per-partition row counts, still on the device."""
     order = torch.sort(pids, stable=True).indices
-    counts = torch.bincount(pids.to(torch.int64), minlength=n_out)
+    counts = cuda_ops.pid_histogram(pids, n_out)
     cols = [c.head(batch.num_rows) for c in batch.columns]
     return RecordBatch(batch.schema, cols, batch.num_rows).take(order, batch.capacity), counts
 

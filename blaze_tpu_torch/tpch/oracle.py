@@ -1,11 +1,11 @@
 """Independent numpy oracles for the port's TPC-H queries: the
-port's own copy of ``oracle_q3`` and ``oracle_q6`` from
+port's own copy of ``oracle_q1``, ``oracle_q3`` and ``oracle_q6`` from
 ``blaze_tpu/tpch/oracle.py``.  Decimal math is unscaled int64 with
 Spark semantics, coded independently of the engine."""
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 
@@ -22,6 +22,48 @@ def _s_eq(table: HostTable, name: str, value: str) -> np.ndarray:
     for i, ch in enumerate(b):
         m = m & (data[:, i] == ch)
     return m
+
+
+def _sv(table: HostTable, name: str) -> List[str]:
+    data, lengths = table[name]
+    return [bytes(data[i, : lengths[i]]).decode() for i in range(data.shape[0])]
+
+
+def oracle_q1(tables: Dict[str, HostTable]):
+    """{(l_returnflag, l_linestatus): measures}: sums unscaled at their
+    scales (2, 2, 4, 6), avgs unscaled at scale 6 with exact bignum
+    HALF_UP, count_order."""
+    li = tables["lineitem"]
+    mask = li["l_shipdate"][0] <= _days(1998, 9, 2)
+    rf = np.array(_sv(li, "l_returnflag"))
+    ls = np.array(_sv(li, "l_linestatus"))
+    qty = li["l_quantity"][0]
+    ext = li["l_extendedprice"][0]
+    disc = li["l_discount"][0]
+    tax = li["l_tax"][0]
+    disc_price = (ext * (100 - disc)).astype(object)          # scale 4
+    charge = disc_price * (100 + tax).astype(object)          # scale 6
+    out = {}
+    for key in sorted(set(zip(rf[mask], ls[mask]))):
+        m = mask & (rf == key[0]) & (ls == key[1])
+        n = int(m.sum())
+
+        def avg(vals):
+            # q1 measures are non-negative: HALF_UP is floor(x + n/2)
+            s = int(vals[m].astype(object).sum())
+            return (s * 10**4 + n // 2) // n
+
+        out[key] = dict(
+            sum_qty=int(qty[m].sum()),
+            sum_base_price=int(ext[m].sum()),
+            sum_disc_price=int(disc_price[m].sum()),
+            sum_charge=int(charge[m].sum()),
+            avg_qty=avg(qty),
+            avg_price=avg(ext),
+            avg_disc=avg(disc),
+            count_order=n,
+        )
+    return out
 
 
 def oracle_q3(tables: Dict[str, HostTable]):

@@ -1,4 +1,4 @@
-"""TPC-H q03 and q06 plans over the port's operators (≙ the same
+"""TPC-H q01, q03 and q06 plans over the port's operators (≙ the same
 builders in ``blaze_tpu/tpch/queries.py``, node for node).
 
 Each builder takes a table -> ExecNode map (scans) and an output
@@ -70,6 +70,38 @@ def revenue_expr() -> Expr:
     return col("l_extendedprice") * (dec12(1) - col("l_discount"))
 
 
+def q1(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+    f = FilterExec(t["lineitem"], col("l_shipdate") <= lit(D(1998, 9, 2)))
+    disc_price = revenue_expr()
+    # decimal(26,4) * decimal(13,2) -> decimal(38,6): a wide product
+    charge = disc_price * (dec12(1) + col("l_tax"))
+    proj = ProjectExec(
+        f,
+        [
+            col("l_returnflag"), col("l_linestatus"), col("l_quantity"),
+            col("l_extendedprice"), col("l_discount"),
+            disc_price.alias("disc_price"), charge.alias("charge"),
+        ],
+    )
+    agg = two_stage_agg(
+        proj,
+        [GroupingExpr(col("l_returnflag"), "l_returnflag"),
+         GroupingExpr(col("l_linestatus"), "l_linestatus")],
+        [
+            AggFunction("sum", col("l_quantity"), "sum_qty"),
+            AggFunction("sum", col("l_extendedprice"), "sum_base_price"),
+            AggFunction("sum", col("disc_price"), "sum_disc_price"),
+            AggFunction("sum", col("charge"), "sum_charge"),
+            AggFunction("avg", col("l_quantity"), "avg_qty"),
+            AggFunction("avg", col("l_extendedprice"), "avg_price"),
+            AggFunction("avg", col("l_discount"), "avg_disc"),
+            AggFunction("count_star", None, "count_order"),
+        ],
+        n_parts,
+    )
+    return single_sorted(agg, [SortField(col("l_returnflag")), SortField(col("l_linestatus"))])
+
+
 def q3(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
     cust = FilterExec(t["customer"], col("c_mktsegment") == lit("BUILDING"))
     cust_p = ProjectExec(cust, [col("c_custkey")])
@@ -111,7 +143,7 @@ def q6(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
     return two_stage_agg(proj, [], [AggFunction("sum", col("rev"), "revenue")], n_parts)
 
 
-QUERIES: Dict[str, Callable[[Dict[str, ExecNode], int], ExecNode]] = {"q3": q3, "q6": q6}
+QUERIES: Dict[str, Callable[[Dict[str, ExecNode], int], ExecNode]] = {"q1": q1, "q3": q3, "q6": q6}
 
 
 def build_query(name: str, tables: Dict[str, ExecNode], n_parts: int = 2) -> ExecNode:

@@ -178,6 +178,28 @@ def test_int128_rescale_and_division_match_reference():
     np.testing.assert_array_equal(tq.numpy()[tok.numpy()], np.asarray(jq)[tok.numpy()])
 
 
+def test_int128_mul_pow10_matches_reference():
+    """mul_small / mul_pow10 (avg's rescale) against the JAX limbs and
+    python integers, for products that fit 128 bits."""
+    rng = np.random.default_rng(5)
+    a, b = _i64_edges(rng, 300), np.roll(_i64_edges(rng, 300), 5)
+    th, tl = TI.mul_i64(_t(a), _t(b))
+    jh, jl = JI.mul_i64(jnp.asarray(a), jnp.asarray(b))
+    for k in (0, 1, 4, 9, 10):
+        rh, rl = TI.mul_pow10(th, tl, k)
+        qh, ql = JI.mul_pow10(jh, jl, k)
+        want = [int(x) * int(y) * 10**k for x, y in zip(a, b)]
+        fits = np.array([-(2**127) <= w < 2**127 for w in want])
+        np.testing.assert_array_equal(rh.numpy()[fits], np.asarray(qh)[fits])
+        np.testing.assert_array_equal(rl.numpy()[fits], np.asarray(ql).view(np.int64)[fits])
+        got = [(int(h) << 64) + (int(l) & (2**64 - 1)) for h, l in zip(rh.tolist(), rl.tolist())]
+        assert [x for x, f in zip(got, fits) if f] == [w for w, f in zip(want, fits) if f]
+    mh, ml = TI.mul_small(th, tl, 2**31 - 1)
+    qh, ql = JI.mul_small(jh, jl, 2**31 - 1)
+    np.testing.assert_array_equal(mh.numpy(), np.asarray(qh))
+    np.testing.assert_array_equal(ml.numpy(), np.asarray(ql).view(np.int64))
+
+
 # ------------------------------------------------------- decimal lowering
 
 
@@ -231,6 +253,24 @@ def test_wide_decimal_product_overflows_to_null_like_reference():
     assert not out.validity.numpy().all()
     fields = [("a", TT.decimal(30, 10), JT.decimal(30, 10)), ("b", TT.decimal(30, 10), JT.decimal(30, 10))]
     _lower_both(tcol("a") * tcol("b"), jcol("a") * jcol("b"), fields, {"a": a, "b": b}, valids)
+
+
+def test_q01_charge_product_matches_reference():
+    """q01's charge: decimal(26,4) * (1 + decimal(12,2)) is bounded to
+    decimal(38,6) with no rescale; the int128 product narrows to int64
+    or overflows to null, as in the reference."""
+    rng = np.random.default_rng(6)
+    n = 2000
+    dp = np.concatenate([[10**18, -(10**18), 2**62, 4 * 10**16], rng.integers(-(10**15), 10**15, n - 4)])
+    tax = np.concatenate([[100, 100, 50, 99], rng.integers(-(10**4), 10**4, n - 4)])
+    arrays = {"dp": dp, "tax": tax}
+    valids = {"dp": rng.random(n) > 0.1, "tax": rng.random(n) > 0.1}
+    valids["dp"][:4] = valids["tax"][:4] = True
+    fields = [("dp", TT.decimal(26, 4), JT.decimal(26, 4)), ("tax", TT.decimal(12, 2), JT.decimal(12, 2))]
+    out = _lower_both(tcol("dp") * (tlit(1, TT.decimal(12, 2)) + tcol("tax")),
+                      jcol("dp") * (jlit(1, JT.decimal(12, 2)) + jcol("tax")), fields, arrays, valids)
+    assert repr(out.dtype) == "decimal(38,6)"
+    assert out.validity[:4].tolist() == [False, False, False, True]
 
 
 def test_comparisons_and_three_valued_logic_match_reference():

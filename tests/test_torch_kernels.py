@@ -189,7 +189,10 @@ def test_cpu_tensors_never_count_a_launch():
     _port_pids([tcol], 4)
     table, probes = _lookup_inputs(3, 64, 64)
     cuda_ops.sorted_lookup(torch.from_numpy(table.view(np.int64)), torch.from_numpy(probes.view(np.int64)))
-    assert cuda_ops.LAUNCHES == {"murmur3_pids": 0, "sorted_lookup": 0}
+    cuda_ops.pid_histogram(torch.zeros(10, dtype=torch.int32), 4)
+    cuda_ops.fused_group_sums(torch.zeros(10, dtype=torch.int32), [torch.ones(10)], 2)
+    assert cuda_ops.LAUNCHES == {"murmur3_pids": 0, "sorted_lookup": 0, "pid_histogram": 0,
+                                 "fused_group_sums": 0}
 
 
 def test_wrappers_check_their_inputs():
@@ -202,3 +205,116 @@ def test_wrappers_check_their_inputs():
         cuda_ops.murmur3_pids([ok], [2], [torch.ones(3, dtype=torch.bool)], 4)
     with pytest.raises(ValueError):
         cuda_ops.murmur3_pids([ok], [2], [torch.ones(4, dtype=torch.bool)], 0)
+    with pytest.raises(ValueError):
+        cuda_ops.pid_histogram(ok, 4)  # int32 pids
+    with pytest.raises(ValueError):
+        cuda_ops.pid_histogram(ok.to(torch.int32), 0)
+    with pytest.raises(ValueError):
+        cuda_ops.fused_group_sums(ok.to(torch.int32), [ok.to(torch.float64)], 2)
+    with pytest.raises(ValueError):
+        cuda_ops.fused_group_sums(ok.to(torch.int32), [torch.ones(3)], 2)
+    with pytest.raises(ValueError):
+        cuda_ops.fused_group_sums(ok.to(torch.int32), [], 2)
+
+
+# ----------------------------------------------------------- pid histogram
+
+
+@pytest.mark.parametrize("n_parts", [1, 8, 37, 200])
+def test_pid_histogram_matches_jax_and_bincount(n_parts):
+    """Pids in range with -1 rows (padding) sprinkled in, N not a
+    multiple of the TPU kernel's tile."""
+    rng = np.random.default_rng(n_parts)
+    n = 3000
+    pids = rng.integers(0, n_parts, n).astype(np.int32)
+    pids[rng.random(n) < 0.1] = -1
+    got = cuda_ops.pid_histogram(torch.from_numpy(pids), n_parts)
+    assert got.dtype == torch.int32
+    want = np.bincount(pids[pids >= 0], minlength=n_parts)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(pallas_ops.pid_histogram(jnp.asarray(pids), n_parts)))
+    np.testing.assert_array_equal(cuda_ops.pid_histogram_plain(torch.from_numpy(pids), n_parts).numpy(), want)
+
+
+def test_pid_histogram_empty_and_out_of_range():
+    """No rows gives zeros (the JAX kernel refuses an empty input, so
+    this case is held to np.bincount alone); pids at or past n_parts
+    are not counted either."""
+    got = cuda_ops.pid_histogram(torch.zeros(0, dtype=torch.int32), 5)
+    np.testing.assert_array_equal(got.numpy(), np.zeros(5, np.int32))
+    pids = torch.tensor([0, 4, 5, 9, -1, -7, 4], dtype=torch.int32)
+    assert cuda_ops.pid_histogram(pids, 5).tolist() == [1, 0, 0, 0, 2]
+
+
+def test_sort_by_pid_counts_match_reference():
+    """The exchange's per-batch counts equal the reference's
+    ``_sort_by_pid_body`` counts, and rows come out in pid order."""
+    from blaze_tpu.parallel.shuffle import _sort_by_pid_body
+    from blaze_tpu_torch.batch import RecordBatch
+    from blaze_tpu_torch.parallel.shuffle import sort_by_pid
+    from blaze_tpu_torch.schema import Field, Schema
+
+    rng = np.random.default_rng(11)
+    n, n_out = 1500, 8
+    pids = rng.integers(0, n_out, n).astype(np.int32)
+    rows = np.arange(n, dtype=np.int64)
+    tcol = column_from_numpy(DataType.int64(), rows, None, capacity=2048, device="cpu")
+    batch = RecordBatch(Schema([Field("row", DataType.int64())]), [tcol], n)
+    out, counts = sort_by_pid(batch, torch.from_numpy(pids), n_out)
+    jcol = jax_column(JT.int64(), rows, None, capacity=2048).to_device()
+    jpids = jnp.asarray(np.concatenate([pids, np.zeros(2048 - n, np.int32)]))
+    _, jcounts, _ = _sort_by_pid_body((jcol,), jpids, n_out, n)
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(jcounts))
+    got_rows = out.columns[0].data[:n].numpy()
+    np.testing.assert_array_equal(pids[got_rows], np.sort(pids, kind="stable"))
+
+
+# -------------------------------------------------------- fused group sums
+
+
+def _group_sums_inputs(seed, n, k, g, all_filtered=False):
+    rng = np.random.default_rng(seed)
+    gids = np.full(n, -1, np.int32) if all_filtered else rng.integers(-1, g, n).astype(np.int32)
+    vals = [(rng.random(n) * 100 - 20).astype(np.float32) for _ in range(k)]
+    want = np.zeros((k, g), np.float64)
+    for j in range(g):
+        m = gids == j
+        for i in range(k):
+            want[i, j] = vals[i][m].sum(dtype=np.float64)
+    return gids, vals, want
+
+
+@pytest.mark.parametrize("k", [1, 3, 8])
+@pytest.mark.parametrize("g", [1, 6, 40])
+def test_fused_group_sums_matches_jax_and_float64(k, g):
+    """float32 sums (gid -1 rows filtered out) within the reference
+    test's rtol 2e-5 of float64 sums and of the JAX kernel."""
+    gids, vals, want = _group_sums_inputs(k * 100 + g, 1500, k, g)
+    got = cuda_ops.fused_group_sums(torch.from_numpy(gids), [torch.from_numpy(v) for v in vals], g)
+    assert got.dtype == torch.float32 and got.shape == (k, g)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5)
+    jgot = np.asarray(pallas_ops.fused_group_sums(jnp.asarray(gids), [jnp.asarray(v) for v in vals], g))
+    np.testing.assert_allclose(got.numpy(), jgot, rtol=2e-5)
+
+
+def test_fused_group_sums_all_filtered_and_counts():
+    """All gids -1 sums to zeros; a ones column counts rows exactly."""
+    gids, vals, _ = _group_sums_inputs(5, 700, 2, 6, all_filtered=True)
+    got = cuda_ops.fused_group_sums(torch.from_numpy(gids), [torch.from_numpy(v) for v in vals], 6)
+    np.testing.assert_array_equal(got.numpy(), np.zeros((2, 6), np.float32))
+    rng = np.random.default_rng(6)
+    gids = rng.integers(-1, 6, 5000).astype(np.int32)
+    ones = torch.ones(5000, dtype=torch.float32)
+    got = cuda_ops.fused_group_sums(torch.from_numpy(gids), [ones], 6)
+    np.testing.assert_array_equal(got.numpy()[0], np.bincount(gids[gids >= 0], minlength=6))
+    jgot = np.asarray(pallas_ops.fused_group_sums(jnp.asarray(gids), [jnp.asarray(ones.numpy())], 6))
+    np.testing.assert_array_equal(got.numpy(), jgot)
+
+
+def test_kernels_package_exports_all_four():
+    import blaze_tpu_torch.kernels as K
+
+    for name in ("murmur3_pids", "pid_histogram", "fused_group_sums", "sorted_lookup"):
+        assert getattr(K, name) is getattr(cuda_ops, name)
+        assert getattr(K, name + "_plain") is getattr(cuda_ops, name + "_plain")
+        assert name in K.__all__ and name in cuda_ops.LAUNCHES

@@ -1,19 +1,24 @@
 """The port's TPC-H slice against the JAX package and the numpy oracles.
 
 Both packages generate SF 0.002 from one seed; the port's generator
-must give the same arrays.  q06 and q03 run end to end through each
-package's plan builders and ``plan.execute(partition, TaskContext)``
-over every partition, with two partitions; the port runs q03 with the
-join-probe kernel off and on (on the CPU its plain version).  q06 and
-the q03 (orderkey, revenue) rows compare exactly; q03 row order is
-checked as descending revenue, as ``tests/test_tpch.py`` does.
+must give the same arrays.  q01, q06 and q03 run end to end through
+each package's plan builders and ``plan.execute(partition,
+TaskContext)`` over every partition, with two partitions.  The port
+probes its joins through ``sorted_lookup`` always (on the CPU its plain
+version); q03 is held against the reference with its join-probe knob
+off (XLA searchsorted) and on (the Pallas kernel in interpret mode).
+q01, q06 and the q03 (orderkey, revenue) rows compare exactly; q03 row
+order is checked as descending revenue, as ``tests/test_tpch.py`` does.
 """
 
 import numpy as np
 import pytest
+import torch
 
 import blaze_tpu_torch
+from blaze_tpu import conf as jax_conf
 from blaze_tpu.batch import batch_to_pydict as jax_to_pydict
+from blaze_tpu.kernels import pallas_ops
 from blaze_tpu.ops import MemoryScanExec as JaxScan
 from blaze_tpu.runtime.context import TaskContext as JaxContext
 from blaze_tpu.tpch import TPCH_SCHEMAS as JAX_SCHEMAS
@@ -22,7 +27,6 @@ from blaze_tpu.tpch import oracle as jax_oracle
 from blaze_tpu.tpch.datagen import generate_all as jax_generate_all
 from blaze_tpu.tpch.datagen import table_to_batches as jax_table_to_batches
 
-from blaze_tpu_torch import conf
 from blaze_tpu_torch.batch import batch_to_pydict, table_to_batches
 from blaze_tpu_torch.kernels import cuda_ops
 from blaze_tpu_torch.ops import MemoryScanExec
@@ -64,23 +68,31 @@ def _run(plan, to_pydict, context):
     return out
 
 
-@pytest.fixture(scope="module")
-def jax_results(jax_data):
+def _jax_run(jax_data, q):
     scans = {
         name: JaxScan(jax_table_to_batches(jax_data[name], JAX_SCHEMAS[name], N_PARTS, batch_rows=4096),
                       JAX_SCHEMAS[name])
         for name in JAX_SCHEMAS
     }
-    return {q: _run(jax_build_query(q, scans, N_PARTS), jax_to_pydict, JaxContext) for q in ("q3", "q6")}
+    return _run(jax_build_query(q, scans, N_PARTS), jax_to_pydict, JaxContext)
 
 
-@pytest.fixture
-def join_probe():
-    def set_(on: bool):
-        conf.PALLAS_JOIN_PROBE.set(on)
+@pytest.fixture(scope="module")
+def jax_results(jax_data):
+    return {q: _jax_run(jax_data, q) for q in ("q1", "q3", "q6")}
 
-    yield set_
-    conf.PALLAS_JOIN_PROBE.set(False)
+
+@pytest.fixture(scope="module")
+def jax_q3_pallas_probe(jax_data):
+    """The reference's q03 with its join-probe knob on: the Pallas
+    sorted_lookup kernel, in interpret mode on the CPU."""
+    pallas_ops.force_interpret(True)
+    jax_conf.PALLAS_JOIN_PROBE.set(True)
+    try:
+        return _jax_run(jax_data, "q3")
+    finally:
+        jax_conf.PALLAS_JOIN_PROBE.set(False)
+        pallas_ops.force_interpret(False)
 
 
 def test_datagen_equals_reference(data, jax_data):
@@ -111,11 +123,25 @@ def test_q6_equals_reference_and_oracle(data, jax_results):
     assert got["revenue"] == [O.oracle_q6(data)]
 
 
+def test_q1_equals_reference_and_oracle(data, jax_data, jax_results):
+    """String group keys through the grouped agg, the 2-way hash
+    exchange and the final sort; wide decimal sums and HALF_UP avgs."""
+    got = _run(build_query("q1", _scans(data), N_PARTS), batch_to_pydict, TaskContext)
+    assert got == jax_results["q1"]
+    exp = O.oracle_q1(data)
+    assert exp == jax_oracle.oracle_q1(jax_data)
+    keys = list(zip(got["l_returnflag"], got["l_linestatus"]))
+    assert keys == sorted(exp) and len(keys) > 1
+    for i, key in enumerate(keys):
+        assert {m: got[m][i] for m in exp[key]} == exp[key], key
+
+
 @pytest.mark.parametrize("probe_kernel", [False, True], ids=["probe-plain", "probe-kernel"])
-def test_q3_equals_reference_and_oracle(data, jax_data, jax_results, join_probe, probe_kernel):
-    join_probe(probe_kernel)
+def test_q3_equals_reference_and_oracle(data, jax_data, jax_results, jax_q3_pallas_probe, probe_kernel):
+    """The port's one probe route against both of the reference's:
+    XLA searchsorted (knob off) and the Pallas kernel (knob on)."""
     got = _run(build_query("q3", _scans(data), N_PARTS), batch_to_pydict, TaskContext)
-    want = jax_results["q3"]
+    want = jax_q3_pallas_probe if probe_kernel else jax_results["q3"]
     rows = list(zip(got["l_orderkey"], got["revenue"], got["o_orderdate"], got["o_shippriority"]))
     exp = O.oracle_q3(data)
     assert exp == jax_oracle.oracle_q3(jax_data)
@@ -126,11 +152,9 @@ def test_q3_equals_reference_and_oracle(data, jax_data, jax_results, join_probe,
     assert [r[1] for r in rows] == sorted([r[1] for r in rows], reverse=True)
 
 
-def test_q3_reaches_both_kernel_wrappers(data, join_probe, monkeypatch):
-    """The q03 path calls murmur3_pids (its hash exchanges) and, with
-    the join probe on, sorted_lookup (its two joins)."""
-    calls = {"murmur3_pids": 0, "sorted_lookup": 0}
-    for name in calls:
+def _count_wrapper_calls(monkeypatch, names):
+    calls = dict.fromkeys(names, 0)
+    for name in names:
         real = getattr(cuda_ops, name)
 
         def counting(*a, _real=real, _name=name, **kw):
@@ -138,16 +162,44 @@ def test_q3_reaches_both_kernel_wrappers(data, join_probe, monkeypatch):
             return _real(*a, **kw)
 
         monkeypatch.setattr(cuda_ops, name, counting)
-    join_probe(True)
+    return calls
+
+
+def test_q3_reaches_both_kernel_wrappers(data, monkeypatch):
+    """The q03 path calls murmur3_pids and pid_histogram (its hash
+    exchanges) and, with no knob set, sorted_lookup (its two joins)."""
+    calls = _count_wrapper_calls(monkeypatch, ("murmur3_pids", "pid_histogram", "sorted_lookup"))
+    cuda_ops.reset_launch_counts()
     _run(build_query("q3", _scans(data), N_PARTS), batch_to_pydict, TaskContext)
-    assert calls["murmur3_pids"] > 0 and calls["sorted_lookup"] > 0
-    assert cuda_ops.LAUNCHES == {"murmur3_pids": 0, "sorted_lookup": 0}  # CPU: plain versions
+    assert all(k > 0 for k in calls.values()), calls
+    assert set(cuda_ops.LAUNCHES.values()) == {0}  # CPU: plain versions
+
+
+def test_q1_reaches_pid_histogram_wrapper(data, monkeypatch):
+    """q01's string-keyed exchange counts its rows through
+    pid_histogram; its pids take the plain murmur3 path (string keys,
+    as the reference routes them), so murmur3_pids is never called."""
+    calls = _count_wrapper_calls(monkeypatch, ("murmur3_pids", "pid_histogram"))
+    cuda_ops.reset_launch_counts()
+    _run(build_query("q1", _scans(data), N_PARTS), batch_to_pydict, TaskContext)
+    assert calls["pid_histogram"] > 0 and calls["murmur3_pids"] == 0, calls
+    assert set(cuda_ops.LAUNCHES.values()) == {0}
+
+
+def test_probe_counts_takes_the_plain_lookup_on_the_cpu(monkeypatch):
+    """One probe route: sorted_lookup, whose CPU tensors run
+    sorted_lookup_plain; the sentinel probe has no candidates."""
+    from blaze_tpu_torch.ops.joins.core import SENTINEL, probe_counts
+
+    calls = _count_wrapper_calls(monkeypatch, ("sorted_lookup_plain",))
+    table = torch.tensor([3, 3, 9, -5, SENTINEL], dtype=torch.int64)  # unsigned order
+    lo, counts = probe_counts(table, torch.tensor([3, 4, -5, SENTINEL], dtype=torch.int64))
+    assert calls["sorted_lookup_plain"] == 1
+    assert lo.tolist() == [0, 2, 3, 4] and counts.tolist() == [2, 0, 1, 0]
 
 
 def test_default_device_is_the_card():
     """No CPU fallback: without a card, the default device raises."""
-    import torch
-
     if torch.cuda.is_available():
         assert blaze_tpu_torch.resolve_device().type == "cuda"
         return
