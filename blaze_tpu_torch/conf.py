@@ -44,9 +44,6 @@ def _bool(s: str) -> bool:
 
 # smallest padded batch capacity (capacities are powers of two above it)
 MIN_CAPACITY = ConfEntry("spark.blaze.tpu.minBatchCapacity", 1024, int)
-# hand-written device kernels for hot loops (kernels/): the shuffle
-# partition ids of fixed-width keys go through murmur3_pids
-PALLAS_ENABLE = ConfEntry("spark.blaze.tpu.pallas.enable", True, _bool)
 # exchanges keep map output in device memory, in process (the only
 # exchange path of this port so far)
 EXCHANGE_IN_PROCESS = ConfEntry("spark.blaze.exchange.inProcess", True, _bool)

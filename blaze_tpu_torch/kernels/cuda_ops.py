@@ -131,6 +131,20 @@ def murmur3_pids(
 
 # ----------------------------------------------------------- sorted lookup
 
+# shared memory a sorted_lookup block gives the sampled table
+SAMPLE_BYTES = 64 << 10
+
+
+def sorted_lookup_geometry(t: int) -> Tuple[int, int]:
+    """(log2 of the sample stride S, sample keys) of a sorted_lookup
+    launch over a ``t``-key table: the sample holds every S-th key, S
+    the least power of two whose ceil(t / S) 8-byte keys fit
+    SAMPLE_BYTES.  S = 1 stages the whole table."""
+    log2_stride = 0
+    while 8 * -(-t >> log2_stride) > SAMPLE_BYTES:
+        log2_stride += 1
+    return log2_stride, -(-t >> log2_stride)
+
 
 def sorted_lookup_plain(table: torch.Tensor, probe: torch.Tensor):
     """Plain version: the kernel's two binary searches, vectorized over
@@ -173,10 +187,11 @@ def sorted_lookup(table: torch.Tensor, probe: torch.Tensor):
         return lo, hi
     from .build import library
 
+    t = table.shape[0]
     _launch(
         library().blaze_sorted_lookup,
-        table.data_ptr(), table.shape[0], probe.data_ptr(), n, lo.data_ptr(), hi.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
+        table.data_ptr(), t, sorted_lookup_geometry(t)[0], probe.data_ptr(), n, lo.data_ptr(),
+        hi.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
     )
     LAUNCHES["sorted_lookup"] += 1
     return lo, hi
@@ -273,5 +288,6 @@ def fused_group_sums(gids: torch.Tensor, values: Sequence[torch.Tensor], n_group
 __all__: List[str] = [
     "LAUNCHES", "column_word_planes", "fused_group_sums",
     "fused_group_sums_plain", "murmur3_pids", "murmur3_pids_plain", "pid_histogram",
-    "pid_histogram_plain", "reset_launch_counts", "sorted_lookup", "sorted_lookup_plain",
+    "pid_histogram_plain", "reset_launch_counts", "sorted_lookup", "sorted_lookup_geometry",
+    "sorted_lookup_plain",
 ]

@@ -1,12 +1,12 @@
 """Shuffle partitioning (≙ ``blaze_tpu/parallel/shuffle.py``).
 
 Partition ids are Spark's murmur3(seed 42) pmod N, so a map stage
-places every row where vanilla Spark would.  Fixed-width keys go
-through the ``murmur3_pids`` kernel when ``spark.blaze.tpu.pallas.enable``
-is on; string keys take the plain murmur3 path, as in the reference.
-The choice is by key dtype alone: a kernel that fails to build or
-launch raises.  Every batch's per-partition row counts come from the
-``pid_histogram`` kernel.
+places every row where vanilla Spark would.  Fixed-width keys always go
+through ``cuda_ops.murmur3_pids`` (the kernel on the card, its plain
+version on the CPU); string keys take the plain murmur3 path, as in the
+reference.  The choice is by key dtype alone, with no knob: a kernel
+that fails to build or launch raises.  Every batch's per-partition row
+counts come from the ``pid_histogram`` kernel.
 """
 
 from __future__ import annotations
@@ -16,7 +16,6 @@ from typing import List, Sequence, Tuple
 
 import torch
 
-from .. import conf
 from ..batch import Column, RecordBatch, slice_rows
 from ..exprs.compile import lower
 from ..exprs.hash import murmur3_columns, pmod
@@ -48,7 +47,7 @@ def hash_pids(schema: Schema, exprs: Sequence[Expr], cols: Sequence[Column], n: 
     """(n,) int32 partition ids of ``n`` rows of ``cols``."""
     env = {f.name: c for f, c in zip(schema.fields, cols)}
     key_cols = [lower(e, schema, env, n) for e in exprs]
-    if bool(conf.PALLAS_ENABLE.get()) and not any(c.dtype.is_string for c in key_cols):
+    if not any(c.dtype.is_string for c in key_cols):
         planes, widths = zip(*(cuda_ops.column_word_planes(c) for c in key_cols))
         valids = [c.validity.contiguous() for c in key_cols]
         return cuda_ops.murmur3_pids(list(planes), list(widths), valids, n_out)

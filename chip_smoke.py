@@ -13,13 +13,17 @@ Needs one CUDA card and ``nvcc`` (``/usr/local/cuda``).  In order, it:
    outputs are integers; ``fused_group_sums`` within rtol 2e-5, and to
    float64 sums), and times the kernel, the plain version and the
    library call that computes the same function with CUDA events, cold
-   L2;
+   L2; then holds every other code path of each kernel to its plain
+   version, untimed (misaligned views, ragged ends, edge tables);
 4. runs TPC-H q06, q01 and q03 at ``--scale`` with 8 partitions and
    2^20-row batches, each scan pruned to the query's columns, checks
    each against its numpy oracle, and reads every kernel's launch count
    over each query (reset just before it): q01 must launch
    ``pid_histogram`` (and not ``murmur3_pids``: its keys are strings),
-   q03 ``murmur3_pids``, ``pid_histogram`` and ``sorted_lookup``;
+   q03 ``murmur3_pids``, ``pid_histogram`` and ``sorted_lookup``, with
+   the retired ``BLAZE_TPU_PALLAS_ENABLE=0`` set; then times
+   ``murmur3_pids`` and ``sorted_lookup`` again on the largest inputs
+   q03 gave them;
 5. runs q01 and q03 once more under ``torch.profiler`` and prints the
    device's busy share of each run, the kernels that take its time, and
    the hand-written kernels' device time at the shapes the query gives
@@ -33,7 +37,9 @@ CUDA card it exits 2.  Nothing here imports JAX or ``blaze_tpu``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -85,51 +91,103 @@ def time_ms(torch, fn, iters: int, flush) -> float:
     return times[len(times) // 2]
 
 
+def dev_us(e) -> float:
+    return getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+
+
+def device_times(torch, cuda_ops, jobs, iters: int, flush) -> list:
+    """Device time per call of each ``(fn, kernel)`` job: the time of
+    ``fn``'s launches of kernels named ``kernel``, from torch.profiler's
+    CUPTI trace, L2 flushed before every call.  It leaves out the gap
+    from the start event to the launch that ``time_ms`` encloses.  All
+    jobs share one profiler session (more sessions in one process have
+    come back without kernel events), told apart by their order."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    launches = []
+    for fn, _ in jobs:
+        before = sum(cuda_ops.LAUNCHES.values())
+        fn()
+        launches.append(sum(cuda_ops.LAUNCHES.values()) - before)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for fn, _ in jobs:
+            for _ in range(iters):
+                flush.zero_()
+                fn()
+        torch.cuda.synchronize()
+    names = {kernel for _, kernel in jobs}
+    events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
+                     and any(k in e.name for k in names)), key=lambda e: e.time_range.start)
+    if len(events) != iters * sum(launches):
+        raise AssertionError(f"the profiler saw {len(events)} kernel launches, not {iters * sum(launches)}")
+    out, pos = [], 0
+    for k in launches:
+        out.append(sum(e.time_range.elapsed_us() for e in events[pos:pos + iters * k]) / iters / 1e3)
+        pos += iters * k
+    return out
+
+
 # ----------------------------------------------------------- kernel checks
 
 
-def check_murmur3(torch, cuda_ops, flush, n: int, kinds, seed: int) -> dict:
-    """murmur3_pids on (n,) keys of the given kinds, 10% nulls."""
+def murmur3_inputs(torch, cuda_ops, n: int, kinds, seed: int, offset: int = 0):
+    """(planes, widths, valids) of (n,) keys of the given kinds, 10%
+    nulls; ``offset`` > 0 makes every plane and validity a view that
+    starts that many elements into its buffer (a slice's alignment)."""
     from blaze_tpu_torch.batch import Column
     from blaze_tpu_torch.schema import DataType
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     cols = []
     for kind in kinds:
+        m = n + offset
         if kind == "int64":
-            data = torch.randint(-(2**63), 2**63 - 1, (n,), generator=g, device="cuda", dtype=torch.int64)
+            data = torch.randint(-(2**63), 2**63 - 1, (m,), generator=g, device="cuda", dtype=torch.int64)
             dtype = DataType.int64()
         elif kind == "date32":
-            data = torch.randint(8000, 10500, (n,), generator=g, device="cuda", dtype=torch.int32)
+            data = torch.randint(8000, 10500, (m,), generator=g, device="cuda", dtype=torch.int32)
             dtype = DataType.date32()
         else:
-            data = torch.randint(-(2**31), 2**31 - 1, (n,), generator=g, device="cuda", dtype=torch.int32)
+            data = torch.randint(-(2**31), 2**31 - 1, (m,), generator=g, device="cuda", dtype=torch.int32)
             dtype = DataType.int32()
-        valid = torch.rand(n, generator=g, device="cuda") > 0.1
+        valid = torch.rand(m, generator=g, device="cuda") > 0.1
         cols.append(Column(dtype, data, valid))
     planes, widths = zip(*(cuda_ops.column_word_planes(c) for c in cols))
-    planes, widths = list(planes), list(widths)
-    valids = [c.validity for c in cols]
-    n_parts = 8
+    valids = [c.validity[offset:] for c in cols]
+    return [p[offset:] for p in planes], list(widths), valids
+
+
+def check_murmur3(torch, cuda_ops, flush, planes, widths, valids, label: str, timed: bool = True,
+                  n_parts: int = 8) -> dict:
+    """murmur3_pids held exactly to its plain version; timed, also
+    against its bound."""
+    n = planes[0].shape[0]
     got = cuda_ops.murmur3_pids(planes, widths, valids, n_parts)
     want = cuda_ops.murmur3_pids_plain(planes, widths, valids, n_parts)
     torch.cuda.synchronize()
     err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
     if err != 0 or not torch.equal(got, want):
-        raise AssertionError(f"murmur3_pids {kinds}: kernel differs from plain version (max {err})")
+        raise AssertionError(f"murmur3_pids {label}: kernel differs from plain version (max {err})")
+    r = {"shape": f"N={n} keys={label} n_parts={n_parts}", "max_abs_err": err}
+    if not timed:
+        return r
     ms = time_ms(torch, lambda: cuda_ops.murmur3_pids(planes, widths, valids, n_parts), 50, flush)
     plain_ms = time_ms(torch, lambda: cuda_ops.murmur3_pids_plain(planes, widths, valids, n_parts), 10, flush)
     per_col_ops = {1: 21, 2: 32}  # mix_k1, mix_h1 per word, fmix, select
     ops = n * (sum(per_col_ops[w] for w in widths) + 4)
     bytes_moved = n * (sum(4 * w for w in widths) + len(widths) + 4)
     b_ms, b_by = bound(bytes_moved, ops)
-    return {"shape": f"N={n} keys={'/'.join(kinds)} n_parts={n_parts}", "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    r.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+             device_job=(lambda: cuda_ops.murmur3_pids(planes, widths, valids, n_parts), "murmur3_pids_kernel"))
+    return r
 
 
-def check_sorted_lookup(torch, cuda_ops, flush, t: int, n: int, seed: int) -> dict:
-    """sorted_lookup of n probes in a t-key table with duplicates and
-    null-key sentinels, keys on both sides of 2^63."""
+def lookup_inputs(torch, t: int, n: int, seed: int):
+    """A t-key table with duplicates and null-key sentinels, keys on
+    both sides of 2^63, sorted in unsigned order, and n probes: half
+    table keys, the rest random, plus the sentinel and 0."""
     from blaze_tpu_torch.exprs.int128 import SIGN
 
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -142,12 +200,39 @@ def check_sorted_lookup(torch, cuda_ops, flush, t: int, n: int, seed: int) -> di
         torch.randint(-(2**63), 2**63 - 1, (n - n // 2 - 2,), generator=g, device="cuda", dtype=torch.int64),
         torch.tensor([-1, 0], dtype=torch.int64, device="cuda"),
     ]).contiguous()
+    return table, probe
+
+
+def lookup_probes(torch, table, n: int, g):
+    """n probes of ``table``: half its keys, the rest random, then 0,
+    the sentinel, and (for a nonempty table) its first and last keys."""
+    t = table.shape[0]
+    edges = [0, -1] + ([int(table[0]), int(table[-1])] if t else [])
+    half = n // 2 if t else 0
+    pick = torch.randint(0, max(t, 1), (half,), generator=g, device="cuda")
+    return torch.cat([
+        table[pick] if t else torch.zeros(0, dtype=torch.int64, device="cuda"),
+        torch.randint(-(2**63), 2**63 - 1, (n - half - len(edges),), generator=g, device="cuda",
+                      dtype=torch.int64),
+        torch.tensor(edges, dtype=torch.int64, device="cuda"),
+    ]).contiguous()
+
+
+def check_sorted_lookup(torch, cuda_ops, flush, table, probe, label: str, timed: bool = True) -> dict:
+    """sorted_lookup held exactly to its plain version; timed, also
+    against its bound and torch.searchsorted (left + right)."""
+    from blaze_tpu_torch.exprs.int128 import SIGN
+
+    t, n = table.shape[0], probe.shape[0]
     lo, hi = cuda_ops.sorted_lookup(table, probe)
     plo, phi = cuda_ops.sorted_lookup_plain(table, probe)
     torch.cuda.synchronize()
     err = max(int((lo - plo).abs().max()), int((hi - phi).abs().max()))
     if err != 0:
-        raise AssertionError(f"sorted_lookup: kernel differs from plain version (max {err})")
+        raise AssertionError(f"sorted_lookup {label} T={t} N={n}: kernel differs from plain version (max {err})")
+    r = {"shape": f"T={t} N={n} {label}".strip(), "max_abs_err": err}
+    if not timed:
+        return r
     tb, qb = table ^ SIGN, probe ^ SIGN
     ms = time_ms(torch, lambda: cuda_ops.sorted_lookup(table, probe), 50, flush)
     plain_ms = time_ms(torch, lambda: cuda_ops.sorted_lookup_plain(table, probe), 10, flush)
@@ -159,8 +244,39 @@ def check_sorted_lookup(torch, cuda_ops, flush, t: int, n: int, seed: int) -> di
     bits = lambda x: torch.floor(torch.log2(x.to(torch.float64) + 1)) + 1
     steps = float((bits(torch.full_like(lo, t)) + bits(t - lo.to(torch.int64))).sum())
     b_ms, b_by = bound(8 * n + 8 * t + 8 * n, 6 * steps)
-    return {"shape": f"T={t} N={n}", "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
+    r.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+             device_job=(lambda: cuda_ops.sorted_lookup(table, probe), "sorted_lookup_kernel"))
+    return r
+
+
+def lookup_edge_tables(torch, cuda_ops, seed: int):
+    """(label, table, probe) of the lookup's edge cases: tables about
+    the sample stride's steps, a run of equal keys across a segment's
+    end, one key, mostly sentinels, a table whose stride is past the
+    segment (global narrowing steps), and an 8-byte-aligned view (the
+    8-byte load path)."""
+    from blaze_tpu_torch.exprs.int128 import SIGN
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    usort = lambda x: (torch.sort(x ^ SIGN).values ^ SIGN).contiguous()
+    rand = lambda k: torch.randint(-(2**63), 2**63 - 1, (k,), generator=g, device="cuda", dtype=torch.int64)
+    keys_per_sample = cuda_ops.SAMPLE_BYTES // 8
+    cases = []
+    for t in (0, 1, 7, 9, keys_per_sample - 1, keys_per_sample, keys_per_sample + 1, 30001):
+        body = rand(t)
+        cases.append((f"random T={t}", usort(torch.cat([body[: t - t // 8], body[: t // 8]]))))
+    stride = 1 << cuda_ops.sorted_lookup_geometry(30000)[0]
+    table = usort(rand(30000))
+    table[100 * stride - 5: 100 * stride + 2 * stride + 3] = table[100 * stride - 5]  # run over two segment ends
+    cases.append(("run across segments", table))
+    cases.append(("one key", torch.full((30000,), int(rand(1)), dtype=torch.int64, device="cuda")))
+    cases.append(("one key, sentinel", torch.full((30000,), -1, dtype=torch.int64, device="cuda")))
+    cases.append(("mostly sentinels", usort(torch.cat([rand(3000), torch.full((27000,), -1, dtype=torch.int64,
+                                                                                 device="cuda")]))))
+    cases.append(("T=2^20 (stride past the segment)", usort(rand(1 << 20))))
+    buf = torch.cat([torch.zeros(1, dtype=torch.int64, device="cuda"), usort(rand(30000))])
+    cases.append(("8-byte-aligned view", buf[1:]))
+    return [(label, table, lookup_probes(torch, table, 1 << 16, g)) for label, table in cases]
 
 
 def check_pid_histogram(torch, cuda_ops, flush, n: int, n_parts: int, seed: int, timed: bool = True) -> dict:
@@ -316,7 +432,6 @@ def profile_query(torch, query: str, plan) -> None:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, wall = run_plan(torch, plan)
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    dev_us = lambda e: getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
     busy = sum(dev_us(e) for e in kernels) / 1e6
     log(f"{query} profile: wall {wall:.4f} s, device busy {busy:.4f} s ({100 * busy / wall:.1f}%), "
         f"{sum(e.count for e in kernels)} device operations")
@@ -339,6 +454,45 @@ def run_query(torch, cuda_ops, query: str, scans, n_parts: int):
     cuda_ops.reset_launch_counts()
     got, wall = run_plan(torch, plan)
     return got, wall, dict(cuda_ops.LAUNCHES)
+
+
+def log_check(name: str, r: dict) -> None:
+    if "ms" not in r:
+        log(f"{name} [{r['shape']}]: equal to plain (max_abs_err {r['max_abs_err']})")
+        return
+    log(f"{name} [{r['shape']}]: equal to plain (max_abs_err {r['max_abs_err']}); "
+        f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+        f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}; share of bound {r['bound_ms'] / r['ms']:.0%}), "
+        f"library {r['library_ms']} ms")
+
+
+@contextlib.contextmanager
+def largest_inputs(cuda_ops):
+    """Keeps the inputs of the calls of ``murmur3_pids`` and
+    ``sorted_lookup`` made inside the block that have the most rows
+    (murmur3_pids: per key count; sorted_lookup: the most probes and
+    the longest table).  The calls run unchanged."""
+    seen: Dict[str, tuple] = {}
+    m3, sl = cuda_ops.murmur3_pids, cuda_ops.sorted_lookup
+
+    def keep(key, size, args):
+        if key not in seen or size > seen[key][0]:
+            seen[key] = (size, args)
+
+    def murmur3_pids(planes, widths, valids, n_parts):
+        keep(f"murmur3_pids {len(planes)} keys", planes[0].shape[0], (planes, widths, valids, n_parts))
+        return m3(planes, widths, valids, n_parts)
+
+    def sorted_lookup(table, probe):
+        keep("sorted_lookup most probes", probe.shape[0], (table, probe))
+        keep("sorted_lookup longest table", table.shape[0], (table, probe))
+        return sl(table, probe)
+
+    cuda_ops.murmur3_pids, cuda_ops.sorted_lookup = murmur3_pids, sorted_lookup
+    try:
+        yield seen
+    finally:
+        cuda_ops.murmur3_pids, cuda_ops.sorted_lookup = m3, sl
 
 
 def require_launches(query: str, launches: dict, launched, not_launched=()) -> None:
@@ -390,21 +544,50 @@ def main() -> int:
 
     # ---- kernels against their plain versions, main-path shapes
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    one = torch.zeros(1, device="cuda")
+    log(f"timing floor: a one-element add_ reads {time_ms(torch, lambda: one.add_(1), 50, flush):.4f} ms "
+        f"in time_ms")
     n = 1 << 20
-    m1 = check_murmur3(torch, cuda_ops, flush, n, ("int64",), seed=1)
-    m3 = check_murmur3(torch, cuda_ops, flush, n, ("int64", "date32", "int32"), seed=2)
+    keys3 = ("int64", "date32", "int32")
+    m1 = check_murmur3(torch, cuda_ops, flush, *murmur3_inputs(torch, cuda_ops, n, ("int64",), seed=1), "int64")
+    m3 = check_murmur3(torch, cuda_ops, flush, *murmur3_inputs(torch, cuda_ops, n, keys3, seed=2),
+                       "/".join(keys3))
     # ten keys: past one launch's eight, so two launches chained through the hash
-    m10 = check_murmur3(torch, cuda_ops, flush, n, ("int64", "date32", "int32") * 3 + ("int64",), seed=4)
-    sl = check_sorted_lookup(torch, cuda_ops, flush, 30000, n, seed=3)
+    keys10 = keys3 * 3 + ("int64",)
+    m10 = check_murmur3(torch, cuda_ops, flush, *murmur3_inputs(torch, cuda_ops, n, keys10, seed=4),
+                        "/".join(keys10))
+    sl = check_sorted_lookup(torch, cuda_ops, flush, *lookup_inputs(torch, 30000, n, seed=3), "")
     # 8 partitions: q01's and q03's exchanges; 200: more bins than a warp has lanes
     h8 = check_pid_histogram(torch, cuda_ops, flush, n, 8, seed=5)
     h200 = check_pid_histogram(torch, cuda_ops, flush, n, 200, seed=6)
     gq = check_group_sums(torch, cuda_ops, flush, *q01_group_inputs(torch, data["lineitem"]))
     checks = [("murmur3_pids", m1), ("murmur3_pids", m3), ("murmur3_pids", m10), ("sorted_lookup", sl),
               ("pid_histogram", h8), ("pid_histogram", h200), ("fused_group_sums", gq)]
-    # the kernels' other paths, checked but not timed: bins past shared
-    # memory (global atomics), K x G past the register path (shared
-    # atomics, two chained launches for K = 9), K x G past shared memory
+    # the kernels' other paths, checked but not timed.  murmur3_pids:
+    # views at element offsets 1-3 (the one-row path), N below one group
+    # of 4 rows and with a ragged tail, K = 8 int64 keys (its most
+    # registers).  sorted_lookup: see lookup_edge_tables.
+    # pid_histogram: bins past shared memory (global atomics).
+    # fused_group_sums: K x G past the register path (shared atomics,
+    # two chained launches for K = 9), K x G past shared memory.
+    for offset in (1, 2, 3):
+        planes, widths, valids = murmur3_inputs(torch, cuda_ops, n, keys3, seed=20 + offset, offset=offset)
+        if all(p.data_ptr() % 16 == 0 for p in planes):
+            raise AssertionError(f"murmur3_pids offset {offset}: views still 16-byte aligned")
+        checks.append(("murmur3_pids", check_murmur3(torch, cuda_ops, flush, planes, widths, valids,
+                                                     f"{'/'.join(keys3)} offset {offset}", timed=False)))
+    for rows in (1, 3, n + 5):
+        checks.append(("murmur3_pids", check_murmur3(
+            torch, cuda_ops, flush, *murmur3_inputs(torch, cuda_ops, rows, keys3, seed=rows),
+            "/".join(keys3), timed=False)))
+    checks.append(("murmur3_pids", check_murmur3(
+        torch, cuda_ops, flush, *murmur3_inputs(torch, cuda_ops, n, ("int64",) * 8, seed=30),
+        "8 x int64", timed=False)))
+    for label, table, probe in lookup_edge_tables(torch, cuda_ops, seed=31):
+        if label.startswith("8-byte") and table.data_ptr() % 16 != 8:
+            raise AssertionError("sorted_lookup: the 8-byte-aligned view is 16-byte aligned")
+        checks.append(("sorted_lookup", check_sorted_lookup(torch, cuda_ops, flush, table, probe, label,
+                                                            timed=False)))
     g = torch.Generator(device="cuda").manual_seed(7)
     rand_vals = lambda k: [torch.rand(n, generator=g, device="cuda") for _ in range(k)]
     rand_gids = lambda groups: torch.randint(-1, groups, (n,), generator=g, device="cuda", dtype=torch.int32)
@@ -416,12 +599,7 @@ def main() -> int:
                                               20000, timed=False)),
     ]
     for name, r in checks:
-        if "ms" not in r:
-            log(f"{name} [{r['shape']}]: equal to plain (max_abs_err {r['max_abs_err']})")
-            continue
-        log(f"{name} [{r['shape']}]: equal to plain (max_abs_err {r['max_abs_err']}); "
-            f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), library {r['library_ms']} ms")
+        log_check(name, r)
     log(f"fused_group_sums [{gq['shape']}]: max relative error to float64 sums {gq['max_rel_err_f64']:.3g}")
 
     # ---- the main path: q06, q01, q03, each with the counts reset just before it
@@ -450,7 +628,12 @@ def main() -> int:
     require_launches("q01", runs["q1"], ("pid_histogram",), ("murmur3_pids",))
 
     q3_scans = tpch_scans(data, "q3", n_parts, batch_rows)
-    got, wall, runs["q3"] = run_query(torch, cuda_ops, "q3", q3_scans, n_parts)
+    # the variable of the retired spark.blaze.tpu.pallas.enable knob
+    # must change nothing: fixed-width exchange keys take murmur3_pids
+    os.environ["BLAZE_TPU_PALLAS_ENABLE"] = "0"
+    with largest_inputs(cuda_ops) as q3_inputs:
+        got, wall, runs["q3"] = run_query(torch, cuda_ops, "q3", q3_scans, n_parts)
+    del os.environ["BLAZE_TPU_PALLAS_ENABLE"]
     exp = O.oracle_q3(data)
     rows = list(zip(got["l_orderkey"], got["revenue"]))
     if len(rows) != len(exp) or set(rows) != {(r[0], r[1]) for r in exp}:
@@ -460,6 +643,31 @@ def main() -> int:
     log(f"q03 SF{args.scale} (8 partitions, 2^20-row batches): top {len(rows)} = oracle; "
         f"wall {wall:.4f} s; launches {runs['q3']}")
     require_launches("q03", runs["q3"], ("murmur3_pids", "pid_histogram", "sorted_lookup"))
+
+    # ---- the redesigned kernels again, on the largest inputs q03 gave them
+    at_query: Dict[str, list] = {"murmur3_pids": [], "sorted_lookup": []}
+    probed = set()
+    for key, (_, inputs) in sorted(q3_inputs.items()):
+        if key.startswith("murmur3_pids"):
+            planes, widths, valids, parts = inputs
+            label = "/".join(f"int{32 * w}" for w in widths) + " (q03)"
+            r = check_murmur3(torch, cuda_ops, flush, planes, widths, valids, label, n_parts=parts)
+            at_query["murmur3_pids"].append(r)
+            log_check("murmur3_pids", r)
+        elif id(inputs[1]) not in probed:  # one call can have both the most probes and the longest table
+            probed.add(id(inputs[1]))
+            r = check_sorted_lookup(torch, cuda_ops, flush, *inputs, f"(q03, {key[14:]})")
+            at_query["sorted_lookup"].append(r)
+            log_check("sorted_lookup", r)
+
+    # ---- the redesigned kernels' own device time, the same calls again
+    redesigned = [(name, r) for name, r in checks if "device_job" in r]
+    redesigned += [(name, r) for name, rs in at_query.items() for r in rs]
+    for (name, r), ms in zip(redesigned, device_times(torch, cuda_ops, [r.pop("device_job") for _, r in redesigned],
+                                                       20, flush)):
+        r["device_ms"] = ms
+        log(f"{name} [{r['shape']}]: device time {ms:.4f} ms (CUPTI), bound {r['bound_ms']:.4f} ms "
+            f"(share of bound {r['bound_ms'] / ms:.0%})")
 
     profile_query(torch, "q01", build_query("q1", q1_scans, n_parts))
     profile_query(torch, "q03", build_query("q3", q3_scans, n_parts))
@@ -481,6 +689,9 @@ def main() -> int:
             "launches_q01": runs["q1"][name], "launches_q03": runs["q3"][name],
             "shape": r["shape"], "max_abs_err": errs[name], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "device_ms": r.get("device_ms"),
+            "at_q03_shapes": [{k: q[k] for k in ("shape", "ms", "device_ms", "bound_ms", "bound_by", "library_ms")}
+                              for q in at_query.get(name, [])],
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -140,6 +140,34 @@ def test_nine_key_exchange_places_rows_as_the_reference():
     np.testing.assert_array_equal(np.sort(np.concatenate(seen)), np.arange(n))
 
 
+def test_hash_pids_takes_murmur3_pids_whatever_the_environment(monkeypatch):
+    """Fixed-width exchange keys go through murmur3_pids by dtype alone:
+    the retired spark.blaze.tpu.pallas.enable knob's variable, set to 0,
+    changes nothing.  String keys take the plain murmur3 path."""
+    from blaze_tpu_torch import conf
+    from blaze_tpu_torch.batch import column_from_strings
+    from blaze_tpu_torch.exprs.ir import col
+    from blaze_tpu_torch.parallel.shuffle import hash_pids
+    from blaze_tpu_torch.schema import Field, Schema
+
+    monkeypatch.setenv("BLAZE_TPU_PALLAS_ENABLE", "0")
+    assert not hasattr(conf, "PALLAS_ENABLE")
+    calls = []
+    real = cuda_ops.murmur3_pids
+    monkeypatch.setattr(cuda_ops, "murmur3_pids", lambda *a: calls.append(1) or real(*a))
+    n, n_out = 1100, 8
+    rng = np.random.default_rng(3)
+    cols = [_both_columns(*_GENS[kind][:2], _GENS[kind][2](rng, n), rng.random(n) > 0.1)
+            for kind in ("int64", "date32", "int32")]
+    schema = Schema([Field(f"k{i}", t.dtype) for i, (_, t) in enumerate(cols)])
+    pids = hash_pids(schema, [col("k0"), col("k1"), col("k2")], [t for _, t in cols], n, n_out)
+    assert calls == [1]
+    np.testing.assert_array_equal(pids.numpy(), _jax_pids([j for j, _ in cols], n_out))
+    strings = column_from_strings([f"s{i % 37}" for i in range(n)], device="cpu")
+    hash_pids(Schema([Field("s", strings.dtype)]), [col("s")], [strings], n, n_out)
+    assert calls == [1]
+
+
 def test_column_word_planes_refuses_strings():
     from blaze_tpu_torch.batch import column_from_strings
 
@@ -158,13 +186,14 @@ def _lookup_inputs(seed, t_n, p_n):
         rng.choice(table, p_n // 2),
         rng.integers(0, 2**64 - 1, p_n - p_n // 2, dtype=np.uint64),
         np.asarray([0, 2**63 - 1, 2**63, 2**64 - 2, 2**64 - 1], dtype=np.uint64),
+        table[:1], table[-1:],
     ])
     return table, probes
 
 
-@pytest.mark.parametrize("t_n,p_n", [(17, 100), (1024, 3000), (1500, 257)])
-def test_sorted_lookup_matches_jax_and_searchsorted(t_n, p_n):
-    table, probes = _lookup_inputs(t_n, t_n, p_n)
+def _check_lookup(table, probes):
+    """The port's lookup equals np.searchsorted (left, right) and the
+    JAX kernel in interpret mode."""
     lo, hi = cuda_ops.sorted_lookup(torch.from_numpy(table.view(np.int64)),
                                     torch.from_numpy(probes.view(np.int64)))
     np.testing.assert_array_equal(lo.numpy(), np.searchsorted(table, probes, side="left"))
@@ -175,6 +204,56 @@ def test_sorted_lookup_matches_jax_and_searchsorted(t_n, p_n):
     # upper bound of a sentinel probe only (callers zero those counts)
     real = probes != np.uint64(2**64 - 1)
     np.testing.assert_array_equal(hi.numpy()[real], np.asarray(jhi)[real])
+
+
+# T just below and above powers of two: where a power-of-two sample
+# stride leaves a ragged last segment
+@pytest.mark.parametrize("t_n,p_n", [(17, 100), (1024, 3000), (1500, 257), (1023, 500), (1025, 500),
+                                     (2047, 300)])
+def test_sorted_lookup_matches_jax_and_searchsorted(t_n, p_n):
+    _check_lookup(*_lookup_inputs(t_n, t_n, p_n))
+
+
+def _edge_table(kind, rng):
+    sentinel = np.uint64(2**64 - 1)
+    if kind == "one key":
+        return rng.integers(0, 2**64 - 1, 1, dtype=np.uint64)
+    if kind == "run of 100":
+        keys = rng.integers(0, 2**64 - 1, 900, dtype=np.uint64)
+        return np.sort(np.concatenate([keys, np.full(100, keys[450], np.uint64)]))
+    if kind == "all one value":
+        return np.full(700, rng.integers(0, 2**64 - 1, dtype=np.uint64), np.uint64)
+    if kind == "all sentinel":
+        return np.full(512, sentinel, np.uint64)
+    assert kind == "mostly sentinel"
+    return np.sort(np.concatenate([rng.integers(0, 2**64 - 1, 40, dtype=np.uint64), np.full(600, sentinel)]))
+
+
+@pytest.mark.parametrize("kind", ["one key", "run of 100", "all one value", "all sentinel", "mostly sentinel"])
+def test_sorted_lookup_edge_tables(kind):
+    """Tables whose answers hang on runs of equal keys (a run longer
+    than any segment of the kernel's sampled search) or on the sentinel,
+    probed at their first key, last key, the sentinel, each key's
+    neighbours and random keys."""
+    rng = np.random.default_rng(len(kind))
+    table = _edge_table(kind, rng)
+    keys = np.unique(table)
+    probes = np.concatenate([
+        table[:1], table[-1:], np.asarray([0, 2**64 - 2, 2**64 - 1], np.uint64),
+        keys[keys > 0] - np.uint64(1), keys[keys < np.uint64(2**64 - 1)] + np.uint64(1),
+        rng.choice(table, 50), rng.integers(0, 2**64 - 1, 50, dtype=np.uint64),
+    ])
+    _check_lookup(table, probes)
+
+
+@pytest.mark.parametrize("t", [0, 1, 30000, 2**20, 2**31 - 1])
+def test_sorted_lookup_geometry_fits_its_budget(t):
+    """The sample stride S is a power of two, the least whose
+    ceil(t / S) keys fit the shared-memory budget."""
+    log2_stride, keys = cuda_ops.sorted_lookup_geometry(t)
+    stride = 1 << log2_stride
+    assert keys == -(-t // stride) and 8 * keys <= cuda_ops.SAMPLE_BYTES
+    assert stride == 1 or -(-t // (stride // 2)) * 8 > cuda_ops.SAMPLE_BYTES
 
 
 def test_sorted_lookup_empty_table():
