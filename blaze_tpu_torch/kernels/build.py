@@ -35,7 +35,7 @@ _P = ctypes.c_void_p
 SIGNATURES = {
     "blaze_murmur3_pids": [_P, _P, _P, ctypes.c_int32, ctypes.c_int64, _P, ctypes.c_int32, _P, _P],
     "blaze_sorted_lookup": [_P, ctypes.c_int64, ctypes.c_int32, _P, ctypes.c_int64, _P, _P, _P],
-    "blaze_pid_histogram": [_P, ctypes.c_int64, ctypes.c_int32, _P, _P],
+    "blaze_pid_histogram": [_P, ctypes.c_int64, ctypes.c_int32, _P, _P, ctypes.c_int32, _P],
     "blaze_fused_group_sums": [_P, _P, ctypes.c_int32, ctypes.c_int32, ctypes.c_int64, _P, _P],
 }
 

@@ -199,6 +199,61 @@ def sorted_lookup(table: torch.Tensor, probe: torch.Tensor):
 
 # ----------------------------------------------------------- pid histogram
 
+# the constants of csrc/pid_histogram.cu that the wrapper sizes with:
+# threads a block, int4 loads a thread has in flight, and the most bins
+# of path (a) (register bins) and of path (b) (shared-memory bins);
+# more bins take path (c), global atomics on a zeroed output
+HIST_THREADS = 512
+HIST_LOADS = 2
+HIST_REGISTER_BINS = 32
+HIST_SHARED_BINS = 56 * 1024
+# at or under this many rows (one block's tile) one block writes the
+# counts itself, with no tickets; past it a grid beats one block
+# (the sweep, PERF.md)
+HIST_SMALL_N = HIST_THREADS * 4 * HIST_LOADS
+_SM_THREADS = 2048
+
+_sm_counts: Dict[int, int] = {}
+# per (device, stream): the kernel's 64-bit tickets, one a bin, zeroed
+# once when they are made; the last block to add to a bin sets its
+# ticket back to 0
+_tickets: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def pid_histogram_geometry(n: int, n_parts: int, sms: int = 132) -> Tuple[str, int, int]:
+    """(path, blocks, ticket words) of a pid_histogram launch over
+    ``n`` rows: path "registers", "shared" or "global" by ``n_parts``;
+    at most ``blocks`` blocks (the kernel takes fewer if fewer are
+    resident on the card's ``sms`` SMs or needed); ``n_parts`` 64-bit
+    tickets when more than one block combines (none on the global
+    path, which adds into a zeroed output)."""
+    path = ("registers" if n_parts <= HIST_REGISTER_BINS else "shared" if n_parts <= HIST_SHARED_BINS
+            else "global")
+    # path (b): one block an SM, since every block adds n_parts tickets
+    per_sm = 1 if path == "shared" else _SM_THREADS // HIST_THREADS
+    if n <= HIST_SMALL_N:
+        return path, 1, 0
+    needed = -(-n // (HIST_THREADS * 4 * HIST_LOADS))
+    blocks = min(needed, sms * per_sm)
+    return path, blocks, 0 if path == "global" or blocks == 1 else n_parts
+
+
+def _sm_count(dev: torch.device) -> int:
+    i = dev.index if dev.index is not None else torch.cuda.current_device()
+    if i not in _sm_counts:
+        _sm_counts[i] = torch.cuda.get_device_properties(i).multi_processor_count
+    return _sm_counts[i]
+
+
+def _zeroed_tickets(dev: torch.device, stream, words: int) -> torch.Tensor:
+    """At least ``words`` tickets of this device and stream, 0 between
+    launches.  More bins than before take a new, zeroed set (all of the
+    old one is 0 again once the stream's earlier launches end)."""
+    key = (dev.index if dev.index is not None else torch.cuda.current_device(), stream.cuda_stream)
+    if key not in _tickets or _tickets[key].shape[0] < words:
+        _tickets[key] = torch.zeros(max(words, 256), dtype=torch.int64, device=dev)
+    return _tickets[key]
+
 
 def pid_histogram_plain(pids: torch.Tensor, n_parts: int) -> torch.Tensor:
     """Plain version: a masked scatter-add of ones."""
@@ -210,24 +265,29 @@ def pid_histogram_plain(pids: torch.Tensor, n_parts: int) -> torch.Tensor:
 def pid_histogram(pids: torch.Tensor, n_parts: int) -> torch.Tensor:
     """Rows per partition of (N,) int32 ``pids``; a pid outside
     ``[0, n_parts)`` (padding's -1) is not counted.  Returns
-    (n_parts,) int32."""
+    (n_parts,) int32.  On the card one launch writes the whole output
+    (up to HIST_SHARED_BINS bins; past them the output is zeroed first)."""
     if pids.dtype != torch.int32 or pids.dim() != 1:
         raise ValueError(f"pid_histogram: 1-D int32 pids, not {pids.dtype}{tuple(pids.shape)}")
     if n_parts < 1:
         raise ValueError(f"pid_histogram: n_parts {n_parts} < 1")
-    if pids.shape[0] >= 2**31:
+    n = pids.shape[0]
+    if n >= 2**31:
         raise ValueError("pid_histogram: too many rows for int32 counts")
     dev = pids.device
     _check(dev, "pid_histogram", [pids])
     if dev.type == "cpu":
         return pid_histogram_plain(pids, n_parts)
-    out = torch.zeros(n_parts, dtype=torch.int32, device=dev)
-    if pids.shape[0] == 0:
-        return out
+    if n == 0:
+        return torch.zeros(n_parts, dtype=torch.int32, device=dev)
     from .build import library
 
-    _launch(library().blaze_pid_histogram, pids.data_ptr(), pids.shape[0], n_parts,
-            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    path, blocks, ticket_words = pid_histogram_geometry(n, n_parts, _sm_count(dev))
+    stream = torch.cuda.current_stream(dev)
+    out = (torch.zeros if path == "global" else torch.empty)(n_parts, dtype=torch.int32, device=dev)
+    tickets = _zeroed_tickets(dev, stream, ticket_words).data_ptr() if ticket_words else None
+    _launch(library().blaze_pid_histogram, pids.data_ptr(), n, n_parts, out.data_ptr(), tickets, blocks,
+            stream.cuda_stream)
     LAUNCHES["pid_histogram"] += 1
     return out
 
@@ -288,6 +348,6 @@ def fused_group_sums(gids: torch.Tensor, values: Sequence[torch.Tensor], n_group
 __all__: List[str] = [
     "LAUNCHES", "column_word_planes", "fused_group_sums",
     "fused_group_sums_plain", "murmur3_pids", "murmur3_pids_plain", "pid_histogram",
-    "pid_histogram_plain", "reset_launch_counts", "sorted_lookup", "sorted_lookup_geometry",
+    "pid_histogram_geometry", "pid_histogram_plain", "reset_launch_counts", "sorted_lookup", "sorted_lookup_geometry",
     "sorted_lookup_plain",
 ]

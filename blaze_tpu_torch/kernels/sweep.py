@@ -1,8 +1,9 @@
-"""Design sweep of ``sorted_lookup`` and ``murmur3_pids`` on the card.
+"""Design sweep of ``sorted_lookup``, ``murmur3_pids`` and
+``pid_histogram`` on the card.
 
-    python3 -m blaze_tpu_torch.kernels.sweep
+    python3 -m blaze_tpu_torch.kernels.sweep [--only NAME ...]
 
-Builds variants of the two sources (the shipped text with a tuning
+Builds variants of the sources (the shipped text with a tuning
 constant changed, or another design spliced in), holds each variant to
 the plain version, and times it as ``chip_smoke.py`` does: CUDA events
 around each call with L2 flushed and the card held by a spin kernel
@@ -10,12 +11,19 @@ before it (``time_ms``).
 ``sorted_lookup`` runs at every sample stride that fits shared memory
 and at other block shapes; ``murmur3_pids`` one row a thread, and with
 a ring of 1-D bulk copies (``cp.async.bulk``) into shared memory, and
-also after an L2 flush that only reads.  Needs one CUDA card and
+also after an L2 flush that only reads.  ``pid_histogram`` runs every
+entry of ``PID_HISTOGRAM_VARIANTS`` (the PR 3 design, frozen in
+``csrc/sweep/pid_histogram_pr3.cu``, and the partial-rows combines of
+``csrc/sweep/pid_histogram_rows.cu`` among them) by events and by
+CUPTI device time, and the shipped kernel with one block against a
+grid about the small-N threshold and with one against four blocks an
+SM.  Needs one CUDA card and
 ``nvcc``; ``PERF.md`` cites it as "the sweep".
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import functools
 import subprocess
@@ -27,6 +35,7 @@ import torch
 
 from . import build, cuda_ops
 
+KERNELS = ("sorted_lookup", "murmur3_pids", "pid_histogram")
 END_NS = "}  // namespace"
 VEC4 = r'''
 bool aligned(const void* p, uintptr_t to) { return (reinterpret_cast<uintptr_t>(p) & (to - 1)) == 0; }
@@ -255,6 +264,53 @@ MURMUR3_VARIANTS = [
     ("bulk-copy ring", {END_NS: BULK_RING + END_NS, "return launch<": "return launch_bulk<"}),
 ]
 
+# pid_histogram: the shipped source, and the two earlier designs in
+# sources of their own, each with its C entry (symbol, argument types)
+_P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
+HISTOGRAM_SOURCES = {
+    "pid_histogram.cu": ("blaze_pid_histogram", build.SIGNATURES["blaze_pid_histogram"]),
+    # partial rows in scratch, an arrival counter; `out` written whole
+    "sweep/pid_histogram_rows.cu": ("blaze_pid_histogram_rows", [_P, _I64, _I32, _P, _P, _I32, _P, _P]),
+    # the PR 3 design: the caller zeroes `out`
+    "sweep/pid_histogram_pr3.cu": ("blaze_pid_histogram_pr3", [_P, _I64, _I32, _P, _P]),
+}
+PR3_HISTOGRAM_SOURCE = "sweep/pid_histogram_pr3.cu"
+_ROWS = "sweep/pid_histogram_rows.cu"
+# the row loop's counts on path (b) aggregated over a warp's equal pids
+# (every lane of the warp calls count_vec together: the loop is block-uniform)
+MATCH_ANY_COUNT = r'''  auto count_vec = [&](int32_t p) {
+    if constexpr (kBins == 0) {
+      const bool counted = in_range(p, n_parts);
+      const unsigned peers = __match_any_sync(0xFFFFFFFFu, counted ? p : -1);
+      if (counted && lane == __ffs(peers) - 1) atomicAdd(bins + p, __popc(peers));
+    } else {
+      count(p);
+    }
+  };
+  const int64_t step = static_cast<int64_t>(gridDim.x) * kThreads * kLoads;'''
+_const = lambda name, old, new: {f"constexpr {name} = {old};": f"constexpr {name} = {new};"}
+PID_HISTOGRAM_VARIANTS = [
+    ("shipped", "pid_histogram.cu", {}),
+    ("PR 3 design", PR3_HISTOGRAM_SOURCE, {}),
+    ("shared bins at P <= 32", "pid_histogram.cu", _const("int kRegisterBins", 32, 0)),
+    ("match-any shared atomics", "pid_histogram.cu", {
+        "  const int64_t step = static_cast<int64_t>(gridDim.x) * kThreads * kLoads;": MATCH_ANY_COUNT,
+        **{f"      count(x[l].{f});": f"      count_vec(x[l].{f});" for f in "xyzw"}}),
+    ("1024 threads", "pid_histogram.cu", _const("int kThreads", 512, 1024)),
+    ("1 int4 load in flight", "pid_histogram.cu", _const("int kLoads", 2, 1)),
+    ("4 int4 loads in flight", "pid_histogram.cu", _const("int kLoads", 2, 4)),
+    ("partials, last-block combine", _ROWS, {}),
+    ("partials, last-block combine, sequentially consistent fences", _ROWS, {
+        'asm volatile("atom.add.acq_rel.gpu.u32 %0, [%1], 1;" : "=r"(prev) : "l"(arrivals) : "memory");':
+        '__threadfence(); prev = atomicAdd(arrivals, 1u); __threadfence();'}),
+    ("partials, cooperative combine", _ROWS, _const("bool kCooperative", "false", "true")),
+    ("partials, cooperative combine, 1024 threads", _ROWS, {**_const("bool kCooperative", "false", "true"),
+                                                           **_const("int kThreads", 512, 1024)}),
+    ("partials, last-block combine, clusters of 4", _ROWS, _const("int kCluster", 1, 4)),
+    ("partials, cooperative combine, clusters of 4", _ROWS, {**_const("bool kCooperative", "false", "true"),
+                                                            **_const("int kCluster", 1, 4)}),
+]
+
 
 class ReadingFlush:
     """An L2 flush whose ``zero_()`` reads the buffer instead of
@@ -278,7 +334,110 @@ def compile_variant(src: str, repl: dict, out: Path) -> subprocess.Popen:
                              "-o", str(out)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
+def ptxas_summary(log: str):
+    """(registers of each kernel, spill-store bytes in all) from ptxas -v."""
+    regs = sorted({int(line.split("Used ")[1].split()[0]) for line in log.splitlines() if "Used " in line})
+    spills = sum(int(line.split(" bytes spill stores")[0].split()[-1]) for line in log.splitlines()
+                 if "spill stores" in line)
+    return regs, spills
+
+
+def load_variant(path: Path, symbol: str, argtypes):
+    fn = getattr(ctypes.CDLL(str(path)), symbol)
+    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    return fn
+
+
+def pr3_histogram(fn):
+    """pid_histogram by the PR 3 design: a zeroed output, then its
+    kernel (two launches a call)."""
+    def call(pids: torch.Tensor, n_parts: int, blocks: int = 0) -> torch.Tensor:
+        out = torch.zeros(n_parts, dtype=torch.int32, device=pids.device)
+        if fn(pids.data_ptr(), pids.shape[0], n_parts, out.data_ptr(), torch.cuda.current_stream().cuda_stream):
+            raise RuntimeError("pid_histogram PR 3 design: launch failed")
+        return out
+    return call
+
+
+def variant_histogram(fn, src: str, max_blocks: int):
+    """pid_histogram by a variant built from ``src``, at most
+    ``max_blocks`` blocks: the shipped source with tickets of its own,
+    the partial-rows source with scratch and an arrival counter of its
+    own (both 0 at rest)."""
+    zero_at_rest = torch.zeros(cuda_ops.HIST_SHARED_BINS, dtype=torch.int64, device="cuda")
+
+    def call(pids: torch.Tensor, n_parts: int, blocks: int = max_blocks) -> torch.Tensor:
+        out = torch.empty(n_parts, dtype=torch.int32, device=pids.device)
+        stream = torch.cuda.current_stream().cuda_stream
+        if src == _ROWS:
+            scratch = torch.empty(blocks * n_parts, dtype=torch.int32, device=pids.device)
+            err = fn(pids.data_ptr(), pids.shape[0], n_parts, out.data_ptr(), scratch.data_ptr(), blocks,
+                     zero_at_rest.data_ptr(), stream)
+        else:
+            err = fn(pids.data_ptr(), pids.shape[0], n_parts, out.data_ptr(), zero_at_rest.data_ptr(), blocks, stream)
+        if err:
+            raise RuntimeError(f"CUDA error {err}")
+        return out
+    return call
+
+
+def sweep_pid_histogram(S, hists, flush, max_blocks: int) -> None:
+    """Every variant at the exchanges' shapes (exact, also summed over
+    100 back-to-back calls), timed by events, then the shipped kernel
+    with one block against its grid about the small-N threshold; then
+    the CUPTI device time of every timed call, in one profiler session."""
+    jobs = []
+    shapes = [(1 << 20, 8, 0), (1 << 20, 200, 0), (400_000, 8, 0), (50_000, 8, 0), ((1 << 20) + 3, 8, 1),
+              (1 << 20, 20_000, 0)]
+    for n, n_parts, offset in shapes:
+        pids = S.hist_pids(torch, n, n_parts, seed=n + n_parts, offset=offset)
+        want = cuda_ops.pid_histogram_plain(pids, n_parts)
+        for name, fn in hists.items():
+            label = f"pid_histogram N={n} P={n_parts}{f' offset {offset}' if offset else ''} {name}"
+            call = functools.partial(fn, pids, n_parts)
+            try:
+                got = call()
+                torch.cuda.synchronize()
+            except RuntimeError as e:  # a variant the card refuses is reported, not shipped
+                print(f"{label}: refused ({e})", flush=True)
+                continue
+            summed = sum(call().to(torch.int64) for _ in range(100))
+            if not (torch.equal(got, want) and torch.equal(summed, 100 * want.to(torch.int64))):
+                raise AssertionError(f"{label}: differs from the plain version")
+            print(f"{label}: {S.time_ms(torch, call, 50, flush):.4f} ms", flush=True)
+            jobs.append((label, call))
+    shipped = hists["shipped"]
+    for n in (4096, 8192, 12288, 16384, 24576, 32768, 65536):
+        for n_parts in (8, 200):
+            pids = S.hist_pids(torch, n, n_parts, seed=n)
+            want = cuda_ops.pid_histogram_plain(pids, n_parts)
+            for blocks in (1, max_blocks):
+                call = functools.partial(shipped, pids, n_parts, blocks=blocks)
+                if not torch.equal(call(), want):
+                    raise AssertionError(f"pid_histogram N={n} P={n_parts} blocks<={blocks}: differs")
+                label = f"pid_histogram N={n} P={n_parts} shipped, at most {blocks} blocks"
+                print(f"{label}: {S.time_ms(torch, call, 50, flush):.4f} ms", flush=True)
+                jobs.append((label, call))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for n_parts in (8, 200, 20_000, cuda_ops.HIST_SHARED_BINS):
+        pids = S.hist_pids(torch, 1 << 20, n_parts, seed=n_parts)
+        want = cuda_ops.pid_histogram_plain(pids, n_parts)
+        for blocks in (sms, max_blocks):
+            call = functools.partial(shipped, pids, n_parts, blocks=blocks)
+            if not torch.equal(call(), want):
+                raise AssertionError(f"pid_histogram P={n_parts} blocks<={blocks}: differs")
+            label = f"pid_histogram N={1 << 20} P={n_parts} shipped, at most {blocks} blocks"
+            print(f"{label}: {S.time_ms(torch, call, 50, flush):.4f} ms", flush=True)
+            jobs.append((label, call))
+    times, _ = S.device_times(torch, cuda_ops, [(fn, "pid_histogram_kernel", 1) for _, fn in jobs], 20, flush)
+    for (label, _), ms in zip(jobs, times):
+        print(f"{label}: device time {ms:.4f} ms (CUPTI)", flush=True)
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--only", nargs="+", choices=KERNELS, default=list(KERNELS), help="kernels to sweep")
+    only = ap.parse_args().only
     if not torch.cuda.is_available():
         print("sweep: no CUDA device", file=sys.stderr)
         return 2
@@ -289,28 +448,30 @@ def main() -> int:
                          capture_output=True, text=True, check=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0], flush=True)
     out_dir = Path(tempfile.mkdtemp(prefix="sweep-"))
-    variants = [("sorted_lookup.cu", "blaze_sorted_lookup", n, r) for n, r in LOOKUP_VARIANTS]
-    variants += [("murmur3_pids.cu", "blaze_murmur3_pids", n, r) for n, r in MURMUR3_VARIANTS]
+    variants = []
+    if "sorted_lookup" in only:
+        variants += [("sorted_lookup.cu", "blaze_sorted_lookup", n, r) for n, r in LOOKUP_VARIANTS]
+    if "murmur3_pids" in only:
+        variants += [("murmur3_pids.cu", "blaze_murmur3_pids", n, r) for n, r in MURMUR3_VARIANTS]
+    if "pid_histogram" in only:
+        variants += [(src, HISTOGRAM_SOURCES[src][0], n, r) for n, src, r in PID_HISTOGRAM_VARIANTS]
     procs = [compile_variant(src, r, out_dir / f"v{i}.so") for i, (src, _, _, r) in enumerate(variants)]
     libs = {}
     for i, ((src, symbol, name, _), p) in enumerate(zip(variants, procs)):
         log = p.communicate()[0]
         if p.returncode != 0:
             raise RuntimeError(f"nvcc failed on {src} {name}:\n{log}")
-        regs = sorted({int(line.split("Used ")[1].split()[0]) for line in log.splitlines() if "Used " in line})
-        spills = sum(int(line.split(" bytes spill stores")[0].split()[-1]) for line in log.splitlines()
-                     if "spill stores" in line)
+        regs, spills = ptxas_summary(log)
         print(f"{src} {name}: registers {regs}, spill stores {spills} bytes", flush=True)
-        fn = getattr(ctypes.CDLL(str(out_dir / f"v{i}.so")), symbol)
-        fn.argtypes, fn.restype = build.SIGNATURES[symbol], ctypes.c_int
-        libs[(symbol, name)] = fn
+        argtypes = HISTOGRAM_SOURCES[src][1] if src in HISTOGRAM_SOURCES else build.SIGNATURES[symbol]
+        libs[(symbol, name)] = load_variant(out_dir / f"v{i}.so", symbol, argtypes)
 
     flush = torch.empty(S.L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     one = torch.zeros(1, device="cuda")
     print(f"floor: one-element add_ {S.time_ms(torch, lambda: one.add_(1), 50, flush):.4f} ms", flush=True)
     stream = torch.cuda.current_stream().cuda_stream
 
-    for t, n in ((30000, 1 << 20), (30210, 97338), (19497, 382270)):
+    for t, n in ((30000, 1 << 20), (30210, 97338), (19497, 382270)) if "sorted_lookup" in only else ():
         table, probe = S.lookup_inputs(torch, t, n, seed=3)
         plo, phi = cuda_ops.sorted_lookup_plain(table, probe)
         lo = torch.empty(n, dtype=torch.int32, device="cuda")
@@ -332,7 +493,7 @@ def main() -> int:
                       f"{S.time_ms(torch, call, 50, flush):.4f} ms", flush=True)
 
     for n, kinds in ((1 << 20, ("int64",)), (1 << 20, ("int64", "date32", "int32")), (381682, ("int64",)),
-                     (10321, ("int64", "date32", "int32"))):
+                     (10321, ("int64", "date32", "int32"))) if "murmur3_pids" in only else ():
         planes, widths, valids = S.murmur3_inputs(torch, cuda_ops, n, kinds, seed=1)
         want = cuda_ops.murmur3_pids_plain(planes, widths, valids, 8)
         out = torch.empty(n, dtype=torch.int32, device="cuda")
@@ -350,6 +511,12 @@ def main() -> int:
                 raise AssertionError(f"murmur3_pids {name}: differs from the plain version")
             print(f"murmur3_pids N={n} keys={'/'.join(kinds)} {name}: {S.time_ms(torch, call, 50, flush):.4f} ms, "
                   f"{S.time_ms(torch, call, 50, ReadingFlush(flush)):.4f} ms after a reading flush", flush=True)
+    if "pid_histogram" in only:
+        max_blocks = torch.cuda.get_device_properties(0).multi_processor_count * 2048 // cuda_ops.HIST_THREADS
+        hists = {name: pr3_histogram(libs[(HISTOGRAM_SOURCES[src][0], name)]) if src == PR3_HISTOGRAM_SOURCE
+                 else variant_histogram(libs[(HISTOGRAM_SOURCES[src][0], name)], src, max_blocks)
+                 for name, src, _ in PID_HISTOGRAM_VARIANTS}
+        sweep_pid_histogram(S, hists, flush, max_blocks)
     return 0
 
 

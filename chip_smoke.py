@@ -6,15 +6,19 @@
 Needs one CUDA card and ``nvcc`` (``/usr/local/cuda``).  In order, it:
 
 1. prints the card's name and power limit (``nvidia-smi``);
-2. builds the hand-written kernels from ``blaze_tpu_torch/csrc`` and
-   prints the build time and ptxas report;
+2. builds the hand-written kernels from ``blaze_tpu_torch/csrc`` and,
+   beside them, the PR 3 ``pid_histogram`` design that the shipped one
+   is timed against, and prints the build time and ptxas report;
 3. runs each kernel at the main path's shapes on the card, holds it to
    its plain PyTorch version on the same inputs (exactly where the
    outputs are integers; ``fused_group_sums`` within rtol 2e-5, and to
    float64 sums), and times the kernel, the plain version and the
    library call that computes the same function with CUDA events, cold
-   L2; then holds every other code path of each kernel to its plain
-   version, untimed (misaligned views, ragged ends, edge tables);
+   L2 (``pid_histogram`` also the PR 3 design); then holds every other
+   code path of each kernel to its plain version, untimed (misaligned
+   views, ragged ends, edge tables; for ``pid_histogram`` also each
+   path's bin counts about its ends, 1,000 back-to-back calls and two
+   streams at once);
 4. runs TPC-H q06, q01 and q03 at ``--scale`` with 8 partitions and
    2^20-row batches, each scan pruned to the query's columns, checks
    each against its numpy oracle, and reads every kernel's launch count
@@ -22,12 +26,15 @@ Needs one CUDA card and ``nvcc`` (``/usr/local/cuda``).  In order, it:
    ``pid_histogram`` (and not ``murmur3_pids``: its keys are strings),
    q03 ``murmur3_pids``, ``pid_histogram`` and ``sorted_lookup``, with
    the retired ``BLAZE_TPU_PALLAS_ENABLE=0`` set; then times
-   ``murmur3_pids`` and ``sorted_lookup`` again on the largest inputs
-   q03 gave them;
-5. runs q01 and q03 once more under ``torch.profiler`` and prints the
-   device's busy share of each run, the kernels that take its time, and
-   the hand-written kernels' device time at the shapes the query gives
-   them;
+   ``pid_histogram`` on the largest inputs q01 and q03 gave it, and
+   ``murmur3_pids`` and ``sorted_lookup`` on q03's;
+5. reads the CUPTI device time of every timed call in one
+   ``torch.profiler`` session, and counts every device operation one
+   ``pid_histogram`` call issues on each path (one on paths (a) and
+   (b), or it fails); then runs q01 and q03 once more under
+   ``torch.profiler`` and prints the device's busy share of each run,
+   the kernels that take its time, and the hand-written kernels' device
+   time at the shapes the query gives them;
 6. prints the ``kernels`` JSON line, then ``{"ok": true, ...}`` last.
 
 Any failure raises and exits nonzero before the last line; without a
@@ -40,8 +47,10 @@ import argparse
 import contextlib
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 from typing import Dict
@@ -95,38 +104,54 @@ def dev_us(e) -> float:
     return getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
 
 
-def device_times(torch, cuda_ops, jobs, iters: int, flush) -> list:
-    """Device time per call of each ``(fn, kernel)`` job: the time of
-    ``fn``'s launches of kernels named ``kernel``, from torch.profiler's
-    CUPTI trace, L2 flushed before every call.  It leaves out the gap
-    from the start event to the launch that ``time_ms`` encloses.  All
-    jobs share one profiler session (more sessions in one process have
-    come back without kernel events), told apart by their order."""
+def device_times(torch, cuda_ops, jobs, iters: int, flush, count_jobs=()):
+    """(device time per call of each job, device operations per call of
+    each count job).  A job is ``(fn, kernel)`` or ``(fn, kernel,
+    launches)``: the time of ``fn``'s launches of kernels named
+    ``kernel``, from torch.profiler's CUPTI trace, L2 flushed before
+    every call; the launches per call are ``launches`` or what
+    ``fn`` adds to ``cuda_ops.LAUNCHES``.  It leaves out the gap from the
+    start event to the launch that ``time_ms`` encloses.  A count job
+    ``(fn, calls)`` runs ``fn`` that many times, unflushed, between two
+    spin kernels; every device operation between them counts (kernels
+    of any name, fills, memsets, copies).  All jobs share one profiler
+    session (more sessions in one process have come back without kernel
+    events), told apart by their order."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     launches = []
-    for fn, _ in jobs:
+    for job in jobs:
         before = sum(cuda_ops.LAUNCHES.values())
+        job[0]()
+        launches.append(job[2] if len(job) > 2 else sum(cuda_ops.LAUNCHES.values()) - before)
+    for fn, _ in count_jobs:
         fn()
-        launches.append(sum(cuda_ops.LAUNCHES.values()) - before)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for fn, _ in jobs:
+        for job in jobs:
             for _ in range(iters):
                 flush.zero_()
+                job[0]()
+        for fn, calls in count_jobs:
+            torch.cuda._sleep(1000)
+            for _ in range(calls):
                 fn()
+            torch.cuda._sleep(1000)
         torch.cuda.synchronize()
-    names = {kernel for _, kernel in jobs}
-    events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
-                     and any(k in e.name for k in names)), key=lambda e: e.time_range.start)
-    if len(events) != iters * sum(launches):
-        raise AssertionError(f"the profiler saw {len(events)} kernel launches, not {iters * sum(launches)}")
+    device = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA), key=lambda e: e.time_range.start)
+    names = {job[1] for job in jobs}
+    spins = [i for i, e in enumerate(device) if "spin_kernel" in e.name]
+    events = [e for e in device[:spins[0] if spins else len(device)] if any(k in e.name for k in names)]
+    if len(events) != iters * sum(launches) or len(spins) != 2 * len(count_jobs):
+        raise AssertionError(f"the profiler saw {len(events)} kernel launches, not {iters * sum(launches)}, "
+                             f"and {len(spins)} spin kernels, not {2 * len(count_jobs)}")
     out, pos = [], 0
     for k in launches:
         out.append(sum(e.time_range.elapsed_us() for e in events[pos:pos + iters * k]) / iters / 1e3)
         pos += iters * k
-    return out
+    ops = [(spins[2 * i + 1] - spins[2 * i] - 1) / calls for i, (_, calls) in enumerate(count_jobs)]
+    return out, ops
 
 
 # ----------------------------------------------------------- kernel checks
@@ -279,27 +304,89 @@ def lookup_edge_tables(torch, cuda_ops, seed: int):
     return [(label, table, lookup_probes(torch, table, 1 << 16, g)) for label, table in cases]
 
 
-def check_pid_histogram(torch, cuda_ops, flush, n: int, n_parts: int, seed: int, timed: bool = True) -> dict:
-    """pid_histogram on (n,) int32 pids in [0, n_parts) with 5% -1 rows."""
+def hist_pids(torch, n: int, n_parts: int, seed: int, offset: int = 0, layout: str = "random"):
+    """(n,) int32 pids: "random" in [0, n_parts) with 5% -1 rows; "minus
+    one" all -1; "one bin" all n_parts - 1; "past" in [n_parts,
+    2 n_parts) and -1 (nothing counted).  ``offset`` > 0 makes them a
+    view that starts that many elements into its buffer."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    pids = torch.randint(0, n_parts, (n,), generator=g, device="cuda", dtype=torch.int32)
-    pids[torch.rand(n, generator=g, device="cuda") < 0.05] = -1
+    m = n + offset
+    if layout == "minus one":
+        pids = torch.full((m,), -1, dtype=torch.int32, device="cuda")
+    elif layout == "one bin":
+        pids = torch.full((m,), n_parts - 1, dtype=torch.int32, device="cuda")
+    else:
+        lo = n_parts if layout == "past" else 0
+        pids = torch.randint(lo, lo + n_parts, (m,), generator=g, device="cuda", dtype=torch.int32)
+        pids[torch.rand(m, generator=g, device="cuda") < 0.05] = -1
+    return pids[offset:]
+
+
+def check_pid_histogram(torch, cuda_ops, flush, pids, n_parts: int, label: str = "", timed: bool = True,
+                        pr3=None) -> dict:
+    """pid_histogram held exactly to its plain version; timed, also the
+    PR 3 design (``pr3``, its caller's zeroing included), the plain
+    version and torch.bincount, against the bound."""
+    n = pids.shape[0]
     got = cuda_ops.pid_histogram(pids, n_parts)
     want = cuda_ops.pid_histogram_plain(pids, n_parts)
     torch.cuda.synchronize()
     err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
-    if err != 0 or int(got.sum()) != int((pids >= 0).sum()):
-        raise AssertionError(f"pid_histogram n_parts={n_parts}: kernel differs from plain version (max {err})")
-    r = {"shape": f"N={n} n_parts={n_parts}", "max_abs_err": err}
+    counted = int(((pids >= 0) & (pids < n_parts)).sum())
+    if err != 0 or not torch.equal(got, want) or int(got.to(torch.int64).sum()) != counted:
+        raise AssertionError(f"pid_histogram N={n} n_parts={n_parts} {label}: kernel differs from plain (max {err})")
+    r = {"shape": f"N={n} n_parts={n_parts} {label}".strip(), "max_abs_err": err}
     if not timed:
         return r
     ms = time_ms(torch, lambda: cuda_ops.pid_histogram(pids, n_parts), 50, flush)
     plain_ms = time_ms(torch, lambda: cuda_ops.pid_histogram_plain(pids, n_parts), 20, flush)
     # the same function in one library call: shift -1 into bin 0, drop it
     library_ms = time_ms(torch, lambda: torch.bincount(pids + 1, minlength=n_parts + 1)[1:], 50, flush)
-    b_ms, b_by = bound(4 * n + 4 * n_parts, int((pids >= 0).sum()))
-    r.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
+    b_ms, b_by = bound(4 * n + 4 * n_parts, counted)
+    r.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+             device_job=(lambda: cuda_ops.pid_histogram(pids, n_parts), "pid_histogram_kernel"))
+    if pr3 is not None:
+        if not torch.equal(pr3(pids, n_parts), want):
+            raise AssertionError(f"pid_histogram PR 3 design N={n} n_parts={n_parts}: differs from plain")
+        r["pr3_ms"] = time_ms(torch, lambda: pr3(pids, n_parts), 50, flush)
+        r["pr3_job"] = (lambda: pr3(pids, n_parts), "pid_histogram_kernel", 1)
     return r
+
+
+def check_pid_histogram_streams(torch, cuda_ops, seed: int) -> list:
+    """1,000 back-to-back calls over inputs of every path and grid, summed
+    per input; then calls on two streams at once, each with tickets of
+    its own, summed per stream.  Each sum must be the call
+    count times the plain version.  Returns check results."""
+    inputs = [(hist_pids(torch, n, p, seed + i), p) for i, (n, p) in enumerate(
+        ((1 << 20, 8), (100_003, 200), (5000, 8), ((1 << 20) + 3, 33), (3000, 200), (50_000, 57_344)))]
+    wants = [cuda_ops.pid_histogram_plain(pids, p).to(torch.int64) for pids, p in inputs]
+    sums = [torch.zeros_like(w) for w in wants]
+    for k in range(1000):
+        i = k % len(inputs)
+        sums[i] += cuda_ops.pid_histogram(*inputs[i])
+    torch.cuda.synchronize()
+    calls = [len(range(i, 1000, len(inputs))) for i in range(len(inputs))]
+    if not all(torch.equal(s, c * w) for s, c, w in zip(sums, calls, wants)):
+        raise AssertionError("pid_histogram: 1,000 back-to-back calls do not sum to the plain counts")
+    out = [{"shape": "1,000 back-to-back calls over 6 inputs, summed", "max_abs_err": 0}]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    pairs = [inputs[0], inputs[1]], [inputs[2], inputs[3]]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    results = [[], []]
+    for _ in range(100):
+        for j, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                results[j].extend(cuda_ops.pid_histogram(pids, p) for pids, p in pairs[j])
+    torch.cuda.synchronize()
+    for j in range(2):
+        for q, (pids, p) in enumerate(pairs[j]):
+            total = sum(r.to(torch.int64) for r in results[j][q::2])
+            if not torch.equal(total, 100 * cuda_ops.pid_histogram_plain(pids, p).to(torch.int64)):
+                raise AssertionError(f"pid_histogram: stream {j} input {q} differs when two streams run at once")
+    out.append({"shape": "two streams at once, 2 x 100 calls each, summed", "max_abs_err": 0})
+    return out
 
 
 def q01_group_inputs(torch, lineitem) -> tuple:
@@ -354,7 +441,8 @@ def check_group_sums(torch, cuda_ops, flush, gids, values, n_groups: int, timed:
         1, gids + 1, vk)[:, 1:], 50, flush)
     # every row reads its gid and K values once; one add per counted value
     b_ms, b_by = bound(n * (4 + 4 * k) + 4 * k * n_groups, k * int(counted.sum()))
-    r.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
+    r.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+             device_job=(lambda: cuda_ops.fused_group_sums(gids, values, n_groups), "group_sums"))
     return r
 
 
@@ -468,12 +556,12 @@ def log_check(name: str, r: dict) -> None:
 
 @contextlib.contextmanager
 def largest_inputs(cuda_ops):
-    """Keeps the inputs of the calls of ``murmur3_pids`` and
-    ``sorted_lookup`` made inside the block that have the most rows
-    (murmur3_pids: per key count; sorted_lookup: the most probes and
-    the longest table).  The calls run unchanged."""
+    """Keeps the inputs of the calls of ``murmur3_pids``,
+    ``sorted_lookup`` and ``pid_histogram`` made inside the block that
+    have the most rows (murmur3_pids: per key count; sorted_lookup: the
+    most probes and the longest table).  The calls run unchanged."""
     seen: Dict[str, tuple] = {}
-    m3, sl = cuda_ops.murmur3_pids, cuda_ops.sorted_lookup
+    m3, sl, ph = cuda_ops.murmur3_pids, cuda_ops.sorted_lookup, cuda_ops.pid_histogram
 
     def keep(key, size, args):
         if key not in seen or size > seen[key][0]:
@@ -488,11 +576,15 @@ def largest_inputs(cuda_ops):
         keep("sorted_lookup longest table", table.shape[0], (table, probe))
         return sl(table, probe)
 
-    cuda_ops.murmur3_pids, cuda_ops.sorted_lookup = murmur3_pids, sorted_lookup
+    def pid_histogram(pids, n_parts):
+        keep("pid_histogram most rows", pids.shape[0], (pids, n_parts))
+        return ph(pids, n_parts)
+
+    cuda_ops.murmur3_pids, cuda_ops.sorted_lookup, cuda_ops.pid_histogram = murmur3_pids, sorted_lookup, pid_histogram
     try:
         yield seen
     finally:
-        cuda_ops.murmur3_pids, cuda_ops.sorted_lookup = m3, sl
+        cuda_ops.murmur3_pids, cuda_ops.sorted_lookup, cuda_ops.pid_histogram = m3, sl, ph
 
 
 def require_launches(query: str, launches: dict, launched, not_launched=()) -> None:
@@ -515,7 +607,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; the port runs on the card", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
-    from blaze_tpu_torch.kernels import build, cuda_ops
+    from blaze_tpu_torch.kernels import build, cuda_ops, sweep
     from blaze_tpu_torch.tpch import build_query
     from blaze_tpu_torch.tpch import oracle as O
 
@@ -525,13 +617,21 @@ def main() -> int:
     log(card)
     log("torch", torch.__version__, "cuda", torch.version.cuda, "device", torch.cuda.get_device_name(0))
 
-    # ---- build
+    # ---- build; beside it, the PR 3 pid_histogram design that the shipped one is timed against
     t0 = time.perf_counter()
     cuda_ops.reset_launch_counts()
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    pr3_so = Path(tempfile.mkdtemp(prefix="pr3-", dir=build.BUILD_DIR)) / "pid_histogram_pr3.so"
+    pr3_build = sweep.compile_variant(sweep.PR3_HISTOGRAM_SOURCE, {}, pr3_so)
     build.library()
+    pr3_log = pr3_build.communicate()[0]
+    if pr3_build.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {sweep.PR3_HISTOGRAM_SOURCE}:\n{pr3_log}")
+    pr3 = sweep.pr3_histogram(sweep.load_variant(pr3_so, *sweep.HISTOGRAM_SOURCES[sweep.PR3_HISTOGRAM_SOURCE]))
+    shutil.rmtree(pr3_so.parent)  # loaded; the mapping outlives the file
     log(f"kernel build: {time.perf_counter() - t0:.2f} s "
-        f"(nvcc {build.last_build.seconds:.2f} s, {build.last_build.path.name})")
-    for line in build.last_build.log.splitlines():
+        f"(nvcc {build.last_build.seconds:.2f} s, {build.last_build.path.name}; PR 3 pid_histogram beside it)")
+    for line in (build.last_build.log + pr3_log).splitlines():
         if "ptxas info" in line:
             log("  " + line.strip())
 
@@ -557,9 +657,10 @@ def main() -> int:
     m10 = check_murmur3(torch, cuda_ops, flush, *murmur3_inputs(torch, cuda_ops, n, keys10, seed=4),
                         "/".join(keys10))
     sl = check_sorted_lookup(torch, cuda_ops, flush, *lookup_inputs(torch, 30000, n, seed=3), "")
-    # 8 partitions: q01's and q03's exchanges; 200: more bins than a warp has lanes
-    h8 = check_pid_histogram(torch, cuda_ops, flush, n, 8, seed=5)
-    h200 = check_pid_histogram(torch, cuda_ops, flush, n, 200, seed=6)
+    # 8 partitions: q01's and q03's exchanges (register bins); 200: Spark's
+    # default shuffle partitions (shared-memory bins)
+    h8 = check_pid_histogram(torch, cuda_ops, flush, hist_pids(torch, n, 8, seed=5), 8, pr3=pr3)
+    h200 = check_pid_histogram(torch, cuda_ops, flush, hist_pids(torch, n, 200, seed=6), 200, pr3=pr3)
     gq = check_group_sums(torch, cuda_ops, flush, *q01_group_inputs(torch, data["lineitem"]))
     checks = [("murmur3_pids", m1), ("murmur3_pids", m3), ("murmur3_pids", m10), ("sorted_lookup", sl),
               ("pid_histogram", h8), ("pid_histogram", h200), ("fused_group_sums", gq)]
@@ -567,7 +668,7 @@ def main() -> int:
     # views at element offsets 1-3 (the one-row path), N below one group
     # of 4 rows and with a ragged tail, K = 8 int64 keys (its most
     # registers).  sorted_lookup: see lookup_edge_tables.
-    # pid_histogram: bins past shared memory (global atomics).
+    # pid_histogram: see the list below.
     # fused_group_sums: K x G past the register path (shared atomics,
     # two chained launches for K = 9), K x G past shared memory.
     for offset in (1, 2, 3):
@@ -591,8 +692,27 @@ def main() -> int:
     g = torch.Generator(device="cuda").manual_seed(7)
     rand_vals = lambda k: [torch.rand(n, generator=g, device="cuda") for _ in range(k)]
     rand_gids = lambda groups: torch.randint(-1, groups, (n,), generator=g, device="cuda", dtype=torch.int32)
+    # pid_histogram: N about one int4, one tile and the small-N threshold;
+    # views at element offsets 1-3; nothing or everything in one bin;
+    # bins about each path's end (32, the shared cap); then back-to-back
+    # calls and two streams at once
+    small = cuda_ops.HIST_SMALL_N
+    hist_cases = [(rows, 8, 0, "random") for rows in (1, 31, 33, n + 3, small - 1, small, small + 1)]
+    hist_cases += [(n + 5, 8, offset, "random") for offset in (1, 2, 3)]
+    hist_cases += [(n, 8, 0, "minus one"), (n, 8, 0, "one bin"), (n, 200, 0, "one bin"), (n, 8, 0, "past"),
+                   (n, 200, 0, "past")]
+    hist_cases += [(n, parts, 0, "random") for parts in (1, 32, 33, 200, 20000, cuda_ops.HIST_SHARED_BINS,
+                                                         cuda_ops.HIST_SHARED_BINS + 1)]
+    for rows, parts, offset, layout in hist_cases:
+        pids = hist_pids(torch, rows, parts, seed=rows + parts + offset, offset=offset, layout=layout)
+        if offset and pids.data_ptr() % 16 == 0:
+            raise AssertionError(f"pid_histogram offset {offset}: the view is 16-byte aligned")
+        path = cuda_ops.pid_histogram_geometry(rows, parts)[0]
+        label = f"{layout}{f' offset {offset}' if offset else ''} ({path})"
+        checks.append(("pid_histogram", check_pid_histogram(torch, cuda_ops, flush, pids, parts, label,
+                                                            timed=False)))
+    checks += [("pid_histogram", r) for r in check_pid_histogram_streams(torch, cuda_ops, seed=40)]
     checks += [
-        ("pid_histogram", check_pid_histogram(torch, cuda_ops, flush, n, 20000, seed=8, timed=False)),
         ("fused_group_sums", check_group_sums(torch, cuda_ops, flush, rand_gids(40), rand_vals(9), 40,
                                               timed=False)),
         ("fused_group_sums", check_group_sums(torch, cuda_ops, flush, rand_gids(20000), rand_vals(2),
@@ -614,7 +734,8 @@ def main() -> int:
         f"launches {runs['q6']}")
 
     q1_scans = tpch_scans(data, "q1", n_parts, batch_rows)
-    got, wall, runs["q1"] = run_query(torch, cuda_ops, "q1", q1_scans, n_parts)
+    with largest_inputs(cuda_ops) as q1_inputs:
+        got, wall, runs["q1"] = run_query(torch, cuda_ops, "q1", q1_scans, n_parts)
     exp = O.oracle_q1(data)
     keys = list(zip(got["l_returnflag"], got["l_linestatus"]))
     if keys != sorted(exp):
@@ -644,10 +765,17 @@ def main() -> int:
         f"wall {wall:.4f} s; launches {runs['q3']}")
     require_launches("q03", runs["q3"], ("murmur3_pids", "pid_histogram", "sorted_lookup"))
 
-    # ---- the redesigned kernels again, on the largest inputs q03 gave them
-    at_query: Dict[str, list] = {"murmur3_pids": [], "sorted_lookup": []}
+    # ---- the redesigned kernels again, on the largest inputs q01 and q03 gave them
+    at_query: Dict[str, list] = {"murmur3_pids": [], "sorted_lookup": [], "pid_histogram": []}
+    for query, seen in (("q01", q1_inputs), ("q03", q3_inputs)):
+        pids, parts = seen["pid_histogram most rows"][1]
+        r = check_pid_histogram(torch, cuda_ops, flush, pids, parts, f"({query}'s most rows)", pr3=pr3)
+        at_query["pid_histogram"].append(r)
+        log_check("pid_histogram", r)
     probed = set()
     for key, (_, inputs) in sorted(q3_inputs.items()):
+        if key.startswith("pid_histogram"):
+            continue
         if key.startswith("murmur3_pids"):
             planes, widths, valids, parts = inputs
             label = "/".join(f"int{32 * w}" for w in widths) + " (q03)"
@@ -660,14 +788,35 @@ def main() -> int:
             at_query["sorted_lookup"].append(r)
             log_check("sorted_lookup", r)
 
-    # ---- the redesigned kernels' own device time, the same calls again
-    redesigned = [(name, r) for name, r in checks if "device_job" in r]
-    redesigned += [(name, r) for name, rs in at_query.items() for r in rs]
-    for (name, r), ms in zip(redesigned, device_times(torch, cuda_ops, [r.pop("device_job") for _, r in redesigned],
-                                                       20, flush)):
+    # ---- the timed kernels' own device time, the same calls again; and
+    # every device operation one pid_histogram call issues, on each path
+    timed_calls = [(name, r) for name, r in checks if "device_job" in r]
+    timed_calls += [(name, r) for name, rs in at_query.items() for r in rs]
+    jobs = [r.pop("device_job") for _, r in timed_calls]
+    pr3_calls = [r for _, r in timed_calls if "pr3_job" in r]
+    jobs += [r.pop("pr3_job") for r in pr3_calls]
+    count_cases = [("registers, a grid", n, 8), ("registers, one block", 3000, 8), ("shared, a grid", n, 200),
+                   ("shared, one block", 3000, 200), ("shared, the most bins", n, cuda_ops.HIST_SHARED_BINS),
+                   ("global atomics", n, cuda_ops.HIST_SHARED_BINS + 1)]
+    count_jobs = []
+    for label, rows, parts in count_cases:
+        pids = hist_pids(torch, rows, parts, seed=50 + parts)
+        count_jobs.append((lambda pids=pids, parts=parts: cuda_ops.pid_histogram(pids, parts), 10))
+    times, ops = device_times(torch, cuda_ops, jobs, 20, flush, count_jobs)
+    for (name, r), ms in zip(timed_calls, times):
         r["device_ms"] = ms
         log(f"{name} [{r['shape']}]: device time {ms:.4f} ms (CUPTI), bound {r['bound_ms']:.4f} ms "
             f"(share of bound {r['bound_ms'] / ms:.0%})")
+    for r, ms in zip(pr3_calls, times[len(timed_calls):]):
+        r["pr3_device_ms"] = ms
+        log(f"pid_histogram PR 3 design [{r['shape']}]: {r['pr3_ms']:.4f} ms by events, device time "
+            f"{ms:.4f} ms (CUPTI); shipped {r['ms']:.4f} / {r['device_ms']:.4f} ms")
+    hist_ops = {}
+    for (label, rows, parts), k in zip(count_cases, ops):
+        hist_ops[label] = k
+        log(f"pid_histogram [{label}: N={rows} n_parts={parts}]: {k:g} device operations per call")
+        if label != "global atomics" and k != 1:
+            raise AssertionError(f"pid_histogram [{label}]: {k:g} device operations a call, not 1")
 
     profile_query(torch, "q01", build_query("q1", q1_scans, n_parts))
     profile_query(torch, "q03", build_query("q3", q3_scans, n_parts))
@@ -690,9 +839,14 @@ def main() -> int:
             "shape": r["shape"], "max_abs_err": errs[name], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "device_ms": r.get("device_ms"),
-            "at_q03_shapes": [{k: q[k] for k in ("shape", "ms", "device_ms", "bound_ms", "bound_by", "library_ms")}
-                              for q in at_query.get(name, [])],
+            "at_query_shapes": [{k: q.get(k) for k in ("shape", "ms", "device_ms", "bound_ms", "bound_by",
+                                                       "library_ms", "pr3_ms", "pr3_device_ms") if k in q}
+                                for q in at_query.get(name, [])],
         })
+        if name == "pid_histogram":
+            kernels[-1].update(pr3_ms=r["pr3_ms"], pr3_device_ms=r["pr3_device_ms"], device_ops_per_call=hist_ops,
+                               n_parts_200={k: h200[k] for k in ("ms", "device_ms", "pr3_ms", "pr3_device_ms",
+                                                                 "bound_ms", "library_ms")})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -6,6 +6,9 @@ port's wrapper, which on a CPU tensor runs its plain version.  Partition
 ids and lookup bounds are exact integers: everything compares equal.
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -299,20 +302,81 @@ def test_wrappers_check_their_inputs():
 # ----------------------------------------------------------- pid histogram
 
 
-@pytest.mark.parametrize("n_parts", [1, 8, 37, 200])
-def test_pid_histogram_matches_jax_and_bincount(n_parts):
-    """Pids in range with -1 rows (padding) sprinkled in, N not a
-    multiple of the TPU kernel's tile."""
-    rng = np.random.default_rng(n_parts)
-    n = 3000
-    pids = rng.integers(0, n_parts, n).astype(np.int32)
-    pids[rng.random(n) < 0.1] = -1
-    got = cuda_ops.pid_histogram(torch.from_numpy(pids), n_parts)
+def _hist_pids(layout, n, n_parts, rng):
+    """(n,) int32 pids of a layout: "random" (10% -1 rows), "hot" (90%
+    in one partition, the rest spread, some -1 and some at or past
+    n_parts), or "view<k>" (random, then the view that starts k
+    elements into its buffer, as a slice's pids do)."""
+    if layout == "hot":
+        pids = np.where(rng.random(n) < 0.9, n_parts - 1, rng.integers(-1, n_parts + 3, n)).astype(np.int32)
+        return torch.from_numpy(pids)
+    k = int(layout[4:]) if layout.startswith("view") else 0
+    pids = rng.integers(0, n_parts, n + k).astype(np.int32)
+    pids[rng.random(n + k) < 0.1] = -1
+    return torch.from_numpy(pids)[k:]
+
+
+@pytest.mark.parametrize("n_parts, n, layout", [
+    *[pytest.param(p, 3000, "random", id=str(p)) for p in (1, 8, 37, 200)],
+    (32, 3000, "random"), (33, 3000, "random"),
+    *[(p, 3003, "random") for p in (1, 8, 32, 33, 37, 200)],
+    (8, 3001, "hot"), (200, 3001, "hot"),
+    (8, 3002, "view1"), (33, 3001, "view3"),
+])
+def test_pid_histogram_matches_jax_and_bincount(n_parts, n, layout):
+    """Pids with -1 rows (padding) sprinkled in, N not a multiple of
+    the TPU kernel's tile (nor, for 3001-3003, of the CUDA kernel's
+    four-row loads), bins about the register path's 32, one hot
+    partition, and views that start off a 16-byte boundary."""
+    rng = np.random.default_rng(n_parts * 10 + n)
+    pids = _hist_pids(layout, n, n_parts, rng)
+    got = cuda_ops.pid_histogram(pids, n_parts)
     assert got.dtype == torch.int32
-    want = np.bincount(pids[pids >= 0], minlength=n_parts)
+    p = pids.numpy()
+    want = np.bincount(p[(p >= 0) & (p < n_parts)], minlength=n_parts)
     np.testing.assert_array_equal(got.numpy(), want)
-    np.testing.assert_array_equal(got.numpy(), np.asarray(pallas_ops.pid_histogram(jnp.asarray(pids), n_parts)))
-    np.testing.assert_array_equal(cuda_ops.pid_histogram_plain(torch.from_numpy(pids), n_parts).numpy(), want)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(pallas_ops.pid_histogram(jnp.asarray(p), n_parts)))
+    np.testing.assert_array_equal(cuda_ops.pid_histogram_plain(pids, n_parts).numpy(), want)
+
+
+def _cu_constants(name):
+    """The ``constexpr int`` constants of a kernel source."""
+    text = (Path(cuda_ops.__file__).parent.parent / "csrc" / name).read_text()
+    return {m[1]: eval(m[2]) for m in re.finditer(r"constexpr int (k\w+) = ([\d *]+);", text)}
+
+
+def test_pid_histogram_constants_match_the_kernel():
+    k = _cu_constants("pid_histogram.cu")
+    assert (k["kThreads"], k["kLoads"], k["kRegisterBins"], k["kSharedBins"]) == (
+        cuda_ops.HIST_THREADS, cuda_ops.HIST_LOADS, cuda_ops.HIST_REGISTER_BINS, cuda_ops.HIST_SHARED_BINS)
+    # the shared bins fit what a block of the H100 may opt in to
+    assert 4 * cuda_ops.HIST_SHARED_BINS + 1024 <= 232448
+
+
+@pytest.mark.parametrize("n, n_parts, path", [
+    (1, 8, "registers"), (cuda_ops.HIST_SMALL_N, 8, "registers"), (cuda_ops.HIST_SMALL_N + 1, 8, "registers"),
+    (2**20, 8, "registers"), (2**20 + 3, 32, "registers"), (2**20, 33, "shared"), (2**20, 200, "shared"),
+    (cuda_ops.HIST_SMALL_N - 1, 200, "shared"), (2**20, cuda_ops.HIST_SHARED_BINS, "shared"),
+    (2**20, cuda_ops.HIST_SHARED_BINS + 1, "global"), (2**31 - 1, 8, "registers"),
+])
+def test_pid_histogram_geometry_fits_its_budget(n, n_parts, path):
+    """Paths switch at 32 and at the shared-memory cap; at or under the
+    small-N threshold one block and no tickets; past it a grid of at
+    most SMs x resident blocks, no more than the rows need, whose
+    arrivals fit a ticket's 24 high bits, and a ticket a bin (none on
+    the global path)."""
+    sms = 132
+    got_path, blocks, tickets = cuda_ops.pid_histogram_geometry(n, n_parts, sms)
+    assert got_path == path
+    if n <= cuda_ops.HIST_SMALL_N:
+        assert (blocks, tickets) == (1, 0)
+        return
+    rows_per_block = cuda_ops.HIST_THREADS * 4 * cuda_ops.HIST_LOADS
+    assert 2 <= blocks <= min(-(-n // rows_per_block), sms * 2048 // cuda_ops.HIST_THREADS)
+    if path == "shared":  # one block an SM: each block adds n_parts tickets
+        assert blocks <= sms
+    assert blocks < 2**24 and n < 2**40  # arrivals and counts fit the ticket's fields
+    assert tickets == (0 if path == "global" else n_parts)
 
 
 def test_pid_histogram_empty_and_out_of_range():
