@@ -265,6 +265,86 @@ def table_to_batches(
     return parts
 
 
+# ------------------------------------------------- host <-> device copies
+
+#: copies made by :func:`tensors_to_host` and :meth:`HostStaging.to_device`
+#: since the last :func:`reset_copy_counts`
+COPIES = {"device_to_host": 0, "host_to_device": 0}
+
+
+def reset_copy_counts() -> None:
+    for k in COPIES:
+        COPIES[k] = 0
+
+
+def _aligned(nbytes: int) -> int:
+    """Regions start 8-byte aligned, so any dtype views them."""
+    return (nbytes + 7) & ~7
+
+
+def tensors_to_host(tensors: Sequence[torch.Tensor]) -> List[np.ndarray]:
+    """The tensors as numpy arrays in ONE device-to-host copy: their
+    bytes are packed into one buffer on their device, the buffer is
+    copied, and the host copy is split into views."""
+    if not tensors:
+        return []
+    parts, layout = [], []
+    off = 0
+    for t in tensors:
+        raw = t.contiguous().reshape(-1).view(torch.uint8)
+        pad = _aligned(raw.numel()) - raw.numel()
+        parts.append(raw)
+        if pad:
+            parts.append(torch.zeros(pad, dtype=torch.uint8, device=t.device))
+        layout.append((off, raw.numel(), t.dtype, tuple(t.shape)))
+        off += raw.numel() + pad
+    host = torch.cat(parts).cpu().numpy()
+    COPIES["device_to_host"] += 1
+    out = []
+    for o, nbytes, dtype, shape in layout:
+        np_dtype = torch.empty((), dtype=dtype).numpy().dtype
+        out.append(host[o:o + nbytes].view(np_dtype).reshape(shape))
+    return out
+
+
+class HostStaging:
+    """Zeroed host arrays allocated in one byte buffer, filled by the
+    caller, then moved to a device in ONE host-to-device copy."""
+
+    def __init__(self):
+        self._regions: List[Tuple[int, np.dtype, tuple]] = []
+        self._size = 0
+        self._buf: Optional[np.ndarray] = None
+
+    def region(self, shape: tuple, np_dtype) -> int:
+        """Reserve a region; returns its index (allocate before filling)."""
+        np_dtype = np.dtype(np_dtype)
+        nbytes = int(np.prod(shape, dtype=np.int64)) * np_dtype.itemsize
+        self._regions.append((self._size, np_dtype, tuple(shape)))
+        self._size += _aligned(nbytes)
+        return len(self._regions) - 1
+
+    def array(self, i: int) -> np.ndarray:
+        """The host view of region ``i`` (zeroed until written)."""
+        if self._buf is None:
+            self._buf = np.zeros(self._size, np.uint8)
+        off, np_dtype, shape = self._regions[i]
+        nbytes = int(np.prod(shape, dtype=np.int64)) * np_dtype.itemsize
+        return self._buf[off:off + nbytes].view(np_dtype).reshape(shape)
+
+    def to_device(self, device: torch.device) -> List[torch.Tensor]:
+        """Every region as a tensor on ``device``."""
+        if self._buf is None:
+            self._buf = np.zeros(self._size, np.uint8)
+        dev = torch.from_numpy(self._buf).to(device)
+        COPIES["host_to_device"] += 1
+        out = []
+        for off, np_dtype, shape in self._regions:
+            nbytes = int(np.prod(shape, dtype=np.int64)) * np_dtype.itemsize
+            out.append(dev[off:off + nbytes].view(_TORCH_OF_NP[np_dtype]).reshape(shape))
+        return out
+
+
 # --------------------------------------------------------- host readout
 
 

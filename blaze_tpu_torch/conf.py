@@ -44,6 +44,6 @@ def _bool(s: str) -> bool:
 
 # smallest padded batch capacity (capacities are powers of two above it)
 MIN_CAPACITY = ConfEntry("spark.blaze.tpu.minBatchCapacity", 1024, int)
-# exchanges keep map output in device memory, in process (the only
-# exchange path of this port so far)
+# exchanges keep map output in device memory, in process; false sends
+# plan.execute()'s exchanges through .data/.index shuffle files
 EXCHANGE_IN_PROCESS = ConfEntry("spark.blaze.exchange.inProcess", True, _bool)

@@ -185,7 +185,18 @@ def _coerce(col: Column, to: DataType) -> Column:
     raise NotImplementedError(f"coercion {col.dtype!r} -> {to!r}")
 
 
-def _lit_column(value, dtype: DataType, n: int, device: torch.device) -> Column:
+def unscaled_decimal(value, dtype: DataType) -> int:
+    """The unscaled int of a logical decimal literal value (a string
+    or int exactly, a float rounded)."""
+    if isinstance(value, str):
+        return int(Decimal(value).scaleb(dtype.scale).to_integral_value())
+    if isinstance(value, float):
+        return int(round(value * 10**dtype.scale))
+    return int(value) * 10**dtype.scale
+
+
+def _lit_column(value, dtype: DataType, n: int, device: torch.device,
+                is_unscaled: bool = False) -> Column:
     if value is None:
         null = Column(
             DataType.null(),
@@ -201,12 +212,7 @@ def _lit_column(value, dtype: DataType, n: int, device: torch.device) -> Column:
         data = torch.from_numpy(row).to(device).expand(n, dtype.string_width)
         return Column(dtype, data, valid, torch.full((n,), len(b), dtype=torch.int32, device=device))
     if dtype.is_decimal:
-        if isinstance(value, str):
-            unscaled = int(Decimal(value).scaleb(dtype.scale).to_integral_value())
-        elif isinstance(value, float):
-            unscaled = int(round(value * 10**dtype.scale))
-        else:
-            unscaled = int(value) * 10**dtype.scale
+        unscaled = value if is_unscaled else unscaled_decimal(value, dtype)
         return Column(dtype, torch.full((n,), unscaled, dtype=torch.int64, device=device), valid)
     if dtype.kind == TypeKind.DATE32:
         if isinstance(value, str):
@@ -298,7 +304,8 @@ def lower(expr: Expr, schema: Schema, cols: Dict[str, Column], n: int) -> Column
         return lower(expr.child, schema, cols, n)
     if isinstance(expr, Lit):
         device = next(iter(cols.values())).device
-        return _lit_column(expr.value, infer_lit_dtype(expr.value, expr.dtype), n, device)
+        return _lit_column(expr.value, infer_lit_dtype(expr.value, expr.dtype), n, device,
+                           expr.unscaled)
     if isinstance(expr, Not):
         c = lower(expr.child, schema, cols, n)
         return Column(DataType.bool_(), ~c.data.to(torch.bool), c.validity)

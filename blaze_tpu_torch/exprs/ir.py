@@ -61,6 +61,9 @@ class Col(Expr):
 class Lit(Expr):
     value: Any                       # logical python value (None = null)
     dtype: Optional[DataType] = None  # inferred from value when omitted
+    # a decimal whose ``value`` is already the unscaled int (as a plan
+    # decoded from its protobuf carries it), not a logical value
+    unscaled: bool = False
 
 
 @dataclass(eq=False)

@@ -204,9 +204,14 @@ class AggExec(ExecNode):
         mode: AggMode,
         groupings: Sequence[GroupingExpr],
         aggs: Sequence[AggFunction],
+        supports_partial_skipping: bool = False,
     ):
         super().__init__([child])
         self.mode = mode
+        # the plan contract's hint that a PARTIAL agg may pass rows
+        # through unaggregated; carried through serde, and the port
+        # always aggregates (the same result)
+        self.supports_partial_skipping = supports_partial_skipping
         self.groupings = list(groupings)
         self.aggs = list(aggs)
         in_schema = child.schema

@@ -18,6 +18,10 @@ class HashJoinExec(ExecNode):
     def __init__(self, build: ExecNode, probe: ExecNode, build_keys: Sequence[Expr],
                  probe_keys: Sequence[Expr], join_type: JoinType, build_is_left: bool):
         super().__init__([build, probe])
+        self.build_keys = list(build_keys)
+        self.probe_keys = list(probe_keys)
+        self.join_type = join_type
+        self.build_is_left = build_is_left
         self._joiner = Joiner(probe.schema, build.schema, probe_keys, build_keys,
                               join_type, probe_is_left=not build_is_left)
 

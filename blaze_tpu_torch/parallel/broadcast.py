@@ -1,21 +1,66 @@
-"""Broadcast exchange (≙ ``blaze_tpu/parallel/broadcast.py``
-``BroadcastExchangeExec``).
+"""Broadcast exchange (≙ ``blaze_tpu/parallel/broadcast.py``).
 
-Collects every child partition once into ONE device batch, which every
-output partition replays.  The reference ships the collected rows as
-checksummed IPC bytes; this port keeps the device batch in process (the
-wire format is not ported yet).
+In process (``plan.execute()``), :class:`BroadcastExchangeExec`
+collects every child partition once into ONE device batch, which every
+output partition replays.  Across stages (the scheduler),
+:class:`IpcWriterExec` drains one child partition into a checksummed
+IPC blob registered under ``<resource_id>.<partition>``, and the
+consumer reads the blobs back through ``IpcReaderExec``.
 """
 
 from __future__ import annotations
 
+import struct
 import threading
-from typing import Optional
+from typing import Iterable, List, Optional
 
 from ..batch import RecordBatch, concat_batches
+from ..io.batch_serde import serialize_batch
+from ..io.ipc_compression import block_trailer, compress_frame
 from ..ops.base import BatchStream, ExecNode
+from ..runtime import integrity
 from ..runtime.context import TaskContext
 from ..schema import Schema
+
+
+def collect_blob(batches: Iterable[RecordBatch]) -> bytes:
+    """A batch stream as ONE blob: a frame per batch, checksummed with
+    ``integrity.FRAME_ALGO``, closed by a block trailer, so a consumer
+    detects a flipped byte and a missing whole frame."""
+    algo = integrity.FRAME_ALGO
+    frames: List[bytes] = []
+    xor = 0
+    for b in batches:
+        frame = compress_frame(serialize_batch(b), checksum_algo=algo)
+        xor ^= struct.unpack("<BI", frame[-5:])[1]
+        frames.append(frame)
+    frames.append(block_trailer(len(frames), xor, algo))
+    return b"".join(frames)
+
+
+class IpcWriterExec(ExecNode):
+    """A broadcast stage's task: drains the child's partition into a
+    blob registered under ``<resource_id>.<partition>``; the output
+    stream is empty."""
+
+    def __init__(self, child: ExecNode, resource_id: str):
+        super().__init__([child])
+        self.resource_id = resource_id
+
+    @property
+    def schema(self) -> Schema:
+        return self.children[0].schema
+
+    def execute(self, partition: int, ctx: TaskContext) -> BatchStream:
+        def stream():
+            blob = collect_blob(self.children[0].execute(partition, ctx))
+            if not ctx.is_task_running():
+                return  # a cancelled drain is partial: never published
+            ctx.resources.put(f"{self.resource_id}.{partition}", blob)
+            return
+            yield  # an empty stream
+
+        return stream()
 
 
 class BroadcastExchangeExec(ExecNode):

@@ -1,18 +1,31 @@
-"""Shuffle exchange, in process (≙ the in-process path of
-``blaze_tpu/parallel/exchange.py`` ``NativeShuffleExchangeExec``).
+"""Shuffle exchange (≙ ``blaze_tpu/parallel/exchange.py``
+``NativeShuffleExchangeExec``).
 
 The first reduce partition to run materializes the exchange: every map
-partition of the child runs (serially in this port), each batch's rows
-are sorted by partition id on the device, all pid counts come to the
-host in one copy, and each reduce partition's row ranges are sliced
-out and concatenated into one device batch.  Output stays on the
-device for the plan's lifetime, so a retried partition re-reads it.
-The file shuffle of the reference is not ported yet.
+partition of the child runs (serially in this port).
+
+- In process (``spark.blaze.exchange.inProcess``, the default): each
+  batch's rows are sorted by partition id on the device, all pid counts
+  come to the host in one copy, and each reduce partition's row ranges
+  are sliced out and concatenated into one device batch.  Output stays
+  on the device for the plan's lifetime, so a retried partition
+  re-reads it.
+- Through files (the conf set false): each map task runs a
+  ``ShuffleWriterExec`` into this exchange's ``LocalShuffleManager``
+  (a temporary directory removed with the exchange), and each reduce
+  partition reads its blocks back through an ``IpcReaderExec``; the
+  manager's ``map_writer`` and ``reduce_registration`` are the steps
+  the stage scheduler takes too.
+
+``shuffle_id`` is process-unique; ``runtime/scheduler.split_stages``
+names the stage's shuffle files by it.
 """
 
 from __future__ import annotations
 
+import itertools
 import threading
+import weakref
 from typing import List, Optional
 
 from .. import conf
@@ -20,15 +33,22 @@ from ..batch import RecordBatch, concat_batches
 from ..ops.base import BatchStream, ExecNode
 from ..runtime.context import TaskContext
 from ..schema import Schema
-from .shuffle import HashPartitioning, Partitioning, hash_pids, sort_by_pid, split_by_counts
+from .shuffle import (
+    HashPartitioning, IpcReaderExec, LocalShuffleManager, Partitioning, hash_pids, sort_by_pid,
+    split_by_counts,
+)
+
+_shuffle_ids = itertools.count()
 
 
 class NativeShuffleExchangeExec(ExecNode):
     def __init__(self, child: ExecNode, partitioning: Partitioning):
         super().__init__([child])
         self.partitioning = partitioning
+        self.shuffle_id = next(_shuffle_ids)
         self._lock = threading.Lock()
         self._outputs: Optional[List[List[RecordBatch]]] = None
+        self._manager: Optional[LocalShuffleManager] = None
 
     @property
     def schema(self) -> Schema:
@@ -62,9 +82,39 @@ class NativeShuffleExchangeExec(ExecNode):
             parts = split_by_counts(pending, n_out)
             return [[concat_batches(p)] if p else [] for p in parts]
 
+    def _write_map_outputs(self, caller: TaskContext) -> Optional[LocalShuffleManager]:
+        """Every map task into a manager owned by this exchange; None
+        when cancelled."""
+        manager = LocalShuffleManager()
+        weakref.finalize(self, manager.cleanup)
+        child = self.children[0]
+        n_maps = child.num_partitions()
+        for m in range(n_maps):
+            writer = manager.map_writer(child, self.partitioning, self.shuffle_id, m)
+            writer.metrics = self.metrics  # one metric set across the map tasks
+            for _ in writer.execute(m, caller.child_context(m, n_maps)):
+                pass
+            if not caller.is_task_running():
+                return None
+        return manager
+
+    def _file_stream(self, partition: int, ctx: TaskContext) -> BatchStream:
+        with self._lock:
+            if self._manager is None:
+                self._manager = self._write_map_outputs(ctx)
+            manager = self._manager
+        if manager is None:
+            return
+        reader = IpcReaderExec(self.schema, f"shuffle_{self.shuffle_id}", self.num_partitions(),
+                               self.device)
+        reader.metrics = self.metrics
+        with manager.reduce_registration(ctx.resources, self.shuffle_id,
+                                         self.children[0].num_partitions(), partition):
+            yield from reader.execute(partition, ctx)
+
     def execute(self, partition: int, ctx: TaskContext) -> BatchStream:
         if not bool(conf.EXCHANGE_IN_PROCESS.get()):
-            raise NotImplementedError("the file shuffle is not ported; only the in-process exchange")
+            return self._file_stream(partition, ctx)
 
         def stream():
             with self._lock:

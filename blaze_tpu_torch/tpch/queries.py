@@ -37,7 +37,7 @@ dec12 = lambda v: lit(v, DataType.decimal(12, 2))
 def two_stage_agg(child: ExecNode, groupings: List[GroupingExpr],
                   aggs: List[AggFunction], n_out: int) -> ExecNode:
     """partial -> exchange on the group keys -> final."""
-    partial = AggExec(child, AggMode.PARTIAL, groupings, aggs)
+    partial = AggExec(child, AggMode.PARTIAL, groupings, aggs, supports_partial_skipping=True)
     if groupings:
         part = HashPartitioning([col(g.name) for g in groupings], n_out)
     else:

@@ -28,14 +28,29 @@ Needs one CUDA card and ``nvcc`` (``/usr/local/cuda``).  In order, it:
    the retired ``BLAZE_TPU_PALLAS_ENABLE=0`` set; then times
    ``pid_histogram`` on the largest inputs q01 and q03 gave it, and
    ``murmur3_pids`` and ``sorted_lookup`` on q03's;
-5. reads the CUPTI device time of every timed call in one
+5. runs q06, q01 and q03 again, the same scans, through the plan
+   contract: ``split_stages`` cuts each plan at its exchanges,
+   ``run_stages`` serializes every task to TaskDefinition bytes and runs
+   it through ``run_task``, hash exchanges go through ``.data``/``.index``
+   files and broadcasts through checksummed blobs; each must equal its
+   oracle and the in-process result, and launch each kernel as often as
+   in process (launch counts reset just before each query); prints its
+   stages and tasks, TaskDefinition bytes, ``.data`` bytes, blocks read,
+   checksum-verified frames, the file path's host/device copies and its
+   wall beside the in-process wall; then flips one byte of one committed
+   q06 ``.data`` file and requires the reduce task to raise
+   ``BlockCorruptionError``; one more untimed run of each query through
+   ``run_stages`` counts its syncs with the card (CUDA sync debug mode),
+   q03's under cProfile;
+6. reads the CUPTI device time of every timed call in one
    ``torch.profiler`` session, and counts every device operation one
    ``pid_histogram`` call issues on each path (one on paths (a) and
    (b), or it fails); then runs q01 and q03 once more under
    ``torch.profiler`` and prints the device's busy share of each run,
    the kernels that take its time, and the hand-written kernels' device
    time at the shapes the query gives them;
-6. prints the ``kernels`` JSON line, then ``{"ok": true, ...}`` last.
+7. prints where each phase ended on the host clock, the ``kernels``
+   JSON line, then ``{"ok": true, ...}`` last.
 
 Any failure raises and exits nonzero before the last line; without a
 CUDA card it exits 2.  Nothing here imports JAX or ``blaze_tpu``.
@@ -56,6 +71,7 @@ from pathlib import Path
 from typing import Dict
 
 REPO = Path(__file__).resolve().parent
+T0 = time.perf_counter()
 
 # NVIDIA H100 SXM data-sheet peaks
 HBM_BYTES_PER_S = 3.35e12
@@ -587,6 +603,142 @@ def largest_inputs(cuda_ops):
         cuda_ops.murmur3_pids, cuda_ops.sorted_lookup, cuda_ops.pid_histogram = m3, sl, ph
 
 
+_ORACLES: Dict[tuple, object] = {}
+
+
+def oracle(O, data, query: str):
+    """The query's numpy oracle on ``data``, computed once a run (q01's
+    takes seconds at SF1, and both paths are held to it)."""
+    key = (id(data), query)
+    if key not in _ORACLES:
+        _ORACLES[key] = {"q6": O.oracle_q6, "q1": O.oracle_q1, "q3": O.oracle_q3}[query](data)
+    return _ORACLES[key]
+
+
+def check_oracle(O, data, query: str, got: dict) -> str:
+    """Raises unless ``got`` equals the query's numpy oracle exactly
+    (q03: the top 10 (orderkey, revenue) pairs, in descending revenue:
+    ties may order differently); says what matched."""
+    if query == "q6":
+        want = oracle(O, data, query)
+        if got["revenue"] != [want]:
+            raise AssertionError(f"q06: {got['revenue']} != oracle {want}")
+        return f"revenue {want} (unscaled, scale 4) = oracle"
+    if query == "q1":
+        exp = oracle(O, data, query)
+        keys = list(zip(got["l_returnflag"], got["l_linestatus"]))
+        if keys != sorted(exp):
+            raise AssertionError(f"q01 groups {keys} != oracle {sorted(exp)}")
+        for i, key in enumerate(keys):
+            row = {m: got[m][i] for m in exp[key]}
+            if row != exp[key]:
+                raise AssertionError(f"q01 group {key}: {row} != oracle {exp[key]}")
+        return f"{len(keys)} groups = oracle"
+    exp = oracle(O, data, query)
+    rows = list(zip(got["l_orderkey"], got["revenue"]))
+    if len(rows) != len(exp) or set(rows) != {(r[0], r[1]) for r in exp}:
+        raise AssertionError(f"q03: {rows} != oracle {[(r[0], r[1]) for r in exp]}")
+    if [r[1] for r in rows] != sorted((r[1] for r in rows), reverse=True):
+        raise AssertionError("q03: rows not in descending revenue order")
+    return f"top {len(rows)} = oracle"
+
+
+def run_scheduled(torch, cuda_ops, query: str, scans, n_parts: int):
+    """One query through split_stages + run_stages, every task from its
+    TaskDefinition bytes, with the launch, copy and verified-frame counts
+    reset just before it; returns (rows, wall, launches, what moved)."""
+    from blaze_tpu_torch import batch as B
+    from blaze_tpu_torch.runtime import integrity
+    from blaze_tpu_torch.runtime.context import RESOURCES
+    from blaze_tpu_torch.runtime.scheduler import RunStats, run_stages, split_stages
+    from blaze_tpu_torch.tpch import build_query
+
+    stages, manager = split_stages(build_query(query, scans, n_parts))
+    stats = RunStats()
+    cuda_ops.reset_launch_counts()
+    B.reset_copy_counts()
+    integrity.COUNTS["frames_verified"] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batches = list(run_stages(stages, manager, stats))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(cuda_ops.LAUNCHES)
+    if len(RESOURCES) or os.path.exists(manager.root):
+        raise AssertionError(f"{query}: run_stages left resources {RESOURCES.keys()} or {manager.root}")
+    out = {f.name: [] for f in stages[-1].plan.schema.fields}
+    for b in batches:
+        for k, v in B.batch_to_pydict(b).items():
+            out[k].extend(v)
+    moved = {"stages": len(stages), "tasks": stats.tasks, "kinds": [s.kind for s in stages],
+             "task_def_bytes": stats.task_def_bytes, "data_bytes": stats.data_bytes,
+             "blocks_read": stats.blocks, "broadcast_bytes": stats.broadcast_bytes,
+             "frames_verified": integrity.COUNTS["frames_verified"], **B.COPIES,
+             "stage_seconds": stats.stage_seconds}
+    return out, wall, launches, moved
+
+
+def count_syncs(torch, fn, host_profile: bool = False):
+    """Runs ``fn`` once, untimed, with CUDA's sync debug mode warning on
+    every operation that waits for the card; returns the warnings and,
+    with ``host_profile``, the host functions that took the most time
+    under cProfile (else None)."""
+    import cProfile
+    import io
+    import pstats
+    import warnings
+
+    prof = cProfile.Profile() if host_profile else None
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            if prof:
+                prof.enable()
+            fn()
+            if prof:
+                prof.disable()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    if not prof:
+        return syncs, None
+    text = io.StringIO()
+    pstats.Stats(prof, stream=text).sort_stats("tottime").print_stats(10)
+    return syncs, "\n".join(line for line in text.getvalue().splitlines() if line.strip())
+
+
+def corrupt_block_check(scans, n_parts: int) -> str:
+    """q06's map stage through the scheduler, one byte of one committed
+    .data file flipped, then its reduce task: it must raise
+    BlockCorruptionError (only that class is caught)."""
+    from blaze_tpu_torch.runtime import integrity
+    from blaze_tpu_torch.runtime.context import RESOURCES
+    from blaze_tpu_torch.runtime.scheduler import StageRunner, split_stages
+    from blaze_tpu_torch.tpch import build_query
+
+    stages, manager = split_stages(build_query("q6", scans, n_parts))
+    try:
+        runner = StageRunner(manager)
+        for stage in stages[:-1]:
+            for _ in runner.run_stage(stage):
+                pass
+        path = manager.map_output_paths(stages[0].shuffle_id, 0)[0]
+        offset = integrity.flip_byte_in_file(path)
+        try:
+            for _ in runner.run_stage(stages[-1]):
+                pass
+        except integrity.BlockCorruptionError as e:
+            caught = f"byte {offset} of {os.path.basename(path)} flipped: {e}"
+        else:
+            raise AssertionError("q06's reduce task read a corrupted block without BlockCorruptionError")
+    finally:
+        manager.cleanup()
+    if len(RESOURCES):
+        raise AssertionError(f"the failed reduce task left resources {RESOURCES.keys()}")
+    return caught
+
+
 def require_launches(query: str, launches: dict, launched, not_launched=()) -> None:
     for name in launched:
         if launches[name] <= 0:
@@ -617,6 +769,9 @@ def main() -> int:
     log(card)
     log("torch", torch.__version__, "cuda", torch.version.cuda, "device", torch.cuda.get_device_name(0))
 
+    # seconds on the host clock from the start of the script to the end of each phase
+    phases = []
+
     # ---- build; beside it, the PR 3 pid_histogram design that the shipped one is timed against
     t0 = time.perf_counter()
     cuda_ops.reset_launch_counts()
@@ -635,6 +790,7 @@ def main() -> int:
         if "ptxas info" in line:
             log("  " + line.strip())
 
+    phases.append(("build", time.perf_counter() - T0))
     # ---- host tables (set-up, not timed)
     t0 = time.perf_counter()
     data = tpch_data(args.scale)
@@ -642,6 +798,7 @@ def main() -> int:
         f"{k} {next(iter(v.values()))[0].shape[0]} rows" for k, v in data.items())
         + f" ({time.perf_counter() - t0:.1f} s)")
 
+    phases.append(("tables", time.perf_counter() - T0))
     # ---- kernels against their plain versions, main-path shapes
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     one = torch.zeros(1, device="cuda")
@@ -722,29 +879,21 @@ def main() -> int:
         log_check(name, r)
     log(f"fused_group_sums [{gq['shape']}]: max relative error to float64 sums {gq['max_rel_err_f64']:.3g}")
 
+    phases.append(("kernel checks", time.perf_counter() - T0))
     # ---- the main path: q06, q01, q03, each with the counts reset just before it
     n_parts, batch_rows = 8, 1 << 20
     runs = {}
-    got, wall, runs["q6"] = run_query(torch, cuda_ops, "q6", tpch_scans(data, "q6", n_parts, batch_rows),
-                                      n_parts)
-    want6 = O.oracle_q6(data)
-    if got["revenue"] != [want6]:
-        raise AssertionError(f"q06: {got['revenue']} != oracle {want6}")
-    log(f"q06 SF{args.scale}: revenue {want6} (unscaled, scale 4) = oracle; wall {wall:.4f} s; "
-        f"launches {runs['q6']}")
+    q6_scans = tpch_scans(data, "q6", n_parts, batch_rows)
+    inproc = {}
+    got, wall, runs["q6"] = run_query(torch, cuda_ops, "q6", q6_scans, n_parts)
+    inproc["q6"] = (got, wall)
+    log(f"q06 SF{args.scale}: {check_oracle(O, data, 'q6', got)}; wall {wall:.4f} s; launches {runs['q6']}")
 
     q1_scans = tpch_scans(data, "q1", n_parts, batch_rows)
     with largest_inputs(cuda_ops) as q1_inputs:
         got, wall, runs["q1"] = run_query(torch, cuda_ops, "q1", q1_scans, n_parts)
-    exp = O.oracle_q1(data)
-    keys = list(zip(got["l_returnflag"], got["l_linestatus"]))
-    if keys != sorted(exp):
-        raise AssertionError(f"q01 groups {keys} != oracle {sorted(exp)}")
-    for i, key in enumerate(keys):
-        row = {m: got[m][i] for m in exp[key]}
-        if row != exp[key]:
-            raise AssertionError(f"q01 group {key}: {row} != oracle {exp[key]}")
-    log(f"q01 SF{args.scale} (8 partitions, 2^20-row batches): {len(keys)} groups = oracle; "
+    inproc["q1"] = (got, wall)
+    log(f"q01 SF{args.scale} (8 partitions, 2^20-row batches): {check_oracle(O, data, 'q1', got)}; "
         f"wall {wall:.4f} s; launches {runs['q1']}")
     require_launches("q01", runs["q1"], ("pid_histogram",), ("murmur3_pids",))
 
@@ -755,16 +904,43 @@ def main() -> int:
     with largest_inputs(cuda_ops) as q3_inputs:
         got, wall, runs["q3"] = run_query(torch, cuda_ops, "q3", q3_scans, n_parts)
     del os.environ["BLAZE_TPU_PALLAS_ENABLE"]
-    exp = O.oracle_q3(data)
-    rows = list(zip(got["l_orderkey"], got["revenue"]))
-    if len(rows) != len(exp) or set(rows) != {(r[0], r[1]) for r in exp}:
-        raise AssertionError(f"q03: {rows} != oracle {[(r[0], r[1]) for r in exp]}")
-    if [r[1] for r in rows] != sorted((r[1] for r in rows), reverse=True):
-        raise AssertionError("q03: rows not in descending revenue order")
-    log(f"q03 SF{args.scale} (8 partitions, 2^20-row batches): top {len(rows)} = oracle; "
+    inproc["q3"] = (got, wall)
+    log(f"q03 SF{args.scale} (8 partitions, 2^20-row batches): {check_oracle(O, data, 'q3', got)}; "
         f"wall {wall:.4f} s; launches {runs['q3']}")
     require_launches("q03", runs["q3"], ("murmur3_pids", "pid_histogram", "sorted_lookup"))
 
+    phases.append(("queries in process", time.perf_counter() - T0))
+    # ---- the same three queries through the plan contract: every task
+    # from TaskDefinition bytes, hash exchanges through .data/.index files
+    sched_runs = {}
+    for query, scans in (("q6", q6_scans), ("q1", q1_scans), ("q3", q3_scans)):
+        got, wall, sched_runs[query], moved = run_scheduled(torch, cuda_ops, query, scans, n_parts)
+        check_oracle(O, data, query, got)
+        if got != inproc[query][0]:
+            raise AssertionError(f"{query} through run_stages: {got} != in process {inproc[query][0]}")
+        if sched_runs[query] != runs[query]:
+            raise AssertionError(f"{query} through run_stages launched {sched_runs[query]}, "
+                                 f"in process {runs[query]}")
+        log(f"{query} SF{args.scale} through split_stages/run_stages: = oracle and = in process; "
+            f"stages {moved['kinds']}, {moved['tasks']} tasks, TaskDefinition bytes {moved['task_def_bytes']}, "
+            f".data bytes {moved['data_bytes']}, blocks read {moved['blocks_read']}, broadcast bytes "
+            f"{moved['broadcast_bytes']}, checksum-verified frames {moved['frames_verified']}, copies "
+            f"device-to-host {moved['device_to_host']} host-to-device {moved['host_to_device']}; "
+            f"wall {wall:.4f} s (in process {inproc[query][1]:.4f} s); launches {sched_runs[query]}")
+        # q03's shuffle is the one with bytes: where its host time goes
+        syncs, host = count_syncs(torch, lambda: run_scheduled(torch, cuda_ops, query, scans, n_parts),
+                                  host_profile=query == "q3")
+        log(f"{query} syncs with the card through run_stages: {syncs}; "
+            f"stage seconds {[round(t, 4) for t in moved['stage_seconds']]}")
+        if host:
+            log(f"{query} through run_stages, the host's time by function (cProfile, the same untimed run):\n"
+                + host[-3000:])
+        log("scheduler " + json.dumps({"query": query, "wall_s": wall, "inproc_wall_s": inproc[query][1],
+                                       "launches": sched_runs[query], "syncs": syncs, **moved}))
+    require_launches("q06 (run_stages)", sched_runs["q6"], (), tuple(runs["q6"]))
+    log("corrupted block: " + corrupt_block_check(q6_scans, n_parts))
+
+    phases.append(("queries through run_stages", time.perf_counter() - T0))
     # ---- the redesigned kernels again, on the largest inputs q01 and q03 gave them
     at_query: Dict[str, list] = {"murmur3_pids": [], "sorted_lookup": [], "pid_histogram": []}
     for query, seen in (("q01", q1_inputs), ("q03", q3_inputs)):
@@ -788,6 +964,7 @@ def main() -> int:
             at_query["sorted_lookup"].append(r)
             log_check("sorted_lookup", r)
 
+    phases.append(("kernels at query shapes", time.perf_counter() - T0))
     # ---- the timed kernels' own device time, the same calls again; and
     # every device operation one pid_histogram call issues, on each path
     timed_calls = [(name, r) for name, r in checks if "device_job" in r]
@@ -818,8 +995,12 @@ def main() -> int:
         if label != "global atomics" and k != 1:
             raise AssertionError(f"pid_histogram [{label}]: {k:g} device operations a call, not 1")
 
+    phases.append(("device times", time.perf_counter() - T0))
     profile_query(torch, "q01", build_query("q1", q1_scans, n_parts))
     profile_query(torch, "q03", build_query("q3", q3_scans, n_parts))
+    phases.append(("profiled queries", time.perf_counter() - T0))
+    log("phase ends, seconds from the start of the script: "
+        + ", ".join(f"{name} {t:.1f}" for name, t in phases))
 
     timed = {"murmur3_pids": m3, "sorted_lookup": sl, "pid_histogram": h8, "fused_group_sums": gq}
     errs: Dict[str, float] = {}
@@ -836,6 +1017,7 @@ def main() -> int:
             "replaces": f"blaze_tpu/kernels/pallas_ops.py:{line}",
             "launches": sum(run[name] for run in runs.values()),
             "launches_q01": runs["q1"][name], "launches_q03": runs["q3"][name],
+            "launches_run_stages": {q: run[name] for q, run in sched_runs.items()},
             "shape": r["shape"], "max_abs_err": errs[name], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "device_ms": r.get("device_ms"),
