@@ -2,9 +2,11 @@
 ops over columns (≙ ``blaze_tpu/exprs``)."""
 
 from .compile import infer_dtype, lower
-from .ir import Alias, BinOp, Col, Expr, IsNotNull, IsNull, Lit, Not, col, lit
+from .ir import (
+    Alias, BinOp, Case, Col, Expr, InList, IsNotNull, IsNull, Like, Lit, Not, col, lit,
+)
 
 __all__ = [
-    "Alias", "BinOp", "Col", "Expr", "IsNotNull", "IsNull", "Lit", "Not",
-    "col", "lit", "infer_dtype", "lower",
+    "Alias", "BinOp", "Case", "Col", "Expr", "InList", "IsNotNull", "IsNull", "Like", "Lit",
+    "Not", "col", "lit", "infer_dtype", "lower",
 ]

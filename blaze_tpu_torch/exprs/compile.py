@@ -1,22 +1,22 @@
 """Expression lowering: IR -> torch ops over Columns
-(≙ ``blaze_tpu/exprs/compile.py`` ``lower``, for the expressions the
-TPC-H q03/q06 slice reaches).
+(≙ ``blaze_tpu/exprs/compile.py`` ``lower``).
 
 Spark three-valued null logic is carried as (data, validity) pairs.
 Data in invalid rows may be garbage; every lowering is garbage-safe.
-Decimals are unscaled int64 with Spark result types; products whose
-precision can exceed int64 run on exact two-limb int128
-(``exprs/int128.py``) with HALF_UP rescale and overflow-to-null.
-Everything else raises ``NotImplementedError``: this slice lowers
-column refs, literals, comparisons, AND/OR/NOT, IS [NOT] NULL,
-integer/float ``+ - *``, decimal ``+ - *`` and aliases.
+Decimals are unscaled int64 with Spark result types; products and
+quotients whose precision can exceed int64 run on exact two-limb
+int128 (``exprs/int128.py``) with HALF_UP rounding and overflow to
+null.  The port lowers column refs, literals, aliases, comparisons,
+AND/OR/NOT, IS [NOT] NULL, ``+ - * / %`` over integers, floats and
+decimals, CASE, IN and the LIKE patterns with at most one inner
+segment and no ``_``; anything else raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import datetime
 from decimal import Decimal
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -27,12 +27,13 @@ from ..schema import (
     Schema,
     TypeKind,
     decimal_add_type,
+    decimal_div_type,
     decimal_mul_type,
     string_width_for,
 )
 from . import int128 as I
 from . import strings as S
-from .ir import Alias, BinOp, Col, Expr, IsNotNull, IsNull, Lit, Not
+from .ir import Alias, BinOp, Case, Col, Expr, InList, IsNotNull, IsNull, Like, Lit, Not
 
 _RANK = {
     TypeKind.INT8: 0,
@@ -109,7 +110,7 @@ def infer_dtype(expr: Expr, schema: Schema) -> DataType:
         return infer_dtype(expr.child, schema)
     if isinstance(expr, Lit):
         return infer_lit_dtype(expr.value, expr.dtype)
-    if isinstance(expr, (IsNull, IsNotNull, Not)):
+    if isinstance(expr, (IsNull, IsNotNull, Not, InList, Like)):
         return DataType.bool_()
     if isinstance(expr, BinOp):
         if expr.op in _CMP_OPS or expr.op in _LOGIC_OPS:
@@ -117,13 +118,30 @@ def infer_dtype(expr: Expr, schema: Schema) -> DataType:
         lt = infer_dtype(expr.left, schema)
         rt = infer_dtype(expr.right, schema)
         if (lt.is_decimal or rt.is_decimal) and not (lt.is_float or rt.is_float):
-            if expr.op in ("+", "-"):
-                return decimal_add_type(_as_decimal(lt), _as_decimal(rt))
-            if expr.op == "*":
-                return decimal_mul_type(_as_decimal(lt), _as_decimal(rt))
-            raise NotImplementedError(f"decimal {expr.op}")
+            return _decimal_result_type(expr.op, _as_decimal(lt), _as_decimal(rt))
+        if expr.op == "/":
+            return DataType.float64()
         return _common_type(lt, rt)
+    if isinstance(expr, Case):
+        t = DataType.null()
+        for _, v in expr.branches:
+            t = _common_type(t, infer_dtype(v, schema))
+        if expr.else_ is not None:
+            t = _common_type(t, infer_dtype(expr.else_, schema))
+        return t
     raise NotImplementedError(f"type of {type(expr).__name__}")
+
+
+def _decimal_result_type(op: str, a: DataType, b: DataType) -> DataType:
+    if op in ("+", "-"):
+        return decimal_add_type(a, b)
+    if op == "*":
+        return decimal_mul_type(a, b)
+    if op == "/":
+        return decimal_div_type(a, b)
+    if op == "%":
+        return DataType.decimal(min(38, max(a.precision, b.precision)), max(a.scale, b.scale))
+    raise NotImplementedError(f"decimal {op}")
 
 
 # ------------------------------------------------------------- decimals
@@ -178,7 +196,11 @@ def _coerce(col: Column, to: DataType) -> Column:
         data = col.data.to(torch.int64) * 10**to.scale
         return Column(to, data, decimal_overflow_null(data, col.validity, to.precision))
     if to.is_float and col.dtype.is_decimal:
-        data = col.data.to(torch.float64) / float(10**col.dtype.scale)
+        # a float64 tensor on the column's device, not a python float:
+        # CUDA multiplies by the reciprocal of a host scalar divisor,
+        # which can be an ulp off the correctly rounded quotient
+        scale = torch.full((), float(10**col.dtype.scale), dtype=torch.float64, device=col.device)
+        data = col.data.to(torch.float64) / scale
         return Column(to, data.to(torch_dtype(to)), col.validity)
     if to.kind in _RANK and (col.dtype.kind in _RANK or col.dtype.kind == TypeKind.BOOL):
         return Column(to, col.data.to(torch_dtype(to)), col.validity)
@@ -249,23 +271,108 @@ def _decimal_binop(op: str, l: Column, r: Column) -> Column:
             data, fits = I.to_i64(hi, lo)
         validity = validity & fits
         return Column(out_t, data, decimal_overflow_null(data, validity, out_t.precision))
+    if op == "/":
+        return _decimal_div(ld, rd, validity)
+    if op == "%":
+        out_t = _decimal_result_type("%", ld.dtype, rd.dtype)
+        a = rescale_decimal(ld.data, ld.dtype.scale, out_t.scale)
+        b = rescale_decimal(rd.data, rd.dtype.scale, out_t.scale)
+        # x % -1 == x % 1 == 0, and -1 would trap on INT64_MIN
+        den = torch.where((b == 0) | (b == -1), 1, b)
+        return Column(out_t, torch.fmod(a, den), validity & (b != 0))
     raise NotImplementedError(f"decimal {op}")
+
+
+def _div_half_up_i64(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
+    """HALF_UP ``num / den`` for int64 operands whose magnitudes leave
+    room for ``|num| + |den| / 2`` (``den`` nonzero)."""
+    an, ad = num.abs(), den.abs()
+    q = (an + ad // 2) // ad
+    return torch.where((num < 0) ^ (den < 0), -q, q)
+
+
+def _decimal_div(ld: Column, rd: Column, validity: torch.Tensor) -> Column:
+    """decimal / decimal with Spark's result type: the quotient at the
+    result scale, HALF_UP; a zero divisor or a quotient past the
+    precision gives null."""
+    out_t = decimal_div_type(ld.dtype, rd.dtype)
+    validity = validity & (rd.data != 0)
+    # num * 10^shift / den is the unscaled quotient at the result scale
+    shift = out_t.scale - ld.dtype.scale + rd.dtype.scale
+    den = torch.where(rd.data == 0, 1, rd.data)
+    if ld.dtype.precision + shift <= 18:
+        # the shifted numerator provably fits int64
+        q = _div_half_up_i64(ld.data * 10**shift, den)
+        return Column(out_t, q, decimal_overflow_null(q, validity, out_t.precision))
+    hi, lo = I.from_i64(ld.data)
+    if shift >= 0:
+        # mul_pow10 wraps past 2^127: a numerator whose shifted value
+        # cannot fit int128 has a quotient past 38 digits: null
+        lim = (2**127 - 1) // 10**shift
+        if lim < 2**63:
+            fits_num = ld.data.abs() <= lim
+            validity = validity & fits_num
+            hi = torch.where(fits_num, hi, 0)
+            lo = torch.where(fits_num, lo, 0)
+        hi, lo = I.mul_pow10(hi, lo, shift)
+        q, fits = I.div_round_half_up(hi, lo, den)
+    else:
+        # a down-shift folds into the divisor (one rounding).  Where the
+        # folded divisor passes int64, |quotient| <= 1: HALF_UP gives
+        # +-1 iff 2|num| >= |den| * 10^k (an exact int128 compare), else 0
+        k10 = -shift
+        if k10 <= 18:
+            fits_den = den.abs() <= (2**63 - 1) // 10**k10
+            folded = torch.where(fits_den, den * 10**k10, 1)
+        else:
+            fits_den = torch.zeros_like(validity)
+            folded = torch.ones_like(den)
+        if k10 <= 19:
+            # |den| * 10^19 < 2^127: exact
+            dh, dl = I.mul_pow10(*I.abs128(*I.from_i64(rd.data)), k10)
+            nh, nl = I.abs128(*I.from_i64(ld.data))
+            nh, nl = I.add(nh, nl, nh, nl)
+            ge_half = (dh < nh) | ((dh == nh) & ~I.ult(nl, dl))
+        else:
+            # |den| * 10^20 > 2|num| for every int64 num
+            ge_half = torch.zeros_like(validity)
+        neg = (ld.data < 0) ^ (rd.data < 0)
+        tiny = torch.where(ge_half, torch.where(neg, -1, 1), 0)
+        q, fits = I.div_round_half_up(hi, lo, folded)
+        q = torch.where(fits_den, q, tiny)
+        fits = fits | ~fits_den
+    validity = validity & fits
+    return Column(out_t, q, decimal_overflow_null(q, validity, out_t.precision))
 
 
 def _arith(op: str, l: Column, r: Column) -> Column:
     if (l.dtype.is_decimal or r.dtype.is_decimal) and not (l.dtype.is_float or r.dtype.is_float):
         return _decimal_binop(op, l, r)
+    validity = l.validity & r.validity
+    if op == "/":
+        # Spark's `/` is double division; a zero divisor gives null
+        a, b = _coerce(l, DataType.float64()).data, _coerce(r, DataType.float64()).data
+        den = torch.where(b == 0, 1.0, b)
+        return Column(DataType.float64(), a / den, validity & (b != 0))
     common = _common_type(l.dtype, r.dtype)
-    l, r = _coerce(l, common), _coerce(r, common)
+    a, b = _coerce(l, common).data, _coerce(r, common).data
     if op == "+":
-        data = l.data + r.data
+        data = a + b
     elif op == "-":
-        data = l.data - r.data
+        data = a - b
     elif op == "*":
-        data = l.data * r.data
+        data = a * b
+    elif op == "%":
+        # the sign of the dividend, as Spark's (and lax.rem's); a zero
+        # divisor gives null, and an integer -1 divides as 1 (the same
+        # 0, without INT_MIN's trap)
+        zero = b == 0
+        den = torch.where(zero | (b == -1), 1, b) if not common.is_float else torch.where(zero, 1.0, b)
+        data = torch.fmod(a, den)
+        validity = validity & ~zero
     else:
         raise NotImplementedError(op)
-    return Column(common, data, l.validity & r.validity)
+    return Column(common, data, validity)
 
 
 def _cmp(op: str, l: Column, r: Column) -> Column:
@@ -321,4 +428,75 @@ def lower(expr: Expr, schema: Schema, cols: Dict[str, Column], n: int) -> Column
         if expr.op in _CMP_OPS:
             return _cmp(expr.op, l, r)
         return _arith(expr.op, l, r)
+    if isinstance(expr, InList):
+        return _lower_in(expr, schema, cols, n)
+    if isinstance(expr, Like):
+        return _lower_like(expr, schema, cols, n)
+    if isinstance(expr, Case):
+        return _lower_case(expr, schema, cols, n)
     raise NotImplementedError(f"lowering of {type(expr).__name__}")
+
+
+def _lower_in(expr: InList, schema: Schema, cols: Dict[str, Column], n: int) -> Column:
+    """``child IN (v...)`` as an OR of equalities, three-valued: a null
+    child is null, and so is no match with a null in the list."""
+    c = lower(expr.child, schema, cols, n)
+    acc = None
+    for v in expr.values:
+        eq = _cmp("==", c, lower(v, schema, cols, n))
+        acc = eq if acc is None else _logic("or", acc, eq)
+    if expr.negated:
+        return Column(DataType.bool_(), ~acc.data, acc.validity)
+    return acc
+
+
+def _lower_case(expr: Case, schema: Schema, cols: Dict[str, Column], n: int) -> Column:
+    """The first branch whose condition is true (a null condition is
+    false) picks its value; else the ELSE value, or null."""
+    out_t = infer_dtype(expr, schema)
+    if expr.else_ is not None:
+        result = _coerce(lower(expr.else_, schema, cols, n), out_t)
+    else:
+        result = _lit_column(None, out_t, n, next(iter(cols.values())).device)
+    for cond, val in reversed(expr.branches):
+        c = lower(cond, schema, cols, n)
+        v = _coerce(lower(val, schema, cols, n), out_t)
+        picked = c.validity & c.data.to(torch.bool)
+        validity = torch.where(picked, v.validity, result.validity)
+        if out_t.is_string:
+            w = max(v.data.shape[1], result.data.shape[1])
+            data = torch.where(picked[:, None], S.pad_width(v.data, w), S.pad_width(result.data, w))
+            result = Column(out_t, data, validity, torch.where(picked, v.lengths, result.lengths))
+        else:
+            result = Column(out_t, torch.where(picked, v.data, result.data), validity)
+    return result
+
+
+def like_pattern_parts(pattern: str) -> Optional[List[bytes]]:
+    """The pattern split on ``%`` (empty first/last parts: unanchored),
+    or None when it holds ``_``."""
+    if "_" in pattern:
+        return None
+    return [p.encode("utf-8") for p in pattern.split("%")]
+
+
+def _lower_like(expr: Like, schema: Schema, cols: Dict[str, Column], n: int) -> Column:
+    c = lower(expr.child, schema, cols, n)
+    parts = like_pattern_parts(expr.pattern)
+    if parts is None:
+        raise NotImplementedError("LIKE with '_' needs the host evaluator, which is not ported")
+    if len(parts) == 1:
+        v = S.starts_with(c, parts[0]) & (c.lengths == len(parts[0]))
+    else:
+        middle = [p for p in parts[1:-1] if p]
+        if len(middle) == 1 and not parts[0] and not parts[-1]:
+            v = S.contains(c, middle[0])
+        elif middle:
+            raise NotImplementedError("multi-segment LIKE needs the host evaluator, which is not ported")
+        else:
+            v = S.starts_with(c, parts[0]) & S.ends_with(c, parts[-1])
+            # the anchored parts may not overlap
+            v = v & (c.lengths >= len(parts[0]) + len(parts[-1]))
+    if expr.negated:
+        v = ~v
+    return Column(DataType.bool_(), v, c.validity)

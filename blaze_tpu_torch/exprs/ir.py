@@ -8,7 +8,7 @@ A small tree with python operator sugar for building plans:
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Optional
+from typing import Any, List, Optional, Tuple
 
 from ..schema import DataType
 
@@ -23,6 +23,8 @@ class Expr:
     def __rsub__(self, o): return BinOp("-", _wrap(o), self)
     def __mul__(self, o): return BinOp("*", self, _wrap(o))
     def __rmul__(self, o): return BinOp("*", _wrap(o), self)
+    def __truediv__(self, o): return BinOp("/", self, _wrap(o))
+    def __mod__(self, o): return BinOp("%", self, _wrap(o))
     # comparison
     def __eq__(self, o): return BinOp("==", self, _wrap(o))  # type: ignore[override]
     def __ne__(self, o): return BinOp("!=", self, _wrap(o))  # type: ignore[override]
@@ -47,6 +49,9 @@ class Expr:
 
     def is_not_null(self) -> "Expr":
         return IsNotNull(self)
+
+    def isin(self, *values) -> "Expr":
+        return InList(self, [_wrap(v) for v in values])
 
     def alias(self, name: str) -> "Expr":
         return Alias(self, name)
@@ -74,7 +79,7 @@ class Alias(Expr):
 
 @dataclass(eq=False)
 class BinOp(Expr):
-    op: str  # + - * == != < <= > >= and or
+    op: str  # + - * / % == != < <= > >= and or
     left: Expr
     right: Expr
 
@@ -92,6 +97,32 @@ class IsNull(Expr):
 @dataclass(eq=False)
 class IsNotNull(Expr):
     child: Expr
+
+
+@dataclass(eq=False)
+class Case(Expr):
+    """CASE WHEN c1 THEN v1 ... ELSE e END (no ELSE: null)."""
+
+    branches: List[Tuple[Expr, Expr]]
+    else_: Optional[Expr] = None
+
+
+@dataclass(eq=False)
+class InList(Expr):
+    child: Expr
+    values: List[Expr]
+    negated: bool = False
+
+
+@dataclass(eq=False)
+class Like(Expr):
+    """SQL LIKE.  The lowering covers ``abc``, ``abc%``, ``%abc``,
+    ``%abc%`` and ``abc%xyz``; ``_`` and more than one inner segment
+    raise (the reference sends those to its host evaluator)."""
+
+    child: Expr
+    pattern: str
+    negated: bool = False
 
 
 def _wrap(v) -> Expr:

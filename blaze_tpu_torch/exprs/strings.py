@@ -1,5 +1,5 @@
-"""String comparisons over zero-padded (N, W) uint8 columns
-(≙ ``blaze_tpu/exprs/strings.py``).
+"""String comparisons and the LIKE kernels over zero-padded (N, W)
+uint8 columns (≙ ``blaze_tpu/exprs/strings.py``).
 
 Because rows are zero-padded, a string whose tail holds NUL bytes
 compares equal to its NUL-trimmed sibling, as in the reference.
@@ -14,10 +14,14 @@ from ..batch import Column
 from .int128 import SIGN
 
 
+def pad_width(data: torch.Tensor, w: int) -> torch.Tensor:
+    """(N, W) bytes zero-padded to at least ``w`` columns."""
+    return data if data.shape[1] >= w else F.pad(data, (0, w - data.shape[1]))
+
+
 def _common(a: Column, b: Column):
     w = max(a.data.shape[1], b.data.shape[1])
-    pad = lambda d: d if d.shape[1] == w else F.pad(d, (0, w - d.shape[1]))
-    return pad(a.data), pad(b.data)
+    return pad_width(a.data, w), pad_width(b.data, w)
 
 
 def packed_be(data: torch.Tensor) -> torch.Tensor:
@@ -54,3 +58,44 @@ def str_lt(a: Column, b: Column) -> torch.Tensor:
 
 def str_le(a: Column, b: Column) -> torch.Tensor:
     return str_lt(a, b) | str_eq(a, b)
+
+
+def _needle(needle: bytes, device) -> torch.Tensor:
+    return torch.tensor(list(needle), dtype=torch.uint8, device=device)
+
+
+def starts_with(col: Column, needle: bytes) -> torch.Tensor:
+    n, w = col.data.shape
+    if not needle:
+        return torch.ones(n, dtype=torch.bool, device=col.device)
+    if len(needle) > w:
+        return torch.zeros(n, dtype=torch.bool, device=col.device)
+    head = col.data[:, : len(needle)]
+    return (col.lengths >= len(needle)) & torch.all(head == _needle(needle, col.device), dim=1)
+
+
+def ends_with(col: Column, needle: bytes) -> torch.Tensor:
+    n, w = col.data.shape
+    k = len(needle)
+    if not k:
+        return torch.ones(n, dtype=torch.bool, device=col.device)
+    if k > w:
+        return torch.zeros(n, dtype=torch.bool, device=col.device)
+    # the last k bytes of each row, gathered at its own offset
+    start = torch.clamp(col.lengths.to(torch.int64) - k, 0, w - k)
+    tail = torch.gather(col.data, 1, start[:, None] + torch.arange(k, device=col.device))
+    return (col.lengths >= k) & torch.all(tail == _needle(needle, col.device), dim=1)
+
+
+def contains(col: Column, needle: bytes) -> torch.Tensor:
+    n, w = col.data.shape
+    k = len(needle)
+    if not k:
+        return torch.ones(n, dtype=torch.bool, device=col.device)
+    if k > w:
+        return torch.zeros(n, dtype=torch.bool, device=col.device)
+    # every k-byte window (N, W - k + 1, k), matched where it ends
+    # inside the row's length
+    hit = torch.all(col.data.unfold(1, k, 1) == _needle(needle, col.device), dim=2)
+    ends = torch.arange(k, w + 1, device=col.device)
+    return torch.any(hit & (ends[None, :] <= col.lengths[:, None]), dim=1)

@@ -119,6 +119,13 @@ def _state_input_type(a: AggFunction, in_schema: Schema) -> Optional[DataType]:
 # ------------------------------------------------------- key word encode
 
 
+def canonical_float(d: torch.Tensor) -> torch.Tensor:
+    """-0.0 as 0.0 and every NaN as one NaN (Spark's
+    NormalizeFloatingNumbers on grouping keys)."""
+    d = torch.where(d == 0, torch.zeros_like(d), d)
+    return torch.where(torch.isnan(d), torch.full_like(d, float("nan")), d)
+
+
 def encode_key_words(cols: Sequence[Column]) -> List[torch.Tensor]:
     """Equality-preserving int64 words per group column: a null word,
     then the value words (strings: length + big-endian byte words;
@@ -129,8 +136,7 @@ def encode_key_words(cols: Sequence[Column]) -> List[torch.Tensor]:
         if c.dtype.is_string:
             vals = [c.lengths.to(torch.int64)] + list(packed_be(c.data).unbind(1))
         elif c.dtype.is_float:
-            d = torch.where(c.data == 0, torch.zeros_like(c.data), c.data)
-            d = torch.where(torch.isnan(d), torch.full_like(d, float("nan")), d)
+            d = canonical_float(c.data)
             bits = d.view(torch.int32) if d.dtype == torch.float32 else d.view(torch.int64)
             vals = [bits.to(torch.int64)]
         else:
@@ -253,7 +259,10 @@ class AggExec(ExecNode):
         out: List[torch.Tensor] = []
         if seg is not None:
             first = seg.order[seg.starts]
+            # a group's key is its first row's, canonical where it is a float
             out_keys = [c.take(first) for c in key_cols]
+            out_keys = [Column(c.dtype, canonical_float(c.data), c.validity) if c.dtype.is_float else c
+                        for c in out_keys]
         for a, t in zip(self.aggs, self._in_types):
             fields = agg_state_fields(a.fn, t, a.name)
             if merging:

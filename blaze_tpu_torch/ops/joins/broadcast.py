@@ -103,8 +103,8 @@ class BroadcastJoinExec(ExecNode):
     def execute(self, partition: int, ctx: TaskContext) -> BatchStream:
         def stream():
             jmap = self._get_map(ctx)
-            if jmap is None:
-                return  # INNER: no build rows, no output
+            if jmap is None and self.join_type != JoinType.LEFT_ANTI:
+                return  # no build rows: only an anti join has output
             for batch in self.children[1].execute(partition, ctx):
                 if not ctx.is_task_running():
                     return

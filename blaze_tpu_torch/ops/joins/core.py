@@ -28,7 +28,21 @@ SENTINEL = -1  # 0xFFFF_FFFF_FFFF_FFFF: null keys (and nothing else) carry it
 
 
 class JoinType(enum.Enum):
+    """The reference's join types; the port runs INNER, LEFT_SEMI and
+    LEFT_ANTI (the others raise in ``Joiner``)."""
+
     INNER = "inner"
+    LEFT = "left"
+    RIGHT = "right"
+    FULL = "full"
+    LEFT_SEMI = "left_semi"
+    LEFT_ANTI = "left_anti"
+    RIGHT_SEMI = "right_semi"
+    RIGHT_ANTI = "right_anti"
+    EXISTENCE = "existence"
+
+
+SEMI_TYPES = (JoinType.LEFT_SEMI, JoinType.LEFT_ANTI)
 
 
 @dataclass
@@ -95,25 +109,35 @@ def _eq_col(a: Column, b: Column) -> torch.Tensor:
 
 
 class Joiner:
-    """Build/probe driver of an INNER equi-join; the output columns are
-    the left side's, then the right side's."""
+    """Build/probe driver of an equi-join.  INNER outputs the left
+    side's columns, then the right side's; LEFT_SEMI and LEFT_ANTI
+    output the probe rows with (SEMI) or without (ANTI) a match, in
+    the probe's schema.  A null key never matches."""
 
     def __init__(self, probe_schema: Schema, build_schema: Schema,
                  probe_keys: Sequence[Expr], build_keys: Sequence[Expr],
                  join_type: JoinType, probe_is_left: bool):
-        if join_type != JoinType.INNER:
+        if join_type != JoinType.INNER and join_type not in SEMI_TYPES:
             raise NotImplementedError(f"{join_type} join")
+        self.join_type = join_type
         self.probe_schema, self.build_schema = probe_schema, build_schema
         self.probe_keys, self.build_keys = list(probe_keys), list(build_keys)
         self.probe_is_left = probe_is_left
-        left, right = (probe_schema, build_schema) if probe_is_left else (build_schema, probe_schema)
-        self.out_schema = Schema(list(left.fields) + list(right.fields))
+        if join_type in SEMI_TYPES:
+            self.out_schema = probe_schema
+        else:
+            left, right = (probe_schema, build_schema) if probe_is_left else (build_schema, probe_schema)
+            self.out_schema = Schema(list(left.fields) + list(right.fields))
 
     def build_map(self, batch: RecordBatch) -> JoinMap:
         return build_join_map(batch, self.build_keys)
 
-    def probe_batch(self, jmap: JoinMap, batch: RecordBatch) -> Optional[RecordBatch]:
+    def probe_batch(self, jmap: Optional[JoinMap], batch: RecordBatch) -> Optional[RecordBatch]:
+        """The output rows of one probe batch (None when there are none);
+        ``jmap`` None is a build side with no rows."""
         n = batch.num_rows
+        if jmap is None:
+            return batch if self.join_type == JoinType.LEFT_ANTI and n else None
         probe_cols = _key_cols(self.probe_schema, self.probe_keys, batch)
         lo, counts = probe_counts(jmap.sorted_keys, key_hash(probe_cols))
         p_idx, pos = expand_pairs(lo, counts)
@@ -121,6 +145,16 @@ class Joiner:
         keep = torch.ones(p_idx.shape, dtype=torch.bool, device=p_idx.device)
         for pk, bk in zip(probe_cols, jmap.key_cols):
             keep &= _eq_col(pk.take(p_idx), bk.take(b_idx))
+        if self.join_type in SEMI_TYPES:
+            matches = torch.zeros(n, dtype=torch.int64, device=keep.device).scatter_add_(
+                0, p_idx, keep.to(torch.int64))
+            want = matches > 0 if self.join_type == JoinType.LEFT_SEMI else matches == 0
+            rows = torch.nonzero(want).squeeze(1)
+            m = int(rows.shape[0])
+            if m == 0:
+                return None
+            cap = bucket_capacity(m)
+            return RecordBatch(self.out_schema, [c.head(n).take(rows, cap) for c in batch.columns], m)
         kept = torch.nonzero(keep).squeeze(1)
         m = int(kept.shape[0])
         if m == 0:

@@ -36,9 +36,9 @@ class HashJoinExec(ExecNode):
         def stream():
             with self.metrics.timer("build_hash_map_time"):
                 batches = list(self.children[0].execute(partition, ctx))
-                if not batches:
-                    return  # INNER: no build rows, no output
-                jmap = self._joiner.build_map(concat_batches(batches))
+                if not batches and self.join_type != JoinType.LEFT_ANTI:
+                    return  # no build rows: only an anti join has output
+                jmap = self._joiner.build_map(concat_batches(batches)) if batches else None
             for batch in self.children[1].execute(partition, ctx):
                 if not ctx.is_task_running():
                     return

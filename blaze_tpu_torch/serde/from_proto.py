@@ -10,7 +10,7 @@ unscaled=True)``.
 from __future__ import annotations
 
 
-from ..exprs.ir import Alias, BinOp, Col, Expr, IsNotNull, IsNull, Lit, Not
+from ..exprs.ir import Alias, BinOp, Case, Col, Expr, InList, IsNotNull, IsNull, Like, Lit, Not
 from ..schema import DataType, Field, Schema, TypeKind
 from . import wire as pb
 
@@ -61,6 +61,15 @@ def expr_from_proto(n: pb.ExprNode) -> Expr:
         return IsNull(expr_from_proto(n.is_null))
     if kind == "is_not_null":
         return IsNotNull(expr_from_proto(n.is_not_null))
+    if kind == "case":
+        c = n.case
+        return Case([(expr_from_proto(b.condition), expr_from_proto(b.value)) for b in c.branches],
+                    expr_from_proto(c.else_expr) if c.has_else else None)
+    if kind == "in_list":
+        i = n.in_list
+        return InList(expr_from_proto(i.child), [expr_from_proto(v) for v in i.values], i.negated)
+    if kind == "like":
+        return Like(expr_from_proto(n.like.child), n.like.pattern, n.like.negated)
     raise NotImplementedError(f"from_proto expr {kind}")
 
 
@@ -75,12 +84,11 @@ def _partitioning_from_proto(p: pb.PartitioningProto):
 
 
 def _join_type(v: int):
+    """The join type of the same name; ``Joiner`` raises for the types
+    the port does not run."""
     from ..ops.joins import JoinType
 
-    name = pb.JoinTypeProto(v).name
-    if name not in JoinType.__members__:
-        raise NotImplementedError(f"from_proto join type {name}")
-    return JoinType[name]
+    return JoinType[pb.JoinTypeProto(v).name]
 
 
 def plan_from_proto(n: pb.PhysicalPlanNode):

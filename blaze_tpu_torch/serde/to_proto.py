@@ -4,8 +4,8 @@
 Covers the nodes and expressions the port has: memory scan, project,
 filter, agg, sort, limit, shuffle writer, IPC reader and writer,
 broadcast and shuffled hash joins; columns, literals, aliases, binary
-operators, NOT, IS [NOT] NULL.  Anything else raises
-``NotImplementedError`` naming it.
+operators, NOT, IS [NOT] NULL, CASE, IN and LIKE.  Anything else
+raises ``NotImplementedError`` naming it.
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ import datetime
 import itertools
 
 from ..exprs.compile import infer_lit_dtype, unscaled_decimal
-from ..exprs.ir import Alias, BinOp, Col, Expr, IsNotNull, IsNull, Lit, Not
+from ..exprs.ir import Alias, BinOp, Case, Col, Expr, InList, IsNotNull, IsNull, Like, Lit, Not
 from ..schema import DataType, Schema, TypeKind
 from . import wire as pb
 
@@ -81,6 +81,20 @@ def expr_to_proto(e: Expr) -> pb.ExprNode:
         return pb.ExprNode(is_null=expr_to_proto(e.child))
     if isinstance(e, IsNotNull):
         return pb.ExprNode(is_not_null=expr_to_proto(e.child))
+    if isinstance(e, Case):
+        case = pb.CaseExpr(branches=[pb.CaseBranch(condition=expr_to_proto(c), value=expr_to_proto(v))
+                                     for c, v in e.branches])
+        if e.else_ is not None:
+            case.has_else = True
+            case.else_expr = expr_to_proto(e.else_)
+        return pb.ExprNode(case=case)
+    if isinstance(e, InList):
+        return pb.ExprNode(in_list=pb.InListExpr(child=expr_to_proto(e.child),
+                                                 values=[expr_to_proto(v) for v in e.values],
+                                                 negated=e.negated))
+    if isinstance(e, Like):
+        return pb.ExprNode(like=pb.LikeExpr(child=expr_to_proto(e.child), pattern=e.pattern,
+                                            negated=e.negated))
     raise NotImplementedError(f"to_proto for {type(e).__name__}")
 
 

@@ -1,5 +1,6 @@
-"""TPC-H q01, q03 and q06 plans over the port's operators (≙ the same
-builders in ``blaze_tpu/tpch/queries.py``, node for node).
+"""TPC-H q01, q03, q04, q05, q06, q10, q12, q14 and q19 plans over the
+port's operators (≙ the same builders in ``blaze_tpu/tpch/queries.py``,
+node for node: the same exchanges, build sides and fetches).
 
 Each builder takes a table -> ExecNode map (scans) and an output
 parallelism and returns the root ExecNode; a caller runs
@@ -11,7 +12,7 @@ from __future__ import annotations
 import datetime
 from typing import Callable, Dict, List, Optional
 
-from ..exprs.ir import Expr, col, lit
+from ..exprs.ir import Case, Expr, Like, col, lit
 from ..ops import (
     AggExec,
     AggFunction,
@@ -47,11 +48,14 @@ def two_stage_agg(child: ExecNode, groupings: List[GroupingExpr],
 
 
 def shuffle_join(left: ExecNode, right: ExecNode, left_keys: List[Expr], right_keys: List[Expr],
-                 join_type: JoinType, n_parts: int) -> ExecNode:
-    """Both sides hash-exchanged on their keys; the left side builds."""
+                 join_type: JoinType, n_parts: int, build_left: bool = True) -> ExecNode:
+    """Both sides hash-exchanged on their keys; the left side builds
+    unless ``build_left`` is False."""
     lex = NativeShuffleExchangeExec(left, HashPartitioning(left_keys, n_parts))
     rex = NativeShuffleExchangeExec(right, HashPartitioning(right_keys, n_parts))
-    return HashJoinExec(lex, rex, left_keys, right_keys, join_type, build_is_left=True)
+    if build_left:
+        return HashJoinExec(lex, rex, left_keys, right_keys, join_type, build_is_left=True)
+    return HashJoinExec(rex, lex, right_keys, left_keys, join_type, build_is_left=False)
 
 
 def broadcast_join(build: ExecNode, probe: ExecNode, build_keys: List[Expr],
@@ -143,7 +147,144 @@ def q6(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
     return two_stage_agg(proj, [], [AggFunction("sum", col("rev"), "revenue")], n_parts)
 
 
-QUERIES: Dict[str, Callable[[Dict[str, ExecNode], int], ExecNode]] = {"q1": q1, "q3": q3, "q6": q6}
+def q4(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+    orders = FilterExec(
+        t["orders"],
+        (col("o_orderdate") >= lit(D(1993, 7, 1))) & (col("o_orderdate") < lit(D(1993, 10, 1))),
+    )
+    orders_p = ProjectExec(orders, [col("o_orderkey"), col("o_orderpriority")])
+    line = FilterExec(t["lineitem"], col("l_commitdate") < col("l_receiptdate"))
+    line_p = ProjectExec(line, [col("l_orderkey")])
+    # left semi join: the orders survive, lineitem builds
+    j = shuffle_join(orders_p, line_p, [col("o_orderkey")], [col("l_orderkey")], JoinType.LEFT_SEMI,
+                     n_parts, build_left=False)
+    agg = two_stage_agg(
+        j,
+        [GroupingExpr(col("o_orderpriority"), "o_orderpriority")],
+        [AggFunction("count_star", None, "order_count")],
+        n_parts,
+    )
+    return single_sorted(agg, [SortField(col("o_orderpriority"))])
+
+
+def q5(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+    region = FilterExec(t["region"], col("r_name") == lit("ASIA"))
+    nation = broadcast_join(ProjectExec(region, [col("r_regionkey")]), t["nation"],
+                            [col("r_regionkey")], [col("n_regionkey")], JoinType.INNER, build_is_left=True)
+    nation_p = ProjectExec(nation, [col("n_nationkey"), col("n_name")])
+    supp = broadcast_join(nation_p, t["supplier"], [col("n_nationkey")], [col("s_nationkey")],
+                          JoinType.INNER, build_is_left=True)
+    supp_p = ProjectExec(supp, [col("s_suppkey"), col("s_nationkey"), col("n_name")])
+    orders = FilterExec(
+        t["orders"],
+        (col("o_orderdate") >= lit(D(1994, 1, 1))) & (col("o_orderdate") < lit(D(1995, 1, 1))),
+    )
+    orders_p = ProjectExec(orders, [col("o_orderkey"), col("o_custkey")])
+    cust_p = ProjectExec(t["customer"], [col("c_custkey"), col("c_nationkey")])
+    co = shuffle_join(cust_p, orders_p, [col("c_custkey")], [col("o_custkey")], JoinType.INNER, n_parts)
+    co_p = ProjectExec(co, [col("o_orderkey"), col("c_nationkey")])
+    line_p = ProjectExec(t["lineitem"], [col("l_orderkey"), col("l_suppkey"), revenue_expr().alias("rev")])
+    col_j = shuffle_join(co_p, line_p, [col("o_orderkey")], [col("l_orderkey")], JoinType.INNER, n_parts)
+    # a two-key broadcast join: l_suppkey = s_suppkey and c_nationkey = s_nationkey
+    full = broadcast_join(supp_p, col_j, [col("s_suppkey"), col("s_nationkey")],
+                          [col("l_suppkey"), col("c_nationkey")], JoinType.INNER, build_is_left=True)
+    agg = two_stage_agg(full, [GroupingExpr(col("n_name"), "n_name")],
+                        [AggFunction("sum", col("rev"), "revenue")], n_parts)
+    return single_sorted(agg, [SortField(col("revenue"), ascending=False)])
+
+
+def q10(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+    orders = FilterExec(
+        t["orders"],
+        (col("o_orderdate") >= lit(D(1993, 10, 1))) & (col("o_orderdate") < lit(D(1994, 1, 1))),
+    )
+    orders_p = ProjectExec(orders, [col("o_orderkey"), col("o_custkey")])
+    line = FilterExec(t["lineitem"], col("l_returnflag") == lit("R"))
+    line_p = ProjectExec(line, [col("l_orderkey"), revenue_expr().alias("rev")])
+    ol = shuffle_join(orders_p, line_p, [col("o_orderkey")], [col("l_orderkey")], JoinType.INNER, n_parts)
+    ol_p = ProjectExec(ol, [col("o_custkey"), col("rev")])
+    col_j = shuffle_join(t["customer"], ol_p, [col("c_custkey")], [col("o_custkey")], JoinType.INNER, n_parts)
+    nat = broadcast_join(ProjectExec(t["nation"], [col("n_nationkey"), col("n_name")]), col_j,
+                         [col("n_nationkey")], [col("c_nationkey")], JoinType.INNER, build_is_left=True)
+    agg = two_stage_agg(
+        nat,
+        [GroupingExpr(col(c), c) for c in ("c_custkey", "c_name", "c_acctbal", "c_phone", "n_name",
+                                            "c_address", "c_comment")],
+        [AggFunction("sum", col("rev"), "revenue")],
+        n_parts,
+    )
+    return single_sorted(agg, [SortField(col("revenue"), ascending=False)], fetch=20)
+
+
+def q12(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+    line = FilterExec(
+        t["lineitem"],
+        col("l_shipmode").isin("MAIL", "SHIP")
+        & (col("l_commitdate") < col("l_receiptdate"))
+        & (col("l_shipdate") < col("l_commitdate"))
+        & (col("l_receiptdate") >= lit(D(1994, 1, 1)))
+        & (col("l_receiptdate") < lit(D(1995, 1, 1))),
+    )
+    line_p = ProjectExec(line, [col("l_orderkey"), col("l_shipmode")])
+    orders_p = ProjectExec(t["orders"], [col("o_orderkey"), col("o_orderpriority")])
+    j = shuffle_join(line_p, orders_p, [col("l_orderkey")], [col("o_orderkey")], JoinType.INNER, n_parts)
+    urgent = col("o_orderpriority").isin("1-URGENT", "2-HIGH")
+    high = Case([(urgent, lit(1))], lit(0))
+    low = Case([(urgent, lit(0))], lit(1))
+    proj = ProjectExec(j, [col("l_shipmode"), high.alias("h"), low.alias("l")])
+    agg = two_stage_agg(
+        proj,
+        [GroupingExpr(col("l_shipmode"), "l_shipmode")],
+        [AggFunction("sum", col("h"), "high_line_count"), AggFunction("sum", col("l"), "low_line_count")],
+        n_parts,
+    )
+    return single_sorted(agg, [SortField(col("l_shipmode"))])
+
+
+def q14(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+    line = FilterExec(
+        t["lineitem"],
+        (col("l_shipdate") >= lit(D(1995, 9, 1))) & (col("l_shipdate") < lit(D(1995, 10, 1))),
+    )
+    line_p = ProjectExec(line, [col("l_partkey"), revenue_expr().alias("rev")])
+    part_p = ProjectExec(t["part"], [col("p_partkey"), col("p_type")])
+    j = broadcast_join(part_p, line_p, [col("p_partkey")], [col("l_partkey")], JoinType.INNER,
+                       build_is_left=True)
+    promo = Case([(Like(col("p_type"), "PROMO%"), col("rev"))], lit(0))
+    proj = ProjectExec(j, [promo.alias("promo_rev"), col("rev")])
+    agg = two_stage_agg(proj, [], [AggFunction("sum", col("promo_rev"), "sp"),
+                                   AggFunction("sum", col("rev"), "sr")], n_parts)
+    # decimal(38,6) / decimal(36,4): the int128 quotient, HALF_UP
+    pct = (lit("100.00", DataType.decimal(5, 2)) * col("sp")) / col("sr")
+    return ProjectExec(agg, [pct.alias("promo_revenue")])
+
+
+def q19(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+    line = FilterExec(
+        t["lineitem"],
+        col("l_shipmode").isin("AIR", "REG AIR") & (col("l_shipinstruct") == lit("DELIVER IN PERSON")),
+    )
+    line_p = ProjectExec(line, [col("l_partkey"), col("l_quantity"), revenue_expr().alias("rev")])
+    part_p = ProjectExec(t["part"], [col("p_partkey"), col("p_brand"), col("p_container"), col("p_size")])
+    j = broadcast_join(part_p, line_p, [col("p_partkey")], [col("l_partkey")], JoinType.INNER,
+                       build_is_left=True)
+    qty = col("l_quantity")
+
+    def branch(brand: str, containers, q_lo: int, q_hi: int, size_hi: int) -> Expr:
+        return ((col("p_brand") == lit(brand)) & col("p_container").isin(*containers)
+                & (qty >= dec12(q_lo)) & (qty <= dec12(q_hi))
+                & (col("p_size") >= lit(1)) & (col("p_size") <= lit(size_hi)))
+
+    f = FilterExec(j, branch("Brand#12", ("SM CASE", "SM BOX", "SM PACK", "SM PKG"), 1, 11, 5)
+                   | branch("Brand#23", ("MED BAG", "MED BOX", "MED PKG", "MED PACK"), 10, 20, 10)
+                   | branch("Brand#34", ("LG CASE", "LG BOX", "LG PACK", "LG PKG"), 20, 30, 15))
+    proj = ProjectExec(f, [col("rev")])
+    return two_stage_agg(proj, [], [AggFunction("sum", col("rev"), "revenue")], n_parts)
+
+
+QUERIES: Dict[str, Callable[[Dict[str, ExecNode], int], ExecNode]] = {
+    "q1": q1, "q3": q3, "q4": q4, "q5": q5, "q6": q6, "q10": q10, "q12": q12, "q14": q14, "q19": q19,
+}
 
 
 def build_query(name: str, tables: Dict[str, ExecNode], n_parts: int = 2) -> ExecNode:

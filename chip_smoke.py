@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``blaze_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py [--scale 1.0]
+    python3 chip_smoke.py [--scale 1.0] [--ds-scale 1.0]
 
 Needs one CUDA card and ``nvcc`` (``/usr/local/cuda``).  In order, it:
 
@@ -19,16 +19,25 @@ Needs one CUDA card and ``nvcc`` (``/usr/local/cuda``).  In order, it:
    views, ragged ends, edge tables; for ``pid_histogram`` also each
    path's bin counts about its ends, 1,000 back-to-back calls and two
    streams at once);
-4. runs TPC-H q06, q01 and q03 at ``--scale`` with 8 partitions and
-   2^20-row batches, each scan pruned to the query's columns, checks
-   each against its numpy oracle, and reads every kernel's launch count
-   over each query (reset just before it): q01 must launch
-   ``pid_histogram`` (and not ``murmur3_pids``: its keys are strings),
-   q03 ``murmur3_pids``, ``pid_histogram`` and ``sorted_lookup``, with
-   the retired ``BLAZE_TPU_PALLAS_ENABLE=0`` set; then times
-   ``pid_histogram`` on the largest inputs q01 and q03 gave it, and
-   ``murmur3_pids`` and ``sorted_lookup`` on q03's;
-5. runs q06, q01 and q03 again, the same scans, through the plan
+4. checks the decimal -> double conversion on the card against numpy
+   (decimal(12,2) 0.38 - double 1.5 = -1.12, and a seeded vector at
+   four scales, exactly);
+5. runs TPC-H q06, q01, q03, q04, q05, q10, q12, q14 and q19 at
+   ``--scale`` and TPC-DS q03 and q07 at ``--ds-scale``, with 8
+   partitions and 2^20-row batches, each scan pruned to the query's
+   columns, checks each against its numpy oracle, and reads every
+   kernel's launch count over each query (reset just before it): q01
+   must launch ``pid_histogram`` (and not ``murmur3_pids``: its keys
+   are strings), q03, q04, q05, q10 and q12 ``murmur3_pids``,
+   ``pid_histogram`` and ``sorted_lookup`` (q03 with the retired
+   ``BLAZE_TPU_PALLAS_ENABLE=0`` set), q14 and q19 ``sorted_lookup``
+   only (their one exchange has one partition), TPC-DS q03 and q07
+   ``pid_histogram`` and ``sorted_lookup`` (string group keys take the
+   plain murmur3); it prints each query's wall and launches beside the
+   card's name and power limit; then times ``pid_histogram`` on the
+   largest inputs q01 and q03 gave it, and ``murmur3_pids`` and
+   ``sorted_lookup`` on q03's;
+6. runs every query again, the same scans, through the plan
    contract: ``split_stages`` cuts each plan at its exchanges,
    ``run_stages`` serializes every task to TaskDefinition bytes and runs
    it through ``run_task``, hash exchanges go through ``.data``/``.index``
@@ -39,17 +48,17 @@ Needs one CUDA card and ``nvcc`` (``/usr/local/cuda``).  In order, it:
    checksum-verified frames, the file path's host/device copies and its
    wall beside the in-process wall; then flips one byte of one committed
    q06 ``.data`` file and requires the reduce task to raise
-   ``BlockCorruptionError``; one more untimed run of each query through
-   ``run_stages`` counts its syncs with the card (CUDA sync debug mode),
-   q03's under cProfile;
-6. reads the CUPTI device time of every timed call in one
+   ``BlockCorruptionError``; one more untimed run of q06, q01, q03 and
+   q05 through ``run_stages`` counts its syncs with the card (CUDA sync
+   debug mode), q03's and q05's under cProfile;
+7. reads the CUPTI device time of every timed call in one
    ``torch.profiler`` session, and counts every device operation one
    ``pid_histogram`` call issues on each path (one on paths (a) and
-   (b), or it fails); then runs q01 and q03 once more under
+   (b), or it fails); then runs q01, q03 and q10 once more under
    ``torch.profiler`` and prints the device's busy share of each run,
    the kernels that take its time, and the hand-written kernels' device
    time at the shapes the query gives them;
-7. prints where each phase ended on the host clock, the ``kernels``
+8. prints where each phase ended on the host clock, the ``kernels``
    JSON line, then ``{"ok": true, ...}`` last.
 
 Any failure raises and exits nonzero before the last line; without a
@@ -464,7 +473,8 @@ def check_group_sums(torch, cuda_ops, flush, gids, values, n_groups: int, timed:
 
 # -------------------------------------------------------------- queries
 
-# the columns each query reads, per table (a columnar scan's pruning)
+# the columns each query reads, per table (a columnar scan's pruning);
+# "ds_" marks a TPC-DS query
 QUERY_COLUMNS = {
     "q6": {"lineitem": ("l_quantity", "l_extendedprice", "l_discount", "l_shipdate")},
     "q1": {"lineitem": ("l_returnflag", "l_linestatus", "l_quantity", "l_extendedprice",
@@ -472,33 +482,83 @@ QUERY_COLUMNS = {
     "q3": {"lineitem": ("l_orderkey", "l_extendedprice", "l_discount", "l_shipdate"),
            "orders": ("o_orderkey", "o_custkey", "o_orderdate", "o_shippriority"),
            "customer": ("c_custkey", "c_mktsegment")},
+    "q4": {"orders": ("o_orderkey", "o_orderdate", "o_orderpriority"),
+           "lineitem": ("l_orderkey", "l_commitdate", "l_receiptdate")},
+    "q5": {"region": ("r_regionkey", "r_name"), "nation": ("n_nationkey", "n_name", "n_regionkey"),
+           "supplier": ("s_suppkey", "s_nationkey"), "orders": ("o_orderkey", "o_custkey", "o_orderdate"),
+           "customer": ("c_custkey", "c_nationkey"),
+           "lineitem": ("l_orderkey", "l_suppkey", "l_extendedprice", "l_discount")},
+    "q10": {"orders": ("o_orderkey", "o_custkey", "o_orderdate"),
+            "lineitem": ("l_orderkey", "l_returnflag", "l_extendedprice", "l_discount"),
+            "customer": ("c_custkey", "c_name", "c_address", "c_nationkey", "c_phone", "c_acctbal", "c_comment"),
+            "nation": ("n_nationkey", "n_name")},
+    "q12": {"lineitem": ("l_orderkey", "l_shipmode", "l_commitdate", "l_receiptdate", "l_shipdate"),
+            "orders": ("o_orderkey", "o_orderpriority")},
+    "q14": {"lineitem": ("l_partkey", "l_extendedprice", "l_discount", "l_shipdate"),
+            "part": ("p_partkey", "p_type")},
+    "q19": {"lineitem": ("l_partkey", "l_quantity", "l_extendedprice", "l_discount", "l_shipmode",
+                         "l_shipinstruct"),
+            "part": ("p_partkey", "p_brand", "p_container", "p_size")},
+    "ds_q3": {"date_dim": ("d_date_sk", "d_year", "d_moy"),
+              "store_sales": ("ss_sold_date_sk", "ss_item_sk", "ss_ext_sales_price"),
+              "item": ("i_item_sk", "i_brand_id", "i_brand", "i_manufact_id")},
+    "ds_q7": {"customer_demographics": ("cd_demo_sk", "cd_gender", "cd_marital_status", "cd_education_status"),
+              "date_dim": ("d_date_sk", "d_year"),
+              "promotion": ("p_promo_sk", "p_channel_email", "p_channel_event"),
+              "store_sales": ("ss_cdemo_sk", "ss_sold_date_sk", "ss_promo_sk", "ss_item_sk", "ss_quantity",
+                              "ss_list_price", "ss_coupon_amt", "ss_sales_price"),
+              "item": ("i_item_sk", "i_item_id")},
+}
+TPCH_QUERIES = ("q6", "q1", "q3", "q4", "q5", "q10", "q12", "q14", "q19")
+DS_QUERIES = ("ds_q3", "ds_q7")
+# the kernels each query must launch, and those it must not
+EXPECTED_LAUNCHES = {
+    "q6": ((), ("murmur3_pids", "pid_histogram", "sorted_lookup")),
+    "q1": (("pid_histogram",), ("murmur3_pids",)),
+    **{q: (("murmur3_pids", "pid_histogram", "sorted_lookup"), ()) for q in ("q3", "q4", "q5", "q10", "q12")},
+    **{q: (("sorted_lookup",), ("murmur3_pids", "pid_histogram")) for q in ("q14", "q19")},
+    **{q: (("pid_histogram", "sorted_lookup"), ("murmur3_pids",)) for q in DS_QUERIES},
 }
 
 
-def tpch_data(scale: float) -> Dict[str, dict]:
-    """Host tables at ``scale``, each with the columns the queries read."""
-    from blaze_tpu_torch.tpch.datagen import generate_table
+def query_data(queries, scale: float, ds: bool) -> Dict[str, dict]:
+    """Host tables at ``scale``, each with the columns ``queries`` read."""
+    from blaze_tpu_torch import tpcds
+    from blaze_tpu_torch.tpch import datagen
 
-    data: Dict[str, dict] = {}
-    for tables in QUERY_COLUMNS.values():
-        for name, cols in tables.items():
-            data.setdefault(name, set()).update(cols)
-    return {name: generate_table(name, scale, columns=cols) if name == "lineitem"
-            else {c: v for c, v in generate_table(name, scale).items() if c in cols}
-            for name, cols in data.items()}
+    cols_of: Dict[str, set] = {}
+    for q in queries:
+        for name, cols in QUERY_COLUMNS[q].items():
+            cols_of.setdefault(name, set()).update(cols)
+    if ds:
+        return {name: tpcds.generate_table(name, scale, columns=cols) for name, cols in cols_of.items()}
+    return {name: datagen.generate_table(name, scale, columns=cols) if name == "lineitem"
+            else {c: v for c, v in datagen.generate_table(name, scale).items() if c in cols}
+            for name, cols in cols_of.items()}
 
 
-def tpch_scans(data, query: str, n_parts: int, batch_rows: int):
+def build_plan(query: str, scans, n_parts: int):
+    """The plan of ``query`` (a TPC-DS query when prefixed "ds_")."""
+    from blaze_tpu_torch import tpcds, tpch
+
+    if query.startswith("ds_"):
+        return tpcds.build_query(query[3:], scans, n_parts)
+    return tpch.build_query(query, scans, n_parts)
+
+
+def query_scans(data, query: str, n_parts: int, batch_rows: int):
     """Scans of ``query``'s tables staged on the card, pruned to the
     columns it reads."""
     from blaze_tpu_torch.batch import table_to_batches
     from blaze_tpu_torch.ops import MemoryScanExec
     from blaze_tpu_torch.schema import Schema
+    from blaze_tpu_torch.tpcds import TPCDS_SCHEMAS
     from blaze_tpu_torch.tpch import TPCH_SCHEMAS
 
+    schemas = TPCDS_SCHEMAS if query.startswith("ds_") else TPCH_SCHEMAS
     scans = {}
     for name, cols in QUERY_COLUMNS[query].items():
-        schema = Schema([f for f in TPCH_SCHEMAS[name].fields if f.name in cols])
+        schema = Schema([f for f in schemas[name].fields if f.name in cols])
         parts = table_to_batches({c: data[name][c] for c in cols}, schema, n_parts, batch_rows,
                                  device="cuda")
         scans[name] = MemoryScanExec(parts, schema, device="cuda")
@@ -550,11 +610,9 @@ def profile_query(torch, query: str, plan) -> None:
 
 
 def run_query(torch, cuda_ops, query: str, scans, n_parts: int):
-    """One query through build_query + plan.execute with every launch
-    count reset just before it; returns (rows, wall, launches)."""
-    from blaze_tpu_torch.tpch import build_query
-
-    plan = build_query(query, scans, n_parts)
+    """One query through its plan builder + plan.execute with every
+    launch count reset just before it; returns (rows, wall, launches)."""
+    plan = build_plan(query, scans, n_parts)
     cuda_ops.reset_launch_counts()
     got, wall = run_plan(torch, plan)
     return got, wall, dict(cuda_ops.LAUNCHES)
@@ -606,41 +664,87 @@ def largest_inputs(cuda_ops):
 _ORACLES: Dict[tuple, object] = {}
 
 
-def oracle(O, data, query: str):
+def oracle(data, query: str):
     """The query's numpy oracle on ``data``, computed once a run (q01's
     takes seconds at SF1, and both paths are held to it)."""
+    from blaze_tpu_torch.tpcds import oracle as DO
+    from blaze_tpu_torch.tpch import oracle as O
+
     key = (id(data), query)
     if key not in _ORACLES:
-        _ORACLES[key] = {"q6": O.oracle_q6, "q1": O.oracle_q1, "q3": O.oracle_q3}[query](data)
+        fn = getattr(DO, f"oracle_{query[3:]}") if query.startswith("ds_") else getattr(O, f"oracle_{query}")
+        _ORACLES[key] = fn(data)
     return _ORACLES[key]
 
 
-def check_oracle(O, data, query: str, got: dict) -> str:
-    """Raises unless ``got`` equals the query's numpy oracle exactly
-    (q03: the top 10 (orderkey, revenue) pairs, in descending revenue:
-    ties may order differently); says what matched."""
-    if query == "q6":
-        want = oracle(O, data, query)
-        if got["revenue"] != [want]:
-            raise AssertionError(f"q06: {got['revenue']} != oracle {want}")
-        return f"revenue {want} (unscaled, scale 4) = oracle"
+def check_oracle(data, query: str, got: dict) -> str:
+    """Raises unless ``got`` equals the query's numpy oracle: exactly
+    for integers and unscaled decimals (top-N rows as sets, in their
+    sort order: ties may order differently); q14 also to the exact HALF_UP
+    quotient of the oracle's sums (its oracle divides in float64, within
+    one unit); TPC-DS q07's decimal averages within one unit at the
+    HALF_UP boundary and its int average within 1e-9, as the
+    reference's own tests allow.  Says what matched."""
+    exp = oracle(data, query)
+
+    def need(ok: bool, what) -> None:
+        if not ok:
+            raise AssertionError(f"{query}: {what}")
+
+    if query in ("q6", "q19"):
+        need(got["revenue"] == [exp] and exp > 0, f"{got['revenue']} != oracle {exp}")
+        return f"revenue {exp} (unscaled, scale 4) = oracle"
     if query == "q1":
-        exp = oracle(O, data, query)
         keys = list(zip(got["l_returnflag"], got["l_linestatus"]))
-        if keys != sorted(exp):
-            raise AssertionError(f"q01 groups {keys} != oracle {sorted(exp)}")
+        need(keys == sorted(exp), f"groups {keys} != oracle {sorted(exp)}")
         for i, key in enumerate(keys):
             row = {m: got[m][i] for m in exp[key]}
-            if row != exp[key]:
-                raise AssertionError(f"q01 group {key}: {row} != oracle {exp[key]}")
+            need(row == exp[key], f"group {key}: {row} != oracle {exp[key]}")
         return f"{len(keys)} groups = oracle"
-    exp = oracle(O, data, query)
-    rows = list(zip(got["l_orderkey"], got["revenue"]))
-    if len(rows) != len(exp) or set(rows) != {(r[0], r[1]) for r in exp}:
-        raise AssertionError(f"q03: {rows} != oracle {[(r[0], r[1]) for r in exp]}")
-    if [r[1] for r in rows] != sorted((r[1] for r in rows), reverse=True):
-        raise AssertionError("q03: rows not in descending revenue order")
-    return f"top {len(rows)} = oracle"
+    if query in ("q3", "q10"):
+        key, n = ("l_orderkey", 10) if query == "q3" else ("c_custkey", 20)
+        rows = list(zip(got[key], got["revenue"]))
+        want = {(r[0], r[1]) for r in exp} if query == "q3" else {(r[0], r[4]) for r in exp}
+        need(len(rows) == len(exp) == n and set(rows) == want, f"{rows} != oracle {sorted(want)}")
+        need([r[1] for r in rows] == sorted((r[1] for r in rows), reverse=True), "rows not in descending revenue")
+        if query == "q10":
+            by_key = {e[0]: e for e in exp}
+            need(all((r[0], r[1], r[2], r[3], r[4]) == by_key[r[0]] for r in zip(
+                got["c_custkey"], got["c_name"], got["c_acctbal"], got["n_name"], got["revenue"])),
+                "customer columns != oracle")
+        return f"top {len(rows)} = oracle"
+    if query == "q4":
+        need(dict(zip(got["o_orderpriority"], got["order_count"])) == exp and got["o_orderpriority"] == sorted(exp),
+             f"{got} != oracle {exp}")
+        return f"{len(exp)} priorities, {sum(exp.values())} orders = oracle"
+    if query == "q5":
+        need(dict(zip(got["n_name"], got["revenue"])) == exp and got["revenue"] == sorted(exp.values(), reverse=True),
+             f"{got} != oracle {exp}")
+        return f"{len(exp)} nations = oracle"
+    if query == "q12":
+        rows = {m: [h, lo] for m, h, lo in zip(got["l_shipmode"], got["high_line_count"], got["low_line_count"])}
+        need(rows == exp and got["l_shipmode"] == sorted(exp), f"{rows} != oracle {exp}")
+        return f"{len(exp)} ship modes = oracle"
+    if query == "q14":
+        pct, sp, sr = exp
+        exact = (2 * 10**8 * sp + sr) // (2 * sr)
+        need(got["promo_revenue"] == [exact] and abs(exact - pct) <= 1 and sp > 0,
+             f"{got['promo_revenue']} != {exact} (oracle sums {sp} / {sr}; float oracle {pct})")
+        return f"promo_revenue {exact} (unscaled, scale 6) = 10^8 sp / sr of the oracle's sums"
+    if query == "ds_q3":
+        rows = list(zip(got["d_year"], got["brand_id"], got["brand"], got["sum_agg"]))
+        need(len(rows) == min(len(exp), 100) and all(exp.get(r[:3]) == r[3] for r in rows),
+             f"{rows[:5]}... != oracle")
+        need(rows == sorted(rows, key=lambda r: (r[0], -r[3], r[1])), "rows out of order")
+        return f"{len(rows)} of {len(exp)} groups = oracle"
+    ids = got["i_item_id"]
+    need(ids == sorted(ids) and len(ids) == min(len(exp), 100), f"items {ids[:5]}... != oracle")
+    for i, iid in enumerate(ids):
+        e = exp[iid]
+        need(abs(got["agg1"][i] - e[0]) < 1e-9, f"{iid} agg1 {got['agg1'][i]} != {e[0]}")
+        for k, m in enumerate(("agg2", "agg3", "agg4"), start=1):
+            need(abs(got[m][i] - e[k]) <= 1, f"{iid} {m} {got[m][i]} != {e[k]}")
+    return f"{len(ids)} of {len(exp)} items = oracle"
 
 
 def run_scheduled(torch, cuda_ops, query: str, scans, n_parts: int):
@@ -651,9 +755,8 @@ def run_scheduled(torch, cuda_ops, query: str, scans, n_parts: int):
     from blaze_tpu_torch.runtime import integrity
     from blaze_tpu_torch.runtime.context import RESOURCES
     from blaze_tpu_torch.runtime.scheduler import RunStats, run_stages, split_stages
-    from blaze_tpu_torch.tpch import build_query
 
-    stages, manager = split_stages(build_query(query, scans, n_parts))
+    stages, manager = split_stages(build_plan(query, scans, n_parts))
     stats = RunStats()
     cuda_ops.reset_launch_counts()
     B.reset_copy_counts()
@@ -748,9 +851,47 @@ def require_launches(query: str, launches: dict, launched, not_launched=()) -> N
             raise AssertionError(f"{query} launched {name}: {launches}")
 
 
+def query_label(query: str) -> str:
+    """q6 -> "q06", ds_q7 -> "TPC-DS q07"."""
+    bench, name = ("TPC-DS ", query[3:]) if query.startswith("ds_") else ("", query)
+    return f"{bench}q{int(name[1:]):02d}"
+
+
+def check_decimal_to_double(torch) -> str:
+    """decimal -> double on the card, held to numpy ``v / 10**s``
+    exactly: decimal(12,2) 0.38 - double 1.5 through the lowering, then
+    a seeded vector at four scales through the coercion.  Raises on any
+    mismatch."""
+    import numpy as np
+
+    from blaze_tpu_torch.batch import column_from_numpy
+    from blaze_tpu_torch.exprs import col
+    from blaze_tpu_torch.exprs.compile import _coerce, lower
+    from blaze_tpu_torch.schema import DataType, Field, Schema
+
+    schema = Schema([Field("d", DataType.decimal(12, 2)), Field("x", DataType.float64())])
+    env = {"d": column_from_numpy(DataType.decimal(12, 2), np.array([38]), capacity=1, device="cuda"),
+           "x": column_from_numpy(DataType.float64(), np.array([1.5]), capacity=1, device="cuda")}
+    got = lower(col("d") - col("x"), schema, env, 1).data.cpu().tolist()
+    want = (np.array([38]) / 10**2 - 1.5).tolist()
+    if got != want:
+        raise AssertionError(f"decimal(12,2) 0.38 - double 1.5 on the card: {got!r} != numpy {want!r}")
+    rng = np.random.default_rng(44)
+    v = np.concatenate([[38, -38, 1, 10**12 - 1], rng.integers(-(10**12) + 1, 10**12, 1 << 20)])
+    for scale in (0, 2, 4, 6):
+        c = column_from_numpy(DataType.decimal(18, scale), v, capacity=len(v), device="cuda")
+        out = _coerce(c, DataType.float64()).data.cpu().numpy()
+        bad = int((out != v / 10**scale).sum())
+        if bad:
+            raise AssertionError(f"decimal(18,{scale}) -> double on the card: {bad} of {len(v)} values "
+                                 f"differ from numpy")
+    return f"0.38 - 1.5 = {got[0]!r} = numpy; {len(v)} values at scales 0, 2, 4, 6 = numpy"
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale", type=float, default=1.0, help="TPC-H scale factor (default 1.0)")
+    ap.add_argument("--ds-scale", type=float, default=1.0, help="TPC-DS scale factor (default 1.0)")
     args = ap.parse_args()
 
     import torch
@@ -760,8 +901,6 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(REPO))
     from blaze_tpu_torch.kernels import build, cuda_ops, sweep
-    from blaze_tpu_torch.tpch import build_query
-    from blaze_tpu_torch.tpch import oracle as O
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)
@@ -793,9 +932,10 @@ def main() -> int:
     phases.append(("build", time.perf_counter() - T0))
     # ---- host tables (set-up, not timed)
     t0 = time.perf_counter()
-    data = tpch_data(args.scale)
-    log(f"data at SF{args.scale}: " + ", ".join(
-        f"{k} {next(iter(v.values()))[0].shape[0]} rows" for k, v in data.items())
+    data = query_data(TPCH_QUERIES, args.scale, ds=False)
+    ds_data = query_data(DS_QUERIES, args.ds_scale, ds=True)
+    log(f"data at TPC-H SF{args.scale}, TPC-DS SF{args.ds_scale}: " + ", ".join(
+        f"{k} {next(iter(v.values()))[0].shape[0]} rows" for k, v in (*data.items(), *ds_data.items()))
         + f" ({time.perf_counter() - t0:.1f} s)")
 
     phases.append(("tables", time.perf_counter() - T0))
@@ -880,65 +1020,62 @@ def main() -> int:
     log(f"fused_group_sums [{gq['shape']}]: max relative error to float64 sums {gq['max_rel_err_f64']:.3g}")
 
     phases.append(("kernel checks", time.perf_counter() - T0))
-    # ---- the main path: q06, q01, q03, each with the counts reset just before it
+    log("decimal -> double on the card: " + check_decimal_to_double(torch))
+
+    phases.append(("decimal check", time.perf_counter() - T0))
+    # ---- the main path: every query, each with the counts reset just before it
     n_parts, batch_rows = 8, 1 << 20
-    runs = {}
-    q6_scans = tpch_scans(data, "q6", n_parts, batch_rows)
-    inproc = {}
-    got, wall, runs["q6"] = run_query(torch, cuda_ops, "q6", q6_scans, n_parts)
-    inproc["q6"] = (got, wall)
-    log(f"q06 SF{args.scale}: {check_oracle(O, data, 'q6', got)}; wall {wall:.4f} s; launches {runs['q6']}")
-
-    q1_scans = tpch_scans(data, "q1", n_parts, batch_rows)
-    with largest_inputs(cuda_ops) as q1_inputs:
-        got, wall, runs["q1"] = run_query(torch, cuda_ops, "q1", q1_scans, n_parts)
-    inproc["q1"] = (got, wall)
-    log(f"q01 SF{args.scale} (8 partitions, 2^20-row batches): {check_oracle(O, data, 'q1', got)}; "
-        f"wall {wall:.4f} s; launches {runs['q1']}")
-    require_launches("q01", runs["q1"], ("pid_histogram",), ("murmur3_pids",))
-
-    q3_scans = tpch_scans(data, "q3", n_parts, batch_rows)
-    # the variable of the retired spark.blaze.tpu.pallas.enable knob
-    # must change nothing: fixed-width exchange keys take murmur3_pids
-    os.environ["BLAZE_TPU_PALLAS_ENABLE"] = "0"
-    with largest_inputs(cuda_ops) as q3_inputs:
-        got, wall, runs["q3"] = run_query(torch, cuda_ops, "q3", q3_scans, n_parts)
-    del os.environ["BLAZE_TPU_PALLAS_ENABLE"]
-    inproc["q3"] = (got, wall)
-    log(f"q03 SF{args.scale} (8 partitions, 2^20-row batches): {check_oracle(O, data, 'q3', got)}; "
-        f"wall {wall:.4f} s; launches {runs['q3']}")
-    require_launches("q03", runs["q3"], ("murmur3_pids", "pid_histogram", "sorted_lookup"))
+    runs, inproc, scans, q_inputs = {}, {}, {}, {}
+    for query in TPCH_QUERIES + DS_QUERIES:
+        qdata = ds_data if query.startswith("ds_") else data
+        scans[query] = query_scans(qdata, query, n_parts, batch_rows)
+        # the variable of the retired spark.blaze.tpu.pallas.enable knob
+        # must change nothing: fixed-width exchange keys take murmur3_pids
+        if query == "q3":
+            os.environ["BLAZE_TPU_PALLAS_ENABLE"] = "0"
+        with largest_inputs(cuda_ops) as q_inputs[query]:
+            got, wall, runs[query] = run_query(torch, cuda_ops, query, scans[query], n_parts)
+        os.environ.pop("BLAZE_TPU_PALLAS_ENABLE", None)
+        inproc[query] = (got, wall)
+        scale = args.ds_scale if query.startswith("ds_") else args.scale
+        log(f"{query_label(query)} SF{scale} (8 partitions, 2^20-row batches): {check_oracle(qdata, query, got)}; "
+            f"wall {wall:.4f} s on {card}; launches {runs[query]}")
+        require_launches(query_label(query), runs[query], *EXPECTED_LAUNCHES[query])
+    q1_inputs, q3_inputs = q_inputs["q1"], q_inputs["q3"]
 
     phases.append(("queries in process", time.perf_counter() - T0))
-    # ---- the same three queries through the plan contract: every task
-    # from TaskDefinition bytes, hash exchanges through .data/.index files
+    # ---- the same queries through the plan contract: every task from
+    # TaskDefinition bytes, hash exchanges through .data/.index files
     sched_runs = {}
-    for query, scans in (("q6", q6_scans), ("q1", q1_scans), ("q3", q3_scans)):
-        got, wall, sched_runs[query], moved = run_scheduled(torch, cuda_ops, query, scans, n_parts)
-        check_oracle(O, data, query, got)
+    for query in TPCH_QUERIES + DS_QUERIES:
+        qdata = ds_data if query.startswith("ds_") else data
+        got, wall, sched_runs[query], moved = run_scheduled(torch, cuda_ops, query, scans[query], n_parts)
+        check_oracle(qdata, query, got)
         if got != inproc[query][0]:
             raise AssertionError(f"{query} through run_stages: {got} != in process {inproc[query][0]}")
         if sched_runs[query] != runs[query]:
             raise AssertionError(f"{query} through run_stages launched {sched_runs[query]}, "
                                  f"in process {runs[query]}")
-        log(f"{query} SF{args.scale} through split_stages/run_stages: = oracle and = in process; "
+        log(f"{query_label(query)} through split_stages/run_stages: = oracle and = in process; "
             f"stages {moved['kinds']}, {moved['tasks']} tasks, TaskDefinition bytes {moved['task_def_bytes']}, "
             f".data bytes {moved['data_bytes']}, blocks read {moved['blocks_read']}, broadcast bytes "
             f"{moved['broadcast_bytes']}, checksum-verified frames {moved['frames_verified']}, copies "
             f"device-to-host {moved['device_to_host']} host-to-device {moved['host_to_device']}; "
-            f"wall {wall:.4f} s (in process {inproc[query][1]:.4f} s); launches {sched_runs[query]}")
-        # q03's shuffle is the one with bytes: where its host time goes
-        syncs, host = count_syncs(torch, lambda: run_scheduled(torch, cuda_ops, query, scans, n_parts),
-                                  host_profile=query == "q3")
-        log(f"{query} syncs with the card through run_stages: {syncs}; "
-            f"stage seconds {[round(t, 4) for t in moved['stage_seconds']]}")
-        if host:
-            log(f"{query} through run_stages, the host's time by function (cProfile, the same untimed run):\n"
-                + host[-3000:])
+            f"wall {wall:.4f} s (in process {inproc[query][1]:.4f} s) on {card}; launches {sched_runs[query]}")
+        syncs = None
+        if query in ("q6", "q1", "q3", "q5"):
+            # q03's and q05's shuffles are the ones with bytes: where their host time goes
+            syncs, host = count_syncs(torch, lambda: run_scheduled(torch, cuda_ops, query, scans[query], n_parts),
+                                      host_profile=query in ("q3", "q5"))
+            log(f"{query} syncs with the card through run_stages: {syncs}; "
+                f"stage seconds {[round(t, 4) for t in moved['stage_seconds']]}")
+            if host:
+                log(f"{query} through run_stages, the host's time by function (cProfile, the same untimed run):\n"
+                    + host[-3000:])
         log("scheduler " + json.dumps({"query": query, "wall_s": wall, "inproc_wall_s": inproc[query][1],
                                        "launches": sched_runs[query], "syncs": syncs, **moved}))
     require_launches("q06 (run_stages)", sched_runs["q6"], (), tuple(runs["q6"]))
-    log("corrupted block: " + corrupt_block_check(q6_scans, n_parts))
+    log("corrupted block: " + corrupt_block_check(scans["q6"], n_parts))
 
     phases.append(("queries through run_stages", time.perf_counter() - T0))
     # ---- the redesigned kernels again, on the largest inputs q01 and q03 gave them
@@ -996,8 +1133,8 @@ def main() -> int:
             raise AssertionError(f"pid_histogram [{label}]: {k:g} device operations a call, not 1")
 
     phases.append(("device times", time.perf_counter() - T0))
-    profile_query(torch, "q01", build_query("q1", q1_scans, n_parts))
-    profile_query(torch, "q03", build_query("q3", q3_scans, n_parts))
+    for query in ("q1", "q3", "q10"):
+        profile_query(torch, query_label(query), build_plan(query, scans[query], n_parts))
     phases.append(("profiled queries", time.perf_counter() - T0))
     log("phase ends, seconds from the start of the script: "
         + ", ".join(f"{name} {t:.1f}" for name, t in phases))
@@ -1016,8 +1153,8 @@ def main() -> int:
             "name": name, "route": "cuda", "source": f"blaze_tpu_torch/csrc/{src}",
             "replaces": f"blaze_tpu/kernels/pallas_ops.py:{line}",
             "launches": sum(run[name] for run in runs.values()),
-            "launches_q01": runs["q1"][name], "launches_q03": runs["q3"][name],
-            "launches_run_stages": {q: run[name] for q, run in sched_runs.items()},
+            "launches_by_query": {query_label(q): run[name] for q, run in runs.items()},
+            "launches_run_stages": {query_label(q): run[name] for q, run in sched_runs.items()},
             "shape": r["shape"], "max_abs_err": errs[name], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "device_ms": r.get("device_ms"),

@@ -13,6 +13,7 @@ compare exactly.
 
 import numpy as np
 import pytest
+import torch
 
 from blaze_tpu import batch as JB
 from blaze_tpu.exprs import col as jcol
@@ -128,3 +129,62 @@ def test_avg_rounds_half_up_away_from_zero():
     out = TB.batch_to_pydict(next(iter(final.execute(0, TaskContext(0, 1)))))
     for k in types:
         assert dict(zip(out["g"], out[k])) == {0: 313, 1: -313}, k
+
+
+# ------------------------------------------------- canonical group keys
+
+
+def _count_star_by(schema, batches, partitions_fn=TB.RecordBatch, scan=MemoryScanExec,
+                   agg=AggExec, fn=AggFunction, group=GroupingExpr, c=tcol, mode=AggMode, ctx=TaskContext,
+                   to_pydict=TB.batch_to_pydict, **scan_kw):
+    """PARTIAL count_star grouped on ``k`` over one partition of
+    ``batches`` (each a list of columns)."""
+    s = scan([[partitions_fn(schema, cols, int(cols[0].validity.shape[0])) for cols in batches]], schema,
+             **scan_kw)
+    out = {"k": [], "n": []}
+    node = agg(s, mode.PARTIAL, [group(c("k"), "k")], [fn("count_star", None, "n")])
+    for b in node.execute(0, ctx(0, 1)):
+        d = to_pydict(b)
+        out["k"] += d["k"]
+        out["n"] += d["n#count"]
+    return out
+
+
+@pytest.mark.parametrize("n_batches", [1, 2], ids=["one-batch", "two-batches"])
+def test_float_group_keys_are_canonical(n_batches):
+    """-0.0 groups as 0.0 and reads 0.0 (Spark's NormalizeFloatingNumbers),
+    on the raw pass (one batch) and the merging pass (two); every NaN
+    is one group."""
+    import math
+
+    schema = TSchema([TF("k", TT.float64())])
+    col = lambda v: [TB.column_from_numpy(TT.float64(), np.array(v), capacity=len(v), device="cpu")]
+    batches = [col([-0.0])] * n_batches
+    out = _count_star_by(schema, batches, device="cpu")
+    assert out["k"] == [0.0] and math.copysign(1.0, out["k"][0]) == 1.0
+    assert out["n"] == [n_batches]
+    nan = col([-0.0, float("nan"), -float("nan"), 0.0])
+    out = _count_star_by(schema, [nan] * n_batches, device="cpu")
+    assert sorted(out["n"]) == [2 * n_batches, 2 * n_batches]
+    assert [math.copysign(1.0, k) for k in out["k"] if not math.isnan(k)] == [1.0]
+
+
+def test_null_strings_of_different_lengths_are_one_group():
+    """Reference defect 6 (ROADMAP queue C): the reference keys a null
+    string by its unmasked length, so nulls of lengths 1 and 2 form two
+    groups; the port (and Spark) read one null group of 2."""
+    data = np.zeros((2, 8), np.uint8)
+    tcolumn = TB.Column(TT.string(8), torch.from_numpy(data), torch.tensor([False, False]),
+                        torch.tensor([1, 2], dtype=torch.int32))
+    tschema = TSchema([TF("k", TT.string(8))])
+    got = _count_star_by(tschema, [[tcolumn]], device="cpu")
+    assert got == {"k": [None], "n": [2]}
+
+    import jax.numpy as jnp
+
+    jcolumn = JB.Column(JT.string(8), jnp.asarray(data), jnp.asarray([False, False]),
+                        jnp.asarray([1, 2], jnp.int32))
+    jschema = JSchema([JF("k", JT.string(8))])
+    want = _count_star_by(jschema, [[jcolumn]], partitions_fn=JB.RecordBatch, scan=JScan, agg=JAgg,
+                          fn=JFn, group=JGroup, c=jcol, mode=JMode, ctx=JContext, to_pydict=JB.batch_to_pydict)
+    assert want == {"k": [None, None], "n": [1, 1]}

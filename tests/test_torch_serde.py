@@ -3,7 +3,7 @@
 - The codec's table, parsed from the port's copy of ``plan.proto``,
   equals the reference's generated ``plan_pb2`` descriptors.
 - Every TaskDefinition the reference's ``split_stages``/``build_task``
-  makes for q01, q03 and q06 decodes and re-encodes byte for byte in the
+  makes for TPC-H q01, q03, q04, q05, q06, q10, q12, q14 and q19 decodes and re-encodes byte for byte in the
   port; the port's own TaskDefinitions for the same tasks, parsed by
   ``plan_pb2``, equal the reference's once the resource ids, shuffle ids
   and file paths that each process mints are normalized.
@@ -57,7 +57,7 @@ from blaze_tpu_torch.tpch.datagen import generate_all
 
 SCALE = 0.002
 N_PARTS = 2
-QUERIES = ("q1", "q3", "q6")
+QUERIES = ("q1", "q3", "q4", "q5", "q6", "q10", "q12", "q14", "q19")
 
 _FD = pb.DESCRIPTOR.message_types_by_name["FieldProto"].fields[0].__class__
 _TYPE_NAMES = {
@@ -401,8 +401,8 @@ def test_unsupported_nodes_raise_naming_them():
     n = pb.PhysicalPlanNode(union=pb.UnionNode()).SerializeToString()
     with pytest.raises(NotImplementedError, match="union"):
         from_proto.plan_from_proto(wire.PhysicalPlanNode.decode(n))
-    e = pb.ExprNode(like=pb.LikeExpr(pattern="a%")).SerializeToString()
-    with pytest.raises(NotImplementedError, match="like"):
+    e = pb.ExprNode(cast=pb.CastExpr()).SerializeToString()
+    with pytest.raises(NotImplementedError, match="cast"):
         from_proto.expr_from_proto(wire.ExprNode.decode(e))
     with pytest.raises(NotImplementedError, match="TaskContext"):
         to_proto.plan_to_proto(TaskContext(0))

@@ -270,3 +270,31 @@ def test_exchange_through_files_gives_the_in_process_rows(data, q):
     assert got == want
     assert TB.COPIES["device_to_host"] > 0 and TB.COPIES["host_to_device"] > 0
     assert len(RESOURCES) == 0
+
+
+@pytest.mark.parametrize("in_process", [True, False], ids=["in-process", "files"])
+def test_single_partition_exchange_keeps_the_sign_of_zero(in_process):
+    """Reference defect 4 (ROADMAP queue C): the reference concatenates
+    device batches by summing masked parts, and -0.0 + 0.0 is 0.0, so
+    two 1-row batches of -0.0 leave its single-partition exchange as
+    0.0, 0.0.  The port's exchange keeps the input's values: -0.0, -0.0
+    (the sign is part of the value until a grouping normalizes it)."""
+    import math
+
+    from blaze_tpu.parallel import NativeShuffleExchangeExec as JaxExchange
+    from blaze_tpu.parallel import SinglePartitioning as JaxSingle
+    from blaze_tpu_torch.parallel.exchange import NativeShuffleExchangeExec
+
+    ts, js = TSchema([TF("f", TT.float64())]), JSchema([JF("f", JT.float64())])
+    tb = TB.RecordBatch(ts, [TB.column_from_numpy(TT.float64(), np.array([-0.0]), capacity=8, device="cpu")], 1)
+    conf.EXCHANGE_IN_PROCESS.set(in_process)
+    try:
+        ex = NativeShuffleExchangeExec(MemoryScanExec([[tb, tb]], ts, device="cpu"), SinglePartitioning())
+        got = [v for b in ex.execute(0, TaskContext(0, 1)) for v in TB.batch_to_pydict(b)["f"]]
+    finally:
+        conf.EXCHANGE_IN_PROCESS.set(True)
+    assert [math.copysign(1.0, v) for v in got] == [-1.0, -1.0]
+    jb = JB.RecordBatch(js, [JB.column_from_numpy(JT.float64(), np.array([-0.0]), capacity=8)], 1).to_device()
+    jex = JaxExchange(JaxScan([[jb, jb]], js), JaxSingle())
+    ref = [v for b in jex.execute(0, JaxContext(0, 1)) for v in JB.batch_to_pydict(b)["f"]]
+    assert [math.copysign(1.0, v) for v in ref] == [1.0, 1.0]
