@@ -3,10 +3,11 @@ ops over columns (≙ ``blaze_tpu/exprs``)."""
 
 from .compile import infer_dtype, lower
 from .ir import (
-    Alias, BinOp, Case, Col, Expr, InList, IsNotNull, IsNull, Like, Lit, Not, col, lit,
+    Alias, BinOp, Case, Cast, Col, Expr, InList, IsNotNull, IsNull, Like, Lit, Not, ScalarFunc, col,
+    func, lit,
 )
 
 __all__ = [
-    "Alias", "BinOp", "Case", "Col", "Expr", "InList", "IsNotNull", "IsNull", "Like", "Lit",
-    "Not", "col", "lit", "infer_dtype", "lower",
+    "Alias", "BinOp", "Case", "Cast", "Col", "Expr", "InList", "IsNotNull", "IsNull", "Like", "Lit",
+    "Not", "ScalarFunc", "col", "func", "lit", "infer_dtype", "lower",
 ]

@@ -8,13 +8,21 @@ quotients whose precision can exceed int64 run on exact two-limb
 int128 (``exprs/int128.py``) with HALF_UP rounding and overflow to
 null.  The port lowers column refs, literals, aliases, comparisons,
 AND/OR/NOT, IS [NOT] NULL, ``+ - * / %`` over integers, floats and
-decimals, CASE, IN and the LIKE patterns with at most one inner
-segment and no ``_``; anything else raises ``NotImplementedError``.
+decimals, casts (``exprs/cast.py``), the registered scalar functions
+(``exprs/functions.py``), CASE, IN and LIKE; anything else raises
+``NotImplementedError``.
+
+A LIKE pattern with ``_`` or with more than one inner segment has no
+device form: ``lower`` evaluates it on the host, one batch at a time
+(``host_like``), wherever it stands in an expression.  The reference
+hoists such subtrees out of filter and project at construction because
+its lowering runs under jit; eager lowering needs no hoist.
 """
 
 from __future__ import annotations
 
 import datetime
+import re
 from decimal import Decimal
 from typing import Dict, List, Optional
 
@@ -33,7 +41,8 @@ from ..schema import (
 )
 from . import int128 as I
 from . import strings as S
-from .ir import Alias, BinOp, Case, Col, Expr, InList, IsNotNull, IsNull, Like, Lit, Not
+from .cast import decimal_overflow_null, decimal_to_float, lower_cast, rescale_decimal
+from .ir import Alias, BinOp, Case, Cast, Col, Expr, InList, IsNotNull, IsNull, Like, Lit, Not, ScalarFunc
 
 _RANK = {
     TypeKind.INT8: 0,
@@ -110,6 +119,12 @@ def infer_dtype(expr: Expr, schema: Schema) -> DataType:
         return infer_dtype(expr.child, schema)
     if isinstance(expr, Lit):
         return infer_lit_dtype(expr.value, expr.dtype)
+    if isinstance(expr, Cast):
+        return expr.to
+    if isinstance(expr, ScalarFunc):
+        from .functions import infer_func_dtype
+
+        return infer_func_dtype(expr, schema)
     if isinstance(expr, (IsNull, IsNotNull, Not, InList, Like)):
         return DataType.bool_()
     if isinstance(expr, BinOp):
@@ -144,29 +159,6 @@ def _decimal_result_type(op: str, a: DataType, b: DataType) -> DataType:
     raise NotImplementedError(f"decimal {op}")
 
 
-# ------------------------------------------------------------- decimals
-
-
-def rescale_decimal(data: torch.Tensor, from_scale: int, to_scale: int) -> torch.Tensor:
-    """Exact int64 rescale, HALF_UP when narrowing."""
-    if to_scale == from_scale:
-        return data
-    if to_scale > from_scale:
-        return data * 10 ** (to_scale - from_scale)
-    div = 10 ** (from_scale - to_scale)
-    adj = torch.where(data >= 0, data + div // 2, data - div // 2)
-    return torch.where(adj >= 0, adj // div, -((-adj) // div))
-
-
-def decimal_overflow_null(data: torch.Tensor, validity: torch.Tensor, precision: int):
-    """check_overflow: |unscaled| >= 10^p -> null (precisions past
-    int64 are bounded by the int64 narrowing instead)."""
-    if precision >= 19:
-        return validity
-    bound = 10**precision
-    return validity & (data < bound) & (data > -bound)
-
-
 # ------------------------------------------------------------- lowering
 
 
@@ -196,12 +188,7 @@ def _coerce(col: Column, to: DataType) -> Column:
         data = col.data.to(torch.int64) * 10**to.scale
         return Column(to, data, decimal_overflow_null(data, col.validity, to.precision))
     if to.is_float and col.dtype.is_decimal:
-        # a float64 tensor on the column's device, not a python float:
-        # CUDA multiplies by the reciprocal of a host scalar divisor,
-        # which can be an ulp off the correctly rounded quotient
-        scale = torch.full((), float(10**col.dtype.scale), dtype=torch.float64, device=col.device)
-        data = col.data.to(torch.float64) / scale
-        return Column(to, data.to(torch_dtype(to)), col.validity)
+        return decimal_to_float(col, to)
     if to.kind in _RANK and (col.dtype.kind in _RANK or col.dtype.kind == TypeKind.BOOL):
         return Column(to, col.data.to(torch_dtype(to)), col.validity)
     raise NotImplementedError(f"coercion {col.dtype!r} -> {to!r}")
@@ -243,6 +230,11 @@ def _lit_column(value, dtype: DataType, n: int, device: torch.device,
             value = (value - datetime.date(1970, 1, 1)).days
         return Column(dtype, torch.full((n,), int(value), dtype=torch.int32, device=device), valid)
     return Column(dtype, torch.full((n,), value, dtype=torch_dtype(dtype), device=device), valid)
+
+
+def null_column(dtype: DataType, n: int, device: torch.device) -> Column:
+    """An all-null column of ``n`` rows."""
+    return _lit_column(None, dtype, n, device)
 
 
 def _decimal_binop(op: str, l: Column, r: Column) -> Column:
@@ -413,6 +405,12 @@ def lower(expr: Expr, schema: Schema, cols: Dict[str, Column], n: int) -> Column
         device = next(iter(cols.values())).device
         return _lit_column(expr.value, infer_lit_dtype(expr.value, expr.dtype), n, device,
                            expr.unscaled)
+    if isinstance(expr, Cast):
+        return lower_cast(lower(expr.child, schema, cols, n), expr.to)
+    if isinstance(expr, ScalarFunc):
+        from .functions import lower_func
+
+        return lower_func(expr, schema, cols, n, lower)
     if isinstance(expr, Not):
         c = lower(expr.child, schema, cols, n)
         return Column(DataType.bool_(), ~c.data.to(torch.bool), c.validity)
@@ -480,23 +478,59 @@ def like_pattern_parts(pattern: str) -> Optional[List[bytes]]:
     return [p.encode("utf-8") for p in pattern.split("%")]
 
 
+def like_needs_host(pattern: str) -> bool:
+    """True for a pattern with no device form: one with ``_``, or with
+    an inner segment beside another segment (``%a%b%``, ``a%b%``)."""
+    parts = like_pattern_parts(pattern)
+    if parts is None:
+        return True
+    middle = [p for p in parts[1:-1] if p]
+    return bool(middle) and (len(middle) > 1 or bool(parts[0]) or bool(parts[-1]))
+
+
 def _lower_like(expr: Like, schema: Schema, cols: Dict[str, Column], n: int) -> Column:
     c = lower(expr.child, schema, cols, n)
+    if like_needs_host(expr.pattern):
+        return host_like(c, n, expr.pattern, expr.negated)
     parts = like_pattern_parts(expr.pattern)
-    if parts is None:
-        raise NotImplementedError("LIKE with '_' needs the host evaluator, which is not ported")
+    middle = [p for p in parts[1:-1] if p]
     if len(parts) == 1:
         v = S.starts_with(c, parts[0]) & (c.lengths == len(parts[0]))
+    elif middle:
+        # one inner segment, unanchored (like_needs_host took the rest)
+        v = S.contains(c, middle[0])
     else:
-        middle = [p for p in parts[1:-1] if p]
-        if len(middle) == 1 and not parts[0] and not parts[-1]:
-            v = S.contains(c, middle[0])
-        elif middle:
-            raise NotImplementedError("multi-segment LIKE needs the host evaluator, which is not ported")
-        else:
-            v = S.starts_with(c, parts[0]) & S.ends_with(c, parts[-1])
-            # the anchored parts may not overlap
-            v = v & (c.lengths >= len(parts[0]) + len(parts[-1]))
+        v = S.starts_with(c, parts[0]) & S.ends_with(c, parts[-1])
+        # the anchored parts may not overlap
+        v = v & (c.lengths >= len(parts[0]) + len(parts[-1]))
     if expr.negated:
         v = ~v
     return Column(DataType.bool_(), v, c.validity)
+
+
+# ------------------------------------------------------------ host LIKE
+
+
+def like_regex(pattern: str) -> "re.Pattern":
+    """The pattern as an anchored regular expression: ``%`` any run of
+    characters, ``_`` one character, everything else literal."""
+    body = "".join(".*" if ch == "%" else "." if ch == "_" else re.escape(ch) for ch in pattern)
+    return re.compile("^" + body + "$", re.DOTALL)
+
+
+def host_like(c: Column, n: int, pattern: str, negated: bool) -> Column:
+    """LIKE over the first ``n`` rows of a string column, on the host:
+    one copy of the column to the host, a regular expression per row,
+    one copy of the result back; padding rows come back null."""
+    from ..batch import column_from_numpy, column_to_pylist
+
+    rx = like_regex(pattern)
+    vals = column_to_pylist(c, n)
+    cap = c.capacity
+    out = np.zeros(cap, np.bool_)
+    validity = np.zeros(cap, np.bool_)
+    for i, v in enumerate(vals):
+        if v is not None:
+            validity[i] = True
+            out[i] = (rx.match(v) is None) == negated
+    return column_from_numpy(DataType.bool_(), out, validity, cap, device=c.device)

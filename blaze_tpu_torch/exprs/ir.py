@@ -50,6 +50,9 @@ class Expr:
     def is_not_null(self) -> "Expr":
         return IsNotNull(self)
 
+    def cast(self, to: DataType) -> "Expr":
+        return Cast(self, to)
+
     def isin(self, *values) -> "Expr":
         return InList(self, [_wrap(v) for v in values])
 
@@ -100,6 +103,15 @@ class IsNotNull(Expr):
 
 
 @dataclass(eq=False)
+class Cast(Expr):
+    """Spark-semantics cast (non-ANSI: integer narrowing wraps, decimal
+    overflow gives null; lowered by ``exprs/cast.py``)."""
+
+    child: Expr
+    to: DataType
+
+
+@dataclass(eq=False)
 class Case(Expr):
     """CASE WHEN c1 THEN v1 ... ELSE e END (no ELSE: null)."""
 
@@ -116,13 +128,22 @@ class InList(Expr):
 
 @dataclass(eq=False)
 class Like(Expr):
-    """SQL LIKE.  The lowering covers ``abc``, ``abc%``, ``%abc``,
-    ``%abc%`` and ``abc%xyz``; ``_`` and more than one inner segment
-    raise (the reference sends those to its host evaluator)."""
+    """SQL LIKE.  ``abc``, ``abc%``, ``%abc``, ``%abc%`` and ``abc%xyz``
+    lower to device string ops; a pattern with ``_`` or with more than
+    one inner segment is evaluated on the host (``compile.host_like``)."""
 
     child: Expr
     pattern: str
     negated: bool = False
+
+
+@dataclass(eq=False)
+class ScalarFunc(Expr):
+    """A named scalar function, resolved through the registry of
+    ``exprs/functions.py``."""
+
+    name: str
+    args: List[Expr]
 
 
 def _wrap(v) -> Expr:
@@ -135,3 +156,7 @@ def col(name: str) -> Col:
 
 def lit(value: Any, dtype: Optional[DataType] = None) -> Lit:
     return Lit(value, dtype)
+
+
+def func(name: str, *args) -> ScalarFunc:
+    return ScalarFunc(name, [_wrap(a) for a in args])

@@ -14,7 +14,11 @@ accumulate on two radix-2^32 int64 limbs, ``#sum_hi`` and
 ``#sum_lo<p>``, summed independently and combined into int128 at
 finalize, like the reference.  Functions: sum, count, count_star, avg
 (avg keeps a sum beside its ``#count`` and divides at finalize, with
-Spark's HALF_UP decimal rounding).
+Spark's HALF_UP decimal rounding), min and max (one ``#value`` state
+column of the input's type, null where a group has no non-null input;
+integers, dates, decimals, floats and strings; as in the reference, a
+float NaN is larger than every number and any NaN in a group makes
+its min NaN too).
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ import torch
 
 from ..batch import Column, RecordBatch, bucket_capacity, concat_batches, pad_rows
 from ..exprs import int128 as I
-from ..exprs.compile import infer_dtype, lower
+from ..exprs.compile import infer_dtype, lower, null_column
 from ..exprs.ir import Expr
 from ..exprs.strings import packed_be
 from ..runtime.context import TaskContext
@@ -48,7 +52,7 @@ class GroupingExpr:
 
 @dataclass
 class AggFunction:
-    """One aggregate call: ``fn`` in sum/count/count_star/avg."""
+    """One aggregate call: ``fn`` in sum/count/count_star/avg/min/max."""
 
     fn: str
     expr: Optional[Expr]
@@ -56,6 +60,8 @@ class AggFunction:
 
 
 # ---------------------------------------------------------------- typing
+
+MINMAX = ("min", "max")
 
 
 def sum_result_type(t: DataType) -> DataType:
@@ -73,6 +79,8 @@ def agg_result_type(fn: str, in_t: Optional[DataType]) -> DataType:
         return sum_result_type(in_t)
     if fn == "avg":
         return decimal_avg_agg_type(in_t) if in_t.is_decimal else DataType.float64()
+    if fn in MINMAX:
+        return in_t
     raise NotImplementedError(f"agg fn {fn}")
 
 
@@ -88,6 +96,8 @@ def agg_state_fields(fn: str, in_t: Optional[DataType], name: str) -> List[Field
     inputs, ``#nonnull`` for sum and ``#count`` for avg."""
     if fn in ("count", "count_star"):
         return [Field(f"{name}#count", DataType.int64())]
+    if fn in MINMAX:
+        return [Field(f"{name}#value", in_t)]
     if fn not in ("sum", "avg"):
         raise NotImplementedError(f"agg fn {fn}")
     count = Field(f"{name}#nonnull" if fn == "sum" else f"{name}#count", DataType.int64())
@@ -107,6 +117,8 @@ def _state_input_type(a: AggFunction, in_schema: Schema) -> Optional[DataType]:
     p)."""
     if a.fn in ("count", "count_star"):
         return None
+    if a.fn in MINMAX:
+        return in_schema.field(f"{a.name}#value").dtype
     if f"{a.name}#sum" in in_schema.names:
         st = in_schema.field(f"{a.name}#sum").dtype
         return DataType.decimal(max(1, st.precision - 10), st.scale) if st.is_decimal else st
@@ -195,6 +207,35 @@ def seg_sum(values: torch.Tensor, valid: torch.Tensor, seg: Optional[Segments]) 
     return at_end - torch.cat([at_end.new_zeros(1), at_end[:-1]])
 
 
+def seg_minmax(v: Column, seg: Optional[Segments], is_min: bool) -> Column:
+    """Per-group min or max of ``v`` (rows already in group order),
+    nulls skipped: one stable sort of the rows by (group, null last,
+    value), whose first row in each group is its extreme; a group of
+    nulls only gives null.  Floats order -0.0 below 0.0 and NaN above
+    everything, and a NaN in a group makes its min NaN (the reference's
+    NaN-propagating minimum)."""
+    from .sort import order_words
+
+    n = v.capacity
+    if v.dtype.is_float:
+        # one NaN (a negative NaN would order below every number)
+        v = Column(v.dtype, torch.where(torch.isnan(v.data), float("nan"), v.data), v.validity)
+    if seg is None:
+        gid = torch.zeros(n, dtype=torch.int64, device=v.device)
+        starts = gid[:1]
+    else:
+        mark = torch.zeros(n, dtype=torch.int64, device=v.device)
+        mark[seg.starts] = 1
+        gid, starts = torch.cumsum(mark, 0) - 1, seg.starts
+    order = lexsort([gid] + order_words(v, ascending=is_min, nulls_first=False))
+    out = v.take(order[starts])
+    if is_min and v.dtype.is_float:
+        nan = seg_sum(torch.isnan(v.data).to(torch.int64), v.validity, seg) > 0
+        out = Column(out.dtype, torch.where(nan, torch.full_like(out.data, float("nan")), out.data),
+                     out.validity)
+    return out
+
+
 def _combine_limbs(hi: Column, lo: Column):
     """Wide-sum limbs (hi * 2^32 + lo) -> int128 (hi64, lo64)."""
     return I.add(hi.data >> 32, hi.data << 32, *I.from_i64(lo.data))
@@ -256,7 +297,9 @@ class AggExec(ExecNode):
             key_cols = [lower(g.expr, schema, env, n) for g in self.groupings]
         seg = group_segments(encode_key_words(key_cols)) if self.groupings else None
         perm = (lambda t: t) if seg is None else (lambda t: t[seg.order])
-        out: List[torch.Tensor] = []
+        # one state column per entry: a reduced tensor (valid in every
+        # group), or a min/max Column (null where a group had no value)
+        out: list = []
         if seg is not None:
             first = seg.order[seg.starts]
             # a group's key is its first row's, canonical where it is a float
@@ -265,6 +308,12 @@ class AggExec(ExecNode):
                         for c in out_keys]
         for a, t in zip(self.aggs, self._in_types):
             fields = agg_state_fields(a.fn, t, a.name)
+            if a.fn in MINMAX:
+                v = env[fields[0].name] if merging else lower(a.expr, schema, env, n)
+                out.append(seg_minmax(Column(v.dtype, perm(v.data), perm(v.validity),
+                                             None if v.lengths is None else perm(v.lengths)),
+                                      seg, a.fn == "min"))
+                continue
             if merging:
                 # every state column sums; nulls never occur in states
                 for f in fields:
@@ -293,16 +342,21 @@ class AggExec(ExecNode):
         state_cols = [] if seg is None else [c.pad(cap) for c in out_keys]
         state_fields = self._state_schema.fields[len(self.groupings):]
         for f, d in zip(state_fields, out):
+            if isinstance(d, Column):
+                state_cols.append(d.pad(cap))
+                continue
             state_cols.append(Column(
                 f.dtype, pad_rows(d, cap),
                 pad_rows(torch.ones(n_out, dtype=torch.bool, device=d.device), cap)))
         return RecordBatch(self._state_schema, state_cols, n_out)
 
     def _empty_state(self) -> RecordBatch:
-        """The state of a global aggregate over no rows."""
+        """The state of a global aggregate over no rows: zero counts and
+        sums, null extremes."""
         cap = bucket_capacity(1)
         dev = self.device
-        cols = [Column(f.dtype,
+        cols = [null_column(f.dtype, cap, dev) if f.name.endswith("#value") else
+                Column(f.dtype,
                        pad_rows(torch.zeros(1, dtype=torch.float64 if f.dtype.is_float else torch.int64,
                                             device=dev), cap),
                        pad_rows(torch.ones(1, dtype=torch.bool, device=dev), cap))
@@ -317,6 +371,9 @@ class AggExec(ExecNode):
         for a, t in zip(self.aggs, self._in_types):
             if a.fn in ("count", "count_star"):
                 out.append(env[f"{a.name}#count"])
+                continue
+            if a.fn in MINMAX:
+                out.append(env[f"{a.name}#value"])
                 continue
             if a.fn == "avg":
                 out.append(self._finalize_avg(env, a.name, t))

@@ -5,7 +5,7 @@ against the real key columns, so hash collisions and null keys never
 produce a wrong match."""
 
 from .broadcast import BroadcastJoinExec
-from .core import JoinMap, JoinType
+from .core import Joiner, JoinerState, JoinMap, JoinType
 from .hash_join import HashJoinExec
 
-__all__ = ["BroadcastJoinExec", "HashJoinExec", "JoinMap", "JoinType"]
+__all__ = ["BroadcastJoinExec", "HashJoinExec", "Joiner", "JoinerState", "JoinMap", "JoinType"]

@@ -6,7 +6,16 @@ probe partition.
 With a ``cached_build_id`` (the scheduler sets one per broadcast) the
 map is also kept in a small process-wide cache, so the tasks of a
 stage, each decoded afresh from its TaskDefinition, build it once
-(≙ the reference's per-executor cached build)."""
+(≙ the reference's per-executor cached build).
+
+A join that outputs build rows a probe row did or did not match (FULL,
+RIGHT with the probe on the left, LEFT with the probe on the right,
+RIGHT_SEMI, RIGHT_ANTI) needs every probe partition's matches at once,
+which no single partition's task sees: over more than one probe
+partition it raises at construction (the reference runs it and emits
+the last partition's view alone, ROADMAP queue C, reference defect 8).
+Over one probe partition it runs, and the build side's rows follow the
+probe's."""
 
 from __future__ import annotations
 
@@ -19,7 +28,7 @@ from ...exprs.ir import Expr
 from ...runtime.context import TaskContext
 from ...schema import Schema
 from ..base import BatchStream, ExecNode
-from .core import Joiner, JoinMap, JoinType
+from .core import Joiner, JoinerState, JoinMap, JoinType
 
 _MAP_CACHE: "OrderedDict[str, Optional[JoinMap]]" = OrderedDict()
 _MAP_CACHE_LOCK = threading.Lock()
@@ -67,6 +76,12 @@ class BroadcastJoinExec(ExecNode):
         self.cached_build_id = cached_build_id
         self._joiner = Joiner(probe.schema, build.schema, probe_keys, build_keys,
                               join_type, probe_is_left=not build_is_left)
+        if self._joiner.build_preserved and probe.num_partitions() > 1:
+            raise NotImplementedError(
+                f"a {join_type.name} broadcast join with the build on the "
+                f"{'left' if build_is_left else 'right'} outputs build rows, which needs every "
+                f"probe partition's matches: over {probe.num_partitions()} probe partitions "
+                f"plan a shuffled hash join")
         self._lock = threading.Lock()
         self._map: Optional[JoinMap] = None
         self._built = False
@@ -87,7 +102,7 @@ class BroadcastJoinExec(ExecNode):
                 self.metrics.add("hashmap_cache_hit")
                 return m
         with self.metrics.timer("build_hash_map_time"):
-            batches = list(self.children[0].execute(0, ctx.child_context(0, 1)))
+            batches = [b for b in self.children[0].execute(0, ctx.child_context(0, 1)) if b.num_rows]
             m = self._joiner.build_map(concat_batches(batches)) if batches else None
         if key is not None:
             _cache_put(key, m)
@@ -103,15 +118,21 @@ class BroadcastJoinExec(ExecNode):
     def execute(self, partition: int, ctx: TaskContext) -> BatchStream:
         def stream():
             jmap = self._get_map(ctx)
-            if jmap is None and self.join_type != JoinType.LEFT_ANTI:
-                return  # no build rows: only an anti join has output
+            if jmap is None and not self._joiner.output_without_build_rows:
+                return  # no build rows, so no output
+            state = JoinerState()
             for batch in self.children[1].execute(partition, ctx):
                 if not ctx.is_task_running():
                     return
                 with self.metrics.timer("probe_time"):
-                    out = self._joiner.probe_batch(jmap, batch)
+                    out = self._joiner.probe_batch(jmap, batch, state)
                 if out is not None:
                     self._record_batch(out)
                     yield out
+            # one probe partition (the constructor's rule): it saw every match
+            tail = self._joiner.finish(jmap, state)
+            if tail is not None:
+                self._record_batch(tail)
+                yield tail
 
         return stream()

@@ -1,6 +1,8 @@
 """Shuffled hash join (≙ ``blaze_tpu/ops/joins/hash_join.py``): the
 build side is THIS partition of an exchange hash-partitioned on the
-join keys, like the probe side."""
+join keys, like the probe side, so every join type is right here: a
+build row's matches all come from this partition's probe rows, and
+``Joiner.finish`` emits the build-preserved rows after them."""
 
 from __future__ import annotations
 
@@ -11,7 +13,7 @@ from ...exprs.ir import Expr
 from ...runtime.context import TaskContext
 from ...schema import Schema
 from ..base import BatchStream, ExecNode
-from .core import Joiner, JoinType
+from .core import Joiner, JoinerState, JoinType
 
 
 class HashJoinExec(ExecNode):
@@ -35,17 +37,22 @@ class HashJoinExec(ExecNode):
     def execute(self, partition: int, ctx: TaskContext) -> BatchStream:
         def stream():
             with self.metrics.timer("build_hash_map_time"):
-                batches = list(self.children[0].execute(partition, ctx))
-                if not batches and self.join_type != JoinType.LEFT_ANTI:
-                    return  # no build rows: only an anti join has output
+                batches = [b for b in self.children[0].execute(partition, ctx) if b.num_rows]
+                if not batches and not self._joiner.output_without_build_rows:
+                    return  # no build rows, so no output
                 jmap = self._joiner.build_map(concat_batches(batches)) if batches else None
+            state = JoinerState()
             for batch in self.children[1].execute(partition, ctx):
                 if not ctx.is_task_running():
                     return
                 with self.metrics.timer("probe_time"):
-                    out = self._joiner.probe_batch(jmap, batch)
+                    out = self._joiner.probe_batch(jmap, batch, state)
                 if out is not None:
                     self._record_batch(out)
                     yield out
+            tail = self._joiner.finish(jmap, state)
+            if tail is not None:
+                self._record_batch(tail)
+                yield tail
 
         return stream()

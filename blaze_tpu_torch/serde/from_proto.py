@@ -10,7 +10,9 @@ unscaled=True)``.
 from __future__ import annotations
 
 
-from ..exprs.ir import Alias, BinOp, Case, Col, Expr, InList, IsNotNull, IsNull, Like, Lit, Not
+from ..exprs.ir import (
+    Alias, BinOp, Case, Cast, Col, Expr, InList, IsNotNull, IsNull, Like, Lit, Not, ScalarFunc,
+)
 from ..schema import DataType, Field, Schema, TypeKind
 from . import wire as pb
 
@@ -61,6 +63,10 @@ def expr_from_proto(n: pb.ExprNode) -> Expr:
         return IsNull(expr_from_proto(n.is_null))
     if kind == "is_not_null":
         return IsNotNull(expr_from_proto(n.is_not_null))
+    if kind == "cast":
+        return Cast(expr_from_proto(n.cast.child), dtype_from_proto(n.cast.to))
+    if kind == "scalar_func":
+        return ScalarFunc(n.scalar_func.name, [expr_from_proto(a) for a in n.scalar_func.args])
     if kind == "case":
         c = n.case
         return Case([(expr_from_proto(b.condition), expr_from_proto(b.value)) for b in c.branches],
@@ -84,8 +90,7 @@ def _partitioning_from_proto(p: pb.PartitioningProto):
 
 
 def _join_type(v: int):
-    """The join type of the same name; ``Joiner`` raises for the types
-    the port does not run."""
+    """The join type of the same name."""
     from ..ops.joins import JoinType
 
     return JoinType[pb.JoinTypeProto(v).name]

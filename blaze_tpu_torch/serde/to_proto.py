@@ -4,8 +4,8 @@
 Covers the nodes and expressions the port has: memory scan, project,
 filter, agg, sort, limit, shuffle writer, IPC reader and writer,
 broadcast and shuffled hash joins; columns, literals, aliases, binary
-operators, NOT, IS [NOT] NULL, CASE, IN and LIKE.  Anything else
-raises ``NotImplementedError`` naming it.
+operators, NOT, IS [NOT] NULL, casts, CASE, IN, LIKE and scalar
+functions.  Anything else raises ``NotImplementedError`` naming it.
 """
 
 from __future__ import annotations
@@ -15,7 +15,9 @@ import datetime
 import itertools
 
 from ..exprs.compile import infer_lit_dtype, unscaled_decimal
-from ..exprs.ir import Alias, BinOp, Case, Col, Expr, InList, IsNotNull, IsNull, Like, Lit, Not
+from ..exprs.ir import (
+    Alias, BinOp, Case, Cast, Col, Expr, InList, IsNotNull, IsNull, Like, Lit, Not, ScalarFunc,
+)
 from ..schema import DataType, Schema, TypeKind
 from . import wire as pb
 
@@ -81,6 +83,8 @@ def expr_to_proto(e: Expr) -> pb.ExprNode:
         return pb.ExprNode(is_null=expr_to_proto(e.child))
     if isinstance(e, IsNotNull):
         return pb.ExprNode(is_not_null=expr_to_proto(e.child))
+    if isinstance(e, Cast):
+        return pb.ExprNode(cast=pb.CastExpr(child=expr_to_proto(e.child), to=dtype_to_proto(e.to)))
     if isinstance(e, Case):
         case = pb.CaseExpr(branches=[pb.CaseBranch(condition=expr_to_proto(c), value=expr_to_proto(v))
                                      for c, v in e.branches])
@@ -95,6 +99,8 @@ def expr_to_proto(e: Expr) -> pb.ExprNode:
     if isinstance(e, Like):
         return pb.ExprNode(like=pb.LikeExpr(child=expr_to_proto(e.child), pattern=e.pattern,
                                             negated=e.negated))
+    if isinstance(e, ScalarFunc):
+        return pb.ExprNode(scalar_func=pb.ScalarFuncExpr(name=e.name, args=[expr_to_proto(a) for a in e.args]))
     raise NotImplementedError(f"to_proto for {type(e).__name__}")
 
 

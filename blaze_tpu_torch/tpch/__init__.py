@@ -1,5 +1,5 @@
-"""TPC-H for the port: schemas, generator, plans and oracles of q01,
-q03, q04, q05, q06, q10, q12, q14 and q19."""
+"""TPC-H for the port: schemas, generator, plans and oracles of the 22
+queries."""
 
 from .queries import build_query
 from .schema import TPCH_SCHEMAS

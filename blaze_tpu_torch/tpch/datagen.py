@@ -305,3 +305,82 @@ def _gen_lineitem(rng, scale: float, columns=None) -> HostTable:
 
 def generate_all(scale: float, seed: int = 19940204) -> Dict[str, HostTable]:
     return {name: generate_table(name, scale, seed) for name in TPCH_SCHEMAS}
+
+
+# dbgen's P_NAME words (TPC-H specification 4.2.3)
+COLORS = (
+    "almond antique aquamarine azure beige bisque black blanched blue blush brown burlywood "
+    "burnished chartreuse chiffon chocolate coral cornflower cornsilk cream cyan dark deep dim "
+    "dodger drab firebrick floral forest frosted gainsboro ghost goldenrod green grey honeydew "
+    "hot indian ivory khaki lace lavender lawn lemon light lime linen magenta maroon medium "
+    "metallic midnight mint misty moccasin navajo navy olive orange orchid pale papaya peach "
+    "peru pink plum powder puff purple red rose rosy royal saddle salmon sandy seashell sienna "
+    "sky slate smoke snow spring steel tan thistle tomato turquoise violet wheat white yellow"
+).split()
+
+
+def _join_words(words: List[np.ndarray], sep: int, width: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Rows of (data, lengths) string parts joined by the byte ``sep``."""
+    n = words[0][0].shape[0]
+    data = np.zeros((n, width), np.uint8)
+    lengths = np.zeros(n, np.int32)
+    rows = np.arange(n)
+    for k, (wd, wl) in enumerate(words):
+        if k:
+            data[rows, lengths] = sep
+            lengths = lengths + 1
+        for j in range(wd.shape[1]):
+            ok = j < wl
+            data[rows[ok], lengths[ok] + j] = wd[ok, j]
+        lengths = lengths + wl
+    return data, lengths
+
+
+def with_spec_columns(tables: Dict[str, HostTable], scale: float, seed: int = 19940204) -> Dict[str, HostTable]:
+    """``tables`` (of :func:`generate_table` at ``scale``) with four
+    columns made as TPC-H's dbgen makes them, where the generator (a
+    copy of the reference's) simplifies them so far that q09, q20 and
+    q22 select no row at some or every scale:
+
+    - ``p_name``: five distinct words of :data:`COLORS` (the generator's
+      words hold no color, so no name has "green" or starts "forest");
+    - ``c_phone``: ``<c_nationkey + 10>-ddd-ddd-dddd`` (the generator's
+      are all "11-111-111-1111", outside q22's country codes);
+    - ``o_custkey``: a key divisible by 3 moved down by one, so a third
+      of the customers place no order (the generator's draw reaches
+      every customer);
+    - ``l_suppkey``: one of the four suppliers ``partsupp`` lists for
+      the line's ``l_partkey`` (the generator draws any supplier, so
+      hardly a line's (part, supplier) is in ``partsupp`` at SF1).
+
+    Only the columns present are rewritten (``c_phone`` needs
+    ``c_nationkey`` beside it, ``l_suppkey`` needs ``l_partkey``);
+    every other column is the same array.
+    """
+    out = dict(tables)
+    rng = np.random.RandomState(seed % (2**31))
+    if "p_name" in tables.get("part", {}):
+        n = tables["part"]["p_name"][0].shape[0]
+        cdata, clen = _encode_options(COLORS, 16)
+        pick = np.argsort(rng.random_sample((n, len(COLORS))), axis=1)[:, :5]
+        words = [(cdata[pick[:, k]], clen[pick[:, k]]) for k in range(5)]
+        out["part"] = dict(tables["part"], p_name=_join_words(words, ord(" "), 64))
+    if "c_phone" in tables.get("customer", {}):
+        nk = tables["customer"]["c_nationkey"][0].astype(np.int64)
+        n = nk.shape[0]
+        parts = [nk + 10, rng.randint(100, 1000, n), rng.randint(100, 1000, n), rng.randint(1000, 10000, n)]
+        words = []
+        for v, ndig in zip(parts, (2, 3, 3, 4)):
+            digits = np.stack([v // 10 ** (ndig - 1 - d) % 10 for d in range(ndig)], axis=1) + ord("0")
+            words.append((digits.astype(np.uint8), np.full(n, ndig, np.int32)))
+        out["customer"] = dict(tables["customer"], c_phone=_join_words(words, ord("-"), 16))
+    if "o_custkey" in tables.get("orders", {}):
+        ck = tables["orders"]["o_custkey"][0]
+        out["orders"] = dict(tables["orders"], o_custkey=(np.where(ck % 3 == 0, ck - 1, ck), None))
+    if "l_suppkey" in tables.get("lineitem", {}) and "l_partkey" in tables["lineitem"]:
+        pk = tables["lineitem"]["l_partkey"][0]
+        n_supp = max(1, int(10000 * scale))
+        # partsupp's rule for the k-th supplier of a part
+        k = rng.randint(0, 4, pk.shape[0])
+        out["lineitem"] = dict(tables["lineitem"], l_suppkey=((pk + k * (n_supp // 4 + 1)) % n_supp + 1, None))
+    return out

@@ -1,8 +1,6 @@
-"""Independent numpy oracles for the port's TPC-H queries: the
-port's own copy of ``oracle_q1``, ``q3``, ``q4``, ``q5``, ``q6``,
-``q10``, ``q12``, ``q14`` and ``q19`` from ``blaze_tpu/tpch/oracle.py``.
-Decimal math is unscaled int64 with Spark semantics, coded
-independently of the engine."""
+"""Independent numpy oracles for the 22 TPC-H queries: the port's own
+copy of ``blaze_tpu/tpch/oracle.py``.  Decimal math is unscaled int64
+with Spark semantics, coded independently of the engine."""
 
 from __future__ import annotations
 
@@ -270,3 +268,373 @@ def oracle_q19(tables: Dict[str, HostTable]):
         if ok:
             total += int(rev[i])
     return total
+
+
+def oracle_q2(tables: Dict[str, HostTable]):
+    re_, na, su, ps, part = (
+        tables["region"], tables["nation"], tables["supplier"],
+        tables["partsupp"], tables["part"],
+    )
+    europe = int(re_["r_regionkey"][0][_s_eq(re_, "r_name", "EUROPE")][0])
+    nname = {
+        int(k): v
+        for k, v, r in zip(na["n_nationkey"][0], _sv(na, "n_name"), na["n_regionkey"][0])
+        if int(r) == europe
+    }
+    s_info = {}
+    snames = _sv(su, "s_name")
+    saddr = _sv(su, "s_address")
+    sphone = _sv(su, "s_phone")
+    scom = _sv(su, "s_comment")
+    for i in range(su["s_suppkey"][0].shape[0]):
+        nk = int(su["s_nationkey"][0][i])
+        if nk in nname:
+            s_info[int(su["s_suppkey"][0][i])] = (
+                int(su["s_acctbal"][0][i]), snames[i], nname[nk], saddr[i], sphone[i], scom[i]
+            )
+    ptype = _sv(part, "p_type")
+    pmfgr = _sv(part, "p_mfgr")
+    eligible_parts = {
+        int(k): pmfgr[i]
+        for i, k in enumerate(part["p_partkey"][0])
+        if int(part["p_size"][0][i]) == 15 and ptype[i].endswith("BRASS")
+    }
+    # min cost per eligible part over european suppliers
+    rows = []
+    mincost: Dict[int, int] = {}
+    for i in range(ps["ps_partkey"][0].shape[0]):
+        pk = int(ps["ps_partkey"][0][i])
+        sk = int(ps["ps_suppkey"][0][i])
+        if pk in eligible_parts and sk in s_info:
+            c = int(ps["ps_supplycost"][0][i])
+            if pk not in mincost or c < mincost[pk]:
+                mincost[pk] = c
+    for i in range(ps["ps_partkey"][0].shape[0]):
+        pk = int(ps["ps_partkey"][0][i])
+        sk = int(ps["ps_suppkey"][0][i])
+        if pk in eligible_parts and sk in s_info and int(ps["ps_supplycost"][0][i]) == mincost[pk]:
+            bal, sn, nn, addr, ph, com = s_info[sk]
+            rows.append((bal, sn, nn, pk, eligible_parts[pk]))
+    rows.sort(key=lambda t: (-t[0], t[2], t[1], t[3]))
+    return rows[:100]
+
+
+def oracle_q7(tables: Dict[str, HostTable]):
+    na, su, cu, orders, li = (
+        tables["nation"], tables["supplier"], tables["customer"],
+        tables["orders"], tables["lineitem"],
+    )
+    nname = dict(zip(na["n_nationkey"][0].tolist(), _sv(na, "n_name")))
+    fr_ge = {k: v for k, v in nname.items() if v in ("FRANCE", "GERMANY")}
+    s_nat = {int(s): fr_ge[int(n)] for s, n in zip(su["s_suppkey"][0], su["s_nationkey"][0]) if int(n) in fr_ge}
+    c_nat = {int(c): fr_ge[int(n)] for c, n in zip(cu["c_custkey"][0], cu["c_nationkey"][0]) if int(n) in fr_ge}
+    o_cust = dict(zip(orders["o_orderkey"][0].tolist(), orders["o_custkey"][0].tolist()))
+    lm = (li["l_shipdate"][0] >= _days(1995, 1, 1)) & (li["l_shipdate"][0] <= _days(1996, 12, 31))
+    rev = li["l_extendedprice"][0] * (100 - li["l_discount"][0])
+    import datetime as _dt
+
+    out: Dict[Tuple, int] = {}
+    for i in np.nonzero(lm)[0]:
+        sk = int(li["l_suppkey"][0][i])
+        if sk not in s_nat:
+            continue
+        ok = int(li["l_orderkey"][0][i])
+        ck = o_cust.get(ok)
+        cn = c_nat.get(int(ck)) if ck is not None else None
+        if cn is None:
+            continue
+        sn = s_nat[sk]
+        if not ((sn == "FRANCE" and cn == "GERMANY") or (sn == "GERMANY" and cn == "FRANCE")):
+            continue
+        year = (_dt.date(1970, 1, 1) + _dt.timedelta(days=int(li["l_shipdate"][0][i]))).year
+        k = (sn, cn, year)
+        out[k] = out.get(k, 0) + int(rev[i])
+    return dict(sorted(out.items()))
+
+
+def oracle_q9(tables: Dict[str, HostTable]):
+    part, su, li, ps, orders, na = (
+        tables["part"], tables["supplier"], tables["lineitem"],
+        tables["partsupp"], tables["orders"], tables["nation"],
+    )
+    green = {int(k) for k, nm in zip(part["p_partkey"][0], _sv(part, "p_name")) if "green" in nm}
+    nname = dict(zip(na["n_nationkey"][0].tolist(), _sv(na, "n_name")))
+    s_nat = {int(s): nname[int(n)] for s, n in zip(su["s_suppkey"][0], su["s_nationkey"][0])}
+    cost = {}
+    for i in range(ps["ps_partkey"][0].shape[0]):
+        cost[(int(ps["ps_partkey"][0][i]), int(ps["ps_suppkey"][0][i]))] = int(ps["ps_supplycost"][0][i])
+    o_date = dict(zip(orders["o_orderkey"][0].tolist(), orders["o_orderdate"][0].tolist()))
+    import datetime as _dt
+
+    rev = li["l_extendedprice"][0] * (100 - li["l_discount"][0])
+    out: Dict[Tuple, int] = {}
+    for i in range(li["l_orderkey"][0].shape[0]):
+        pk = int(li["l_partkey"][0][i])
+        if pk not in green:
+            continue
+        sk = int(li["l_suppkey"][0][i])
+        key = (pk, sk)
+        if key not in cost:
+            continue
+        ok = int(li["l_orderkey"][0][i])
+        if ok not in o_date:
+            continue
+        nation = s_nat.get(sk)
+        if nation is None:
+            continue
+        year = (_dt.date(1970, 1, 1) + _dt.timedelta(days=int(o_date[ok]))).year
+        # amount = rev(scale4) - supplycost(scale2)*quantity(scale2) -> scale 4
+        amount = int(rev[i]) - cost[key] * int(li["l_quantity"][0][i])
+        k = (nation, year)
+        out[k] = out.get(k, 0) + amount
+    return out
+
+
+def oracle_q11(tables: Dict[str, HostTable]):
+    na, su, ps = tables["nation"], tables["supplier"], tables["partsupp"]
+    germany = {int(k) for k, v in zip(na["n_nationkey"][0], _sv(na, "n_name")) if v == "GERMANY"}
+    sk_ok = {int(s) for s, n in zip(su["s_suppkey"][0], su["s_nationkey"][0]) if int(n) in germany}
+    by_part: Dict[int, int] = {}
+    total = 0
+    for i in range(ps["ps_partkey"][0].shape[0]):
+        if int(ps["ps_suppkey"][0][i]) not in sk_ok:
+            continue
+        v = int(ps["ps_supplycost"][0][i]) * int(ps["ps_availqty"][0][i])  # scale 2
+        pk = int(ps["ps_partkey"][0][i])
+        by_part[pk] = by_part.get(pk, 0) + v
+        total += v
+    thr = (total / 10**2) * 0.0001
+    out = {pk: v for pk, v in by_part.items() if v / 10**2 > thr}
+    return out
+
+
+def oracle_q13(tables: Dict[str, HostTable]):
+    import re as _re
+
+    cu, orders = tables["customer"], tables["orders"]
+    rx = _re.compile("special.*requests")
+    keep = [not rx.search(c) for c in _sv(orders, "o_comment")]
+    per_cust: Dict[int, int] = {int(c): 0 for c in cu["c_custkey"][0]}
+    for i in np.nonzero(np.array(keep))[0]:
+        ck = int(orders["o_custkey"][0][i])
+        if ck in per_cust:
+            per_cust[ck] += 1
+    hist: Dict[int, int] = {}
+    for n in per_cust.values():
+        hist[n] = hist.get(n, 0) + 1
+    return hist
+
+
+def oracle_q8(tables: Dict[str, HostTable]):
+    re_, na, cu, orders, li, part, su = (
+        tables["region"], tables["nation"], tables["customer"], tables["orders"],
+        tables["lineitem"], tables["part"], tables["supplier"],
+    )
+    import datetime as _dt
+
+    america = int(re_["r_regionkey"][0][_s_eq(re_, "r_name", "AMERICA")][0])
+    am_nk = {int(k) for k, r in zip(na["n_nationkey"][0], na["n_regionkey"][0]) if int(r) == america}
+    am_cust = {int(c) for c, n in zip(cu["c_custkey"][0], cu["c_nationkey"][0]) if int(n) in am_nk}
+    om = (orders["o_orderdate"][0] >= _days(1995, 1, 1)) & (orders["o_orderdate"][0] <= _days(1996, 12, 31))
+    o_info = {
+        int(k): int(d)
+        for k, c, d in zip(orders["o_orderkey"][0][om], orders["o_custkey"][0][om], orders["o_orderdate"][0][om])
+        if int(c) in am_cust
+    }
+    steel = {int(k) for k, t in zip(part["p_partkey"][0], _sv(part, "p_type")) if t == "ECONOMY ANODIZED STEEL"}
+    nname = dict(zip(na["n_nationkey"][0].tolist(), _sv(na, "n_name")))
+    s_nat = {int(s): nname[int(n)] for s, n in zip(su["s_suppkey"][0], su["s_nationkey"][0])}
+    rev = li["l_extendedprice"][0] * (100 - li["l_discount"][0])
+    by_year: Dict[int, List[int]] = {}
+    for i in range(li["l_orderkey"][0].shape[0]):
+        if int(li["l_partkey"][0][i]) not in steel:
+            continue
+        ok = int(li["l_orderkey"][0][i])
+        if ok not in o_info:
+            continue
+        year = (_dt.date(1970, 1, 1) + _dt.timedelta(days=o_info[ok])).year
+        nat = s_nat[int(li["l_suppkey"][0][i])]
+        e = by_year.setdefault(year, [0, 0])
+        e[1] += int(rev[i])
+        if nat == "BRAZIL":
+            e[0] += int(rev[i])
+    return {y: (b / t if t else 0.0) for y, (b, t) in sorted(by_year.items())}
+
+
+def oracle_q15(tables: Dict[str, HostTable]):
+    li, su = tables["lineitem"], tables["supplier"]
+    m = (li["l_shipdate"][0] >= _days(1996, 1, 1)) & (li["l_shipdate"][0] < _days(1996, 4, 1))
+    rev = li["l_extendedprice"][0] * (100 - li["l_discount"][0])
+    by_supp: Dict[int, int] = {}
+    for i in np.nonzero(m)[0]:
+        sk = int(li["l_suppkey"][0][i])
+        by_supp[sk] = by_supp.get(sk, 0) + int(rev[i])
+    if not by_supp:
+        return []
+    mx = max(by_supp.values())
+    snames = dict(zip(su["s_suppkey"][0].tolist(), _sv(su, "s_name")))
+    rows = [(sk, snames.get(sk), v) for sk, v in by_supp.items() if v == mx and sk in snames]
+    rows.sort()
+    return rows
+
+
+def oracle_q16(tables: Dict[str, HostTable]):
+    import re as _re
+
+    part, su, ps = tables["part"], tables["supplier"], tables["partsupp"]
+    sizes = {49, 14, 23, 45, 19, 3, 36, 9}
+    ptype = _sv(part, "p_type")
+    pbrand = _sv(part, "p_brand")
+    keep_part = {}
+    for i, k in enumerate(part["p_partkey"][0]):
+        if pbrand[i] != "Brand#45" and not ptype[i].startswith("MEDIUM POLISHED") and int(part["p_size"][0][i]) in sizes:
+            keep_part[int(k)] = (pbrand[i], ptype[i], int(part["p_size"][0][i]))
+    rx = _re.compile("special.*requests")
+    bad = {int(s) for s, c in zip(su["s_suppkey"][0], _sv(su, "s_comment")) if rx.search(c)}
+    groups: Dict[Tuple, set] = {}
+    for i in range(ps["ps_partkey"][0].shape[0]):
+        pk = int(ps["ps_partkey"][0][i])
+        sk = int(ps["ps_suppkey"][0][i])
+        if pk in keep_part and sk not in bad:
+            groups.setdefault(keep_part[pk], set()).add(sk)
+    return {k: len(v) for k, v in groups.items()}
+
+
+def oracle_q17(tables: Dict[str, HostTable]):
+    part, li = tables["part"], tables["lineitem"]
+    pb = _sv(part, "p_brand")
+    pc = _sv(part, "p_container")
+    keys = {
+        int(k)
+        for i, k in enumerate(part["p_partkey"][0])
+        if pb[i] == "Brand#23" and pc[i] == "MED BOX"
+    }
+    qty_by_part: Dict[int, List[int]] = {}
+    rows = []
+    for i in range(li["l_partkey"][0].shape[0]):
+        pk = int(li["l_partkey"][0][i])
+        if pk in keys:
+            qty_by_part.setdefault(pk, []).append(i)
+    total = 0
+    for pk, idxs in qty_by_part.items():
+        qs = [int(li["l_quantity"][0][i]) for i in idxs]
+        # engine avg: exact int path or float; avg dec(16,6): shift 4
+        s = sum(qs)
+        n = len(qs)
+        # replicate HALF_UP: use same float path as engine (dec(22,2)+4>18)
+        f = float(s) * 1e4 / n
+        avg_unscaled = int(np.where(f >= 0, np.floor(f + 0.5), np.ceil(f - 0.5)))
+        threshold = 0.2 * (avg_unscaled / 10**6)
+        for i in idxs:
+            if int(li["l_quantity"][0][i]) / 10**2 < threshold:
+                total += int(li["l_extendedprice"][0][i])
+    return total / 10**2 / 7.0
+
+
+def oracle_q18(tables: Dict[str, HostTable]):
+    li, orders, cu = tables["lineitem"], tables["orders"], tables["customer"]
+    qsum: Dict[int, int] = {}
+    for i in range(li["l_orderkey"][0].shape[0]):
+        ok = int(li["l_orderkey"][0][i])
+        qsum[ok] = qsum.get(ok, 0) + int(li["l_quantity"][0][i])
+    big = {ok: q for ok, q in qsum.items() if q > 300 * 100}
+    cname = dict(zip(cu["c_custkey"][0].tolist(), _sv(cu, "c_name")))
+    rows = []
+    for i in range(orders["o_orderkey"][0].shape[0]):
+        ok = int(orders["o_orderkey"][0][i])
+        if ok in big:
+            ck = int(orders["o_custkey"][0][i])
+            rows.append((
+                cname.get(ck), ck, ok, int(orders["o_orderdate"][0][i]),
+                int(orders["o_totalprice"][0][i]), big[ok],
+            ))
+    rows.sort(key=lambda t: (-t[4], t[3], t[2]))
+    return rows[:100]
+
+
+def oracle_q20(tables: Dict[str, HostTable]):
+    part, li, ps, su, na = (
+        tables["part"], tables["lineitem"], tables["partsupp"],
+        tables["supplier"], tables["nation"],
+    )
+    forest = {int(k) for k, nm in zip(part["p_partkey"][0], _sv(part, "p_name")) if nm.startswith("forest")}
+    m = (li["l_shipdate"][0] >= _days(1994, 1, 1)) & (li["l_shipdate"][0] < _days(1995, 1, 1))
+    used: Dict[Tuple[int, int], int] = {}
+    for i in np.nonzero(m)[0]:
+        k = (int(li["l_partkey"][0][i]), int(li["l_suppkey"][0][i]))
+        used[k] = used.get(k, 0) + int(li["l_quantity"][0][i])
+    qualified = set()
+    for i in range(ps["ps_partkey"][0].shape[0]):
+        pk, sk = int(ps["ps_partkey"][0][i]), int(ps["ps_suppkey"][0][i])
+        if pk not in forest:
+            continue
+        u = used.get((pk, sk))
+        if u is None:
+            continue
+        if int(ps["ps_availqty"][0][i]) > 0.5 * (u / 100):
+            qualified.add(sk)
+    canada = {int(k) for k, v in zip(na["n_nationkey"][0], _sv(na, "n_name")) if v == "CANADA"}
+    rows = []
+    snames = _sv(su, "s_name")
+    saddr = _sv(su, "s_address")
+    for i in range(su["s_suppkey"][0].shape[0]):
+        sk = int(su["s_suppkey"][0][i])
+        if sk in qualified and int(su["s_nationkey"][0][i]) in canada:
+            rows.append((snames[i], saddr[i]))
+    rows.sort()
+    return rows
+
+
+def oracle_q21(tables: Dict[str, HostTable]):
+    li, orders, su, na = (
+        tables["lineitem"], tables["orders"], tables["supplier"], tables["nation"],
+    )
+    saudi = {int(k) for k, v in zip(na["n_nationkey"][0], _sv(na, "n_name")) if v == "SAUDI ARABIA"}
+    s_saudi = {int(s) for s, n in zip(su["s_suppkey"][0], su["s_nationkey"][0]) if int(n) in saudi}
+    snames = dict(zip(su["s_suppkey"][0].tolist(), _sv(su, "s_name")))
+    status_f = {int(k) for k, st in zip(orders["o_orderkey"][0], _sv(orders, "o_orderstatus")) if st == "F"}
+    all_supp: Dict[int, set] = {}
+    late_supp: Dict[int, set] = {}
+    late_rows = []
+    lat = li["l_receiptdate"][0] > li["l_commitdate"][0]
+    for i in range(li["l_orderkey"][0].shape[0]):
+        ok = int(li["l_orderkey"][0][i])
+        sk = int(li["l_suppkey"][0][i])
+        all_supp.setdefault(ok, set()).add(sk)
+        if lat[i]:
+            late_supp.setdefault(ok, set()).add(sk)
+            late_rows.append((ok, sk))
+    out: Dict[str, int] = {}
+    for ok, sk in late_rows:
+        if sk not in s_saudi or ok not in status_f:
+            continue
+        if len(all_supp[ok]) > 1 and len(late_supp[ok]) == 1:
+            nm = snames[sk]
+            out[nm] = out.get(nm, 0) + 1
+    return out
+
+
+def oracle_q22(tables: Dict[str, HostTable]):
+    cu, orders = tables["customer"], tables["orders"]
+    codes = {"13", "31", "23", "29", "30", "18", "17"}
+    phones = _sv(cu, "c_phone")
+    sel = [i for i in range(len(phones)) if phones[i][:2] in codes]
+    pos = [i for i in sel if int(cu["c_acctbal"][0][i]) > 0]
+    if not pos:
+        return {}
+    s = sum(int(cu["c_acctbal"][0][i]) for i in pos)
+    f = float(s) * 1e4 / len(pos)
+    avg_unscaled = int(np.where(f >= 0, np.floor(f + 0.5), np.ceil(f - 0.5)))  # scale 6
+    thr = avg_unscaled / 10**6
+    has_orders = set(orders["o_custkey"][0].tolist())
+    out: Dict[str, List[int]] = {}
+    for i in sel:
+        bal = int(cu["c_acctbal"][0][i])
+        if bal / 10**2 <= thr:
+            continue
+        if int(cu["c_custkey"][0][i]) in has_orders:
+            continue
+        e = out.setdefault(phones[i][:2], [0, 0])
+        e[0] += 1
+        e[1] += bal
+    return out

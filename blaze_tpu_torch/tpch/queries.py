@@ -1,10 +1,12 @@
-"""TPC-H q01, q03, q04, q05, q06, q10, q12, q14 and q19 plans over the
-port's operators (≙ the same builders in ``blaze_tpu/tpch/queries.py``,
-node for node: the same exchanges, build sides and fetches).
+"""The 22 TPC-H query plans over the port's operators (≙ the same
+plan functions in ``blaze_tpu/tpch/queries.py``, node for node: the same
+exchanges, build sides and fetches).
 
 Each builder takes a table -> ExecNode map (scans) and an output
 parallelism and returns the root ExecNode; a caller runs
-``plan.execute(p, TaskContext(p, n))`` over every partition.
+``plan.execute(p, TaskContext(p, n))`` over every partition.  q11, q15
+and q22 run a scalar subquery while their plan is built
+(:func:`scalar_subquery`): its value enters the plan as a literal.
 """
 
 from __future__ import annotations
@@ -12,7 +14,7 @@ from __future__ import annotations
 import datetime
 from typing import Callable, Dict, List, Optional
 
-from ..exprs.ir import Case, Expr, Like, col, lit
+from ..exprs.ir import Case, Expr, Like, Lit, col, func, lit
 from ..ops import (
     AggExec,
     AggFunction,
@@ -72,6 +74,37 @@ def single_sorted(child: ExecNode, fields: List[SortField], fetch: Optional[int]
 def revenue_expr() -> Expr:
     """decimal(12,2) * decimal(13,2) -> decimal(26,4): a wide product."""
     return col("l_extendedprice") * (dec12(1) - col("l_discount"))
+
+
+def scalar_subquery_row(plan: ExecNode, columns: List[str]) -> List[Expr]:
+    """Runs a subplan of at most one row now, in process, and returns
+    each requested column of its first row as a typed literal (null
+    when it has no row); a decimal is carried unscaled
+    (``Lit(..., unscaled=True)``), as the plan contract carries it."""
+    from ..batch import batch_to_pydict
+    from ..runtime.context import TaskContext
+
+    values = dict.fromkeys(columns)
+    n = plan.num_partitions()
+    found = False
+    for p in range(n):
+        for b in plan.execute(p, TaskContext(p, n)):
+            d = batch_to_pydict(b)
+            if d[columns[0]]:
+                values = {c: d[c][0] for c in columns}
+                found = True
+                break
+        if found:
+            break
+    out: List[Expr] = []
+    for c in columns:
+        t = plan.schema.field(c).dtype
+        out.append(Lit(values[c], t, unscaled=t.is_decimal and values[c] is not None))
+    return out
+
+
+def scalar_subquery(plan: ExecNode, column: str) -> Expr:
+    return scalar_subquery_row(plan, [column])[0]
 
 
 def q1(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
@@ -282,8 +315,566 @@ def q19(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
     return two_stage_agg(proj, [], [AggFunction("sum", col("rev"), "revenue")], n_parts)
 
 
+def q2(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+    region = FilterExec(t["region"], col("r_name") == lit("EUROPE"))
+    nation = broadcast_join(
+        ProjectExec(region, [col("r_regionkey")]), t["nation"],
+        [col("r_regionkey")], [col("n_regionkey")], JoinType.INNER, build_is_left=True,
+    )
+    nation_p = ProjectExec(nation, [col("n_nationkey"), col("n_name")])
+    supp = broadcast_join(
+        nation_p, t["supplier"], [col("n_nationkey")], [col("s_nationkey")],
+        JoinType.INNER, build_is_left=True,
+    )
+    supp_p = ProjectExec(
+        supp,
+        [col("s_suppkey"), col("s_name"), col("s_address"), col("s_phone"),
+         col("s_acctbal"), col("s_comment"), col("n_name")],
+    )
+    ps = broadcast_join(
+        supp_p, t["partsupp"], [col("s_suppkey")], [col("ps_suppkey")],
+        JoinType.INNER, build_is_left=True,
+    )
+    part_f = FilterExec(
+        t["part"], (col("p_size") == lit(15)) & Like(col("p_type"), "%BRASS")
+    )
+    part_p = ProjectExec(part_f, [col("p_partkey"), col("p_mfgr")])
+    joined = broadcast_join(
+        part_p, ps, [col("p_partkey")], [col("ps_partkey")], JoinType.INNER,
+        build_is_left=True,
+    )
+    mincost = two_stage_agg(
+        joined,
+        [GroupingExpr(col("p_partkey"), "mk")],
+        [AggFunction("min", col("ps_supplycost"), "mc")],
+        n_parts,
+    )
+    withmin = shuffle_join(
+        joined, mincost, [col("p_partkey")], [col("mk")], JoinType.INNER, n_parts
+    )
+    best = FilterExec(withmin, col("ps_supplycost") == col("mc"))
+    proj = ProjectExec(
+        best,
+        [col("s_acctbal"), col("s_name"), col("n_name"), col("p_partkey"),
+         col("p_mfgr"), col("s_address"), col("s_phone"), col("s_comment")],
+    )
+    return single_sorted(
+        proj,
+        [SortField(col("s_acctbal"), ascending=False), SortField(col("n_name")),
+         SortField(col("s_name")), SortField(col("p_partkey"))],
+        fetch=100,
+    )
+
+
+def q7(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+    nations = FilterExec(t["nation"], col("n_name").isin("FRANCE", "GERMANY"))
+    nations_p = ProjectExec(nations, [col("n_nationkey"), col("n_name")])
+    supp = broadcast_join(
+        nations_p, t["supplier"], [col("n_nationkey")], [col("s_nationkey")],
+        JoinType.INNER, build_is_left=True,
+    )
+    supp_p = ProjectExec(supp, [col("s_suppkey"), col("n_name").alias("supp_nation")])
+    cust = broadcast_join(
+        ProjectExec(nations, [col("n_nationkey"), col("n_name").alias("cust_nation")]),
+        t["customer"], [col("n_nationkey")], [col("c_nationkey")],
+        JoinType.INNER, build_is_left=True,
+    )
+    cust_p = ProjectExec(cust, [col("c_custkey"), col("cust_nation")])
+    orders_p = ProjectExec(t["orders"], [col("o_orderkey"), col("o_custkey")])
+    co = shuffle_join(cust_p, orders_p, [col("c_custkey")], [col("o_custkey")], JoinType.INNER, n_parts)
+    co_p = ProjectExec(co, [col("o_orderkey"), col("cust_nation")])
+    line = FilterExec(
+        t["lineitem"],
+        (col("l_shipdate") >= lit(D(1995, 1, 1))) & (col("l_shipdate") <= lit(D(1996, 12, 31))),
+    )
+    line_p = ProjectExec(
+        line,
+        [col("l_orderkey"), col("l_suppkey"), col("l_shipdate"), revenue_expr().alias("volume")],
+    )
+    lco = shuffle_join(co_p, line_p, [col("o_orderkey")], [col("l_orderkey")], JoinType.INNER, n_parts)
+    full = broadcast_join(
+        supp_p, lco, [col("s_suppkey")], [col("l_suppkey")], JoinType.INNER, build_is_left=True
+    )
+    pair = FilterExec(
+        full,
+        ((col("supp_nation") == lit("FRANCE")) & (col("cust_nation") == lit("GERMANY")))
+        | ((col("supp_nation") == lit("GERMANY")) & (col("cust_nation") == lit("FRANCE"))),
+    )
+    proj = ProjectExec(
+        pair,
+        [col("supp_nation"), col("cust_nation"),
+         func("year", col("l_shipdate")).alias("l_year"), col("volume")],
+    )
+    agg = two_stage_agg(
+        proj,
+        [GroupingExpr(col("supp_nation"), "supp_nation"),
+         GroupingExpr(col("cust_nation"), "cust_nation"),
+         GroupingExpr(col("l_year"), "l_year")],
+        [AggFunction("sum", col("volume"), "revenue")],
+        n_parts,
+    )
+    return single_sorted(
+        agg,
+        [SortField(col("supp_nation")), SortField(col("cust_nation")), SortField(col("l_year"))],
+    )
+
+
+def q9(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+    part_f = FilterExec(t["part"], Like(col("p_name"), "%green%"))
+    part_p = ProjectExec(part_f, [col("p_partkey")])
+    line_p = ProjectExec(
+        t["lineitem"],
+        [col("l_orderkey"), col("l_partkey"), col("l_suppkey"), col("l_quantity"),
+         revenue_expr().alias("gross")],
+    )
+    lp = broadcast_join(
+        part_p, line_p, [col("p_partkey")], [col("l_partkey")], JoinType.INNER,
+        build_is_left=True,
+    )
+    ps_p = ProjectExec(
+        t["partsupp"], [col("ps_partkey"), col("ps_suppkey"), col("ps_supplycost")]
+    )
+    lps = shuffle_join(
+        lp, ps_p,
+        [col("l_partkey"), col("l_suppkey")], [col("ps_partkey"), col("ps_suppkey")],
+        JoinType.INNER, n_parts,
+    )
+    orders_p = ProjectExec(t["orders"], [col("o_orderkey"), col("o_orderdate")])
+    lo = shuffle_join(lps, orders_p, [col("l_orderkey")], [col("o_orderkey")], JoinType.INNER, n_parts)
+    supp_n = broadcast_join(
+        ProjectExec(t["nation"], [col("n_nationkey"), col("n_name")]), t["supplier"],
+        [col("n_nationkey")], [col("s_nationkey")], JoinType.INNER, build_is_left=True,
+    )
+    supp_p = ProjectExec(supp_n, [col("s_suppkey"), col("n_name")])
+    full = broadcast_join(
+        supp_p, lo, [col("s_suppkey")], [col("l_suppkey")], JoinType.INNER, build_is_left=True
+    )
+    amount = col("gross") - col("ps_supplycost") * col("l_quantity")
+    proj = ProjectExec(
+        full,
+        [col("n_name").alias("nation"), func("year", col("o_orderdate")).alias("o_year"),
+         amount.alias("amount")],
+    )
+    agg = two_stage_agg(
+        proj,
+        [GroupingExpr(col("nation"), "nation"), GroupingExpr(col("o_year"), "o_year")],
+        [AggFunction("sum", col("amount"), "sum_profit")],
+        n_parts,
+    )
+    return single_sorted(
+        agg, [SortField(col("nation")), SortField(col("o_year"), ascending=False)]
+    )
+
+
+def _q11_partsupp(t: Dict[str, ExecNode]) -> ExecNode:
+    """GERMANY's suppliers' partsupp rows."""
+    nation = FilterExec(t["nation"], col("n_name") == lit("GERMANY"))
+    supp = broadcast_join(
+        ProjectExec(nation, [col("n_nationkey")]), t["supplier"],
+        [col("n_nationkey")], [col("s_nationkey")], JoinType.INNER, build_is_left=True,
+    )
+    supp_p = ProjectExec(supp, [col("s_suppkey")])
+    return broadcast_join(
+        supp_p, t["partsupp"], [col("s_suppkey")], [col("ps_suppkey")],
+        JoinType.INNER, build_is_left=True,
+    )
+
+
+def q11(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+    value = col("ps_supplycost") * col("ps_availqty").cast(DataType.decimal(10, 0))
+    # the scalar subquery runs on a subtree of its own, as Spark plans
+    # it apart from the main plan: the main plan shares no exchange or
+    # broadcast whose output the subquery's run would leave behind
+    total = two_stage_agg(
+        ProjectExec(_q11_partsupp(t), [value.alias("v")]), [],
+        [AggFunction("sum", col("v"), "tv")], n_parts,
+    )
+    threshold_plan = ProjectExec(
+        total, [(col("tv").cast(DataType.float64()) * lit(0.0001)).alias("thr")]
+    )
+    thr = scalar_subquery(threshold_plan, "thr")
+    proj = ProjectExec(_q11_partsupp(t), [col("ps_partkey"), value.alias("v")])
+    agg = two_stage_agg(
+        proj,
+        [GroupingExpr(col("ps_partkey"), "ps_partkey")],
+        [AggFunction("sum", col("v"), "value")],
+        n_parts,
+    )
+    having = FilterExec(agg, col("value").cast(DataType.float64()) > thr)
+    return single_sorted(having, [SortField(col("value"), ascending=False)])
+
+
+def q13(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+    orders = FilterExec(
+        t["orders"], Like(col("o_comment"), "%special%requests%", negated=True)
+    )
+    orders_p = ProjectExec(orders, [col("o_orderkey"), col("o_custkey")])
+    cust_p = ProjectExec(t["customer"], [col("c_custkey")])
+    cex = NativeShuffleExchangeExec(cust_p, HashPartitioning([col("c_custkey")], n_parts))
+    oex = NativeShuffleExchangeExec(orders_p, HashPartitioning([col("o_custkey")], n_parts))
+    # LEFT outer preserving customer (probe side)
+    j = HashJoinExec(oex, cex, [col("o_custkey")], [col("c_custkey")], JoinType.LEFT, build_is_left=False)
+    counts = two_stage_agg(
+        j,
+        [GroupingExpr(col("c_custkey"), "c_custkey")],
+        [AggFunction("count", col("o_orderkey"), "c_count")],
+        n_parts,
+    )
+    hist = two_stage_agg(
+        counts,
+        [GroupingExpr(col("c_count"), "c_count")],
+        [AggFunction("count_star", None, "custdist")],
+        n_parts,
+    )
+    return single_sorted(
+        hist,
+        [SortField(col("custdist"), ascending=False), SortField(col("c_count"), ascending=False)],
+    )
+
+
+def distinct_rows(child: ExecNode, names: List[str], n_parts: int) -> ExecNode:
+    """DISTINCT via group-by-all-columns (the Spark rewrite)."""
+    return two_stage_agg(
+        child, [GroupingExpr(col(nm), nm) for nm in names], [], n_parts
+    )
+
+
+def q8(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+    region = FilterExec(t["region"], col("r_name") == lit("AMERICA"))
+    am_nations = broadcast_join(
+        ProjectExec(region, [col("r_regionkey")]), t["nation"],
+        [col("r_regionkey")], [col("n_regionkey")], JoinType.INNER, build_is_left=True,
+    )
+    am_cust = broadcast_join(
+        ProjectExec(am_nations, [col("n_nationkey")]), t["customer"],
+        [col("n_nationkey")], [col("c_nationkey")], JoinType.INNER, build_is_left=True,
+    )
+    cust_p = ProjectExec(am_cust, [col("c_custkey")])
+    orders = FilterExec(
+        t["orders"],
+        (col("o_orderdate") >= lit(D(1995, 1, 1))) & (col("o_orderdate") <= lit(D(1996, 12, 31))),
+    )
+    orders_p = ProjectExec(orders, [col("o_orderkey"), col("o_custkey"), col("o_orderdate")])
+    co = broadcast_join(
+        cust_p, orders_p, [col("c_custkey")], [col("o_custkey")], JoinType.INNER,
+        build_is_left=True,
+    )
+    co_p = ProjectExec(co, [col("o_orderkey"), col("o_orderdate")])
+    part_f = FilterExec(t["part"], col("p_type") == lit("ECONOMY ANODIZED STEEL"))
+    line_p = ProjectExec(
+        t["lineitem"],
+        [col("l_orderkey"), col("l_partkey"), col("l_suppkey"), revenue_expr().alias("volume")],
+    )
+    lp = broadcast_join(
+        ProjectExec(part_f, [col("p_partkey")]), line_p,
+        [col("p_partkey")], [col("l_partkey")], JoinType.INNER, build_is_left=True,
+    )
+    lo = shuffle_join(co_p, lp, [col("o_orderkey")], [col("l_orderkey")], JoinType.INNER, n_parts)
+    supp_n = broadcast_join(
+        ProjectExec(t["nation"], [col("n_nationkey"), col("n_name")]), t["supplier"],
+        [col("n_nationkey")], [col("s_nationkey")], JoinType.INNER, build_is_left=True,
+    )
+    supp_p = ProjectExec(supp_n, [col("s_suppkey"), col("n_name")])
+    full = broadcast_join(
+        supp_p, lo, [col("s_suppkey")], [col("l_suppkey")], JoinType.INNER, build_is_left=True
+    )
+    brazil_vol = Case([(col("n_name") == lit("BRAZIL"), col("volume"))], lit(0))
+    proj = ProjectExec(
+        full,
+        [func("year", col("o_orderdate")).alias("o_year"),
+         col("volume"), brazil_vol.alias("brazil_volume")],
+    )
+    agg = two_stage_agg(
+        proj,
+        [GroupingExpr(col("o_year"), "o_year")],
+        [AggFunction("sum", col("brazil_volume"), "sb"),
+         AggFunction("sum", col("volume"), "sv")],
+        n_parts,
+    )
+    share = col("sb").cast(DataType.float64()) / col("sv").cast(DataType.float64())
+    proj2 = ProjectExec(agg, [col("o_year"), share.alias("mkt_share")])
+    return single_sorted(proj2, [SortField(col("o_year"))])
+
+
+def _q15_revenue(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+    """The revenue view: total_revenue per supplier_no in 1996 Q1."""
+    line = FilterExec(
+        t["lineitem"],
+        (col("l_shipdate") >= lit(D(1996, 1, 1))) & (col("l_shipdate") < lit(D(1996, 4, 1))),
+    )
+    line_p = ProjectExec(line, [col("l_suppkey"), revenue_expr().alias("rev")])
+    return two_stage_agg(
+        line_p,
+        [GroupingExpr(col("l_suppkey"), "supplier_no")],
+        [AggFunction("sum", col("rev"), "total_revenue")],
+        n_parts,
+    )
+
+
+def q15(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+    # the subquery reads a revenue view of its own (see q11)
+    max_plan = two_stage_agg(
+        _q15_revenue(t, n_parts), [], [AggFunction("max", col("total_revenue"), "m")], n_parts
+    )
+    m = scalar_subquery(max_plan, "m")
+    best = FilterExec(_q15_revenue(t, n_parts), col("total_revenue") == m)
+    supp_p = ProjectExec(
+        t["supplier"], [col("s_suppkey"), col("s_name"), col("s_address"), col("s_phone")]
+    )
+    j = broadcast_join(
+        best, supp_p, [col("supplier_no")], [col("s_suppkey")], JoinType.INNER,
+        build_is_left=False,
+    )
+    proj = ProjectExec(
+        j, [col("s_suppkey"), col("s_name"), col("s_address"), col("s_phone"), col("total_revenue")]
+    )
+    return single_sorted(proj, [SortField(col("s_suppkey"))])
+
+
+def q16(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+    part_f = FilterExec(
+        t["part"],
+        (col("p_brand") != lit("Brand#45"))
+        & Like(col("p_type"), "MEDIUM POLISHED%", negated=True)
+        & col("p_size").isin(49, 14, 23, 45, 19, 3, 36, 9),
+    )
+    part_p = ProjectExec(part_f, [col("p_partkey"), col("p_brand"), col("p_type"), col("p_size")])
+    bad_supp = FilterExec(t["supplier"], Like(col("s_comment"), "%special%requests%"))
+    bad_supp_p = ProjectExec(bad_supp, [col("s_suppkey")])
+    ps_p = ProjectExec(t["partsupp"], [col("ps_partkey"), col("ps_suppkey")])
+    # NOT IN (bad suppliers) -> anti join
+    psx = NativeShuffleExchangeExec(ps_p, HashPartitioning([col("ps_suppkey")], n_parts))
+    bsx = NativeShuffleExchangeExec(bad_supp_p, HashPartitioning([col("s_suppkey")], n_parts))
+    good_ps = HashJoinExec(
+        bsx, psx, [col("s_suppkey")], [col("ps_suppkey")], JoinType.LEFT_ANTI, build_is_left=False
+    )
+    j = broadcast_join(
+        part_p, good_ps, [col("p_partkey")], [col("ps_partkey")], JoinType.INNER,
+        build_is_left=True,
+    )
+    # count(distinct ps_suppkey) = distinct (group keys + suppkey) then count
+    dedup = distinct_rows(
+        ProjectExec(j, [col("p_brand"), col("p_type"), col("p_size"), col("ps_suppkey")]),
+        ["p_brand", "p_type", "p_size", "ps_suppkey"],
+        n_parts,
+    )
+    agg = two_stage_agg(
+        dedup,
+        [GroupingExpr(col("p_brand"), "p_brand"), GroupingExpr(col("p_type"), "p_type"),
+         GroupingExpr(col("p_size"), "p_size")],
+        [AggFunction("count_star", None, "supplier_cnt")],
+        n_parts,
+    )
+    return single_sorted(
+        agg,
+        [SortField(col("supplier_cnt"), ascending=False), SortField(col("p_brand")),
+         SortField(col("p_type")), SortField(col("p_size"))],
+    )
+
+
+def q17(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+    part_f = FilterExec(
+        t["part"],
+        (col("p_brand") == lit("Brand#23")) & (col("p_container") == lit("MED BOX")),
+    )
+    part_p = ProjectExec(part_f, [col("p_partkey")])
+    line_p = ProjectExec(
+        t["lineitem"], [col("l_partkey"), col("l_quantity"), col("l_extendedprice")]
+    )
+    lp = broadcast_join(
+        part_p, line_p, [col("p_partkey")], [col("l_partkey")], JoinType.INNER,
+        build_is_left=True,
+    )
+    avgq = two_stage_agg(
+        lp,
+        [GroupingExpr(col("p_partkey"), "ak")],
+        [AggFunction("avg", col("l_quantity"), "aq")],
+        n_parts,
+    )
+    j = shuffle_join(lp, avgq, [col("p_partkey")], [col("ak")], JoinType.INNER, n_parts)
+    # l_quantity < 0.2 * avg(l_quantity): avg is decimal(16,6); compare at
+    # common scale via floats (documented float-division semantics)
+    keep = FilterExec(
+        j,
+        col("l_quantity").cast(DataType.float64())
+        < lit(0.2) * col("aq").cast(DataType.float64()),
+    )
+    agg = two_stage_agg(
+        ProjectExec(keep, [col("l_extendedprice")]), [],
+        [AggFunction("sum", col("l_extendedprice"), "s")],
+        n_parts,
+    )
+    yearly = (col("s").cast(DataType.float64()) / lit(7.0)).alias("avg_yearly")
+    return ProjectExec(agg, [yearly])
+
+
+def q18(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+    per_order = two_stage_agg(
+        ProjectExec(t["lineitem"], [col("l_orderkey"), col("l_quantity")]),
+        [GroupingExpr(col("l_orderkey"), "qk")],
+        [AggFunction("sum", col("l_quantity"), "qsum")],
+        n_parts,
+    )
+    big = FilterExec(per_order, col("qsum") > lit(300, DataType.decimal(22, 2)))
+    big_keys = ProjectExec(big, [col("qk"), col("qsum")])
+    orders_p = ProjectExec(
+        t["orders"], [col("o_orderkey"), col("o_custkey"), col("o_orderdate"), col("o_totalprice")]
+    )
+    j = shuffle_join(
+        big_keys, orders_p, [col("qk")], [col("o_orderkey")], JoinType.INNER, n_parts
+    )
+    cust_p = ProjectExec(t["customer"], [col("c_custkey"), col("c_name")])
+    full = shuffle_join(cust_p, j, [col("c_custkey")], [col("o_custkey")], JoinType.INNER, n_parts)
+    proj = ProjectExec(
+        full,
+        [col("c_name"), col("c_custkey"), col("o_orderkey"), col("o_orderdate"),
+         col("o_totalprice"), col("qsum")],
+    )
+    return single_sorted(
+        proj,
+        [SortField(col("o_totalprice"), ascending=False), SortField(col("o_orderdate"))],
+        fetch=100,
+    )
+
+
+def q20(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+    part_f = FilterExec(t["part"], Like(col("p_name"), "forest%"))
+    part_p = ProjectExec(part_f, [col("p_partkey")])
+    line = FilterExec(
+        t["lineitem"],
+        (col("l_shipdate") >= lit(D(1994, 1, 1))) & (col("l_shipdate") < lit(D(1995, 1, 1))),
+    )
+    line_p = ProjectExec(line, [col("l_partkey"), col("l_suppkey"), col("l_quantity")])
+    usage = two_stage_agg(
+        line_p,
+        [GroupingExpr(col("l_partkey"), "uk_part"), GroupingExpr(col("l_suppkey"), "uk_supp")],
+        [AggFunction("sum", col("l_quantity"), "used")],
+        n_parts,
+    )
+    ps_p = ProjectExec(t["partsupp"], [col("ps_partkey"), col("ps_suppkey"), col("ps_availqty")])
+    ps_forest = broadcast_join(
+        part_p, ps_p, [col("p_partkey")], [col("ps_partkey")], JoinType.INNER, build_is_left=True
+    )
+    jo = shuffle_join(
+        ProjectExec(ps_forest, [col("ps_partkey"), col("ps_suppkey"), col("ps_availqty")]),
+        usage,
+        [col("ps_partkey"), col("ps_suppkey")], [col("uk_part"), col("uk_supp")],
+        JoinType.INNER, n_parts,
+    )
+    qualified = FilterExec(
+        jo,
+        col("ps_availqty").cast(DataType.float64())
+        > lit(0.5) * col("used").cast(DataType.float64()),
+    )
+    supp_keys = distinct_rows(ProjectExec(qualified, [col("ps_suppkey")]), ["ps_suppkey"], n_parts)
+    supp_p = ProjectExec(t["supplier"], [col("s_suppkey"), col("s_name"), col("s_address"), col("s_nationkey")])
+    js = broadcast_join(
+        supp_keys, supp_p, [col("ps_suppkey")], [col("s_suppkey")], JoinType.INNER,
+        build_is_left=True,
+    )
+    nat = FilterExec(t["nation"], col("n_name") == lit("CANADA"))
+    full = broadcast_join(
+        ProjectExec(nat, [col("n_nationkey")]), js,
+        [col("n_nationkey")], [col("s_nationkey")], JoinType.INNER, build_is_left=True,
+    )
+    proj = ProjectExec(full, [col("s_name"), col("s_address")])
+    return single_sorted(proj, [SortField(col("s_name"))])
+
+
+def q21(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+    """EXISTS/NOT-EXISTS with <> rewritten through per-order distinct
+    supplier counts (equivalent because l1 itself is a late line)."""
+    line_all = ProjectExec(t["lineitem"], [col("l_orderkey"), col("l_suppkey")])
+    n_supp = two_stage_agg(
+        distinct_rows(line_all, ["l_orderkey", "l_suppkey"], n_parts),
+        [GroupingExpr(col("l_orderkey"), "ok_all")],
+        [AggFunction("count_star", None, "n_supp")],
+        n_parts,
+    )
+    late = FilterExec(t["lineitem"], col("l_receiptdate") > col("l_commitdate"))
+    late_p = ProjectExec(late, [col("l_orderkey"), col("l_suppkey")])
+    n_late = two_stage_agg(
+        distinct_rows(late_p, ["l_orderkey", "l_suppkey"], n_parts),
+        [GroupingExpr(col("l_orderkey"), "ok_late")],
+        [AggFunction("count_star", None, "n_late")],
+        n_parts,
+    )
+    saudi_supp = broadcast_join(
+        ProjectExec(FilterExec(t["nation"], col("n_name") == lit("SAUDI ARABIA")), [col("n_nationkey")]),
+        t["supplier"],
+        [col("n_nationkey")], [col("s_nationkey")], JoinType.INNER, build_is_left=True,
+    )
+    saudi_p = ProjectExec(saudi_supp, [col("s_suppkey"), col("s_name")])
+    l1 = broadcast_join(
+        saudi_p,
+        ProjectExec(late, [col("l_orderkey"), col("l_suppkey")]),
+        [col("s_suppkey")], [col("l_suppkey")], JoinType.INNER, build_is_left=True,
+    )
+    orders_f = FilterExec(t["orders"], col("o_orderstatus") == lit("F"))
+    lo = shuffle_join(
+        ProjectExec(l1, [col("l_orderkey"), col("s_name")]),
+        ProjectExec(orders_f, [col("o_orderkey")]),
+        [col("l_orderkey")], [col("o_orderkey")], JoinType.INNER, n_parts,
+    )
+    with_nsupp = shuffle_join(
+        lo, n_supp, [col("l_orderkey")], [col("ok_all")], JoinType.INNER, n_parts
+    )
+    with_nlate = shuffle_join(
+        with_nsupp, n_late, [col("l_orderkey")], [col("ok_late")], JoinType.INNER, n_parts
+    )
+    keep = FilterExec(with_nlate, (col("n_supp") > lit(1)) & (col("n_late") == lit(1)))
+    agg = two_stage_agg(
+        ProjectExec(keep, [col("s_name")]),
+        [GroupingExpr(col("s_name"), "s_name")],
+        [AggFunction("count_star", None, "numwait")],
+        n_parts,
+    )
+    return single_sorted(
+        agg,
+        [SortField(col("numwait"), ascending=False), SortField(col("s_name"))],
+        fetch=100,
+    )
+
+
+def q22(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+    cc = func("substring", col("c_phone"), lit(1), lit(2))
+    in_codes = cc.isin("13", "31", "23", "29", "30", "18", "17")
+    cust = FilterExec(t["customer"], in_codes)
+    cust_p = ProjectExec(
+        cust, [col("c_custkey"), col("c_acctbal"), cc.alias("cntrycode")]
+    )
+    pos = FilterExec(cust_p, col("c_acctbal") > lit(0, DataType.decimal(12, 2)))
+    avg_plan = two_stage_agg(
+        ProjectExec(pos, [col("c_acctbal")]), [],
+        [AggFunction("avg", col("c_acctbal"), "ab")],
+        n_parts,
+    )
+    avg_bal = scalar_subquery(avg_plan, "ab")
+    rich = FilterExec(
+        cust_p,
+        col("c_acctbal").cast(DataType.float64()) > avg_bal.cast(DataType.float64()),
+    )
+    orders_keys = ProjectExec(t["orders"], [col("o_custkey")])
+    rex = NativeShuffleExchangeExec(rich, HashPartitioning([col("c_custkey")], n_parts))
+    oex = NativeShuffleExchangeExec(orders_keys, HashPartitioning([col("o_custkey")], n_parts))
+    no_orders = HashJoinExec(
+        oex, rex, [col("o_custkey")], [col("c_custkey")], JoinType.LEFT_ANTI, build_is_left=False
+    )
+    agg = two_stage_agg(
+        no_orders,
+        [GroupingExpr(col("cntrycode"), "cntrycode")],
+        [AggFunction("count_star", None, "numcust"),
+         AggFunction("sum", col("c_acctbal"), "totacctbal")],
+        n_parts,
+    )
+    return single_sorted(agg, [SortField(col("cntrycode"))])
+
+
 QUERIES: Dict[str, Callable[[Dict[str, ExecNode], int], ExecNode]] = {
-    "q1": q1, "q3": q3, "q4": q4, "q5": q5, "q6": q6, "q10": q10, "q12": q12, "q14": q14, "q19": q19,
+    "q1": q1, "q2": q2, "q3": q3, "q4": q4, "q5": q5, "q6": q6, "q7": q7,
+    "q8": q8, "q9": q9, "q10": q10, "q11": q11, "q12": q12, "q13": q13,
+    "q14": q14, "q15": q15, "q16": q16, "q17": q17, "q18": q18, "q19": q19,
+    "q20": q20, "q21": q21, "q22": q22,
 }
 
 

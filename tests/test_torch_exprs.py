@@ -412,12 +412,20 @@ def test_like_matches_reference_and_python(pattern, negated):
 
 @pytest.mark.parametrize("pattern", ["P_OMO%", "%a%b%", "a%b%c"])
 def test_like_patterns_for_the_host_evaluator_raise(pattern):
+    """These patterns once raised in the lowering; they now go to the
+    host evaluator, which equals Python's ``re`` (the broader cases:
+    ``test_torch_cast_functions.py``)."""
+    import re
+
     from blaze_tpu_torch.exprs import Like
 
     fields, arrays, valids = _string_fields(np.random.default_rng(51), 10)
     n, tenv, _ = _env(fields, arrays, valids)
-    with pytest.raises(NotImplementedError, match="host evaluator"):
-        TC.lower(Like(tcol("s"), pattern), TSchema([TF(nm, tt) for nm, tt, _ in fields]), tenv, n)
+    assert TC.like_needs_host(pattern)
+    got = TC.lower(Like(tcol("s"), pattern), TSchema([TF(nm, tt) for nm, tt, _ in fields]), tenv, n)
+    rx = re.compile("^" + pattern.replace("%", ".*").replace("_", ".") + "$", re.DOTALL)
+    want = [bool(rx.match(s)) if ok else None for s, ok in zip(arrays["s"], valids["s"])]
+    assert TB.column_to_pylist(got, n) == want
 
 
 def test_in_list_three_valued_matches_reference():

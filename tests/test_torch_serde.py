@@ -401,8 +401,8 @@ def test_unsupported_nodes_raise_naming_them():
     n = pb.PhysicalPlanNode(union=pb.UnionNode()).SerializeToString()
     with pytest.raises(NotImplementedError, match="union"):
         from_proto.plan_from_proto(wire.PhysicalPlanNode.decode(n))
-    e = pb.ExprNode(cast=pb.CastExpr()).SerializeToString()
-    with pytest.raises(NotImplementedError, match="cast"):
+    e = pb.ExprNode(host_udf=pb.HostUdfExpr()).SerializeToString()
+    with pytest.raises(NotImplementedError, match="host_udf"):
         from_proto.expr_from_proto(wire.ExprNode.decode(e))
     with pytest.raises(NotImplementedError, match="TaskContext"):
         to_proto.plan_to_proto(TaskContext(0))
