@@ -14,6 +14,7 @@ except where a scan or builder is told to stage it.
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
@@ -267,14 +268,22 @@ def table_to_batches(
 
 # ------------------------------------------------- host <-> device copies
 
-#: copies made by :func:`tensors_to_host` and :meth:`HostStaging.to_device`
-#: since the last :func:`reset_copy_counts`
+#: copies made by :func:`tensors_to_host`, :meth:`HostCopy.result` and
+#: :meth:`HostStaging.to_device` since the last :func:`reset_copy_counts`
 COPIES = {"device_to_host": 0, "host_to_device": 0}
+_copies_lock = threading.Lock()
 
 
 def reset_copy_counts() -> None:
-    for k in COPIES:
-        COPIES[k] = 0
+    with _copies_lock:
+        for k in COPIES:
+            COPIES[k] = 0
+
+
+def count_copy(kind: str) -> None:
+    """One more copy of ``kind`` (map tasks count from several threads)."""
+    with _copies_lock:
+        COPIES[kind] += 1
 
 
 def _aligned(nbytes: int) -> int:
@@ -282,12 +291,9 @@ def _aligned(nbytes: int) -> int:
     return (nbytes + 7) & ~7
 
 
-def tensors_to_host(tensors: Sequence[torch.Tensor]) -> List[np.ndarray]:
-    """The tensors as numpy arrays in ONE device-to-host copy: their
-    bytes are packed into one buffer on their device, the buffer is
-    copied, and the host copy is split into views."""
-    if not tensors:
-        return []
+def _pack(tensors: Sequence[torch.Tensor]):
+    """The tensors' bytes packed into one buffer on their device, and
+    the layout that splits it again."""
     parts, layout = [], []
     off = 0
     for t in tensors:
@@ -298,13 +304,68 @@ def tensors_to_host(tensors: Sequence[torch.Tensor]) -> List[np.ndarray]:
             parts.append(torch.zeros(pad, dtype=torch.uint8, device=t.device))
         layout.append((off, raw.numel(), t.dtype, tuple(t.shape)))
         off += raw.numel() + pad
-    host = torch.cat(parts).cpu().numpy()
-    COPIES["device_to_host"] += 1
+    return torch.cat(parts), layout
+
+
+def _unpack(host: np.ndarray, layout) -> List[np.ndarray]:
     out = []
     for o, nbytes, dtype, shape in layout:
         np_dtype = torch.empty((), dtype=dtype).numpy().dtype
         out.append(host[o:o + nbytes].view(np_dtype).reshape(shape))
     return out
+
+
+def tensors_to_host(tensors: Sequence[torch.Tensor]) -> List[np.ndarray]:
+    """The tensors as numpy arrays in ONE device-to-host copy: their
+    bytes are packed into one buffer on their device, the buffer is
+    copied, and the host copy is split into views."""
+    if not tensors:
+        return []
+    packed, layout = _pack(tensors)
+    host = packed.cpu().numpy()
+    count_copy("device_to_host")
+    return _unpack(host, layout)
+
+
+_copy_streams = threading.local()
+
+
+class HostCopy:
+    """:func:`tensors_to_host` split in two, for a copy that another
+    thread waits for.  The constructor packs the tensors on the caller's
+    stream and records an event there; :meth:`result`, on any thread,
+    copies the packed buffer into pinned host memory on a stream of its
+    thread's own, ordered after the event alone (not after the caller's
+    later work), waits for that copy and returns the arrays.  The packed
+    buffer is held until its copy has finished."""
+
+    def __init__(self, tensors: Sequence[torch.Tensor]):
+        self._packed, self._layout = _pack(tensors)
+        self._event = None
+        if self._packed.is_cuda:
+            self._event = torch.cuda.Event()
+            self._event.record(torch.cuda.current_stream(self._packed.device))
+
+    def result(self) -> List[np.ndarray]:
+        packed = self._packed
+        if self._event is None:
+            host = packed.numpy()  # a CPU tensor packs into a host buffer
+        else:
+            streams = getattr(_copy_streams, "by_device", None)
+            if streams is None:
+                streams = _copy_streams.by_device = {}
+            stream = streams.get(packed.device)
+            if stream is None:
+                stream = streams[packed.device] = torch.cuda.Stream(packed.device)
+            pinned = torch.empty(packed.shape, dtype=torch.uint8, pin_memory=True)
+            with torch.cuda.stream(stream):
+                stream.wait_event(self._event)
+                pinned.copy_(packed, non_blocking=True)
+            stream.synchronize()
+            host = pinned.numpy()
+        self._packed = None
+        count_copy("device_to_host")
+        return _unpack(host, self._layout)
 
 
 class HostStaging:
@@ -337,7 +398,7 @@ class HostStaging:
         if self._buf is None:
             self._buf = np.zeros(self._size, np.uint8)
         dev = torch.from_numpy(self._buf).to(device)
-        COPIES["host_to_device"] += 1
+        count_copy("host_to_device")
         out = []
         for off, np_dtype, shape in self._regions:
             nbytes = int(np.prod(shape, dtype=np.int64)) * np_dtype.itemsize

@@ -47,3 +47,12 @@ MIN_CAPACITY = ConfEntry("spark.blaze.tpu.minBatchCapacity", 1024, int)
 # exchanges keep map output in device memory, in process; false sends
 # plan.execute()'s exchanges through .data/.index shuffle files
 EXCHANGE_IN_PROCESS = ConfEntry("spark.blaze.exchange.inProcess", True, _bool)
+# the task optimizer (ops/fusion.py optimize_plan): false runs every
+# plan as it was built or serialized
+FUSION_ENABLE = ConfEntry("spark.blaze.fusion.enabled", True, _bool)
+# a shuffle write stages each batch's host copy on a second thread,
+# with at most queueDepth batches waiting for it
+SHUFFLE_ASYNC_WRITE = ConfEntry("spark.blaze.shuffle.asyncWrite", True, _bool)
+SHUFFLE_ASYNC_QUEUE_DEPTH = ConfEntry("spark.blaze.shuffle.asyncWrite.queueDepth", 2, int)
+# map and broadcast stages of run_stages run this many tasks at a time
+STAGE_TASK_CONCURRENCY = ConfEntry("spark.blaze.stage.taskConcurrency", 1, int)

@@ -488,6 +488,32 @@ def like_needs_host(pattern: str) -> bool:
     return bool(middle) and (len(middle) > 1 or bool(parts[0]) or bool(parts[-1]))
 
 
+def expr_children(expr: Expr) -> List[Expr]:
+    """The direct sub-expressions of ``expr``."""
+    if isinstance(expr, (Alias, Not, IsNull, IsNotNull, Cast, Like)):
+        return [expr.child]
+    if isinstance(expr, BinOp):
+        return [expr.left, expr.right]
+    if isinstance(expr, InList):
+        return [expr.child] + list(expr.values)
+    if isinstance(expr, Case):
+        out = [x for branch in expr.branches for x in branch]
+        return out + ([] if expr.else_ is None else [expr.else_])
+    if isinstance(expr, ScalarFunc):
+        return list(expr.args)
+    return []
+
+
+def needs_host(expr: Expr) -> bool:
+    """True when ``lower`` evaluates part of the tree on the host (a
+    LIKE with no device form): an operator holding such an expression
+    cannot join a fused chain, whose transforms never wait for the
+    device (≙ the reference's ``needs_host``)."""
+    if isinstance(expr, Like) and like_needs_host(expr.pattern):
+        return True
+    return any(needs_host(c) for c in expr_children(expr))
+
+
 def _lower_like(expr: Like, schema: Schema, cols: Dict[str, Column], n: int) -> Column:
     c = lower(expr.child, schema, cols, n)
     if like_needs_host(expr.pattern):

@@ -32,23 +32,36 @@ from ..schema import Schema
 HostColumn = Tuple[np.ndarray, np.ndarray, Optional[np.ndarray]]
 
 
+def column_tensors(cols: Sequence[Column], n: Optional[int] = None) -> List[torch.Tensor]:
+    """Each column's data, validity (and lengths), cut to ``n`` rows
+    (all rows when None): the tensors of one host copy."""
+    cut = (lambda t: t) if n is None else (lambda t: t[:n])
+    out: List[torch.Tensor] = []
+    for c in cols:
+        out += [cut(c.data), cut(c.validity)] + ([] if c.lengths is None else [cut(c.lengths)])
+    return out
+
+
+def split_host_columns(host: Sequence[np.ndarray], has_lengths: Sequence[bool]
+                       ) -> Tuple[List[HostColumn], List[np.ndarray]]:
+    """The host arrays of :func:`column_tensors` (and any after them)
+    as host columns, and the arrays after them."""
+    cols, i = [], 0
+    for lengths in has_lengths:
+        if lengths:
+            cols.append((host[i], host[i + 1], host[i + 2]))
+            i += 3
+        else:
+            cols.append((host[i], host[i + 1], None))
+            i += 2
+    return cols, list(host[i:])
+
+
 def host_columns(batch: RecordBatch, extra: Sequence[torch.Tensor] = ()) -> Tuple[List[HostColumn], List[np.ndarray]]:
     """The batch's live rows on the host, and ``extra`` tensors beside
     them, in one device-to-host copy."""
-    n = batch.num_rows
-    tensors = []
-    for c in batch.columns:
-        tensors += [c.data[:n], c.validity[:n]] + ([] if c.lengths is None else [c.lengths[:n]])
-    host = tensors_to_host(tensors + list(extra))
-    cols, i = [], 0
-    for c in batch.columns:
-        if c.lengths is None:
-            cols.append((host[i], host[i + 1], None))
-            i += 2
-        else:
-            cols.append((host[i], host[i + 1], host[i + 2]))
-            i += 3
-    return cols, host[i:]
+    host = tensors_to_host(column_tensors(batch.columns, batch.num_rows) + list(extra))
+    return split_host_columns(host, [c.lengths is not None for c in batch.columns])
 
 
 def serialize_columns(cols: Sequence[HostColumn], n: int) -> bytes:

@@ -14,6 +14,7 @@ run can show that its path went through the kernels.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Dict, List, Sequence, Tuple
 
 import torch
@@ -30,9 +31,20 @@ LAUNCHES: Dict[str, int] = {
 KEYS_PER_LAUNCH = 8
 
 
+# map tasks launch from several threads: the counts, the SM counts and
+# the ticket sets change under this lock
+_lock = threading.Lock()
+
+
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+def count_launch(name: str) -> None:
+    with _lock:
+        LAUNCHES[name] += 1
 
 
 def _check(dev: torch.device, name: str, tensors: Sequence[torch.Tensor]) -> None:
@@ -125,7 +137,7 @@ def murmur3_pids(
             out.data_ptr() if c0 else None,  # the hash of columns [0, c0)
             n_parts if c1 == k else 0, out.data_ptr(), stream,
         )
-        LAUNCHES["murmur3_pids"] += 1
+        count_launch("murmur3_pids")
     return out
 
 
@@ -193,7 +205,7 @@ def sorted_lookup(table: torch.Tensor, probe: torch.Tensor):
         table.data_ptr(), t, sorted_lookup_geometry(t)[0], probe.data_ptr(), n, lo.data_ptr(),
         hi.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
     )
-    LAUNCHES["sorted_lookup"] += 1
+    count_launch("sorted_lookup")
     return lo, hi
 
 
@@ -240,9 +252,10 @@ def pid_histogram_geometry(n: int, n_parts: int, sms: int = 132) -> Tuple[str, i
 
 def _sm_count(dev: torch.device) -> int:
     i = dev.index if dev.index is not None else torch.cuda.current_device()
-    if i not in _sm_counts:
-        _sm_counts[i] = torch.cuda.get_device_properties(i).multi_processor_count
-    return _sm_counts[i]
+    with _lock:
+        if i not in _sm_counts:
+            _sm_counts[i] = torch.cuda.get_device_properties(i).multi_processor_count
+        return _sm_counts[i]
 
 
 def _zeroed_tickets(dev: torch.device, stream, words: int) -> torch.Tensor:
@@ -250,9 +263,10 @@ def _zeroed_tickets(dev: torch.device, stream, words: int) -> torch.Tensor:
     launches.  More bins than before take a new, zeroed set (all of the
     old one is 0 again once the stream's earlier launches end)."""
     key = (dev.index if dev.index is not None else torch.cuda.current_device(), stream.cuda_stream)
-    if key not in _tickets or _tickets[key].shape[0] < words:
-        _tickets[key] = torch.zeros(max(words, 256), dtype=torch.int64, device=dev)
-    return _tickets[key]
+    with _lock:
+        if key not in _tickets or _tickets[key].shape[0] < words:
+            _tickets[key] = torch.zeros(max(words, 256), dtype=torch.int64, device=dev)
+        return _tickets[key]
 
 
 def pid_histogram_plain(pids: torch.Tensor, n_parts: int) -> torch.Tensor:
@@ -288,7 +302,7 @@ def pid_histogram(pids: torch.Tensor, n_parts: int) -> torch.Tensor:
     tickets = _zeroed_tickets(dev, stream, ticket_words).data_ptr() if ticket_words else None
     _launch(library().blaze_pid_histogram, pids.data_ptr(), n, n_parts, out.data_ptr(), tickets, blocks,
             stream.cuda_stream)
-    LAUNCHES["pid_histogram"] += 1
+    count_launch("pid_histogram")
     return out
 
 
@@ -341,12 +355,12 @@ def fused_group_sums(gids: torch.Tensor, values: Sequence[torch.Tensor], n_group
         ptrs = (ctypes.c_void_p * (c1 - c0))(*[v.data_ptr() for v in values[c0:c1]])
         _launch(lib.blaze_fused_group_sums, gids.data_ptr(), ctypes.cast(ptrs, ctypes.c_void_p),
                 c1 - c0, n_groups, n, out[c0].data_ptr(), stream)
-        LAUNCHES["fused_group_sums"] += 1
+        count_launch("fused_group_sums")
     return out
 
 
 __all__: List[str] = [
-    "LAUNCHES", "column_word_planes", "fused_group_sums",
+    "LAUNCHES", "column_word_planes", "count_launch", "fused_group_sums",
     "fused_group_sums_plain", "murmur3_pids", "murmur3_pids_plain", "pid_histogram",
     "pid_histogram_geometry", "pid_histogram_plain", "reset_launch_counts", "sorted_lookup", "sorted_lookup_geometry",
     "sorted_lookup_plain",

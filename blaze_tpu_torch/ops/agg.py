@@ -37,6 +37,7 @@ from ..exprs.strings import packed_be
 from ..runtime.context import TaskContext
 from ..schema import DataType, Field, Schema, decimal_avg_agg_type, decimal_sum_agg_type
 from .base import BatchStream, ExecNode
+from .filter import predicate_mask
 
 
 class AggMode(enum.Enum):
@@ -180,7 +181,11 @@ class Segments:
         return int(self.starts.shape[0])
 
 
-def group_segments(words: Sequence[torch.Tensor]) -> Segments:
+def group_segments(words: Sequence[torch.Tensor], keep: Optional[torch.Tensor] = None) -> Segments:
+    """The groups of rows by ``words``; with ``keep``, only of the rows
+    it marks: the others sort after every kept row and start no group."""
+    if keep is not None:
+        words = [(~keep).to(torch.int64)] + [torch.where(keep, w, 0) for w in words]
     order = lexsort(words)
     n = order.shape[0]
     changed = torch.zeros(n, dtype=torch.bool, device=order.device)
@@ -189,8 +194,12 @@ def group_segments(words: Sequence[torch.Tensor]) -> Segments:
     for w in words:
         sw = w[order]
         changed[1:] |= sw[1:] != sw[:-1]
+    total = order.new_tensor([n])
+    if keep is not None:
+        changed &= keep[order]
+        total = keep.sum().reshape(1)
     starts = torch.nonzero(changed).squeeze(1)
-    ends = torch.cat([starts[1:], starts.new_tensor([n])]) - 1
+    ends = torch.cat([starts[1:], total])[:starts.shape[0]] - 1
     return Segments(order, starts, ends)
 
 
@@ -252,9 +261,22 @@ class AggExec(ExecNode):
         groupings: Sequence[GroupingExpr],
         aggs: Sequence[AggFunction],
         supports_partial_skipping: bool = False,
+        pre_filter: Optional[Expr] = None,
+        post_sort: Optional[Sequence] = None,
+        post_fetch: Optional[int] = None,
     ):
         super().__init__([child])
         self.mode = mode
+        # the optimizer's folds (ops/fusion.py): a PARTIAL agg's
+        # ``pre_filter`` is an absorbed filter's predicate, which drops
+        # rows from the reduce; a FINAL agg's ``post_sort`` (SortFields
+        # over its output) and ``post_fetch`` are an absorbed sort and
+        # limit, applied to its one finalized batch
+        assert pre_filter is None or mode == AggMode.PARTIAL
+        assert post_sort is None or mode == AggMode.FINAL
+        self.pre_filter = pre_filter
+        self.post_sort = list(post_sort) if post_sort else None
+        self.post_fetch = post_fetch
         # the plan contract's hint that a PARTIAL agg may pass rows
         # through unaggregated; carried through serde, and the port
         # always aggregates (the same result)
@@ -291,11 +313,16 @@ class AggExec(ExecNode):
         cols = [c.head(n) for c in batch.columns]
         env = {f.name: c for f, c in zip(batch.schema.fields, cols)}
         schema = batch.schema
+        keep = None
+        if self.pre_filter is not None and not merging:
+            # a row the absorbed filter drops starts no group and is
+            # null in every aggregate's input
+            keep = predicate_mask(self.pre_filter, schema, env, n, n, batch.device)
         if merging:
             key_cols = [env[g.name] for g in self.groupings]
         else:
             key_cols = [lower(g.expr, schema, env, n) for g in self.groupings]
-        seg = group_segments(encode_key_words(key_cols)) if self.groupings else None
+        seg = group_segments(encode_key_words(key_cols), keep) if self.groupings else None
         perm = (lambda t: t) if seg is None else (lambda t: t[seg.order])
         # one state column per entry: a reduced tensor (valid in every
         # group), or a min/max Column (null where a group had no value)
@@ -310,6 +337,8 @@ class AggExec(ExecNode):
             fields = agg_state_fields(a.fn, t, a.name)
             if a.fn in MINMAX:
                 v = env[fields[0].name] if merging else lower(a.expr, schema, env, n)
+                if keep is not None:
+                    v = Column(v.dtype, v.data, v.validity & keep, v.lengths)
                 out.append(seg_minmax(Column(v.dtype, perm(v.data), perm(v.validity),
                                              None if v.lengths is None else perm(v.lengths)),
                                       seg, a.fn == "min"))
@@ -322,9 +351,12 @@ class AggExec(ExecNode):
                 continue
             if a.fn == "count_star":
                 out.append(seg_sum(torch.ones(n, dtype=torch.int64, device=batch.device),
-                                   torch.ones(n, dtype=torch.bool, device=batch.device), seg))
+                                   torch.ones(n, dtype=torch.bool, device=batch.device) if keep is None
+                                   else perm(keep), seg))
                 continue
             v = lower(a.expr, schema, env, n)
+            if keep is not None:
+                v = Column(v.dtype, v.data, v.validity & keep, v.lengths)
             data, valid = perm(v.data), perm(v.validity)
             ones = valid.to(torch.int64)
             if a.fn == "count":
@@ -432,7 +464,10 @@ class AggExec(ExecNode):
                     return
                 if batch.num_rows:
                     with self.metrics.timer("elapsed_compute"):
-                        states.append(self._reduce(batch, merging))
+                        state = self._reduce(batch, merging)
+                    # a grouped batch whose rows the pre_filter all dropped
+                    if state.num_rows:
+                        states.append(state)
             with self.metrics.timer("elapsed_compute"):
                 if len(states) > 1:
                     state = self._reduce(concat_batches(states), merging=True)
@@ -443,6 +478,10 @@ class AggExec(ExecNode):
                 else:
                     return
                 out = self._finalize(state) if self.mode == AggMode.FINAL else state
+                if self.post_sort is not None:
+                    from .sort import sort_batch
+
+                    out = sort_batch(out, self.post_sort, self.post_fetch)
             self._record_batch(out)
             yield out
 

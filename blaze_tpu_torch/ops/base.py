@@ -32,6 +32,57 @@ class ExecNode:
     def execute(self, partition: int, ctx: TaskContext) -> BatchStream:
         raise NotImplementedError
 
+    # ------------------------------------------------- tracing contract
+    #
+    # The task optimizer (ops/fusion.py) composes consecutive unary
+    # operators that expose a per-batch transform into one
+    # FusedStageExec, whose intermediates never reach the host: a chain
+    # reads its live row count back once per batch, not once per
+    # operator.
+
+    def trace_fn(self):
+        """Per-batch transform ``(cols, num_rows) -> (cols, num_rows)``
+        that never waits for the device (``num_rows`` may be a 0-d
+        int64 tensor on the batch's device), or None when this operator
+        cannot be composed (blocking, stateful across batches,
+        multi-child, or evaluated on the host)."""
+        return None
+
+    def trace_key(self):
+        """A structural key of :meth:`trace_fn` (non-None whenever it
+        is): the operator kind and its expressions."""
+        return None
+
+    def trace_slots(self) -> tuple:
+        """Literal values the transform expects appended after its
+        columns.  The port lowers literals in place, so this is always
+        empty; it is kept for the reference's contract."""
+        return ()
+
+    @property
+    def trace_changes_count(self) -> bool:
+        """True when the transform can change ``num_rows`` (a filter)."""
+        return False
+
+    @property
+    def trace_requires_buffer(self) -> bool:
+        """True when the transform is exact only over a whole partition
+        in one batch (the reference's window operator; none here)."""
+        return False
+
+    @property
+    def has_kernel(self) -> bool:
+        """False when the operator issues no device work of its own (a
+        pure column select); a chain is fused only when it replaces at
+        least two operators that do."""
+        return True
+
+    @property
+    def preserves_ordering(self) -> bool:
+        """True when this unary operator passes its child's row order
+        through."""
+        return False
+
     @property
     def device(self) -> torch.device:
         """The device this node's output lives on (its scans')."""

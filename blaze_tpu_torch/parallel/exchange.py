@@ -2,7 +2,9 @@
 ``NativeShuffleExchangeExec``).
 
 The first reduce partition to run materializes the exchange: every map
-partition of the child runs (serially in this port).
+partition of the child runs, ``parallel_map_tasks`` (default 4) at a
+time (:func:`warm_then_map`: map task 0 first, alone), the results kept
+in map order.
 
 - In process (``spark.blaze.exchange.inProcess``, the default): each
   batch's rows are sorted by partition id on the device, all pid counts
@@ -26,7 +28,8 @@ from __future__ import annotations
 import itertools
 import threading
 import weakref
-from typing import List, Optional
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, List, Optional, TypeVar
 
 from .. import conf
 from ..batch import RecordBatch, concat_batches
@@ -40,11 +43,27 @@ from .shuffle import (
 
 _shuffle_ids = itertools.count()
 
+T = TypeVar("T")
+
+
+def warm_then_map(fn: Callable[[int], T], n_tasks: int, max_workers: int) -> List[T]:
+    """``[fn(0), ..., fn(n_tasks - 1)]``: task 0 runs alone on this
+    thread first (it builds and loads the kernel library, and
+    materializes any exchange or broadcast below, once), then the rest
+    run ``max_workers`` at a time (≙ the reference's ``_warm_then_map``).
+    The results keep task order; an error in any task raises here."""
+    if max_workers <= 1 or n_tasks <= 1:
+        return [fn(t) for t in range(n_tasks)]
+    first = fn(0)
+    with ThreadPoolExecutor(max_workers=max_workers, thread_name_prefix="map-task") as pool:
+        return [first] + list(pool.map(fn, range(1, n_tasks)))
+
 
 class NativeShuffleExchangeExec(ExecNode):
-    def __init__(self, child: ExecNode, partitioning: Partitioning):
+    def __init__(self, child: ExecNode, partitioning: Partitioning, parallel_map_tasks: int = 4):
         super().__init__([child])
         self.partitioning = partitioning
+        self.parallel_map_tasks = parallel_map_tasks
         self.shuffle_id = next(_shuffle_ids)
         self._lock = threading.Lock()
         self._outputs: Optional[List[List[RecordBatch]]] = None
@@ -62,19 +81,28 @@ class NativeShuffleExchangeExec(ExecNode):
         n_out = self.partitioning.num_partitions
         n_maps = child.num_partitions()
         is_hash = isinstance(self.partitioning, HashPartitioning) and n_out > 1
-        pending = []
-        for m in range(n_maps):
+
+        def run_map(m: int) -> Optional[list]:
+            """Map task ``m``'s batches (hashed: pid-sorted, with their
+            counts); None when cancelled."""
+            local = []
             for batch in child.execute(m, caller.child_context(m, n_maps)):
                 if not caller.is_task_running():
-                    return None  # a cancelled materialization is never kept
+                    return None
                 if not is_hash:
-                    pending.append(batch)
+                    local.append(batch)
                     continue
                 with self.metrics.timer("elapsed_compute"):
                     cols = [c.head(batch.num_rows) for c in batch.columns]
                     pids = hash_pids(self.schema, self.partitioning.exprs, cols,
                                      batch.num_rows, n_out)
-                    pending.append(sort_by_pid(batch, pids, n_out))
+                    local.append(sort_by_pid(batch, pids, n_out))
+            return local
+
+        per_map = warm_then_map(run_map, n_maps, self.parallel_map_tasks)
+        if any(local is None for local in per_map) or not caller.is_task_running():
+            return None  # a cancelled materialization is never kept
+        pending = [item for local in per_map for item in local]
         if not is_hash:
             # every row to partition 0, coalesced into one batch
             return [[concat_batches(pending)] if pending else []] + [[] for _ in range(n_out - 1)]
@@ -89,14 +117,15 @@ class NativeShuffleExchangeExec(ExecNode):
         weakref.finalize(self, manager.cleanup)
         child = self.children[0]
         n_maps = child.num_partitions()
-        for m in range(n_maps):
+
+        def run_map(m: int) -> None:
             writer = manager.map_writer(child, self.partitioning, self.shuffle_id, m)
             writer.metrics = self.metrics  # one metric set across the map tasks
             for _ in writer.execute(m, caller.child_context(m, n_maps)):
                 pass
-            if not caller.is_task_running():
-                return None
-        return manager
+
+        warm_then_map(run_map, n_maps, self.parallel_map_tasks)
+        return manager if caller.is_task_running() else None
 
     def _file_stream(self, partition: int, ctx: TaskContext) -> BatchStream:
         with self._lock:

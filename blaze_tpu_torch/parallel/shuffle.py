@@ -15,20 +15,28 @@ batch by partition id on the device and brings the sorted live rows and
 the counts to the host in one copy; host slices are buffered per
 partition and committed as ``.data`` (one frame per partition, zlib and
 crc32 by default) plus ``.index`` (u64 offsets), data first and index
-last, each by atomic rename.  A reduce task (:class:`IpcReaderExec`)
-takes its blocks from the resources map, verifies every frame's
-checksum and stages the partition's rows on the device as one batch in
-one copy, as the in-process exchange hands a reduce partition one
-batch.  There is no spill yet.
+last, each by atomic rename.  With ``spark.blaze.shuffle.asyncWrite``
+(the default) the host copies and slicing run on a second thread
+(:class:`_AsyncInserter`), in batch order, while the map task issues
+the next batch's device work.  The optimizer's tier 5 folds the
+traceable chain feeding a hash-partitioned writer into its per-batch
+work (:meth:`ShuffleWriterExec.absorb_traceable_chain`): the batch's
+live count then stays on the device until that copy.  A reduce task
+(:class:`IpcReaderExec`) takes its blocks from the resources map,
+verifies every frame's checksum and stages the partition's rows on the
+device as one batch in one copy, as the in-process exchange hands a
+reduce partition one batch.  There is no spill yet.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import queue
 import shutil
 import struct
 import tempfile
+import threading
 import zlib
 from dataclasses import dataclass
 from typing import Iterator, List, Optional, Sequence, Tuple, Union
@@ -36,14 +44,18 @@ from typing import Iterator, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from ..batch import Column, RecordBatch, slice_rows
+from .. import conf
+from ..batch import Column, HostCopy, RecordBatch, slice_rows, tensors_to_host
 from ..exprs.compile import lower
 from ..exprs.hash import murmur3_columns, pmod
 from ..exprs.ir import Expr
-from ..io.batch_serde import HostColumn, decode_columns, host_columns, serialize_columns, stage_columns
+from ..io.batch_serde import (
+    HostColumn, column_tensors, decode_columns, serialize_columns, split_host_columns, stage_columns,
+)
 from ..io.ipc_compression import IpcFrameWriter, iter_blob_frames, iter_stream_frames
 from ..kernels import cuda_ops
 from ..ops.base import BatchStream, ExecNode
+from ..ops.filter import live_mask
 from ..runtime.context import ResourcesMap, TaskContext
 from ..runtime.integrity import BlockCorruptionError
 from ..schema import Schema
@@ -188,6 +200,79 @@ class ShuffleRepartitioner:
         return lengths
 
 
+def _insert_host(rep: ShuffleRepartitioner, host: Sequence[np.ndarray], has_lengths: Sequence[bool],
+                 n: Optional[int], counts: Optional[Sequence[int]]) -> None:
+    """Hand one batch's host copy to the repartitioner: the arrays of
+    its pid-sorted columns, then (hashed) its counts.  ``n`` None: the
+    rows came padded to their capacity and the counts' sum is the live
+    count (the fused write); ``counts`` None: they are in ``host``."""
+    cols, rest = split_host_columns(host, has_lengths)
+    if counts is None:
+        counts = rest[0].tolist()
+    if n is None:
+        n = sum(counts)
+        cols = [tuple(None if a is None else a[:n] for a in c) for c in cols]
+    rep.insert_sorted(cols, counts)
+
+
+class _AsyncInserter:
+    """The shuffle write's stager (≙ the reference's ``_AsyncInserter``,
+    ``spark.blaze.shuffle.asyncWrite``): one thread takes each batch's
+    pending host copy, waits for it and hands the arrays to the
+    repartitioner, in the order the batches were put, while the map
+    task issues the next batch's device work.  The queue holds at most
+    ``depth`` batches, so device outputs in flight stay bounded.  A
+    staging error surfaces at the next :meth:`put` or at :meth:`close`;
+    :meth:`abort` stops the thread and drops what is queued."""
+
+    _DONE = object()
+
+    def __init__(self, rep: ShuffleRepartitioner, depth: int, metrics):
+        self._rep = rep
+        self._metrics = metrics
+        self._q: "queue.Queue" = queue.Queue(max(1, depth))
+        # appended by the stager alone; the producer reads it racily at
+        # put (one batch late at worst) and again at close, after the join
+        self._errs: List[BaseException] = []
+        self._aborted = False
+        self._thread = threading.Thread(target=self._drain, name="shuffle-async-insert", daemon=True)
+        self._thread.start()
+
+    def _drain(self) -> None:
+        while True:
+            item = self._q.get()
+            if item is _AsyncInserter._DONE:
+                return
+            if self._errs or self._aborted:
+                continue  # failing or cancelled: discard, stage nothing
+            copy, has_lengths, n, counts = item
+            try:
+                with self._metrics.timer("shuffle_host_stage_time"):
+                    _insert_host(self._rep, copy.result(), has_lengths, n, counts)
+            except BaseException as e:  # noqa: BLE001 - surfaced to the producer
+                self._errs.append(e)
+
+    def put(self, item) -> None:
+        if self._errs:
+            raise self._errs[0]
+        self._q.put(item)
+
+    def close(self) -> None:
+        """Stage everything put, join, and raise the first staging
+        error: call before committing the output."""
+        self._q.put(self._DONE)
+        self._thread.join()
+        if self._errs:
+            raise self._errs[0]
+
+    def abort(self) -> None:
+        """Stop without raising (an error is already on its way, or the
+        task was cancelled) and skip whatever is still queued."""
+        self._aborted = True
+        self._q.put(self._DONE)
+        self._thread.join()
+
+
 class ShuffleWriterExec(ExecNode):
     """One map task: runs the child's partition and commits its rows,
     partitioned, to ``data_path``/``index_path``.  The output stream is
@@ -200,36 +285,89 @@ class ShuffleWriterExec(ExecNode):
         self.partitioning = partitioning
         self.data_path = data_path
         self.index_path = index_path
+        # tier 5 (absorb_traceable_chain): the absorbed chain's
+        # transform and output schema; None: not fused
+        self._fused_chain = None
+        self._out_schema: Optional[Schema] = None
 
     @property
     def schema(self) -> Schema:
-        return self.children[0].schema
+        return self._out_schema if self._out_schema is not None else self.children[0].schema
 
-    def _host_rows(self, batch: RecordBatch) -> Tuple[List[HostColumn], Sequence[int]]:
-        """A batch's live rows on the host sorted by partition id, and
-        the rows per partition: one device-to-host copy."""
+    @property
+    def fused(self) -> bool:
+        return self._out_schema is not None
+
+    def absorb_traceable_chain(self) -> None:
+        """Tier 5: fold the traceable chain feeding this writer (often
+        one FusedStageExec) into its per-batch work, which then runs the
+        chain, the pids over the batch's whole capacity (padding's pid
+        -1, sorted last and counted nowhere), the pid sort and the counts
+        with no host read: the batch's host copy is its one read.  Only
+        hash partitioning over more than one partition; idempotent."""
+        from ..ops.fusion import compose, traceable_chain_from
+
+        part = self.partitioning
+        if self.fused or not isinstance(part, HashPartitioning) or part.num_partitions <= 1:
+            return
+        ops, bottom = traceable_chain_from(self.children[0])
+        self._out_schema = self.children[0].schema
+        if ops:
+            self._fused_chain = compose([op.trace_fn() for op in reversed(ops)])
+            self.children[0] = bottom
+
+    def _sorted_rows(self, batch: RecordBatch):
+        """(the tensors of the batch's one host copy: its rows sorted by
+        partition id, then, hashed, the counts; whether each column has
+        lengths; the live row count, None when only the counts know it;
+        the counts when the host knows them already).  No host read."""
         n_out = self.partitioning.num_partitions
-        if isinstance(self.partitioning, HashPartitioning) and n_out > 1:
-            cols = [c.head(batch.num_rows) for c in batch.columns]
-            pids = hash_pids(self.schema, self.partitioning.exprs, cols, batch.num_rows, n_out)
+        cols, n = batch.columns, batch.num_rows
+        if self._fused_chain is not None:
+            cols, n = self._fused_chain(cols, n)
+        has_lengths = [c.lengths is not None for c in cols]
+        if not (isinstance(self.partitioning, HashPartitioning) and n_out > 1):
+            return column_tensors(cols, n), has_lengths, n, [n] + [0] * (n_out - 1)
+        exprs = self.partitioning.exprs
+        if not self.fused:
+            head = [c.head(n) for c in cols]
+            pids = hash_pids(self.schema, exprs, head, n, n_out)
             batch, counts = sort_by_pid(batch, pids, n_out)
-            host, (counts,) = host_columns(batch, extra=(counts,))
-            return host, counts.tolist()
-        return host_columns(batch)[0], [batch.num_rows] + [0] * (n_out - 1)
+            return column_tensors(batch.columns, n) + [counts], has_lengths, n, None
+        cap = cols[0].capacity
+        live = live_mask(cap, n, cols[0].device)
+        pids = torch.where(live, hash_pids(self.schema, exprs, cols, cap, n_out), -1)
+        counts = cuda_ops.pid_histogram(pids, n_out)
+        order = torch.sort(torch.where(live, pids, n_out), stable=True).indices
+        return column_tensors([c.take(order) for c in cols]) + [counts], has_lengths, None, None
 
     def execute(self, partition: int, ctx: TaskContext) -> BatchStream:
         def stream():
             rep = ShuffleRepartitioner(self.partitioning.num_partitions, ctx.task_attempt_id)
-            for batch in self.children[0].execute(partition, ctx):
+            inserter = None
+            if bool(conf.SHUFFLE_ASYNC_WRITE.get()):
+                inserter = _AsyncInserter(rep, int(conf.SHUFFLE_ASYNC_QUEUE_DEPTH.get()), self.metrics)
+            try:
+                for batch in self.children[0].execute(partition, ctx):
+                    if not ctx.is_task_running():
+                        return
+                    with self.metrics.timer("elapsed_compute"):
+                        tensors, has_lengths, n, counts = self._sorted_rows(batch)
+                        if inserter is None:
+                            _insert_host(rep, tensors_to_host(tensors), has_lengths, n, counts)
+                        else:
+                            inserter.put((HostCopy(tensors), has_lengths, n, counts))
+                if inserter is not None:
+                    inserter, staging = None, inserter
+                    staging.close()
                 if not ctx.is_task_running():
-                    return
-                with self.metrics.timer("elapsed_compute"):
-                    rep.insert_sorted(*self._host_rows(batch))
-            if not ctx.is_task_running():
-                return  # a cancelled map task never commits a partial output
-            with self.metrics.timer("output_io_time"):
-                lengths = rep.write_output(self.data_path, self.index_path)
-            self.metrics.add("data_size", sum(lengths))
+                    return  # a cancelled map task never commits a partial output
+                with self.metrics.timer("output_io_time"):
+                    lengths = rep.write_output(self.data_path, self.index_path)
+                self.metrics.add("data_size", sum(lengths))
+            finally:
+                if inserter is not None:
+                    inserter.abort()
             return
             yield  # an empty stream
 

@@ -7,13 +7,18 @@ an ``IpcReaderExec`` over its shuffle and emits a map stage for the
 exchange's child, and every ``BroadcastExchangeExec`` with an
 ``IpcReaderExec`` over its blobs and a broadcast stage that drains the
 child through an ``IpcWriterExec``.  :func:`run_stages` runs the stages
-in order and their tasks serially: before each task it registers the
-task's reduce blocks and broadcast blobs in ``RESOURCES``, serializes
-the task to TaskDefinition bytes (a map task's plan wrapped in a
-``ShuffleWriterExec`` with this task's ``.data``/``.index`` paths) and
-runs the bytes through ``serde.from_proto.run_task``; it yields the
-result stage's batches.  The shuffle directory is removed when the
-result stream ends or is closed.
+in order.  A map or broadcast stage runs its tasks
+``spark.blaze.stage.taskConcurrency`` at a time (default 1, serial;
+above 1 task 0 runs first, alone); the result stage runs them one by
+one.  Before each task it registers the task's reduce blocks and
+broadcast blobs in a resources map of the task's own (tasks of one
+stage read one broadcast under one key), serializes the task to
+TaskDefinition bytes (a map task's plan wrapped in a
+``ShuffleWriterExec`` with this task's ``.data``/``.index`` paths,
+its scans staged in ``RESOURCES``) and runs the bytes through
+``serde.from_proto.run_task``; it yields the result stage's batches.
+The shuffle directory is removed when the result stream ends or is
+closed.
 
 Not ported from the reference's scheduler: task retry and fetch-failure
 re-runs of map stages, speculation and wedge detection, worker host
@@ -25,18 +30,20 @@ from __future__ import annotations
 
 import contextlib
 import itertools
+import threading
 import time
 from dataclasses import dataclass, field
 from typing import Dict, Iterator, List, Optional, Tuple
 
+from .. import conf
 from ..batch import RecordBatch
 from ..ops.base import ExecNode
 from ..parallel.broadcast import BroadcastExchangeExec, IpcWriterExec
-from ..parallel.exchange import NativeShuffleExchangeExec
+from ..parallel.exchange import NativeShuffleExchangeExec, warm_then_map
 from ..parallel.shuffle import IpcReaderExec, LocalShuffleManager, Partitioning
-from .context import RESOURCES
+from .context import RESOURCES, ResourcesMap
 
-# process-unique: broadcast blobs live in the process-wide RESOURCES
+# process-unique: a broadcast's cached join map is named by its id
 _broadcast_ids = itertools.count()
 
 
@@ -163,29 +170,32 @@ class StageRunner:
         self.stats = stats if stats is not None else RunStats()
         self.n_maps: Dict[int, int] = {}
         self.blobs: Dict[int, List[bytes]] = {}
+        self._lock = threading.Lock()  # the stats, from concurrent tasks
 
-    def _register(self, stage: Stage, t: int, scope: contextlib.ExitStack) -> None:
-        """Stage task ``t``'s reduce blocks and broadcast blobs in
-        ``RESOURCES`` until ``scope`` closes."""
+    def _register(self, stage: Stage, t: int, resources: ResourcesMap,
+                  scope: contextlib.ExitStack) -> None:
+        """Stage task ``t``'s reduce blocks and broadcast blobs in its
+        ``resources`` until ``scope`` closes."""
+        blocks = 0
         for node in ipc_readers(stage.plan, "shuffle_"):
             sid = int(node.resource_id.split("_")[1])
-            self.stats.blocks += scope.enter_context(
-                self.manager.reduce_registration(RESOURCES, sid, self.n_maps[sid], t))
+            blocks += scope.enter_context(
+                self.manager.reduce_registration(resources, sid, self.n_maps[sid], t))
         for node in ipc_readers(stage.plan, "broadcast_"):
             bid = int(node.resource_id.split("_")[1])
-            key = f"{node.resource_id}.0"
-            RESOURCES.put(key, list(self.blobs[bid]))
-            scope.callback(RESOURCES.discard, key)
+            resources.put(f"{node.resource_id}.0", list(self.blobs[bid]))
+        with self._lock:
+            self.stats.blocks += blocks
 
-    def _run_task(self, stage: Stage, t: int) -> Iterator[RecordBatch]:
+    def _run_task(self, stage: Stage, t: int, resources: ResourcesMap) -> Iterator[RecordBatch]:
         from ..serde.from_proto import run_task
         from ..serde.to_proto import STAGED_RIDS
 
-        # a registration the task did not consume (a cached join map
-        # skips its build side's blobs, a failed task stops early) must
-        # not outlive it
+        # a scan the task did not consume (a failed task stops early)
+        # must not outlive it; what it did not read of ``resources``
+        # goes with the map
         with contextlib.ExitStack() as scope:
-            self._register(stage, t, scope)
+            self._register(stage, t, resources, scope)
             staged: List[str] = []
             scope.callback(_discard, staged)
             token = STAGED_RIDS.set(staged)
@@ -193,24 +203,36 @@ class StageRunner:
                 _, td = build_task(stage, self.manager, t)
             finally:
                 STAGED_RIDS.reset(token)
-            self.stats.tasks += 1
-            self.stats.task_def_bytes += len(td)
-            yield from run_task(td)
+            with self._lock:
+                self.stats.tasks += 1
+                self.stats.task_def_bytes += len(td)
+            yield from run_task(td, resources=resources)
+
+    def _drain_task(self, stage: Stage, t: int) -> Optional[bytes]:
+        """Run map or broadcast task ``t`` to its end; a broadcast task
+        returns its blob."""
+        resources = ResourcesMap()
+        for _ in self._run_task(stage, t, resources):
+            pass
+        if stage.kind == "broadcast":
+            return resources.get(f"broadcast_{stage.broadcast_id}.{t}")
+        return None
 
     def run_stage(self, stage: Stage) -> Iterator[RecordBatch]:
         """Run every task of ``stage``; a result stage yields its
         batches, the others yield nothing."""
-        for t in range(stage.n_tasks):
-            for b in self._run_task(stage, t):
-                if stage.kind == "result":
-                    yield b
+        if stage.kind == "result":
+            for t in range(stage.n_tasks):
+                yield from self._run_task(stage, t, ResourcesMap())
+            return
+        outs = warm_then_map(lambda t: self._drain_task(stage, t), stage.n_tasks,
+                             int(conf.STAGE_TASK_CONCURRENCY.get()))
         if stage.kind == "map":
             self.n_maps[stage.shuffle_id] = stage.n_tasks
             self.stats.data_bytes += self.manager.data_bytes(stage.shuffle_id, stage.n_tasks)
-        elif stage.kind == "broadcast":
-            bid = stage.broadcast_id
-            self.blobs[bid] = [RESOURCES.get(f"broadcast_{bid}.{p}") for p in range(stage.n_tasks)]
-            self.stats.broadcast_bytes += sum(len(b) for b in self.blobs[bid])
+        else:
+            self.blobs[stage.broadcast_id] = outs
+            self.stats.broadcast_bytes += sum(len(b) for b in outs)
 
 
 def run_stages(stages: List[Stage], manager: LocalShuffleManager,
@@ -228,9 +250,5 @@ def run_stages(stages: List[Stage], manager: LocalShuffleManager,
             yield from runner.run_stage(stage)
             runner.stats.stage_seconds.append(time.perf_counter() - t0)
     finally:
-        for stage in stages:  # the blobs of a broadcast stage that failed
-            if stage.kind == "broadcast":
-                for p in range(stage.n_tasks):
-                    RESOURCES.discard(f"broadcast_{stage.broadcast_id}.{p}")
         manager.cleanup()
         clear_join_map_cache(f"sched_bcast_{id(manager)}_")

@@ -160,15 +160,18 @@ def plan_from_proto(n: pb.PhysicalPlanNode):
     raise NotImplementedError(f"from_proto node {kind}")
 
 
-def run_task(task_def_bytes: bytes, task_attempt_id: int = 0):
-    """Decode a TaskDefinition and run its plan for its partition;
-    returns the task's batch stream.  The port has no optimizer
-    (fusion, column pruning), so the decoded plan runs as it was
-    serialized."""
+def run_task(task_def_bytes: bytes, task_attempt_id: int = 0, resources=None):
+    """Decode a TaskDefinition, optimize its plan
+    (``ops.fusion.optimize_plan``: fusion tiers 1-5 under
+    ``spark.blaze.fusion.enabled``, and column pruning) and run it for
+    its partition; returns the task's batch stream.  The task reads its
+    reduce blocks and broadcast blobs from ``resources`` (default the
+    process-wide ``RESOURCES``, from which decoding takes the scans)."""
+    from ..ops.fusion import optimize_plan
     from ..runtime.context import TaskContext
 
     td = pb.TaskDefinition.decode(task_def_bytes)
-    plan = plan_from_proto(td.plan)
-    ctx = TaskContext(td.partition, max(plan.num_partitions(), td.partition + 1),
+    plan = optimize_plan(plan_from_proto(td.plan))
+    ctx = TaskContext(td.partition, max(plan.num_partitions(), td.partition + 1), resources,
                       stage_id=td.stage_id, task_attempt_id=task_attempt_id)
     return plan.execute(td.partition, ctx)

@@ -28,7 +28,10 @@ Needs one CUDA card and ``nvcc`` (``/usr/local/cuda``).  In order, it:
    ``--scale`` on the same tables with dbgen's p_name, c_phone,
    o_custkey and l_suppkey (``datagen.with_spec_columns``), with 8
    partitions and 2^20-row batches, each scan pruned to the query's
-   columns, checks each against its numpy oracle (a nonempty result
+   columns, each plan through the task optimizer
+   (``ops.fusion.optimize_plan``, as ``run_task`` runs every decoded
+   task) with the conf defaults (fusion on, the async shuffle write
+   on, 4 map tasks at a time in an exchange), checks each against its numpy oracle (a nonempty result
    for the rest of TPC-H), and reads every kernel's launch count over
    each query (reset just before it, before its plan is built: q11,
    q15 and q22 run a scalar subquery then, whose seconds it prints
@@ -63,13 +66,23 @@ Needs one CUDA card and ``nvcc`` (``/usr/local/cuda``).  In order, it:
    FULL join with no build rows) on 2^18 probe rows, each equal to a
    Python oracle and launching the kernels its plan calls, and requires
    a FULL broadcast join over 8 probe partitions to raise;
+   the A/B phase runs q01, q03, q05 and q21 on both paths unfused
+   (``spark.blaze.fusion.enabled`` and ``spark.blaze.shuffle.asyncWrite``
+   false, 1 map task at a time), under the defaults with 4 tasks at a
+   time (``spark.blaze.stage.taskConcurrency`` 4 on ``run_stages``) and
+   under the defaults one task at a time,
+   in turns (A, B, C, C, B, A), each run equal to its oracle, and
+   prints each one's walls, syncs with the card, ``.data`` bytes and
+   launches (equal on both paths under one setting);
 7. reads the CUPTI device time of every timed call in one
    ``torch.profiler`` session, and counts every device operation one
    ``pid_histogram`` call issues on each path (one on paths (a) and
-   (b), or it fails); then runs q01, q03 and q10 once more under
-   ``torch.profiler`` and prints the device's busy share of each run,
-   the kernels that take its time, and the hand-written kernels' device
-   time at the shapes the query gives them;
+   (b), or it fails); then runs q01 and q03 in process under each A/B
+   setting and q10 under the defaults, all in one more
+   ``torch.profiler`` session, and prints the device's busy share of
+   each run, its device operations, the kernels that take its time, and
+   the hand-written kernels' device time at the shapes the query gives
+   them;
 8. prints where each phase ended on the host clock, the ``kernels``
    JSON line, then ``{"ok": true, ...}`` last.
 
@@ -87,6 +100,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 from typing import Dict
@@ -135,10 +149,6 @@ def time_ms(torch, fn, iters: int, flush) -> float:
     torch.cuda.synchronize()
     times = sorted(s.elapsed_time(e) for s, e in zip(starts, ends))
     return times[len(times) // 2]
-
-
-def dev_us(e) -> float:
-    return getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
 
 
 def device_times(torch, cuda_ops, jobs, iters: int, flush, count_jobs=()):
@@ -648,26 +658,49 @@ def run_plan(torch, plan):
 HAND_WRITTEN = ("murmur3_pids_kernel", "pid_histogram_kernel", "group_sums", "sorted_lookup_kernel")
 
 
-def profile_query(torch, query: str, plan) -> None:
-    """One query under torch.profiler: the device's busy share of the
-    wall time and the kernels that take the most device time."""
+def profile_queries(torch, runs) -> list:
+    """Each ``(label, plan)`` of ``runs`` once, all in ONE torch.profiler
+    session (a fifth session in one process has come back short of
+    kernel events), a spin kernel before and after each run to tell
+    them apart: the device's busy share of each run's wall, its device
+    operations, the kernels that take the most device time and the
+    hand-written kernels' time at the shapes the query gives them.
+    Returns one dict a run."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    walls = []
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, wall = run_plan(torch, plan)
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy = sum(dev_us(e) for e in kernels) / 1e6
-    log(f"{query} profile: wall {wall:.4f} s, device busy {busy:.4f} s ({100 * busy / wall:.1f}%), "
-        f"{sum(e.count for e in kernels)} device operations")
-    for e in sorted(kernels, key=dev_us, reverse=True)[:12]:
-        log(f"  {dev_us(e) / 1e3:9.3f} ms  {e.count:6d}x  {e.key[:100]}")
-    # the hand-written kernels at the shapes the query really gives them
-    for name in HAND_WRITTEN:
-        ours = [e for e in kernels if name in e.key]
-        total, count = sum(dev_us(e) for e in ours), sum(e.count for e in ours)
-        log(f"{query} profile: {name} {count} launches, {total / 1e3:.4f} ms in all, "
-            f"{total / 1e3 / max(count, 1):.4f} ms each")
+        for _, plan in runs:
+            torch.cuda._sleep(1000)
+            walls.append(run_plan(torch, plan)[1])
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+    device = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA), key=lambda e: e.time_range.start)
+    spins = [i for i, e in enumerate(device) if "spin_kernel" in e.name]
+    if len(spins) != 2 * len(runs):
+        raise AssertionError(f"the profiler saw {len(spins)} spin kernels, not {2 * len(runs)}")
+    out = []
+    for i, ((label, _), wall) in enumerate(zip(runs, walls)):
+        events = device[spins[2 * i] + 1:spins[2 * i + 1]]
+        by_name: Dict[str, list] = {}
+        for e in events:
+            t = by_name.setdefault(e.name, [0.0, 0])
+            t[0] += e.time_range.elapsed_us()
+            t[1] += 1
+        busy = sum(t for t, _ in by_name.values()) / 1e6
+        log(f"{label} profile: wall {wall:.4f} s, device busy {busy:.4f} s ({100 * busy / wall:.1f}%), "
+            f"{len(events)} device operations")
+        for name, (t, k) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
+            log(f"  {t / 1e3:9.3f} ms  {k:6d}x  {name[:100]}")
+        for name in HAND_WRITTEN:
+            ours = [v for k, v in by_name.items() if name in k]
+            total, count = sum(t for t, _ in ours), sum(k for _, k in ours)
+            log(f"{label} profile: {name} {count} launches, {total / 1e3:.4f} ms in all, "
+                f"{total / 1e3 / max(count, 1):.4f} ms each")
+        out.append({"run": label, "profiled_wall_s": wall, "busy_s": busy, "busy_share": busy / wall,
+                    "device_ops": len(events)})
+    return out
 
 
 @contextlib.contextmanager
@@ -694,23 +727,44 @@ def timed_subqueries():
         queries.scalar_subquery_row = real
 
 
-def timed_build(torch, query: str, scans, n_parts: int):
+def timed_build(torch, query: str, scans, n_parts: int, map_tasks=None):
     """(the plan of ``query``, seconds to build it, seconds of the
-    scalar subqueries it ran while it was built)."""
+    scalar subqueries it ran while it was built); optimized (see
+    :func:`optimized`) unless ``map_tasks`` is None."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with timed_subqueries() as sub:
         plan = build_plan(query, scans, n_parts)
+        if map_tasks is not None:
+            plan = optimized(plan, map_tasks)
     return plan, time.perf_counter() - t0, sub[0]
 
 
-def run_query(torch, cuda_ops, query: str, scans, n_parts: int):
-    """One query through its plan builder + plan.execute with every
-    launch count reset just before it; the wall includes building the
-    plan, and so a scalar subquery the plan runs; returns (rows, wall,
-    launches, the subqueries' seconds)."""
+def optimized(plan, map_tasks: int = 4):
+    """``plan`` through the task optimizer, as ``run_task`` runs a
+    decoded task, with every exchange running ``map_tasks`` map tasks
+    at a time."""
+    from blaze_tpu_torch.ops.fusion import optimize_plan
+    from blaze_tpu_torch.parallel.exchange import NativeShuffleExchangeExec
+
+    def walk(node):
+        if isinstance(node, NativeShuffleExchangeExec):
+            node.parallel_map_tasks = map_tasks
+        for c in node.children:
+            walk(c)
+
+    walk(plan)
+    return optimize_plan(plan)
+
+
+def run_query(torch, cuda_ops, query: str, scans, n_parts: int, map_tasks: int = 4):
+    """One query through its plan builder, the optimizer and
+    plan.execute, with every launch count reset just before it; the
+    wall includes building and optimizing the plan, and so a scalar
+    subquery the plan runs; returns (rows, wall, launches, the
+    subqueries' seconds)."""
     cuda_ops.reset_launch_counts()
-    plan, build_s, sub_s = timed_build(torch, query, scans, n_parts)
+    plan, build_s, sub_s = timed_build(torch, query, scans, n_parts, map_tasks)
     got, wall = run_plan(torch, plan)
     return got, build_s + wall, dict(cuda_ops.LAUNCHES), sub_s
 
@@ -733,10 +787,12 @@ def largest_inputs(cuda_ops):
     most probes and the longest table).  The calls run unchanged."""
     seen: Dict[str, tuple] = {}
     m3, sl, ph = cuda_ops.murmur3_pids, cuda_ops.sorted_lookup, cuda_ops.pid_histogram
+    lock = threading.Lock()  # map tasks call from several threads
 
     def keep(key, size, args):
-        if key not in seen or size > seen[key][0]:
-            seen[key] = (size, args)
+        with lock:
+            if key not in seen or size > seen[key][0]:
+                seen[key] = (size, args)
 
     def murmur3_pids(planes, widths, valids, n_parts):
         keep(f"murmur3_pids {len(planes)} keys", planes[0].shape[0], (planes, widths, valids, n_parts))
@@ -950,6 +1006,81 @@ def run_scheduled(torch, cuda_ops, query: str, scans, n_parts: int):
              "frames_verified": integrity.COUNTS["frames_verified"], **B.COPIES,
              "stage_seconds": stats.stage_seconds, "subquery_s": sub_s}
     return out, wall, launches, moved
+
+
+# the A/B phase: the pipeline unfused and serial against the defaults, as
+# (label, spark.blaze.fusion.enabled, spark.blaze.shuffle.asyncWrite,
+# map tasks at a time in an exchange, spark.blaze.stage.taskConcurrency);
+# column pruning runs under every setting, as in the reference
+AB_QUERIES = ("q1", "q3", "q5", "q21")
+AB_SETTINGS = (("unfused, 1 task", False, False, 1, 1), ("defaults, 4 tasks", True, True, 4, 4),
+               # the defaults one task at a time: what the map tasks' threads do apart
+               ("defaults, 1 task", True, True, 1, 1))
+
+
+@contextlib.contextmanager
+def pipeline_conf(fusion: bool, async_write: bool, task_concurrency: int):
+    """The pipeline's conf entries set for the block, restored after."""
+    from blaze_tpu_torch import conf
+
+    entries = (conf.FUSION_ENABLE, conf.SHUFFLE_ASYNC_WRITE, conf.STAGE_TASK_CONCURRENCY)
+    saved = [e.get() for e in entries]
+    for e, v in zip(entries, (fusion, async_write, task_concurrency)):
+        e.set(v)
+    try:
+        yield
+    finally:
+        for e, v in zip(entries, saved):
+            e.set(v)
+
+
+def ab_phase(torch, cuda_ops, card: str, scans, datas, n_parts: int) -> list:
+    """Each of AB_QUERIES on both paths under every AB_SETTINGS, timed
+    in turns (A, B, C, C, B, A), every run held to the oracle; then one
+    untimed run a setting counts the syncs with the card.  The two
+    paths must launch each kernel as often under one setting.  Returns
+    one dict a (query, path, setting); the profiled runs are in the
+    last phase."""
+    out = []
+    for query in AB_QUERIES:
+        launches_of = {}
+        for path in ("in process", "run_stages"):
+            walls = {label: [] for label, *_ in AB_SETTINGS}
+            last = {}
+            for label, fusion, async_write, map_tasks, tasks in AB_SETTINGS + AB_SETTINGS[::-1]:
+                with pipeline_conf(fusion, async_write, tasks):
+                    if path == "in process":
+                        got, wall, launches, _ = run_query(torch, cuda_ops, query, scans[query], n_parts, map_tasks)
+                        moved = {}
+                    else:
+                        got, wall, launches, moved = run_scheduled(torch, cuda_ops, query, scans[query], n_parts)
+                check_oracle(datas[query], query, got)
+                walls[label].append(wall)
+                last[label] = (launches, moved)
+            for label, fusion, async_write, map_tasks, tasks in AB_SETTINGS:
+                with pipeline_conf(fusion, async_write, tasks):
+                    if path == "in process":
+                        run = lambda: run_query(torch, cuda_ops, query, scans[query], n_parts, map_tasks)  # noqa: E731
+                    else:
+                        run = lambda: run_scheduled(torch, cuda_ops, query, scans[query], n_parts)  # noqa: E731
+                    syncs, _ = count_syncs(torch, run)
+                launches, moved = last[label]
+                launches_of[(path, label)] = launches
+                r = {"query": query_label(query), "path": path, "setting": label, "walls_s": walls[label],
+                     "syncs": syncs, "launches": launches, "card": card,
+                     **{k: moved[k] for k in ("data_bytes", "device_to_host", "tasks", "stage_seconds")
+                        if k in moved}}
+                log(f"A/B {query_label(query)} {path}, {label}: = oracle in every run; walls "
+                    f"{', '.join(f'{w:.4f}' for w in walls[label])} s, {syncs} syncs with the card"
+                    + (f", .data bytes {moved['data_bytes']}, device-to-host copies {moved['device_to_host']}"
+                       if moved else "") + f"; launches {launches}; on {card}")
+                log("ab " + json.dumps(r))
+                out.append(r)
+        for label, *_ in AB_SETTINGS:
+            if launches_of[("in process", label)] != launches_of[("run_stages", label)]:
+                raise AssertionError(f"A/B {query}, {label}: in process launched {launches_of[('in process', label)]}, "
+                                     f"run_stages {launches_of[('run_stages', label)]}")
+    return out
 
 
 # joins whose code the TPC-H queries leave off the card: (join type, how
@@ -1370,6 +1501,11 @@ def main() -> int:
     log("corrupted block: " + corrupt_block_check(scans["q6"], n_parts))
 
     phases.append(("queries through run_stages", time.perf_counter() - T0))
+    # ---- the A/B phase: the pipeline unfused and serial against the defaults
+    ab_phase(torch, cuda_ops, card, scans, {q: new_data if q in NEW_QUERIES else data for q in AB_QUERIES},
+             n_parts)
+
+    phases.append(("A/B pipeline", time.perf_counter() - T0))
     # ---- the join code no TPC-H query runs, on the card
     for line in check_build_preserving_joins(cuda_ops, "cuda", n_parts, 1 << 18, seed=60):
         log(line)
@@ -1430,8 +1566,16 @@ def main() -> int:
             raise AssertionError(f"pid_histogram [{label}]: {k:g} device operations a call, not 1")
 
     phases.append(("device times", time.perf_counter() - T0))
-    for query in ("q1", "q3", "q10"):
-        profile_query(torch, query_label(query), build_plan(query, scans[query], n_parts))
+    # q01 and q03 in process under each A/B setting, q10 under the defaults
+    profiled = []
+    for query in ("q1", "q3"):
+        for label, fusion, async_write, map_tasks, tasks in AB_SETTINGS:
+            with pipeline_conf(fusion, async_write, tasks):
+                profiled.append((f"{query_label(query)} ({label})",
+                             optimized(build_plan(query, scans[query], n_parts), map_tasks)))
+    profiled.append((query_label("q10"), optimized(build_plan("q10", scans["q10"], n_parts))))
+    for r in profile_queries(torch, profiled):
+        log("profile " + json.dumps({**r, "card": card}))
     phases.append(("profiled queries", time.perf_counter() - T0))
     log("phase ends, seconds from the start of the script: "
         + ", ".join(f"{name} {t:.1f}" for name, t in phases))
