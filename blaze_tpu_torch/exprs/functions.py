@@ -1,7 +1,7 @@
 """Scalar function registry (≙ ``blaze_tpu/exprs/functions.py``):
 functions resolve by name, so the plan contract carries them as
 strings.  The port has ``year``, ``month``, ``day`` (Hinnant's
-civil-from-days, pure integer ops) and ``substring``.
+civil-from-days, pure integer ops), ``substring`` and ``abs``.
 """
 
 from __future__ import annotations
@@ -115,3 +115,12 @@ def _substring(expr, schema, cols, n, lower_fn):
     # zero the tail past each row's length so padding stays canonical
     data = torch.where(torch.arange(w, device=c.device)[None, :] < new_len[:, None], data, 0)
     return Column(DataType.string(w), data.to(torch.uint8), c.validity, new_len.to(torch.int32))
+
+
+# -------------------------------------------------------------- numeric
+
+
+@register("abs", lambda e, ts: ts[0])
+def _abs(expr, schema, cols, n, lower_fn):
+    c = lower_fn(expr.args[0], schema, cols, n)
+    return Column(c.dtype, torch.abs(c.data), c.validity)

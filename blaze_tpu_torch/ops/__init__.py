@@ -2,13 +2,17 @@
 
 from .agg import AggExec, AggFunction, AggMode, GroupingExpr
 from .base import ExecNode
+from .expand import ExpandExec
 from .filter import FilterExec
 from .limit import LimitExec
 from .memory_scan import MemoryScanExec
 from .project import ProjectExec
 from .sort import SortExec, SortField
+from .union import UnionExec
+from .window import WindowExec, WindowFunction
 
 __all__ = [
-    "AggExec", "AggFunction", "AggMode", "ExecNode", "FilterExec", "GroupingExpr",
-    "LimitExec", "MemoryScanExec", "ProjectExec", "SortExec", "SortField",
+    "AggExec", "AggFunction", "AggMode", "ExecNode", "ExpandExec", "FilterExec", "GroupingExpr",
+    "LimitExec", "MemoryScanExec", "ProjectExec", "SortExec", "SortField", "UnionExec", "WindowExec",
+    "WindowFunction",
 ]

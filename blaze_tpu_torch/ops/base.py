@@ -67,7 +67,8 @@ class ExecNode:
     @property
     def trace_requires_buffer(self) -> bool:
         """True when the transform is exact only over a whole partition
-        in one batch (the reference's window operator; none here)."""
+        in one batch (the window): a fused chain stops below it, over a
+        partition buffer."""
         return False
 
     @property

@@ -21,7 +21,10 @@ not gated, as in the reference.
    that pruning still sees the original operators): runs of unary
    operators exposing ``ExecNode.trace_fn`` with at least two that do
    device work become one :class:`FusedStageExec`, which reads the live
-   row count back once per batch instead of once per filter.
+   row count back once per batch instead of once per filter.  A chain
+   stops below an operator whose transform needs its whole partition
+   in one batch (``trace_requires_buffer``: the window), which becomes
+   the chain's bottom over a :class:`BufferPartitionExec`.
 5. **Fused shuffle write** (:func:`fuse_shuffle_write`, last): a
    hash-partitioned ``ShuffleWriterExec`` absorbs the chain feeding it;
    per batch it runs the chain, the partition ids (``murmur3_pids``, or
@@ -29,10 +32,10 @@ not gated, as in the reference.
    (``pid_histogram``) with no host read, and the batch's host copy is
    the one read (``ShuffleWriterExec.absorb_traceable_chain``).
 
-Not ported from the reference: ``BufferPartitionExec`` (only a window
-operator needs it), the OOM rungs of ``FusedStageExec``, the plan
-verifier, the plan cache, the runtime statistics and the dispatch
-counters (ROADMAP), and tier 5's fold of a FINAL agg's finalize.
+Not ported from the reference: the OOM rungs of ``FusedStageExec``,
+the plan verifier, the plan cache, the runtime statistics and the
+dispatch counters (ROADMAP), and tier 5's fold of a FINAL agg's
+finalize.
 """
 
 from __future__ import annotations
@@ -40,7 +43,7 @@ from __future__ import annotations
 from typing import Dict, List
 
 from .. import conf
-from ..batch import RecordBatch
+from ..batch import RecordBatch, concat_batches
 from ..exprs.ir import Alias, BinOp, Case, Cast, Col, Expr, InList, IsNotNull, IsNull, Like, Not, ScalarFunc
 from .base import BatchStream, ExecNode
 
@@ -224,6 +227,38 @@ def compose(fns):
     return fn
 
 
+class BufferPartitionExec(ExecNode):
+    """The child partition's batches concatenated on the device into
+    one: the prelude of a fused chain whose bottom operator needs its
+    whole partition in one batch (``trace_requires_buffer``, the
+    window), the same concatenation that operator's own ``execute``
+    does."""
+
+    def __init__(self, child: ExecNode):
+        super().__init__([child])
+
+    @property
+    def schema(self):
+        return self.children[0].schema
+
+    @property
+    def preserves_ordering(self) -> bool:
+        return True  # the batches in stream order
+
+    def execute(self, partition: int, ctx) -> BatchStream:
+        child_stream = self.children[0].execute(partition, ctx)
+
+        def stream():
+            buffered = list(child_stream)
+            if not buffered:
+                return
+            merged = concat_batches(buffered)
+            self._record_batch(merged)
+            yield merged
+
+        return stream()
+
+
 class FusedStageExec(ExecNode):
     """A chain of traceable unary operators, bottom to top, run as one
     transform per batch: every intermediate stays on the device, and
@@ -282,16 +317,20 @@ class FusedStageExec(ExecNode):
 
 def traceable_chain_from(node):
     """The chain rule tiers 4 and 5 share: walk down consecutive unary
-    operators that expose ``trace_fn``.  Returns (the operators top
-    down, the node below them)."""
+    operators that expose ``trace_fn``, stopping after one that needs
+    its whole partition in one batch (``trace_requires_buffer``): that
+    operator is the chain's bottom, fed by a
+    :class:`BufferPartitionExec`.  Returns (the operators top down, the
+    node below them, whether the chain needs the buffer)."""
     ops_top_down = []
     cur = node
     while len(cur.children) == 1 and cur.trace_fn() is not None:
-        if cur.trace_requires_buffer:
-            raise NotImplementedError("a chain over a whole partition (BufferPartitionExec) is not ported")
         ops_top_down.append(cur)
+        buffered = cur.trace_requires_buffer
         cur = cur.children[0]
-    return ops_top_down, cur
+        if buffered:
+            return ops_top_down, cur, True
+    return ops_top_down, cur, False
 
 
 def fuse_traceable_chains(plan):
@@ -303,9 +342,9 @@ def fuse_traceable_chains(plan):
         return plan
 
     def rewrite(node):
-        ops, bottom = traceable_chain_from(node)
+        ops, bottom, buffered = traceable_chain_from(node)
         if len(ops) >= 2 and sum(1 for o in ops if o.has_kernel) >= 2:
-            return FusedStageExec(bottom, list(reversed(ops)))
+            return FusedStageExec(BufferPartitionExec(bottom) if buffered else bottom, list(reversed(ops)))
         return node
 
     return _children_rewritten(plan, rewrite)

@@ -55,7 +55,29 @@ def _kept(exprs, names, required: Optional[Set[str]]):
 def prune_columns(plan, required: Optional[Set[str]] = None):
     """``plan`` rewritten so every operator receives only the columns
     it or its ancestors need (``required`` by the parent; None: all of
-    the plan's output).  Returns the (possibly replaced) root."""
+    the plan's output).  Returns the (possibly replaced) root.  An
+    exchange two parents share (TPC-DS q44's, under both ranked
+    branches) stays one exchange where both require the same columns,
+    so it still runs once; other nodes are pruned per parent, as in the
+    reference."""
+    from ..parallel.exchange import NativeShuffleExchangeExec
+
+    memo = {}
+
+    def prune(node, req):
+        if not isinstance(node, NativeShuffleExchangeExec):
+            return _prune(node, req, prune)
+        key = (id(node), None if req is None else frozenset(req))
+        if key not in memo:
+            memo[key] = _prune(node, req, prune)
+        return memo[key]
+
+    return prune(plan, required)
+
+
+def _prune(plan, required: Optional[Set[str]], prune_columns):
+    """One node of :func:`prune_columns`; ``prune_columns`` prunes a
+    child."""
     from ..parallel.exchange import NativeShuffleExchangeExec
     from ..parallel.shuffle import HashPartitioning
     from .agg import AggExec, AggMode
@@ -64,6 +86,7 @@ def prune_columns(plan, required: Optional[Set[str]] = None):
     from .limit import LimitExec
     from .project import ProjectExec
     from .sort import SortExec
+    from .union import UnionExec
 
     req = set(required) if required is not None else set(plan.schema.names)
 
@@ -132,6 +155,14 @@ def prune_columns(plan, required: Optional[Set[str]] = None):
             extra["cached_build_id"] = plan.cached_build_id
         return type(plan)(new_sides[0], new_sides[1], plan.build_keys, plan.probe_keys,
                           plan.join_type, plan.build_is_left, **extra)
+
+    if isinstance(plan, UnionExec):
+        # every child narrowed alike; a union that must keep all of its
+        # columns is left as it is, children included (as in the
+        # reference)
+        if req == set(plan.schema.names):
+            return plan
+        return UnionExec([_narrow(prune_columns(c, set(req)), set(req)) for c in plan.children])
 
     if isinstance(plan, LimitExec):
         plan.children[0] = _narrow(prune_columns(plan.children[0], req), req)

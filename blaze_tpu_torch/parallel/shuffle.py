@@ -305,16 +305,16 @@ class ShuffleWriterExec(ExecNode):
         -1, sorted last and counted nowhere), the pid sort and the counts
         with no host read: the batch's host copy is its one read.  Only
         hash partitioning over more than one partition; idempotent."""
-        from ..ops.fusion import compose, traceable_chain_from
+        from ..ops.fusion import BufferPartitionExec, compose, traceable_chain_from
 
         part = self.partitioning
         if self.fused or not isinstance(part, HashPartitioning) or part.num_partitions <= 1:
             return
-        ops, bottom = traceable_chain_from(self.children[0])
+        ops, bottom, buffered = traceable_chain_from(self.children[0])
         self._out_schema = self.children[0].schema
         if ops:
             self._fused_chain = compose([op.trace_fn() for op in reversed(ops)])
-            self.children[0] = bottom
+            self.children[0] = BufferPartitionExec(bottom) if buffered else bottom
 
     def _sorted_rows(self, batch: RecordBatch):
         """(the tensors of the batch's one host copy: its rows sorted by

@@ -178,6 +178,8 @@ class StageRunner:
         ``resources`` until ``scope`` closes."""
         blocks = 0
         for node in ipc_readers(stage.plan, "shuffle_"):
+            if t >= node.num_partitions():
+                continue  # a union's narrower child: no partition t to read
             sid = int(node.resource_id.split("_")[1])
             blocks += scope.enter_context(
                 self.manager.reduce_registration(resources, sid, self.n_maps[sid], t))

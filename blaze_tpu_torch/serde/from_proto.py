@@ -96,12 +96,28 @@ def _join_type(v: int):
     return JoinType[pb.JoinTypeProto(v).name]
 
 
+def _window_function(f: pb.WindowFunctionProto):
+    from ..ops import WindowFunction
+
+    def bounds(has: bool, a: int, b: int):
+        return (None if a < 0 else a, None if b < 0 else b) if has else None
+
+    return WindowFunction(
+        f.kind, f.name, expr_from_proto(f.expr) if f.has_expr else None, f.whole_partition,
+        rows_frame=bounds(f.has_rows_frame, f.frame_preceding, f.frame_following),
+        # lead/lag: 0 is a legal offset (the current row); the other
+        # kinds never encode 0 (default 1)
+        offset=f.offset if f.kind in ("lead", "lag") else (f.offset or 1),
+        ignore_nulls=f.ignore_nulls,
+        range_frame=bounds(f.has_range_frame, f.range_preceding, f.range_following))
+
+
 def plan_from_proto(n: pb.PhysicalPlanNode):
     """A plan tree from its message.  A memory scan pops its partitions
     from ``RESOURCES`` and stages them on the package's default device."""
     from ..ops import (
-        AggExec, AggFunction, AggMode, FilterExec, GroupingExpr, LimitExec, MemoryScanExec,
-        ProjectExec, SortExec, SortField,
+        AggExec, AggFunction, AggMode, ExpandExec, FilterExec, GroupingExpr, LimitExec, MemoryScanExec,
+        ProjectExec, SortExec, SortField, UnionExec, WindowExec,
     )
     from ..ops.joins import BroadcastJoinExec, HashJoinExec
     from ..parallel.broadcast import IpcWriterExec
@@ -137,6 +153,17 @@ def plan_from_proto(n: pb.PhysicalPlanNode):
                         fetch=s.fetch if s.has_fetch else None)
     if kind == "limit":
         return LimitExec(plan_from_proto(n.limit.input), n.limit.limit)
+    if kind == "union":
+        return UnionExec([plan_from_proto(c) for c in n.union.inputs])
+    if kind == "expand":
+        e = n.expand
+        return ExpandExec(plan_from_proto(e.input), [[expr_from_proto(x) for x in p.exprs] for p in e.projections],
+                          list(e.names))
+    if kind == "window":
+        w = n.window
+        return WindowExec(plan_from_proto(w.input), [_window_function(f) for f in w.functions],
+                          [expr_from_proto(e) for e in w.partition_by],
+                          [SortField(expr_from_proto(f.expr), f.ascending, f.nulls_first) for f in w.order_by])
     if kind == "shuffle_writer":
         w = n.shuffle_writer
         return ShuffleWriterExec(plan_from_proto(w.input), _partitioning_from_proto(w.partitioning),

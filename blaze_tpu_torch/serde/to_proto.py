@@ -2,10 +2,11 @@
 ``blaze_tpu/serde/to_proto.py``).
 
 Covers the nodes and expressions the port has: memory scan, project,
-filter, agg, sort, limit, shuffle writer, IPC reader and writer,
-broadcast and shuffled hash joins; columns, literals, aliases, binary
-operators, NOT, IS [NOT] NULL, casts, CASE, IN, LIKE and scalar
-functions.  Anything else raises ``NotImplementedError`` naming it.
+filter, agg, sort, limit, union, expand, window, shuffle writer, IPC
+reader and writer, broadcast and shuffled hash joins; columns,
+literals, aliases, binary operators, NOT, IS [NOT] NULL, casts, CASE,
+IN, LIKE and scalar functions.  Anything else raises
+``NotImplementedError`` naming it.
 """
 
 from __future__ import annotations
@@ -119,12 +120,30 @@ def _sort_field(f) -> pb.SortFieldProto:
     return pb.SortFieldProto(expr=expr_to_proto(f.expr), ascending=f.ascending, nulls_first=f.nulls_first)
 
 
+def _window_function(f) -> pb.WindowFunctionProto:
+    """Every field of a WindowFunction; an unbounded frame side is -1."""
+    fp = pb.WindowFunctionProto(kind=f.kind, name=f.name, whole_partition=f.whole_partition, offset=f.offset,
+                                ignore_nulls=f.ignore_nulls)
+    if f.expr is not None:
+        fp.has_expr = True
+        fp.expr = expr_to_proto(f.expr)
+    if f.rows_frame is not None:
+        fp.has_rows_frame = True
+        fp.frame_preceding, fp.frame_following = (-1 if b is None else b for b in f.rows_frame)
+    if f.range_frame is not None:
+        fp.has_range_frame = True
+        fp.range_preceding, fp.range_following = (-1 if b is None else b for b in f.range_frame)
+    return fp
+
+
 def plan_to_proto(node) -> pb.PhysicalPlanNode:
     """A plan tree as a message.  A memory scan stages its partitions
     in ``RESOURCES`` under a new id per serialization (``get`` pops, so
     one serialized task reads them once): a serialized plan that is
     never run strands its entry, so serialize only what runs."""
-    from ..ops import AggExec, FilterExec, LimitExec, MemoryScanExec, ProjectExec, SortExec
+    from ..ops import (
+        AggExec, ExpandExec, FilterExec, LimitExec, MemoryScanExec, ProjectExec, SortExec, UnionExec, WindowExec,
+    )
     from ..ops.joins import BroadcastJoinExec, HashJoinExec
     from ..parallel.broadcast import IpcWriterExec
     from ..parallel.shuffle import IpcReaderExec, ShuffleWriterExec
@@ -167,6 +186,18 @@ def plan_to_proto(node) -> pb.PhysicalPlanNode:
         out.sort = sort
     elif isinstance(node, LimitExec):
         out.limit = pb.LimitNode(input=plan_to_proto(node.children[0]), limit=node.limit)
+    elif isinstance(node, UnionExec):
+        out.union = pb.UnionNode(inputs=[plan_to_proto(c) for c in node.children])
+    elif isinstance(node, ExpandExec):
+        out.expand = pb.ExpandNode(
+            input=plan_to_proto(node.children[0]),
+            projections=[pb.ExpandProjection(exprs=[expr_to_proto(e) for e in p]) for p in node.projections],
+            names=node.schema.names)
+    elif isinstance(node, WindowExec):
+        out.window = pb.WindowNode(input=plan_to_proto(node.children[0]),
+                                   functions=[_window_function(f) for f in node.functions],
+                                   partition_by=[expr_to_proto(e) for e in node.partition_by],
+                                   order_by=[_sort_field(f) for f in node.order_by])
     elif isinstance(node, ShuffleWriterExec):
         out.shuffle_writer = pb.ShuffleWriterNode(
             input=plan_to_proto(node.children[0]),

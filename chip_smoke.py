@@ -74,17 +74,29 @@ Needs one CUDA card and ``nvcc`` (``/usr/local/cuda``).  In order, it:
    in turns (A, B, C, C, B, A), each run equal to its oracle, and
    prints each one's walls, syncs with the card, ``.data`` bytes and
    launches (equal on both paths under one setting);
-7. reads the CUPTI device time of every timed call in one
+7. runs TPC-DS's window queries (q12, q20, q98, q53, q63, q89, q47,
+   q57, q36, q86, q70, q67, q44, q49 and q51: ``WindowExec``,
+   ``ExpandExec``, ``UnionExec`` and the fusion's partition buffer) at
+   ``--ds-scale``, 8 partitions and 2^20-row batches, scans pruned to
+   each query's columns, in process through the optimizer and through
+   ``split_stages``/``run_stages``, each equal to its numpy oracle on a
+   nonempty result on both paths and launching each kernel as often on
+   both (``pid_histogram`` and ``sorted_lookup`` everywhere,
+   ``murmur3_pids`` where an exchange's keys are all fixed-width), and
+   prints per query and path the wall, the tasks, the ``.data`` bytes
+   and the launches;
+8. reads the CUPTI device time of every timed call in one
    ``torch.profiler`` session, and counts every device operation one
    ``pid_histogram`` call issues on each path (one on paths (a) and
    (b), or it fails); then runs q01 and q03 in process under each A/B
-   setting and q10 under the defaults, all in one more
+   setting and q10, TPC-DS q47 and q67 under the defaults, all in one more
    ``torch.profiler`` session, and prints the device's busy share of
    each run, its device operations, the kernels that take its time, and
    the hand-written kernels' device time at the shapes the query gives
    them;
-8. prints where each phase ended on the host clock, the ``kernels``
-   JSON line, then ``{"ok": true, ...}`` last.
+9. prints where each phase ended on the host clock, the ``kernels``
+   JSON line (launches summed over every query in process, and per
+   query on each path), then ``{"ok": true, ...}`` last.
 
 Any failure raises and exits nonzero before the last line; without a
 CUDA card it exits 2.  Nothing here imports JAX or ``blaze_tpu``.
@@ -564,14 +576,62 @@ QUERY_COLUMNS = {
                               "ss_list_price", "ss_coupon_amt", "ss_sales_price"),
               "item": ("i_item_sk", "i_item_id")},
 }
+_WEB = ("ws_sold_date_sk", "ws_item_sk")
+_CAT = ("cs_sold_date_sk", "cs_item_sk")
+_STORE = ("ss_sold_date_sk", "ss_item_sk")
+_SHARE_ITEM = ("i_item_sk", "i_item_id", "i_item_desc", "i_category", "i_class", "i_current_price")
+_MANUFACT = {"item": ("i_item_sk", "i_manufact_id", "i_category", "i_class"), "store": ("s_store_sk",),
+             "store_sales": _STORE + ("ss_store_sk", "ss_sales_price")}
+_YOY_DATES = {"date_dim": ("d_date_sk", "d_year", "d_moy"), "item": ("i_item_sk", "i_category", "i_brand")}
+_Q49 = {"date_dim": ("d_date_sk", "d_year", "d_moy"),
+        "web_sales": _WEB + ("ws_order_number", "ws_quantity", "ws_net_paid", "ws_net_profit"),
+        "web_returns": ("wr_item_sk", "wr_order_number", "wr_return_quantity", "wr_return_amt"),
+        "catalog_sales": _CAT + ("cs_order_number", "cs_quantity", "cs_net_paid", "cs_net_profit"),
+        "catalog_returns": ("cr_item_sk", "cr_order_number", "cr_return_quantity", "cr_return_amount"),
+        "store_sales": _STORE + ("ss_ticket_number", "ss_quantity", "ss_net_paid", "ss_net_profit"),
+        "store_returns": ("sr_item_sk", "sr_ticket_number", "sr_return_quantity", "sr_return_amt")}
+# TPC-DS's window queries
+QUERY_COLUMNS.update({
+    "ds_q12": {"date_dim": ("d_date_sk", "d_date"), "item": _SHARE_ITEM, "web_sales": _WEB + ("ws_ext_sales_price",)},
+    "ds_q20": {"date_dim": ("d_date_sk", "d_date"), "item": _SHARE_ITEM, "catalog_sales": _CAT + ("cs_ext_sales_price",)},
+    "ds_q98": {"date_dim": ("d_date_sk", "d_date"), "item": _SHARE_ITEM, "store_sales": _STORE + ("ss_ext_sales_price",)},
+    "ds_q53": {**_MANUFACT, "date_dim": ("d_date_sk", "d_year", "d_qoy")},
+    "ds_q63": {**_MANUFACT, "date_dim": ("d_date_sk", "d_year", "d_moy")},
+    "ds_q89": {"item": ("i_item_sk", "i_category", "i_class", "i_brand"), "date_dim": ("d_date_sk", "d_year", "d_moy"),
+               "store": ("s_store_sk", "s_store_name", "s_company_name"),
+               "store_sales": _STORE + ("ss_store_sk", "ss_sales_price")},
+    "ds_q47": {**_YOY_DATES, "store": ("s_store_sk", "s_store_name", "s_company_name"),
+               "store_sales": _STORE + ("ss_store_sk", "ss_sales_price")},
+    "ds_q57": {**_YOY_DATES, "call_center": ("cc_call_center_sk", "cc_name"),
+               "catalog_sales": _CAT + ("cs_call_center_sk", "cs_sales_price")},
+    "ds_q36": {"date_dim": ("d_date_sk", "d_year"), "item": ("i_item_sk", "i_category", "i_class"),
+               "store": ("s_store_sk", "s_state"),
+               "store_sales": _STORE + ("ss_store_sk", "ss_net_profit", "ss_ext_sales_price")},
+    "ds_q86": {"date_dim": ("d_date_sk", "d_year"), "item": ("i_item_sk", "i_category", "i_class"),
+               "web_sales": _WEB + ("ws_net_paid",)},
+    "ds_q70": {"date_dim": ("d_date_sk", "d_year"), "store": ("s_store_sk", "s_state", "s_county"),
+               "store_sales": ("ss_sold_date_sk", "ss_store_sk", "ss_net_profit")},
+    "ds_q67": {"date_dim": ("d_date_sk", "d_year", "d_qoy", "d_moy"), "store": ("s_store_sk", "s_store_name"),
+               "item": ("i_item_sk", "i_category", "i_class", "i_brand", "i_item_id"),
+               "store_sales": _STORE + ("ss_store_sk", "ss_quantity", "ss_sales_price")},
+    "ds_q44": {"store_sales": ("ss_store_sk", "ss_item_sk", "ss_net_profit", "ss_addr_sk"),
+               "item": ("i_item_sk", "i_item_id")},
+    "ds_q49": _Q49,
+    "ds_q51": {"date_dim": ("d_date_sk", "d_year", "d_date"), "web_sales": _WEB + ("ws_sales_price",),
+               "store_sales": _STORE + ("ss_sales_price",)},
+})
 TPCH_QUERIES = ("q6", "q1", "q3", "q4", "q5", "q10", "q12", "q14", "q19")
 DS_QUERIES = ("ds_q3", "ds_q7")
 # the rest of TPC-H; they run on the tables with dbgen's p_name,
 # c_phone, o_custkey and l_suppkey (datagen.with_spec_columns), without
 # which q09, q20 and q22 select no row
 NEW_QUERIES = ("q2", "q7", "q8", "q9", "q11", "q13", "q15", "q16", "q17", "q18", "q20", "q21", "q22")
+# TPC-DS's window queries: WindowExec, ExpandExec (q36, q86, q70, q67),
+# UnionExec (q49) and the fusion's partition buffer
+WINDOW_QUERIES = tuple(f"ds_{q}" for q in ("q12", "q20", "q98", "q53", "q63", "q89", "q47", "q57", "q36", "q86",
+                                           "q70", "q67", "q44", "q49", "q51"))
 # the queries that run a scalar subquery while their plan is built
-SUBQUERY_QUERIES = ("q11", "q15", "q22")
+SUBQUERY_QUERIES = ("q11", "q15", "q22", "ds_q44")
 # the kernels each query must launch, and those it must not
 EXPECTED_LAUNCHES = {
     "q6": ((), ("murmur3_pids", "pid_histogram", "sorted_lookup")),
@@ -581,6 +641,12 @@ EXPECTED_LAUNCHES = {
     **{q: (("pid_histogram", "sorted_lookup"), ("murmur3_pids",)) for q in DS_QUERIES},
     # int or date keys on every hash exchange, and at least one join
     **{q: (("murmur3_pids", "pid_histogram", "sorted_lookup"), ()) for q in NEW_QUERIES},
+    # a string key on every hash exchange: the plain murmur3
+    **{q: (("pid_histogram", "sorted_lookup"), ("murmur3_pids",))
+       for q in ("ds_q12", "ds_q20", "ds_q98", "ds_q89", "ds_q47", "ds_q57", "ds_q36", "ds_q86", "ds_q70", "ds_q67")},
+    # an int or date key on at least one hash exchange
+    **{q: (("murmur3_pids", "pid_histogram", "sorted_lookup"), ())
+       for q in ("ds_q53", "ds_q63", "ds_q44", "ds_q49", "ds_q51")},
 }
 
 
@@ -886,6 +952,10 @@ def check_oracle(data, query: str, got: dict) -> str:
         return f"promo_revenue {exact} (unscaled, scale 6) = 10^8 sp / sr of the oracle's sums"
     if query in NEW_QUERIES:
         return check_new_query(query, got, exp, need)
+    if query in WINDOW_QUERIES:
+        from blaze_tpu_torch.tpcds.oracle import check_window_query
+
+        return check_window_query(query[3:], got, exp)
     if query == "ds_q3":
         rows = list(zip(got["d_year"], got["brand_id"], got["brand"], got["sum_agg"]))
         need(len(rows) == min(len(exp), 100) and all(exp.get(r[:3]) == r[3] for r in rows),
@@ -1266,6 +1336,65 @@ def require_launches(query: str, launches: dict, launched, not_launched=()) -> N
             raise AssertionError(f"{query} launched {name}: {launches}")
 
 
+def plan_tasks(plan) -> int:
+    """The tasks an in-process run of ``plan`` runs, counted as the stage
+    scheduler counts them: every exchange's and broadcast's map tasks
+    (its child's partitions) and the root's partitions."""
+    from blaze_tpu_torch.parallel.broadcast import BroadcastExchangeExec
+    from blaze_tpu_torch.parallel.exchange import NativeShuffleExchangeExec
+
+    seen = set()
+
+    def walk(node) -> int:
+        if id(node) in seen:  # an exchange two parents share runs once
+            return 0
+        seen.add(id(node))
+        n = sum(walk(c) for c in node.children)
+        if isinstance(node, (NativeShuffleExchangeExec, BroadcastExchangeExec)):
+            n += node.children[0].num_partitions()
+        return n
+
+    return walk(plan) + plan.num_partitions()
+
+
+def window_phase(torch, cuda_ops, card: str, data, scale: float, n_parts: int, batch_rows: int, runs: dict,
+                 sched_runs: dict) -> list:
+    """TPC-DS's window queries on both paths, one query at a time (its
+    scans staged before it and dropped after): in process through the
+    optimizer, then through split_stages/run_stages, each equal to its
+    oracle on a nonempty result, the two paths' rows alike (as
+    multisets: rows that tie on every sort key may come in another
+    order) and their launches equal; ``runs`` and ``sched_runs`` get
+    each query's launch counts.  Returns one record per query."""
+    out = []
+    for query in WINDOW_QUERIES:
+        scans = query_scans(data, query, n_parts, batch_rows)
+        got, wall, runs[query], sub_s = run_query(torch, cuda_ops, query, scans, n_parts)
+        said = check_oracle(data, query, got)
+        require_launches(query_label(query), runs[query], *EXPECTED_LAUNCHES[query])
+        tasks = plan_tasks(build_plan(query, scans, n_parts))
+        sgot, swall, sched_runs[query], moved = run_scheduled(torch, cuda_ops, query, scans, n_parts)
+        check_oracle(data, query, sgot)
+        if list(sgot) != list(got) or sorted(map(repr, zip(*sgot.values()))) != sorted(map(repr, zip(*got.values()))):
+            raise AssertionError(f"{query} through run_stages: {sgot} != in process {got}")
+        if sched_runs[query] != runs[query]:
+            raise AssertionError(f"{query} through run_stages launched {sched_runs[query]}, in process {runs[query]}")
+        launches = {k: runs[query][k] for k in ("murmur3_pids", "pid_histogram", "sorted_lookup")}
+        sub = f" (its scalar subquery {sub_s:.4f} s of it)" if query in SUBQUERY_QUERIES else ""
+        log(f"{query_label(query)} SF{scale} (8 partitions, 2^20-row batches): {said}; in process wall "
+            f"{wall:.4f} s{sub}, {tasks} tasks, .data bytes 0 (exchanges kept on the card); through run_stages "
+            f"= oracle and = in process, wall {swall:.4f} s, {moved['tasks']} tasks, .data bytes "
+            f"{moved['data_bytes']}; on {card}; launches {launches} on each path")
+        rec = {"query": query_label(query), "scale": scale, "rows": len(next(iter(got.values()))),
+               "inproc_wall_s": wall, "inproc_tasks": tasks, "run_stages_wall_s": swall,
+               "run_stages_tasks": moved["tasks"], "data_bytes": moved["data_bytes"],
+               "stages": moved["kinds"], "launches": launches, "card": card}
+        log("window " + json.dumps(rec))
+        out.append(rec)
+        del scans
+    return out
+
+
 def query_label(query: str) -> str:
     """q6 -> "q06", ds_q7 -> "TPC-DS q07"."""
     bench, name = ("TPC-DS ", query[3:]) if query.startswith("ds_") else ("", query)
@@ -1349,7 +1478,7 @@ def main() -> int:
     t0 = time.perf_counter()
     data = query_data(TPCH_QUERIES + NEW_QUERIES, args.scale, ds=False)
     new_data = spec_data(data, args.scale)
-    ds_data = query_data(DS_QUERIES, args.ds_scale, ds=True)
+    ds_data = query_data(DS_QUERIES + WINDOW_QUERIES, args.ds_scale, ds=True)
     log(f"data at TPC-H SF{args.scale}, TPC-DS SF{args.ds_scale}: " + ", ".join(
         f"{k} {next(iter(v.values()))[0].shape[0]} rows" for k, v in (*data.items(), *ds_data.items()))
         + f" ({time.perf_counter() - t0:.1f} s)")
@@ -1511,6 +1640,10 @@ def main() -> int:
         log(line)
 
     phases.append(("build-preserving joins", time.perf_counter() - T0))
+    # ---- TPC-DS's window queries on both paths
+    window_phase(torch, cuda_ops, card, ds_data, args.ds_scale, n_parts, batch_rows, runs, sched_runs)
+
+    phases.append(("window queries", time.perf_counter() - T0))
     # ---- the redesigned kernels again, on the largest inputs q01 and q03 gave them
     at_query: Dict[str, list] = {"murmur3_pids": [], "sorted_lookup": [], "pid_histogram": []}
     for query, seen in (("q01", q1_inputs), ("q03", q3_inputs)):
@@ -1574,6 +1707,10 @@ def main() -> int:
                 profiled.append((f"{query_label(query)} ({label})",
                              optimized(build_plan(query, scans[query], n_parts), map_tasks)))
     profiled.append((query_label("q10"), optimized(build_plan("q10", scans["q10"], n_parts))))
+    # two window queries: q47's stacked windows, q67's nine-way expand
+    for query in ("ds_q47", "ds_q67"):
+        profiled.append((query_label(query), optimized(build_plan(
+            query, query_scans(ds_data, query, n_parts, batch_rows), n_parts))))
     for r in profile_queries(torch, profiled):
         log("profile " + json.dumps({**r, "card": card}))
     phases.append(("profiled queries", time.perf_counter() - T0))
