@@ -83,13 +83,20 @@ Needs one CUDA card and ``nvcc`` (``/usr/local/cuda``).  In order, it:
    nonempty result on both paths and launching each kernel as often on
    both (``pid_histogram`` and ``sorted_lookup`` everywhere,
    ``murmur3_pids`` where an exchange's keys are all fixed-width), and
-   prints per query and path the wall, the tasks, the ``.data`` bytes
-   and the launches;
+   prints per query and path the wall, the tasks, the ``.data`` bytes,
+   the launches and the card's peak memory; then TPC-DS's rollup and
+   union queries (q27, q18, q22, q5, q77, q80, q14a, q33, q56, q60,
+   q71, q76, q66, q2, q75, q54, q23a and q23b: ``ExpandExec`` rollups
+   with typed null literals, ``UnionExec`` over channels of sales and
+   returns, LEFT_SEMI joins on aggregated build sides, decimal scalar
+   subqueries, q22's 23.49M inventory rows) the same way, and q23a and
+   q23b again at SF 0.002 (from SF 0.01 on they select nothing: ROADMAP
+   queue C, reference defect 14);
 8. reads the CUPTI device time of every timed call in one
    ``torch.profiler`` session, and counts every device operation one
    ``pid_histogram`` call issues on each path (one on paths (a) and
    (b), or it fails); then runs q01 and q03 in process under each A/B
-   setting and q10, TPC-DS q47 and q67 under the defaults, all in one more
+   setting and q10, TPC-DS q47, q67, q5 and q22 under the defaults, all in one more
    ``torch.profiler`` session, and prints the device's busy share of
    each run, its device operations, the kernels that take its time, and
    the hand-written kernels' device time at the shapes the query gives
@@ -620,6 +627,113 @@ QUERY_COLUMNS.update({
     "ds_q51": {"date_dim": ("d_date_sk", "d_year", "d_date"), "web_sales": _WEB + ("ws_sales_price",),
                "store_sales": _STORE + ("ss_sales_price",)},
 })
+_DATES = ("d_date_sk", "d_date")
+_YM = ("d_date_sk", "d_year", "d_moy")
+_CD = ("cd_demo_sk", "cd_gender", "cd_education_status")
+
+
+def _gmt(group_col: str, filter_col: str) -> dict:
+    """q33, q56 and q60: three channels per item id, -5 GMT buyers."""
+    return {"date_dim": _YM, "customer_address": ("ca_address_sk", "ca_gmt_offset"),
+            "item": ("i_item_sk", group_col, filter_col),
+            "store_sales": _STORE + ("ss_addr_sk", "ss_ext_sales_price"),
+            "catalog_sales": _CAT + ("cs_bill_addr_sk", "cs_ext_sales_price"),
+            "web_sales": _WEB + ("ws_bill_addr_sk", "ws_ext_sales_price")}
+
+
+def _with_returns(sales: tuple, returns: tuple) -> dict:
+    """q80 and q75: each channel's sales and its returns on (item, ticket
+    or order), the columns after the keys per table."""
+    return {"store_sales": _STORE + ("ss_ticket_number",) + sales[0],
+            "store_returns": ("sr_item_sk", "sr_ticket_number") + returns[0],
+            "catalog_sales": _CAT + ("cs_order_number",) + sales[1],
+            "catalog_returns": ("cr_item_sk", "cr_order_number") + returns[1],
+            "web_sales": _WEB + ("ws_order_number",) + sales[2],
+            "web_returns": ("wr_item_sk", "wr_order_number") + returns[2]}
+
+
+_Q23 = {"date_dim": _YM, "item": ("i_item_sk", "i_item_desc"),
+        "store_sales": _STORE + ("ss_customer_sk", "ss_quantity", "ss_sales_price"),
+        "catalog_sales": _CAT + ("cs_bill_customer_sk", "cs_quantity", "cs_list_price"),
+        "web_sales": _WEB + ("ws_bill_customer_sk", "ws_quantity", "ws_list_price")}
+# TPC-DS's rollup and union queries
+QUERY_COLUMNS.update({
+    "ds_q27": {"customer_demographics": _CD + ("cd_marital_status",), "date_dim": ("d_date_sk", "d_year"),
+               "store": ("s_store_sk", "s_state"), "item": ("i_item_sk", "i_item_id"),
+               "store_sales": _STORE + ("ss_cdemo_sk", "ss_store_sk", "ss_quantity", "ss_list_price", "ss_coupon_amt",
+                                        "ss_sales_price")},
+    "ds_q18": {"customer_demographics": _CD + ("cd_dep_count",), "date_dim": ("d_date_sk", "d_year"),
+               "customer": ("c_customer_sk", "c_current_addr_sk", "c_birth_year"),
+               "customer_address": ("ca_address_sk", "ca_county", "ca_state"), "item": ("i_item_sk", "i_item_id"),
+               "catalog_sales": _CAT + ("cs_bill_customer_sk", "cs_bill_cdemo_sk", "cs_quantity", "cs_list_price",
+                                        "cs_coupon_amt", "cs_sales_price", "cs_net_profit")},
+    "ds_q22": {"date_dim": ("d_date_sk", "d_year"),
+               "item": ("i_item_sk", "i_item_id", "i_brand", "i_class", "i_category"),
+               "inventory": ("inv_date_sk", "inv_item_sk", "inv_quantity_on_hand")},
+    "ds_q5": {"date_dim": _DATES, "store": ("s_store_sk", "s_store_name"),
+              "store_sales": ("ss_sold_date_sk", "ss_store_sk", "ss_ext_sales_price", "ss_net_profit"),
+              "store_returns": ("sr_returned_date_sk", "sr_store_sk", "sr_return_amt", "sr_net_loss"),
+              "catalog_page": ("cp_catalog_page_sk", "cp_catalog_page_id"),
+              "catalog_sales": ("cs_sold_date_sk", "cs_catalog_page_sk", "cs_ext_sales_price", "cs_net_profit"),
+              "catalog_returns": ("cr_returned_date_sk", "cr_catalog_page_sk", "cr_return_amount", "cr_net_loss"),
+              "web_site": ("web_site_sk", "web_name"),
+              "web_sales": _WEB + ("ws_order_number", "ws_web_site_sk", "ws_ext_sales_price", "ws_net_profit"),
+              "web_returns": ("wr_returned_date_sk", "wr_item_sk", "wr_order_number", "wr_return_amt",
+                              "wr_net_loss")},
+    "ds_q77": {"date_dim": _DATES, "store": ("s_store_sk",),
+               "store_sales": ("ss_sold_date_sk", "ss_store_sk", "ss_ext_sales_price", "ss_net_profit"),
+               "store_returns": ("sr_returned_date_sk", "sr_store_sk", "sr_return_amt", "sr_net_loss"),
+               "catalog_sales": ("cs_sold_date_sk", "cs_call_center_sk", "cs_ext_sales_price", "cs_net_profit"),
+               "catalog_returns": ("cr_returned_date_sk", "cr_return_amount", "cr_net_loss"),
+               "web_sales": ("ws_sold_date_sk", "ws_web_page_sk", "ws_ext_sales_price", "ws_net_profit"),
+               "web_returns": ("wr_returned_date_sk", "wr_web_page_sk", "wr_return_amt", "wr_net_loss")},
+    "ds_q80": {"date_dim": _DATES, "item": ("i_item_sk", "i_item_id", "i_current_price"),
+               "promotion": ("p_promo_sk", "p_channel_email"),
+               **_with_returns((("ss_promo_sk", "ss_ext_sales_price", "ss_net_profit"),
+                                ("cs_promo_sk", "cs_ext_sales_price", "cs_net_profit"),
+                                ("ws_promo_sk", "ws_ext_sales_price", "ws_net_profit")),
+                               (("sr_return_amt", "sr_net_loss"), ("cr_return_amount", "cr_net_loss"),
+                                ("wr_return_amt", "wr_net_loss")))},
+    "ds_q14a": {"date_dim": _YM, "item": ("i_item_sk", "i_brand_id", "i_class_id", "i_category_id"),
+                "store_sales": _STORE + ("ss_quantity", "ss_list_price"),
+                "catalog_sales": _CAT + ("cs_quantity", "cs_list_price"),
+                "web_sales": _WEB + ("ws_quantity", "ws_list_price")},
+    "ds_q33": _gmt("i_manufact_id", "i_category"),
+    "ds_q56": _gmt("i_item_id", "i_color"),
+    "ds_q60": _gmt("i_item_id", "i_category"),
+    "ds_q71": {"item": ("i_item_sk", "i_brand_id", "i_brand", "i_manager_id"), "date_dim": _YM,
+               "time_dim": ("t_time_sk", "t_hour", "t_minute", "t_meal_time"),
+               "store_sales": _STORE + ("ss_sold_time_sk", "ss_ext_sales_price"),
+               "catalog_sales": _CAT + ("cs_sold_time_sk", "cs_ext_sales_price"),
+               "web_sales": _WEB + ("ws_sold_time_sk", "ws_ext_sales_price")},
+    "ds_q76": {"date_dim": ("d_date_sk", "d_year", "d_qoy"), "item": ("i_item_sk", "i_category"),
+               "store_sales": _STORE + ("ss_customer_sk", "ss_ext_sales_price"),
+               "web_sales": _WEB + ("ws_promo_sk", "ws_ext_sales_price"),
+               "catalog_sales": _CAT + ("cs_bill_customer_sk", "cs_ext_sales_price")},
+    "ds_q66": {"date_dim": _YM, "time_dim": ("t_time_sk", "t_time"), "ship_mode": ("sm_ship_mode_sk", "sm_carrier"),
+               "warehouse": ("w_warehouse_sk", "w_warehouse_name", "w_warehouse_sq_ft", "w_city", "w_county",
+                             "w_state", "w_country"),
+               "web_sales": ("ws_warehouse_sk", "ws_sold_date_sk", "ws_sold_time_sk", "ws_ship_mode_sk",
+                             "ws_quantity", "ws_ext_sales_price", "ws_net_paid"),
+               "catalog_sales": ("cs_warehouse_sk", "cs_sold_date_sk", "cs_sold_time_sk", "cs_ship_mode_sk",
+                                 "cs_quantity", "cs_sales_price", "cs_net_paid_inc_tax")},
+    "ds_q2": {"date_dim": ("d_date_sk", "d_week_seq", "d_dow", "d_year"),
+              "web_sales": ("ws_sold_date_sk", "ws_ext_sales_price"),
+              "catalog_sales": ("cs_sold_date_sk", "cs_ext_sales_price")},
+    "ds_q75": {"date_dim": ("d_date_sk", "d_year"),
+               "item": ("i_item_sk", "i_brand_id", "i_class_id", "i_category_id", "i_manufact_id", "i_category"),
+               **_with_returns((("ss_quantity", "ss_ext_sales_price"), ("cs_quantity", "cs_ext_sales_price"),
+                                ("ws_quantity", "ws_ext_sales_price")),
+                               (("sr_return_quantity", "sr_return_amt"), ("cr_return_quantity", "cr_return_amount"),
+                                ("wr_return_quantity", "wr_return_amt")))},
+    "ds_q54": {"catalog_sales": _CAT + ("cs_bill_customer_sk",), "web_sales": _WEB + ("ws_bill_customer_sk",),
+               "item": ("i_item_sk", "i_category"), "date_dim": _YM + ("d_month_seq",),
+               "customer": ("c_customer_sk", "c_current_addr_sk"),
+               "store_sales": ("ss_sold_date_sk", "ss_customer_sk", "ss_ext_sales_price"),
+               "customer_address": ("ca_address_sk", "ca_county", "ca_state"), "store": ("s_county", "s_state")},
+    "ds_q23a": _Q23,
+    "ds_q23b": {**_Q23, "customer": ("c_customer_sk", "c_last_name", "c_first_name")},
+})
 TPCH_QUERIES = ("q6", "q1", "q3", "q4", "q5", "q10", "q12", "q14", "q19")
 DS_QUERIES = ("ds_q3", "ds_q7")
 # the rest of TPC-H; they run on the tables with dbgen's p_name,
@@ -630,8 +744,18 @@ NEW_QUERIES = ("q2", "q7", "q8", "q9", "q11", "q13", "q15", "q16", "q17", "q18",
 # UnionExec (q49) and the fusion's partition buffer
 WINDOW_QUERIES = tuple(f"ds_{q}" for q in ("q12", "q20", "q98", "q53", "q63", "q89", "q47", "q57", "q36", "q86",
                                            "q70", "q67", "q44", "q49", "q51"))
+# TPC-DS's rollup and union queries: ExpandExec rollups with typed null
+# literals and UnionExec over channels of sales and returns
+ROLLUP_UNION_QUERIES = tuple(f"ds_{q}" for q in ("q27", "q18", "q22", "q5", "q77", "q80", "q14a", "q33", "q56", "q60",
+                                                 "q71", "q76", "q66", "q2", "q75", "q54", "q23a", "q23b"))
+# q23a and q23b are empty from SF 0.01 on (the generator's -1 customer
+# spends the most): they run again at this scale, where they are not
+Q23_QUERIES, Q23_SCALE = ("ds_q23a", "ds_q23b"), 0.002
 # the queries that run a scalar subquery while their plan is built
-SUBQUERY_QUERIES = ("q11", "q15", "q22", "ds_q44")
+SUBQUERY_QUERIES = ("q11", "q15", "q22", "ds_q44", "ds_q77", "ds_q14a", "ds_q54", "ds_q23a", "ds_q23b")
+# the queries whose two paths sum doubles in another order (q18's
+# averages of casts to double): their rows agree within 1e-9 relative
+FLOAT_SUM_QUERIES = ("ds_q18",)
 # the kernels each query must launch, and those it must not
 EXPECTED_LAUNCHES = {
     "q6": ((), ("murmur3_pids", "pid_histogram", "sorted_lookup")),
@@ -647,6 +771,10 @@ EXPECTED_LAUNCHES = {
     # an int or date key on at least one hash exchange
     **{q: (("murmur3_pids", "pid_histogram", "sorted_lookup"), ())
        for q in ("ds_q53", "ds_q63", "ds_q44", "ds_q49", "ds_q51")},
+    **{q: (("pid_histogram", "sorted_lookup"), ("murmur3_pids",))
+       for q in ("ds_q27", "ds_q18", "ds_q22", "ds_q56", "ds_q60", "ds_q71", "ds_q76", "ds_q66")},
+    **{q: (("murmur3_pids", "pid_histogram", "sorted_lookup"), ())
+       for q in ("ds_q5", "ds_q77", "ds_q80", "ds_q14a", "ds_q33", "ds_q2", "ds_q75", "ds_q54", "ds_q23a", "ds_q23b")},
 }
 
 
@@ -952,10 +1080,10 @@ def check_oracle(data, query: str, got: dict) -> str:
         return f"promo_revenue {exact} (unscaled, scale 6) = 10^8 sp / sr of the oracle's sums"
     if query in NEW_QUERIES:
         return check_new_query(query, got, exp, need)
-    if query in WINDOW_QUERIES:
-        from blaze_tpu_torch.tpcds.oracle import check_window_query
+    if query in WINDOW_QUERIES + ROLLUP_UNION_QUERIES:
+        from blaze_tpu_torch.tpcds.oracle import check_query
 
-        return check_window_query(query[3:], got, exp)
+        return check_query(query[3:], got, exp)
     if query == "ds_q3":
         rows = list(zip(got["d_year"], got["brand_id"], got["brand"], got["sum_agg"]))
         need(len(rows) == min(len(exp), 100) and all(exp.get(r[:3]) == r[3] for r in rows),
@@ -1357,48 +1485,78 @@ def plan_tasks(plan) -> int:
     return walk(plan) + plan.num_partitions()
 
 
-def window_phase(torch, cuda_ops, card: str, data, scale: float, n_parts: int, batch_rows: int, runs: dict,
-                 sched_runs: dict) -> list:
-    """TPC-DS's window queries on both paths, one query at a time (its
-    scans staged before it and dropped after): in process through the
+def same_rows(a: dict, b: dict, rel: float = 0.0) -> bool:
+    """The same columns and the same rows as multisets (rows that tie on
+    every sort key may come in another order); doubles within ``rel``
+    relative (0: exactly)."""
+    def close(x, y):
+        if isinstance(x, float) and isinstance(y, float) and rel:
+            return x == y or abs(x - y) <= rel * max(abs(x), abs(y))
+        return x == y
+
+    def key(row):
+        return tuple(format(v, ".9g") if isinstance(v, float) and rel else repr(v) for v in row)
+
+    if list(a) != list(b):
+        return False
+    ra, rb = sorted(zip(*a.values()), key=key), sorted(zip(*b.values()), key=key)
+    return len(ra) == len(rb) and all(close(x, y) for r, t in zip(ra, rb) for x, y in zip(r, t))
+
+
+def ds_phase(torch, cuda_ops, card: str, label: str, queries, data, scale: float, n_parts: int, batch_rows: int,
+             runs: dict, sched_runs: dict) -> list:
+    """TPC-DS ``queries`` on both paths, one query at a time (its scans
+    staged before it and dropped after): in process through the
     optimizer, then through split_stages/run_stages, each equal to its
     oracle on a nonempty result, the two paths' rows alike (as
     multisets: rows that tie on every sort key may come in another
-    order) and their launches equal; ``runs`` and ``sched_runs`` get
-    each query's launch counts.  Returns one record per query."""
+    order; q18's doubles within 1e-9 relative) and their launches
+    equal; ``runs`` and ``sched_runs`` get each query's launch counts.
+    Prints each query's walls, tasks, ``.data`` bytes, launches and the
+    card's peak memory on each path, and how far each peak rose above
+    what the run held before the query's scans were staged.  Returns
+    one record per query."""
     out = []
-    for query in WINDOW_QUERIES:
+    for query in queries:
+        held = torch.cuda.memory_allocated()
         scans = query_scans(data, query, n_parts, batch_rows)
+        torch.cuda.reset_peak_memory_stats()
         got, wall, runs[query], sub_s = run_query(torch, cuda_ops, query, scans, n_parts)
+        peak = torch.cuda.max_memory_allocated()
         said = check_oracle(data, query, got)
         require_launches(query_label(query), runs[query], *EXPECTED_LAUNCHES[query])
         tasks = plan_tasks(build_plan(query, scans, n_parts))
+        torch.cuda.reset_peak_memory_stats()
         sgot, swall, sched_runs[query], moved = run_scheduled(torch, cuda_ops, query, scans, n_parts)
+        speak = torch.cuda.max_memory_allocated()
         check_oracle(data, query, sgot)
-        if list(sgot) != list(got) or sorted(map(repr, zip(*sgot.values()))) != sorted(map(repr, zip(*got.values()))):
+        if not same_rows(sgot, got, 1e-9 if query in FLOAT_SUM_QUERIES else 0.0):
             raise AssertionError(f"{query} through run_stages: {sgot} != in process {got}")
         if sched_runs[query] != runs[query]:
             raise AssertionError(f"{query} through run_stages launched {sched_runs[query]}, in process {runs[query]}")
         launches = {k: runs[query][k] for k in ("murmur3_pids", "pid_histogram", "sorted_lookup")}
         sub = f" (its scalar subquery {sub_s:.4f} s of it)" if query in SUBQUERY_QUERIES else ""
         log(f"{query_label(query)} SF{scale} (8 partitions, 2^20-row batches): {said}; in process wall "
-            f"{wall:.4f} s{sub}, {tasks} tasks, .data bytes 0 (exchanges kept on the card); through run_stages "
-            f"= oracle and = in process, wall {swall:.4f} s, {moved['tasks']} tasks, .data bytes "
-            f"{moved['data_bytes']}; on {card}; launches {launches} on each path")
+            f"{wall:.4f} s{sub}, {tasks} tasks, .data bytes 0 (exchanges kept on the card), peak device memory "
+            f"{peak / 2**20:.1f} MiB ({(peak - held) / 2**20:.1f} above the {held / 2**20:.1f} held before); "
+            f"through run_stages = oracle and = in process, wall {swall:.4f} s, {moved['tasks']} tasks, .data bytes "
+            f"{moved['data_bytes']}, peak device memory {speak / 2**20:.1f} MiB ({(speak - held) / 2**20:.1f} "
+            f"above); on {card}; launches {launches} on each path")
         rec = {"query": query_label(query), "scale": scale, "rows": len(next(iter(got.values()))),
-               "inproc_wall_s": wall, "inproc_tasks": tasks, "run_stages_wall_s": swall,
-               "run_stages_tasks": moved["tasks"], "data_bytes": moved["data_bytes"],
-               "stages": moved["kinds"], "launches": launches, "card": card}
-        log("window " + json.dumps(rec))
+               "inproc_wall_s": wall, "inproc_tasks": tasks, "held_bytes": held, "inproc_peak_bytes": peak,
+               "run_stages_wall_s": swall, "run_stages_tasks": moved["tasks"], "run_stages_peak_bytes": speak,
+               "data_bytes": moved["data_bytes"], "stages": moved["kinds"], "launches": launches, "card": card}
+        log(f"{label} " + json.dumps(rec))
         out.append(rec)
         del scans
     return out
 
 
 def query_label(query: str) -> str:
-    """q6 -> "q06", ds_q7 -> "TPC-DS q07"."""
+    """q6 -> "q06", ds_q7 -> "TPC-DS q07", ds_q14a -> "TPC-DS q14a"."""
     bench, name = ("TPC-DS ", query[3:]) if query.startswith("ds_") else ("", query)
-    return f"{bench}q{int(name[1:]):02d}"
+    digits = name[1:].rstrip("ab")
+    return f"{bench}q{int(digits):02d}{name[1 + len(digits):]}"
 
 
 def check_decimal_to_double(torch) -> str:
@@ -1478,7 +1636,7 @@ def main() -> int:
     t0 = time.perf_counter()
     data = query_data(TPCH_QUERIES + NEW_QUERIES, args.scale, ds=False)
     new_data = spec_data(data, args.scale)
-    ds_data = query_data(DS_QUERIES + WINDOW_QUERIES, args.ds_scale, ds=True)
+    ds_data = query_data(DS_QUERIES + WINDOW_QUERIES + ROLLUP_UNION_QUERIES, args.ds_scale, ds=True)
     log(f"data at TPC-H SF{args.scale}, TPC-DS SF{args.ds_scale}: " + ", ".join(
         f"{k} {next(iter(v.values()))[0].shape[0]} rows" for k, v in (*data.items(), *ds_data.items()))
         + f" ({time.perf_counter() - t0:.1f} s)")
@@ -1641,9 +1799,19 @@ def main() -> int:
 
     phases.append(("build-preserving joins", time.perf_counter() - T0))
     # ---- TPC-DS's window queries on both paths
-    window_phase(torch, cuda_ops, card, ds_data, args.ds_scale, n_parts, batch_rows, runs, sched_runs)
+    ds_phase(torch, cuda_ops, card, "window", WINDOW_QUERIES, ds_data, args.ds_scale, n_parts, batch_rows, runs,
+             sched_runs)
 
     phases.append(("window queries", time.perf_counter() - T0))
+    # ---- TPC-DS's rollup and union queries on both paths
+    ds_phase(torch, cuda_ops, card, "rollup/union", ROLLUP_UNION_QUERIES, ds_data, args.ds_scale, n_parts,
+             batch_rows, runs, sched_runs)
+    # q23a and q23b select nothing from SF 0.01 on (ROADMAP queue C,
+    # reference defect 14): their plans also run where they select rows
+    ds_phase(torch, cuda_ops, card, "rollup/union", Q23_QUERIES, query_data(Q23_QUERIES, Q23_SCALE, ds=True),
+             Q23_SCALE, n_parts, batch_rows, {}, {})
+
+    phases.append(("rollup and union queries", time.perf_counter() - T0))
     # ---- the redesigned kernels again, on the largest inputs q01 and q03 gave them
     at_query: Dict[str, list] = {"murmur3_pids": [], "sorted_lookup": [], "pid_histogram": []}
     for query, seen in (("q01", q1_inputs), ("q03", q3_inputs)):
@@ -1707,8 +1875,9 @@ def main() -> int:
                 profiled.append((f"{query_label(query)} ({label})",
                              optimized(build_plan(query, scans[query], n_parts), map_tasks)))
     profiled.append((query_label("q10"), optimized(build_plan("q10", scans["q10"], n_parts))))
-    # two window queries: q47's stacked windows, q67's nine-way expand
-    for query in ("ds_q47", "ds_q67"):
+    # two window queries: q47's stacked windows, q67's nine-way expand;
+    # two rollup queries: q5's unions of sales and returns, q22's inventory
+    for query in ("ds_q47", "ds_q67", "ds_q5", "ds_q22"):
         profiled.append((query_label(query), optimized(build_plan(
             query, query_scans(ds_data, query, n_parts, batch_rows), n_parts))))
     for r in profile_queries(torch, profiled):

@@ -190,10 +190,11 @@ def test_a_staging_error_surfaces_at_put_or_close():
 
 def test_abort_drops_what_is_queued():
     rep = SH.ShuffleRepartitioner(1)
-    gate = threading.Event()
+    gate, entered = threading.Event(), threading.Event()
 
     class Slow(_Copy):
         def result(self):
+            entered.set()
             gate.wait(10)
             return super().result()
 
@@ -201,6 +202,9 @@ def test_abort_drops_what_is_queued():
     ins.put((Slow(), [False], 2, [2]))
     for _ in range(3):
         ins.put((_Copy(), [False], 2, [2]))
+    # abort only once the stager holds the first batch: a batch it never
+    # started is dropped, and the first one is then staged
+    assert entered.wait(10)
     threading.Timer(0.1, gate.set).start()  # the stager is held in the first batch's copy
     ins.abort()
     assert not ins._thread.is_alive() and sum(len(b) for b in rep._buffers) == 1

@@ -12,7 +12,8 @@ window fused over a ``BufferPartitionExec``) and through
 hash exchanges through ``.data``/``.index`` files), both paths giving
 the same rows and leaving ``RESOURCES`` empty.  The other window
 queries are in ``test_torch_tpcds_window_*.py``; the helpers here serve
-them all.
+them all, and the rollup and union family's files
+(``test_torch_tpcds_rollup_*.py``, ``test_torch_tpcds_union_*.py``).
 """
 
 import math
@@ -118,13 +119,13 @@ def check_both_paths(data, q):
     through split_stages/run_stages; the two paths' rows alike."""
     exp = getattr(O, f"oracle_{q}")(data)
     inproc = run(optimize_plan(build_query(q, port_scans(data), N_PARTS)))
-    O.check_window_query(q, inproc, exp)
+    O.check_query(q, inproc, exp)
     stages, manager = split_stages(build_query(q, port_scans(data), N_PARTS))
     staged = {f.name: [] for f in stages[-1].plan.schema.fields}
     for b in run_stages(stages, manager):
         for k, v in batch_to_pydict(b).items():
             staged[k].extend(v)
-    O.check_window_query(q, staged, exp)
+    O.check_query(q, staged, exp)
     assert_rows_equal(staged, inproc)
     assert not len(RESOURCES)
     return [s.kind for s in stages]
