@@ -1,7 +1,8 @@
 """Scalar function registry (≙ ``blaze_tpu/exprs/functions.py``):
 functions resolve by name, so the plan contract carries them as
 strings.  The port has ``year``, ``month``, ``day`` (Hinnant's
-civil-from-days, pure integer ops), ``substring`` and ``abs``.
+civil-from-days, pure integer ops), ``substring``, ``concat`` and
+``abs``.
 """
 
 from __future__ import annotations
@@ -115,6 +116,39 @@ def _substring(expr, schema, cols, n, lower_fn):
     # zero the tail past each row's length so padding stays canonical
     data = torch.where(torch.arange(w, device=c.device)[None, :] < new_len[:, None], data, 0)
     return Column(DataType.string(w), data.to(torch.uint8), c.validity, new_len.to(torch.int32))
+
+
+def _concat_t(e, ts):
+    return DataType.string(string_width_for(sum(t.string_width for t in ts)))
+
+
+def _place_at_offsets(data: torch.Tensor, lengths: torch.Tensor, src: Column, w: int):
+    """``src``'s bytes written into ``data`` (n x w) at each row's offset
+    ``lengths``; returns (data, lengths + src's lengths)."""
+    pos = torch.arange(w, device=data.device)[None, :]
+    sw = src.data.shape[1]
+    sdata = torch.nn.functional.pad(src.data, (0, w - sw)) if sw < w else src.data[:, :w]
+    start = lengths.to(torch.int64)[:, None]
+    shifted = torch.gather(sdata, 1, (pos - start).clamp(0, sdata.shape[1] - 1))
+    end = start + src.lengths.to(torch.int64)[:, None]
+    return torch.where((pos >= start) & (pos < end), shifted, data), lengths + src.lengths
+
+
+@register("concat", _concat_t)
+def _concat(expr, schema, cols, n, lower_fn):
+    """Spark's ``concat(s1, s2, ...)``: the strings one after another in
+    a ``string(string_width_for(sum of widths))``, null if any argument
+    is null."""
+    parts = [lower_fn(a, schema, cols, n) for a in expr.args]
+    w = _concat_t(expr, [p.dtype for p in parts]).string_width
+    dev = parts[0].device
+    data = torch.zeros((n, w), dtype=torch.uint8, device=dev)
+    lengths = torch.zeros(n, dtype=torch.int32, device=dev)
+    validity = torch.ones(n, dtype=torch.bool, device=dev)
+    for p in parts:
+        validity = validity & p.validity
+        data, lengths = _place_at_offsets(data, lengths, p, w)
+    return Column(DataType.string(w), data, validity, lengths)
 
 
 # -------------------------------------------------------------- numeric

@@ -7,12 +7,13 @@ from .filter import FilterExec
 from .limit import LimitExec
 from .memory_scan import MemoryScanExec
 from .project import ProjectExec
+from .rename import RenameColumnsExec
 from .sort import SortExec, SortField
 from .union import UnionExec
 from .window import WindowExec, WindowFunction
 
 __all__ = [
     "AggExec", "AggFunction", "AggMode", "ExecNode", "ExpandExec", "FilterExec", "GroupingExpr",
-    "LimitExec", "MemoryScanExec", "ProjectExec", "SortExec", "SortField", "UnionExec", "WindowExec",
-    "WindowFunction",
+    "LimitExec", "MemoryScanExec", "ProjectExec", "RenameColumnsExec", "SortExec", "SortField", "UnionExec",
+    "WindowExec", "WindowFunction",
 ]

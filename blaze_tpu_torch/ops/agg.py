@@ -18,7 +18,14 @@ Spark's HALF_UP decimal rounding), min and max (one ``#value`` state
 column of the input's type, null where a group has no non-null input;
 integers, dates, decimals, floats and strings; as in the reference, a
 float NaN is larger than every number and any NaN in a group makes
-its min NaN too).
+its min NaN too), and stddev_samp and var_samp (a ``#cnt``, a float64
+``#fsum`` and the float64 ``#m2`` of deviations from the group's mean:
+each batch centres its values on its own group means, and states merge
+by Chan's ``M2 = sum M2_i + sum n_i (mean_i - mean)^2``, so no sum of
+squares cancels; a decimal is divided by ``10**scale`` first, and the
+value is null unless a group counts two values).  Float sums accumulate
+within each group (a segmented scan), so one group's magnitude never
+cancels against another's; integer sums difference one cumulative sum.
 """
 
 from __future__ import annotations
@@ -53,7 +60,8 @@ class GroupingExpr:
 
 @dataclass
 class AggFunction:
-    """One aggregate call: ``fn`` in sum/count/count_star/avg/min/max."""
+    """One aggregate call: ``fn`` in sum/count/count_star/avg/min/max/
+    stddev_samp/var_samp."""
 
     fn: str
     expr: Optional[Expr]
@@ -63,6 +71,7 @@ class AggFunction:
 # ---------------------------------------------------------------- typing
 
 MINMAX = ("min", "max")
+VARIANCE = ("stddev_samp", "var_samp")
 
 
 def sum_result_type(t: DataType) -> DataType:
@@ -82,6 +91,8 @@ def agg_result_type(fn: str, in_t: Optional[DataType]) -> DataType:
         return decimal_avg_agg_type(in_t) if in_t.is_decimal else DataType.float64()
     if fn in MINMAX:
         return in_t
+    if fn in VARIANCE:
+        return DataType.float64()
     raise NotImplementedError(f"agg fn {fn}")
 
 
@@ -99,6 +110,9 @@ def agg_state_fields(fn: str, in_t: Optional[DataType], name: str) -> List[Field
         return [Field(f"{name}#count", DataType.int64())]
     if fn in MINMAX:
         return [Field(f"{name}#value", in_t)]
+    if fn in VARIANCE:
+        return [Field(f"{name}#cnt", DataType.int64()), Field(f"{name}#fsum", DataType.float64()),
+                Field(f"{name}#m2", DataType.float64())]
     if fn not in ("sum", "avg"):
         raise NotImplementedError(f"agg fn {fn}")
     count = Field(f"{name}#nonnull" if fn == "sum" else f"{name}#count", DataType.int64())
@@ -115,11 +129,15 @@ def agg_state_fields(fn: str, in_t: Optional[DataType], name: str) -> List[Field
 def _state_input_type(a: AggFunction, in_schema: Schema) -> Optional[DataType]:
     """The input value type of ``a``, recovered from its state columns
     (sum and avg states both hold decimal(p + 10, s); wide states name
-    p)."""
+    p; a variance state is float64)."""
     if a.fn in ("count", "count_star"):
         return None
     if a.fn in MINMAX:
         return in_schema.field(f"{a.name}#value").dtype
+    if a.fn in VARIANCE:
+        return DataType.float64()
+    if a.fn not in ("sum", "avg"):
+        raise NotImplementedError(f"agg fn {a.fn}")
     if f"{a.name}#sum" in in_schema.names:
         st = in_schema.field(f"{a.name}#sum").dtype
         return DataType.decimal(max(1, st.precision - 10), st.scale) if st.is_decimal else st
@@ -203,14 +221,34 @@ def group_segments(words: Sequence[torch.Tensor], keep: Optional[torch.Tensor] =
     return Segments(order, starts, ends)
 
 
+def seg_scan(x: torch.Tensor, starts: torch.Tensor, op) -> torch.Tensor:
+    """Inclusive scan of ``x`` under ``op`` that restarts where
+    ``starts`` holds (Hillis-Steele, log2(len) steps)."""
+    f = starts.clone()
+    d = 1
+    n = x.shape[0]
+    while d < n:
+        tail = torch.where(f[d:], x[d:], op(x[:-d], x[d:]))
+        x = torch.cat([x[:d], tail])
+        f = torch.cat([f[:d], f[d:] | f[:-d]])
+        d *= 2
+    return x
+
+
 def seg_sum(values: torch.Tensor, valid: torch.Tensor, seg: Optional[Segments]) -> torch.Tensor:
     """Per-group sums of ``values`` where ``valid`` (already in sorted
-    order), as differences of one cumulative sum at the segment ends —
-    exact for integers, whose wraparound cancels in the difference;
-    ``seg`` None is the global (one-group) reduction."""
+    order); ``seg`` None is the global (one-group) reduction.  Integers
+    difference one cumulative sum at the segment ends (exact: wraparound
+    cancels in the difference); floats scan within each segment, so a
+    small group after a large one keeps its own precision (≙ the
+    reference's ``_seg_sum``)."""
     z = torch.where(valid, values, torch.zeros((), dtype=values.dtype, device=values.device))
     if seg is None:
         return z.sum(dtype=z.dtype).reshape(1)
+    if z.is_floating_point():
+        starts = torch.zeros(z.shape[0], dtype=torch.bool, device=z.device)
+        starts[seg.starts] = True
+        return seg_scan(z, starts, torch.add)[seg.ends]
     incl = torch.cumsum(z, 0, dtype=z.dtype)
     at_end = incl[seg.ends]
     return at_end - torch.cat([at_end.new_zeros(1), at_end[:-1]])
@@ -343,6 +381,9 @@ class AggExec(ExecNode):
                                              None if v.lengths is None else perm(v.lengths)),
                                       seg, a.fn == "min"))
                 continue
+            if a.fn in VARIANCE:
+                out.extend(self._variance_state(a, fields, schema, env, n, keep, perm, seg, merging))
+                continue
             if merging:
                 # every state column sums; nulls never occur in states
                 for f in fields:
@@ -382,6 +423,41 @@ class AggExec(ExecNode):
                 pad_rows(torch.ones(n_out, dtype=torch.bool, device=d.device), cap)))
         return RecordBatch(self._state_schema, state_cols, n_out)
 
+    @staticmethod
+    def _variance_state(a, fields, schema, env, n, keep, perm, seg, merging) -> list:
+        """(count, float sum, M2) per group of a stddev_samp/var_samp:
+        raw values' deviations from their group's mean in this batch, or
+        states merged by Chan's formula."""
+        def per_row(group_values):
+            if seg is None:
+                return group_values
+            mark = torch.zeros(seg.order.shape[0], dtype=torch.int64, device=group_values.device)
+            mark[seg.starts] = 1
+            return group_values[torch.cumsum(mark, 0) - 1]
+
+        def mean_of(total, count):
+            return total / torch.where(count > 0, count, 1).to(torch.float64)
+
+        if merging:
+            cc, sc, mc = (env[f.name] for f in fields)
+            n_i, fs_i, m2_i = perm(cc.data), perm(sc.data), perm(mc.data)
+            cnt = seg_sum(n_i, perm(cc.validity), seg)
+            fs = seg_sum(fs_i, perm(sc.validity), seg)
+            d = mean_of(fs_i, n_i) - per_row(mean_of(fs, cnt))
+            term = torch.where(n_i > 0, n_i.to(torch.float64) * d * d, 0.0)
+            return [cnt, fs, seg_sum(m2_i + term, perm(mc.validity), seg)]
+        v = lower(a.expr, schema, env, n)
+        f = v.data.to(torch.float64)
+        if v.dtype.is_decimal:
+            # the unscaled integer; every moment is of the logical value
+            f = f / 10**v.dtype.scale
+        valid = v.validity if keep is None else v.validity & keep
+        f, valid = perm(f), perm(valid)
+        cnt = seg_sum(valid.to(torch.int64), valid, seg)
+        fs = seg_sum(f, valid, seg)
+        dev = f - per_row(mean_of(fs, cnt))
+        return [cnt, fs, seg_sum(dev * dev, valid, seg)]
+
     def _empty_state(self) -> RecordBatch:
         """The state of a global aggregate over no rows: zero counts and
         sums, null extremes."""
@@ -409,6 +485,11 @@ class AggExec(ExecNode):
                 continue
             if a.fn == "avg":
                 out.append(self._finalize_avg(env, a.name, t))
+                continue
+            if a.fn in VARIANCE:
+                cnt, m2 = env[f"{a.name}#cnt"].data, env[f"{a.name}#m2"].data
+                var = m2.clamp(min=0) / torch.where(cnt > 1, cnt - 1, 1).to(torch.float64)
+                out.append(Column(DataType.float64(), torch.sqrt(var) if a.fn == "stddev_samp" else var, cnt > 1))
                 continue
             nn = env[f"{a.name}#nonnull"]
             if sum_is_wide(t):

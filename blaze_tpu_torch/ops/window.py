@@ -54,7 +54,7 @@ from ..exprs.compile import infer_dtype, lower
 from ..exprs.ir import Expr
 from ..runtime.context import TaskContext
 from ..schema import DataType, Field, Schema, decimal_avg_agg_type
-from .agg import encode_key_words, sum_is_wide, sum_result_type
+from .agg import encode_key_words, seg_scan, sum_is_wide, sum_result_type
 from .base import BatchStream, ExecNode
 from .filter import live_mask
 from .project import mask_padding
@@ -121,20 +121,6 @@ def _before(prefix: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
     """The inclusive prefix at ``lo - 1`` (0 where ``lo`` is 0)."""
     return torch.where(lo > 0, _gather(prefix, lo - 1), torch.zeros((), dtype=prefix.dtype,
                                                                     device=prefix.device))
-
-
-def _seg_scan(x: torch.Tensor, starts: torch.Tensor, op) -> torch.Tensor:
-    """Inclusive scan of ``x`` under ``op`` that restarts where
-    ``starts`` holds (Hillis-Steele, log2(len) steps)."""
-    f = starts.clone()
-    d = 1
-    n = x.shape[0]
-    while d < n:
-        tail = torch.where(f[d:], x[d:], op(x[:-d], x[d:]))
-        x = torch.cat([x[:d], tail])
-        f = torch.cat([f[:d], f[d:] | f[:-d]])
-        d *= 2
-    return x
 
 
 def _minmax_keys(c: Column) -> torch.Tensor:
@@ -271,7 +257,7 @@ def window_columns(in_schema: Schema, functions_: Sequence[WindowFunction], part
     def framed_sum(vals: torch.Tensor, lo, hi) -> torch.Tensor:
         """Sum of ``vals`` over each row's [lo, hi] (0 when empty)."""
         if vals.dtype.is_floating_point:
-            seg = _seg_scan(vals, part_b, torch.add)
+            seg = seg_scan(vals, part_b, torch.add)
             s = _gather(seg, hi) - torch.where(lo > start, _gather(seg, lo - 1), torch.zeros_like(seg))
         else:
             c = torch.cumsum(vals, 0)
@@ -383,7 +369,7 @@ def window_columns(in_schema: Schema, functions_: Sequence[WindowFunction], part
             keys = torch.where(valid, _minmax_keys(c), sentinel)
             lo, hi = frame(f)
             if f.rows_frame is None and f.range_frame is None:
-                run = _gather(_seg_scan(keys, part_b, op), hi)
+                run = _gather(seg_scan(keys, part_b, op), hi)
             else:
                 span = cap if f.range_frame is not None else f.rows_frame[0] + f.rows_frame[1] + 1
                 run = _sparse_query(_sparse_table(keys, op, sentinel, min(_levels(span), _levels(cap))),

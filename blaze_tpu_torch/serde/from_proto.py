@@ -117,7 +117,7 @@ def plan_from_proto(n: pb.PhysicalPlanNode):
     from ``RESOURCES`` and stages them on the package's default device."""
     from ..ops import (
         AggExec, AggFunction, AggMode, ExpandExec, FilterExec, GroupingExpr, LimitExec, MemoryScanExec,
-        ProjectExec, SortExec, SortField, UnionExec, WindowExec,
+        ProjectExec, RenameColumnsExec, SortExec, SortField, UnionExec, WindowExec,
     )
     from ..ops.joins import BroadcastJoinExec, HashJoinExec
     from ..parallel.broadcast import IpcWriterExec
@@ -155,6 +155,8 @@ def plan_from_proto(n: pb.PhysicalPlanNode):
         return LimitExec(plan_from_proto(n.limit.input), n.limit.limit)
     if kind == "union":
         return UnionExec([plan_from_proto(c) for c in n.union.inputs])
+    if kind == "rename_columns":
+        return RenameColumnsExec(plan_from_proto(n.rename_columns.input), list(n.rename_columns.names))
     if kind == "expand":
         e = n.expand
         return ExpandExec(plan_from_proto(e.input), [[expr_from_proto(x) for x in p.exprs] for p in e.projections],

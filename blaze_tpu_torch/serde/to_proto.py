@@ -2,7 +2,7 @@
 ``blaze_tpu/serde/to_proto.py``).
 
 Covers the nodes and expressions the port has: memory scan, project,
-filter, agg, sort, limit, union, expand, window, shuffle writer, IPC
+filter, agg, sort, limit, union, rename, expand, window, shuffle writer, IPC
 reader and writer, broadcast and shuffled hash joins; columns,
 literals, aliases, binary operators, NOT, IS [NOT] NULL, casts, CASE,
 IN, LIKE and scalar functions.  Anything else raises
@@ -142,7 +142,8 @@ def plan_to_proto(node) -> pb.PhysicalPlanNode:
     one serialized task reads them once): a serialized plan that is
     never run strands its entry, so serialize only what runs."""
     from ..ops import (
-        AggExec, ExpandExec, FilterExec, LimitExec, MemoryScanExec, ProjectExec, SortExec, UnionExec, WindowExec,
+        AggExec, ExpandExec, FilterExec, LimitExec, MemoryScanExec, ProjectExec, RenameColumnsExec, SortExec,
+        UnionExec, WindowExec,
     )
     from ..ops.joins import BroadcastJoinExec, HashJoinExec
     from ..parallel.broadcast import IpcWriterExec
@@ -188,6 +189,8 @@ def plan_to_proto(node) -> pb.PhysicalPlanNode:
         out.limit = pb.LimitNode(input=plan_to_proto(node.children[0]), limit=node.limit)
     elif isinstance(node, UnionExec):
         out.union = pb.UnionNode(inputs=[plan_to_proto(c) for c in node.children])
+    elif isinstance(node, RenameColumnsExec):
+        out.rename_columns = pb.RenameColumnsNode(input=plan_to_proto(node.children[0]), names=node.schema.names)
     elif isinstance(node, ExpandExec):
         out.expand = pb.ExpandNode(
             input=plan_to_proto(node.children[0]),

@@ -5,7 +5,8 @@ same arrays from the same seed.
 Shares the host-table format and helpers with the TPC-H generator
 (tpch/datagen.py).  Foreign keys that TPC-DS leaves NULL are generated
 as -1 here (no dimension row matches): identical behavior for the
-inner-join query set, without per-column validity plumbing.
+inner-join query set, without per-column validity plumbing;
+:func:`with_null_fks` exposes them as real nulls.
 
 ≙ the reference's dsdgen-produced datasets (tpcds/datagen wrapper,
 tpcds-reusable.yml checks out a pregenerated 1 GB set).
@@ -653,6 +654,18 @@ def _generate_table(name: str, scale: float, seed: int, _base: Dict[str, "HostTa
             "wr_reason_sk": (rng.randint(1, len(REASON_DESCS) + 1, n).astype(np.int64), None),
         }
     raise KeyError(f"unknown tpcds table {name!r}")
+
+
+def with_null_fks(table: HostTable, columns) -> HostTable:
+    """``table`` with the -1 stand-ins for null in ``columns`` exposed as
+    real nulls: each named column becomes (data, lengths, data != -1),
+    the same draws with a validity (≙ the reference's
+    ``with_null_fks``), which ``batch.table_to_batches`` stages."""
+    out = dict(table)
+    for c in columns:
+        data, lengths = table[c][0], table[c][1]
+        out[c] = (data, lengths, data != np.int64(-1))
+    return out
 
 
 def generate_all(scale: float, seed: int = 20011129) -> Dict[str, HostTable]:

@@ -4,9 +4,13 @@ code reused: its own copy of ``blaze_tpu/tpcds/oracle.py``'s
 ``oracle_q3`` and ``oracle_q7``, and of the window family's oracles
 (q12, q20, q98, q53, q63, q89, q47, q57, q36, q86, q70, q67, q44, q49,
 q51) and of the rollup and union family's (q27, q18, q22, q5, q77, q80,
-q14a, q33, q56, q60, q71, q76, q66, q2, q75, q54, q23a, q23b), which
-return what the reference's return (q18's double averages within 1e-9
-relative).  The reference's loop in Python over every fact row (q67's
+q14a, q33, q56, q60, q71, q76, q66, q2, q75, q54, q23a, q23b) and of
+``EXISTS_STDDEV_QUERIES``' (q10, q35, q69, q38, q87, q17, q25, q29,
+q39a, q39b, q84), which return what the reference's return (q18's
+double averages and q17's and q39's stddevs within 1e-9 relative: these
+compute a variance exactly in integers and round once, the reference's
+from a float sum of squares; q39's also list the rows near a cov
+threshold).  The reference's loop in Python over every fact row (q67's
 nine times, q22's over 23.49M inventory rows at SF1, and its ranks and
 q51's per-item merges are quadratic), which does not finish at SF1;
 these join and group the fact rows with numpy (sorted-key joins,
@@ -16,13 +20,14 @@ Python for the groups."""
 from __future__ import annotations
 
 import datetime
+import math
 from collections import defaultdict
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
-from ..tpch.oracle import _round_half_up, _s_eq, _sv
-from .queries import ROLLUP_UNION_QUERIES
+from ..tpch.oracle import _round_half_up, _s_eq, _s_isin, _sv
+from .queries import EXISTS_STDDEV_QUERIES, ROLLUP_UNION_QUERIES
 
 
 def _brand_rollup(tables, *, year, moy, item_filter_col, item_filter_val, group_cols):
@@ -1216,6 +1221,275 @@ def oracle_q23b(tables):
     return {k: v[0] for k, v in _label_sums(_fact_code(names, custs), names[2], [vals]).items()}
 
 
+# ------------------------------- EXISTS, INTERSECT, EXCEPT; stddev; concat
+
+
+def _active_set(tables, sales, date_col, cust_col, *, year, moys) -> np.ndarray:
+    """The distinct customer keys of one channel in a (year, months)
+    window."""
+    dd, sl = tables["date_dim"], tables[sales]
+    m = (dd["d_year"][0] == year) & (dd["d_moy"][0] >= moys[0]) & (dd["d_moy"][0] <= moys[1])
+    return np.unique(sl[cust_col][0][np.isin(sl[date_col][0], dd["d_date_sk"][0][m])])
+
+
+def _channel_sets(tables, *, year, moys):
+    """The (store, web, catalog) customer sets of q10, q35 and q69."""
+    return tuple(_active_set(tables, s, d, c, year=year, moys=moys)
+                 for s, d, c in (("store_sales", "ss_sold_date_sk", "ss_customer_sk"),
+                                 ("web_sales", "ws_sold_date_sk", "ws_bill_customer_sk"),
+                                 ("catalog_sales", "cs_sold_date_sk", "cs_ship_customer_sk")))
+
+
+def _customers_by_demographics(tables, active: np.ndarray, addr_ok: np.ndarray, cd_cols) -> Dict[tuple, list]:
+    """{the demographics row's ``cd_cols`` values: [row of each customer
+    whose key is in ``active`` and whose address key is in ``addr_ok``]}."""
+    cu, cd = tables["customer"], tables["customer_demographics"]
+    m = np.isin(cu["c_customer_sk"][0], active) & np.isin(cu["c_current_addr_sk"][0], addr_ok)
+    rows = _rows_of(cd["cd_demo_sk"][0], cu["c_current_cdemo_sk"][0][m])
+    cols = [_sv(cd, c) if cd[c][1] is not None else cd[c][0].tolist() for c in cd_cols]
+    out: Dict[tuple, list] = defaultdict(list)
+    for cust, r in zip(np.flatnonzero(m).tolist(), rows.tolist()):
+        if r >= 0:
+            out[tuple(c[r] for c in cols)].append(cust)
+    return out
+
+
+_Q10_CD = ("cd_gender", "cd_marital_status", "cd_education_status", "cd_purchase_estimate", "cd_credit_rating",
+           "cd_dep_count", "cd_dep_employed_count", "cd_dep_college_count")
+
+
+def oracle_q10(tables):
+    """{demographics (8 columns): customers} of three counties' customers
+    with a store purchase and a web or catalog one in January-April
+    2002."""
+    ca = tables["customer_address"]
+    addr = ca["ca_address_sk"][0][_s_isin(ca, "ca_county", ("Williamson County", "Franklin Parish", "Bronx County"))]
+    ss, ws, cs = _channel_sets(tables, year=2002, moys=(1, 4))
+    active = np.intersect1d(ss, np.union1d(ws, cs))
+    return {k: len(v) for k, v in _customers_by_demographics(tables, active, addr, _Q10_CD).items()}
+
+
+def oracle_q35(tables):
+    """{(state, gender, marital status, 3 dependant counts): (count, then
+    avg, max and sum of each dependant count)} of q10's customers in
+    every state."""
+    cu, ca = tables["customer"], tables["customer_address"]
+    ss, ws, cs = _channel_sets(tables, year=2002, moys=(1, 4))
+    active = np.intersect1d(ss, np.union1d(ws, cs))
+    deps = ("cd_dep_count", "cd_dep_employed_count", "cd_dep_college_count")
+    state = _rows_of(ca["ca_address_sk"][0], cu["c_current_addr_sk"][0])
+    states = _sv(ca, "ca_state")
+    out = {}
+    for (g, ms, *dep), custs in _customers_by_demographics(tables, active, ca["ca_address_sk"][0],
+                                                           ("cd_gender", "cd_marital_status") + deps).items():
+        by_state: Dict[str, int] = defaultdict(int)
+        for c in custs:
+            by_state[states[state[c]]] += 1
+        for st, n in by_state.items():
+            # every customer of the group has the same dependant counts
+            out[(st, g, ms, *dep)] = (n,) + tuple(x for d in dep for x in (float(d), d, d * n))
+    return out
+
+
+def oracle_q69(tables):
+    """{demographics (5 columns): customers} of three states' customers
+    with a store purchase and neither a web nor a catalog one in
+    January-March 2002."""
+    ca = tables["customer_address"]
+    addr = ca["ca_address_sk"][0][_s_isin(ca, "ca_state", ("TN", "SD", "AL"))]
+    ss, ws, cs = _channel_sets(tables, year=2002, moys=(1, 3))
+    active = np.setdiff1d(ss, np.union1d(ws, cs))
+    return {k: len(v) for k, v in _customers_by_demographics(tables, active, addr, _Q10_CD[:5]).items()}
+
+
+def _channel_customer_set(tables, sales, date_col, cust_col, year) -> np.ndarray:
+    """The distinct (last name, first name, d_date) of one channel's
+    buyers in ``year``, each as one int64: a name code times 2^32 plus
+    the day."""
+    dd, cu, sl = tables["date_dim"], tables["customer"], tables[sales]
+    days = _dim(dd, "d_date_sk", dd["d_date"][0].tolist(), dd["d_year"][0] == year)
+    names = _dim(cu, "c_customer_sk", list(zip(_sv(cu, "c_last_name"), _sv(cu, "c_first_name"))))
+    day_code = _fact_code(days, sl[date_col][0])
+    name_code = _fact_code(names, sl[cust_col][0])
+    m = (day_code >= 0) & (name_code >= 0)
+    day = np.asarray(days[2], np.int64)[day_code[m]]
+    return np.unique(name_code[m] * (1 << 32) + day)
+
+
+def _three_channel_sets(tables):
+    return [_channel_customer_set(tables, s, d, c, 2000)
+            for s, d, c in (("store_sales", "ss_sold_date_sk", "ss_customer_sk"),
+                            ("catalog_sales", "cs_sold_date_sk", "cs_bill_customer_sk"),
+                            ("web_sales", "ws_sold_date_sk", "ws_bill_customer_sk"))]
+
+
+def oracle_q38(tables):
+    """How many (name, day) bought in all three channels in 2000."""
+    ss, cs, ws = _three_channel_sets(tables)
+    return int(np.intersect1d(np.intersect1d(ss, cs), ws).shape[0])
+
+
+def oracle_q87(tables):
+    """How many (name, day) bought in a store in 2000 but neither from
+    the catalog nor on the web."""
+    ss, cs, ws = _three_channel_sets(tables)
+    return int(np.setdiff1d(np.setdiff1d(ss, cs), ws).shape[0])
+
+
+def _pairs(left: np.ndarray, right: np.ndarray):
+    """(left rows, right rows) of every pair with equal int64 keys."""
+    order = np.argsort(right, kind="stable")
+    rk = right[order]
+    lo, hi = np.searchsorted(rk, left, "left"), np.searchsorted(rk, left, "right")
+    n = hi - lo
+    li = np.repeat(np.arange(left.shape[0]), n)
+    at = np.arange(int(n.sum())) - np.repeat(np.cumsum(n) - n, n)
+    return li, order[np.repeat(lo, n) + at]
+
+
+def _key2(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Two int64 keys as one (``b`` in [0, 2^32))."""
+    return a.astype(np.int64) * (1 << 32) + b.astype(np.int64)
+
+
+def _srcandc(tables, columns):
+    """The q17/q25/q29 chain: (a group code per chain row, the labels
+    (item id, item desc, store name) by code, each of ``columns`` —
+    (table, column) — per chain row).  A store line of 2000, its returns
+    of 2000-2002 on (item, ticket), the returning customer's catalog
+    lines of 2000-2002 of the same item, with a store and an item."""
+    dd = tables["date_dim"]
+    y = dd["d_year"][0]
+    y2000 = dd["d_date_sk"][0][y == 2000]
+    y00_02 = dd["d_date_sk"][0][(y >= 2000) & (y <= 2002)]
+    ss, sr, cs = tables["store_sales"], tables["store_returns"], tables["catalog_sales"]
+    st, it = tables["store"], tables["item"]
+    s_rows = np.flatnonzero(np.isin(ss["ss_sold_date_sk"][0], y2000))
+    r_rows = np.flatnonzero(np.isin(sr["sr_returned_date_sk"][0], y00_02))
+    c_rows = np.flatnonzero(np.isin(cs["cs_sold_date_sk"][0], y00_02))
+    a, b = _pairs(_key2(ss["ss_item_sk"][0][s_rows], ss["ss_ticket_number"][0][s_rows]),
+                  _key2(sr["sr_item_sk"][0][r_rows], sr["sr_ticket_number"][0][r_rows]))
+    s_rows, r_rows = s_rows[a], r_rows[b]
+    a, b = _pairs(_key2(sr["sr_customer_sk"][0][r_rows], sr["sr_item_sk"][0][r_rows]),
+                  _key2(cs["cs_bill_customer_sk"][0][c_rows], cs["cs_item_sk"][0][c_rows]))
+    s_rows, r_rows, c_rows = s_rows[a], r_rows[a], c_rows[b]
+    store = _dim(st, "s_store_sk", _sv(st, "s_store_name"))
+    item = _dim(it, "i_item_sk", list(zip(_sv(it, "i_item_id"), _sv(it, "i_item_desc"))))
+    sc = _fact_code(store, ss["ss_store_sk"][0][s_rows])
+    ic = _fact_code(item, ss["ss_item_sk"][0][s_rows])
+    m = (sc >= 0) & (ic >= 0)
+    labels = [i + (s,) for i in item[2] for s in store[2]]
+    rows = {"store_sales": s_rows[m], "store_returns": r_rows[m], "catalog_sales": c_rows[m]}
+    return (ic[m] * len(store[2]) + sc[m], labels,
+            [tables[t][c][0][rows[t]].astype(np.int64) for t, c in columns])
+
+
+def _srcandc_sums(tables, columns):
+    codes, labels, values = _srcandc(tables, columns)
+    return {k: tuple(v) for k, v in _label_sums(codes, labels, values).items()}
+
+
+def oracle_q25(tables):
+    """{(item id, item desc, store name): (store profit, return loss,
+    catalog profit)}, unscaled decimals."""
+    return _srcandc_sums(tables, (("store_sales", "ss_net_profit"), ("store_returns", "sr_net_loss"),
+                                  ("catalog_sales", "cs_net_profit")))
+
+
+def oracle_q29(tables):
+    """{(item id, item desc, store name): (the three legs' quantities)}."""
+    return _srcandc_sums(tables, (("store_sales", "ss_quantity"), ("store_returns", "sr_return_quantity"),
+                                  ("catalog_sales", "cs_quantity")))
+
+
+def _moments(codes: np.ndarray, values: np.ndarray):
+    """(group codes, count, mean, sample stddev or None) per group of
+    integer ``values``: the variance (n sum x^2 - (sum x)^2) / (n (n-1))
+    exact in integers, then one correctly rounded division."""
+    (g,), (n, s, q) = _group_sums([codes], [np.ones_like(values), values, values * values])
+    out = []
+    for c, cnt, tot, sq in zip(g.tolist(), n.tolist(), s.tolist(), q.tolist()):
+        sd = math.sqrt((cnt * sq - tot * tot) / (cnt * (cnt - 1))) if cnt > 1 else None
+        out.append((c, cnt, tot / cnt, sd))
+    return out
+
+
+def _cov(sd, mean):
+    return sd / mean if sd is not None and mean > 0 else None
+
+
+def oracle_q17(tables):
+    """{(item id, item desc, store name): ((count, avg, stddev, cov) of
+    each leg's quantity)}."""
+    codes, labels, values = _srcandc(tables, (("store_sales", "ss_quantity"), ("store_returns", "sr_return_quantity"),
+                                              ("catalog_sales", "cs_quantity")))
+    out: Dict[tuple, list] = defaultdict(list)
+    for v in values:
+        for c, n, mean, sd in _moments(codes, v):
+            out[labels[c]].append((n, mean, sd, _cov(sd, mean)))
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def _q39_month(tables, moy: int) -> Dict[tuple, tuple]:
+    """{(warehouse name, item): (mean, cov)} of the quantity on hand in
+    one month of 2001, where the cov is defined."""
+    dd, wh, inv = tables["date_dim"], tables["warehouse"], tables["inventory"]
+    days = dd["d_date_sk"][0][(dd["d_year"][0] == 2001) & (dd["d_moy"][0] == moy)]
+    m = np.isin(inv["inv_date_sk"][0], days)
+    names = _dim(wh, "w_warehouse_sk", _sv(wh, "w_warehouse_name"))
+    w = _fact_code(names, inv["inv_warehouse_sk"][0][m])
+    items = inv["inv_item_sk"][0][m].astype(np.int64)
+    keep = w >= 0
+    out = {}
+    for c, _, mean, sd in _moments(_key2(w[keep], items[keep]), inv["inv_quantity_on_hand"][0][m][keep]
+                                   .astype(np.int64)):
+        cov = _cov(sd, mean)
+        if cov is not None:
+            out[(names[2][c >> 32], c & 0xFFFFFFFF)] = (mean, cov)
+    return out
+
+
+def _q39(tables, thr1: float, thr2: float):
+    """{(warehouse name, item): (mean, cov, mean2, cov2)} with January's
+    cov over ``thr1`` and February's over ``thr2``; and the rows whose
+    cov lies within 1e-9 relative of its threshold (the engine's cov may
+    fall on the other side there)."""
+    m1, m2 = _q39_month(tables, 1), _q39_month(tables, 2)
+    near = sorted(k for m, thr in ((m1, thr1), (m2, thr2)) for k, (_, cov) in m.items()
+                  if abs(cov - thr) <= 1e-9 * thr)
+    rows = {k: m1[k] + m2[k] for k in m1 if k in m2 and m1[k][1] > thr1 and m2[k][1] > thr2}
+    return rows, near
+
+
+def oracle_q39a(tables):
+    return _q39(tables, 0.7, 0.7)
+
+
+def oracle_q39b(tables):
+    return _q39(tables, 0.85, 0.7)
+
+
+def oracle_q84(tables):
+    """The sorted rows (customer id, "last, first") of one city's
+    customers in an income range, one per store return of their
+    demographics; the first 100."""
+    ca, ib, hd = tables["customer_address"], tables["income_band"], tables["household_demographics"]
+    cu, cd, sr = tables["customer"], tables["customer_demographics"], tables["store_returns"]
+    midway = ca["ca_address_sk"][0][_s_eq(ca, "ca_city", "Midway")]
+    bands = ib["ib_income_band_sk"][0][(ib["ib_lower_bound"][0] >= 38128) & (ib["ib_upper_bound"][0] <= 88128)]
+    hsel = hd["hd_demo_sk"][0][np.isin(hd["hd_income_band_sk"][0], bands)]
+    m = (np.isin(cu["c_current_addr_sk"][0], midway) & np.isin(cu["c_current_hdemo_sk"][0], hsel)
+         & np.isin(cu["c_current_cdemo_sk"][0], cd["cd_demo_sk"][0]))
+    cdemo, n = np.unique(sr["sr_cdemo_sk"][0], return_counts=True)
+    ids, lasts, firsts = _sv(cu, "c_customer_id"), _sv(cu, "c_last_name"), _sv(cu, "c_first_name")
+    rows = []
+    for i in np.flatnonzero(m).tolist():
+        k = np.searchsorted(cdemo, cu["c_current_cdemo_sk"][0][i])
+        if k < cdemo.shape[0] and cdemo[k] == cu["c_current_cdemo_sk"][0][i]:
+            rows += [(ids[i], f"{lasts[i]}, {firsts[i]}")] * int(n[k])
+    return sorted(rows)[:100]
+
+
 # ------------------------------------------------- holding a result to them
 
 
@@ -1437,9 +1711,65 @@ def check_rollup_union_query(query: str, got: Dict[str, list], exp) -> str:
 
 
 
+def check_exists_stddev_query(query: str, got: Dict[str, list], exp) -> str:
+    """Raises ``AssertionError`` unless the rows ``got`` (column -> values)
+    of a query of ``EXISTS_STDDEV_QUERIES`` equal its oracle ``exp`` on a
+    nonempty result (but q87's, empty from SF 0.1 on: the generator's
+    customers carry 8 distinct names, so every store (name, day) recurs
+    in another channel): integers and decimals exactly, doubles
+    (averages, stddevs, covs) within 1e-9 relative; a top 100 as the
+    oracle's first 100 by the query's sort keys, which order its rows
+    totally.  q39's
+    rows pass a cov threshold: where they differ from the oracle's, the
+    message names the oracle's rows whose cov lies within 1e-9 of a
+    threshold.  Returns what matched."""
+    def need(ok, what):
+        if not ok:
+            raise AssertionError(f"{query}: {what}")
+
+    n = len(next(iter(got.values())))
+    if query in ("q38", "q87"):
+        need(got["cnt"] == [exp] and (exp > 0 or query == "q87"), f"{got['cnt']} != oracle {exp}")
+        return f"{exp} (name, day) = oracle"
+    if query == "q84":
+        rows = list(zip(got["customer_id"], got["customername"]))
+        need(n > 0 and sorted(rows) == exp and got["customer_id"] == sorted(got["customer_id"]),
+             f"{rows[:5]}... != oracle {exp[:5]}...")
+        return f"{n} (customer, name) rows = oracle"
+    near = ()
+    if query in ("q39a", "q39b"):
+        exp, near = exp
+    need(n > 0 and len(exp) > 0, f"empty result ({n} rows, oracle {len(exp)})")
+    keys_of = {"q10": _Q10_CD, "q69": _Q10_CD[:5],
+               "q35": ("ca_state", "cd_gender", "cd_marital_status", "cd_dep_count", "cd_dep_employed_count",
+                       "cd_dep_college_count"),
+               "q39a": ("w_warehouse_name", "inv_item_sk"), "q39b": ("w_warehouse_name", "inv_item_sk")}
+    values_of = {"q10": ("cnt",), "q69": ("cnt",),
+                 "q35": ("cnt1",) + tuple(f"{m}{i}" for i in (1, 2, 3) for m in ("avg", "max", "sum")),
+                 "q25": ("store_sales_profit", "store_returns_loss", "catalog_sales_profit"),
+                 "q29": ("store_sales_quantity", "store_returns_quantity", "catalog_sales_quantity"),
+                 "q17": tuple(f"{leg}_qty_{m}" for leg in ("store", "returns", "catalog")
+                              for m in ("count", "avg", "stdev", "cov")),
+                 "q39a": ("mean", "cov", "mean2", "cov2"), "q39b": ("mean", "cov", "mean2", "cov2")}
+    keys = list(zip(*(got[c] for c in keys_of.get(query, ("i_item_id", "i_item_desc", "s_store_name")))))
+    rows = list(zip(*(got[c] for c in values_of[query])))
+    flat = {k: tuple(x for leg in e for x in leg) if query == "q17" else e if isinstance(e, tuple) else (e,)
+            for k, e in exp.items()}
+    bad = [k for k, r in zip(keys, rows) if k not in flat or not _all_close(r, flat[k])]
+    order_ok = keys == sorted(flat)[:100]
+    if bad or not order_ok:
+        missing = sorted(set(flat) - set(keys))[:5] if len(keys) < 100 else []
+        raise AssertionError(f"{query}: rows {bad[:5]} != oracle, first 100 in order: {order_ok}, oracle rows "
+                             f"missing {missing}; oracle rows within 1e-9 of a cov threshold: {list(near)}")
+    return f"{n} of {len(flat)} rows = oracle" + (f" ({len(near)} within 1e-9 of a threshold)" if near else "")
+
+
 def check_query(query: str, got: Dict[str, list], exp) -> str:
-    """:func:`check_rollup_union_query` for that family, else
+    """:func:`check_rollup_union_query` or
+    :func:`check_exists_stddev_query` for those families, else
     :func:`check_window_query`."""
     if query in ROLLUP_UNION_QUERIES:
         return check_rollup_union_query(query, got, exp)
+    if query in EXISTS_STDDEV_QUERIES:
+        return check_exists_stddev_query(query, got, exp)
     return check_window_query(query, got, exp)

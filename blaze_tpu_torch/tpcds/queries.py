@@ -10,7 +10,13 @@ and q70 (ROLLUP through ``ExpandExec`` and ``rank`` within the parent
 level), q67 (a nine-level ROLLUP ranked per category), q44 (two
 ``rank`` windows over one exchange, joined on the rank), q49 (three
 channels double-ranked and unioned) and q51 (running ``sum`` and
-``max`` around a FULL outer join).
+``max`` around a FULL outer join).  The rollup and union family
+(``ROLLUP_UNION_QUERIES``).  ``EXISTS_STDDEV_QUERIES``: q10, q35 and q69
+(a LEFT_SEMI and two EXISTENCE joins, each flag renamed by
+``RenameColumnsExec``), q38 and q87 (INTERSECT and EXCEPT as LEFT_SEMI
+and LEFT_ANTI joins on three columns), q25 and q29 (sums along a
+sold-returned-rebought chain), q17, q39a and q39b (``stddev_samp``) and
+q84 (``concat``).
 """
 
 from __future__ import annotations
@@ -20,8 +26,8 @@ from typing import Callable, Dict
 
 from ..exprs.ir import Case, Lit, col, func, lit
 from ..ops import (
-    AggFunction, ExecNode, ExpandExec, FilterExec, GroupingExpr, LimitExec, ProjectExec, SortExec, SortField,
-    UnionExec, WindowExec, WindowFunction,
+    AggFunction, ExecNode, ExpandExec, FilterExec, GroupingExpr, LimitExec, ProjectExec, RenameColumnsExec,
+    SortExec, SortField, UnionExec, WindowExec, WindowFunction,
 )
 from ..ops.joins import JoinType
 from ..parallel.exchange import NativeShuffleExchangeExec
@@ -1282,12 +1288,308 @@ def q23b(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
                                SortField(col("c_first_name"))], fetch=100)
 
 
+# ------------------------------------- EXISTS, INTERSECT and EXCEPT
+
+
+def _active_customer_set(t, n_parts, sales, date_col, cust_col, *, year, moys):
+    """DISTINCT customer keys of one channel in a (year, months) window:
+    the correlated EXISTS subquery of q10, q35 and q69."""
+    dt = FilterExec(t["date_dim"], (col("d_year") == lit(year)) & (col("d_moy") >= lit(moys[0]))
+                    & (col("d_moy") <= lit(moys[1])))
+    dt_p = ProjectExec(dt, [col("d_date_sk")])
+    sl = ProjectExec(t[sales], [col(date_col), col(cust_col)])
+    j = broadcast_join(dt_p, sl, [col("d_date_sk")], [col(date_col)], JoinType.INNER, build_is_left=True)
+    return two_stage_agg(ProjectExec(j, [col(cust_col)], ["cust_sk"]), [GroupingExpr(col("cust_sk"), "cust_sk")],
+                         [], n_parts)
+
+
+def _exists_or_channels(t, n_parts, cust, *, year, moys, combine=None):
+    """``cust`` with a store purchase (LEFT_SEMI), then a web and a
+    catalog EXISTENCE flag, each renamed from ``exists#0``, combined by
+    ``combine(ws, cs)`` (default OR: q10 and q35; q69 negates both): the
+    plan Spark makes of a correlated (NOT) EXISTS."""
+    ss_set = _active_customer_set(t, n_parts, "store_sales", "ss_sold_date_sk", "ss_customer_sk", year=year,
+                                  moys=moys)
+    ws_set = _active_customer_set(t, n_parts, "web_sales", "ws_sold_date_sk", "ws_bill_customer_sk", year=year,
+                                  moys=moys)
+    cs_set = _active_customer_set(t, n_parts, "catalog_sales", "cs_sold_date_sk", "cs_ship_customer_sk",
+                                  year=year, moys=moys)
+    ck = [col("c_customer_sk")]
+    j = broadcast_join(ss_set, cust, [col("cust_sk")], ck, JoinType.LEFT_SEMI, build_is_left=False)
+    for build, flag in ((ws_set, "exists_ws"), (cs_set, "exists_cs")):
+        j = broadcast_join(build, j, [col("cust_sk")], ck, JoinType.EXISTENCE, build_is_left=False)
+        j = RenameColumnsExec(j, [flag if n == "exists#0" else n for n in j.schema.names])
+    if combine is None:
+        combine = lambda ws, cs: ws | cs
+    return FilterExec(j, combine(col("exists_ws"), col("exists_cs")))
+
+
+def _county_customers(t, address_filter):
+    """Customers (key, address, demographics) whose current address
+    passes ``address_filter`` (LEFT_SEMI)."""
+    ca_p = ProjectExec(FilterExec(t["customer_address"], address_filter), [col("ca_address_sk")])
+    cust = ProjectExec(t["customer"], [col("c_customer_sk"), col("c_current_addr_sk"), col("c_current_cdemo_sk")])
+    return broadcast_join(ca_p, cust, [col("ca_address_sk")], [col("c_current_addr_sk")], JoinType.LEFT_SEMI,
+                          build_is_left=False)
+
+
+def _demographic_counts(j, n_parts, group_cols):
+    agg = two_stage_agg(j, [GroupingExpr(col(c), c) for c in group_cols],
+                        [AggFunction("count_star", None, "cnt")], n_parts)
+    return single_sorted(agg, [SortField(col(c)) for c in group_cols], fetch=100)
+
+
+def q10(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+    """Demographic counts of three counties' customers who bought in a
+    store and on the web or from the catalog in January-April 2002."""
+    cust = _county_customers(t, col("ca_county").isin(lit("Williamson County"), lit("Franklin Parish"),
+                                                      lit("Bronx County")))
+    act = _exists_or_channels(t, n_parts, cust, year=2002, moys=(1, 4))
+    j = broadcast_join(t["customer_demographics"], act, [col("cd_demo_sk")], [col("c_current_cdemo_sk")],
+                       JoinType.INNER, build_is_left=True)
+    return _demographic_counts(j, n_parts, ["cd_gender", "cd_marital_status", "cd_education_status",
+                                            "cd_purchase_estimate", "cd_credit_rating", "cd_dep_count",
+                                            "cd_dep_employed_count", "cd_dep_college_count"])
+
+
+def q35(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+    """q10's customers in every state, with avg/max/sum of their
+    dependant counts."""
+    ca_p = ProjectExec(t["customer_address"], [col("ca_address_sk"), col("ca_state")])
+    cust = ProjectExec(t["customer"], [col("c_customer_sk"), col("c_current_addr_sk"), col("c_current_cdemo_sk")])
+    cust = broadcast_join(ca_p, cust, [col("ca_address_sk")], [col("c_current_addr_sk")], JoinType.INNER,
+                          build_is_left=True)
+    act = _exists_or_channels(t, n_parts, cust, year=2002, moys=(1, 4))
+    deps = ("cd_dep_count", "cd_dep_employed_count", "cd_dep_college_count")
+    cd = ProjectExec(t["customer_demographics"],
+                     [col("cd_demo_sk"), col("cd_gender"), col("cd_marital_status")] + [col(c) for c in deps])
+    j = broadcast_join(cd, act, [col("cd_demo_sk")], [col("c_current_cdemo_sk")], JoinType.INNER,
+                       build_is_left=True)
+    group_cols = ["ca_state", "cd_gender", "cd_marital_status", *deps]
+    aggs = [AggFunction("count_star", None, "cnt1")]
+    for i, c in enumerate(deps, 1):
+        aggs += [AggFunction("avg", col(c), f"avg{i}"), AggFunction("max", col(c), f"max{i}"),
+                 AggFunction("sum", col(c), f"sum{i}")]
+    agg = two_stage_agg(j, [GroupingExpr(col(c), c) for c in group_cols], aggs, n_parts)
+    return single_sorted(agg, [SortField(col(c)) for c in group_cols], fetch=100)
+
+
+def q69(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+    """Three states' customers who bought in a store but neither on the
+    web nor from the catalog in January-March 2002 (NOT EXISTS)."""
+    cust = _county_customers(t, col("ca_state").isin(lit("TN"), lit("SD"), lit("AL")))
+    act = _exists_or_channels(t, n_parts, cust, year=2002, moys=(1, 3), combine=lambda ws, cs: ~ws & ~cs)
+    group_cols = ["cd_gender", "cd_marital_status", "cd_education_status", "cd_purchase_estimate",
+                  "cd_credit_rating"]
+    cd = ProjectExec(t["customer_demographics"], [col("cd_demo_sk")] + [col(c) for c in group_cols])
+    j = broadcast_join(cd, act, [col("cd_demo_sk")], [col("c_current_cdemo_sk")], JoinType.INNER,
+                       build_is_left=True)
+    return _demographic_counts(j, n_parts, group_cols)
+
+
+def _channel_customers(t, n_parts, sales, date_col, cust_col, year):
+    """DISTINCT (c_last_name, c_first_name, d_date) of one channel's
+    buyers in a year: q38's and q87's sets."""
+    dt_p = ProjectExec(FilterExec(t["date_dim"], col("d_year") == lit(year)), [col("d_date_sk"), col("d_date")])
+    cust = ProjectExec(t["customer"], [col("c_customer_sk"), col("c_last_name"), col("c_first_name")])
+    sl = ProjectExec(t[sales], [col(date_col), col(cust_col)])
+    j = broadcast_join(dt_p, sl, [col("d_date_sk")], [col(date_col)], JoinType.INNER, build_is_left=True)
+    j = broadcast_join(cust, j, [col("c_customer_sk")], [col(cust_col)], JoinType.INNER, build_is_left=True)
+    return two_stage_agg(j, [GroupingExpr(col(c), c) for c in ("c_last_name", "c_first_name", "d_date")], [],
+                         n_parts)
+
+
+_CHANNELS = (("store_sales", "ss_sold_date_sk", "ss_customer_sk"),
+             ("catalog_sales", "cs_sold_date_sk", "cs_bill_customer_sk"),
+             ("web_sales", "ws_sold_date_sk", "ws_bill_customer_sk"))
+
+
+def _channel_set_count(t, n_parts, join_type):
+    """count(*) of the store set LEFT_SEMI (INTERSECT) or LEFT_ANTI
+    (EXCEPT) joined to the catalog set, then to the web set, on all
+    three columns."""
+    ss, cs, ws = (_channel_customers(t, n_parts, s, d, c, year=2000) for s, d, c in _CHANNELS)
+    keys = [col("c_last_name"), col("c_first_name"), col("d_date")]
+    rows = broadcast_join(cs, ss, keys, keys, join_type, build_is_left=False)
+    rows = broadcast_join(ws, rows, keys, keys, join_type, build_is_left=False)
+    return two_stage_agg(rows, [], [AggFunction("count_star", None, "cnt")], n_parts)
+
+
+def q38(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+    """Customers (name, day) who bought in all three channels in 2000."""
+    return _channel_set_count(t, n_parts, JoinType.LEFT_SEMI)
+
+
+def q87(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+    """Customers (name, day) who bought in a store in 2000 but neither
+    from the catalog nor on the web that day."""
+    return _channel_set_count(t, n_parts, JoinType.LEFT_ANTI)
+
+
+# ------------------------------------- stddev, and the chain q17 shares
+
+
+def _srcandc_join(t, n_parts):
+    """A store line sold in 2000, returned in 2000-2002 and bought again
+    from the catalog in 2000-2002 by the returning customer, joined to
+    its store and item (q17, q25 and q29)."""
+    d1 = ProjectExec(FilterExec(t["date_dim"], col("d_year") == lit(2000)), [col("d_date_sk")])
+    years = (col("d_year") >= lit(2000)) & (col("d_year") <= lit(2002))
+    d2 = ProjectExec(FilterExec(t["date_dim"], years), [col("d_date_sk").alias("d2_sk")])
+    d3 = ProjectExec(FilterExec(t["date_dim"], years), [col("d_date_sk").alias("d3_sk")])
+    sl = ProjectExec(t["store_sales"], [col(c) for c in ("ss_sold_date_sk", "ss_item_sk", "ss_ticket_number",
+                                                          "ss_customer_sk", "ss_store_sk", "ss_net_profit",
+                                                          "ss_quantity")])
+    j = broadcast_join(d1, sl, [col("d_date_sk")], [col("ss_sold_date_sk")], JoinType.INNER, build_is_left=True)
+    sr = ProjectExec(t["store_returns"], [col(c) for c in ("sr_item_sk", "sr_ticket_number", "sr_customer_sk",
+                                                            "sr_returned_date_sk", "sr_net_loss",
+                                                            "sr_return_quantity")])
+    j = shuffle_join(j, sr, [col("ss_item_sk"), col("ss_ticket_number")],
+                     [col("sr_item_sk"), col("sr_ticket_number")], JoinType.INNER, n_parts, build_left=False)
+    j = broadcast_join(d2, j, [col("d2_sk")], [col("sr_returned_date_sk")], JoinType.INNER, build_is_left=True)
+    cs = ProjectExec(t["catalog_sales"], [col(c) for c in ("cs_sold_date_sk", "cs_bill_customer_sk", "cs_item_sk",
+                                                            "cs_net_profit", "cs_quantity")])
+    j = shuffle_join(j, cs, [col("sr_customer_sk"), col("sr_item_sk")],
+                     [col("cs_bill_customer_sk"), col("cs_item_sk")], JoinType.INNER, n_parts, build_left=True)
+    j = broadcast_join(d3, j, [col("d3_sk")], [col("cs_sold_date_sk")], JoinType.INNER, build_is_left=True)
+    st = ProjectExec(t["store"], [col("s_store_sk"), col("s_store_name")])
+    j = broadcast_join(st, j, [col("s_store_sk")], [col("ss_store_sk")], JoinType.INNER, build_is_left=True)
+    it = ProjectExec(t["item"], [col("i_item_sk"), col("i_item_id"), col("i_item_desc")])
+    return broadcast_join(it, j, [col("i_item_sk")], [col("ss_item_sk")], JoinType.INNER, build_is_left=True)
+
+
+_ITEM_STORE = ("i_item_id", "i_item_desc", "s_store_name")
+
+
+def _item_store_report(j, n_parts, aggs, project=None):
+    """``aggs`` per (item, store), optionally projected, the first 100
+    by the keys."""
+    agg = two_stage_agg(j, [GroupingExpr(col(c), c) for c in _ITEM_STORE], aggs, n_parts)
+    if project is not None:
+        agg = ProjectExec(agg, project)
+    return single_sorted(agg, [SortField(col(c)) for c in _ITEM_STORE], fetch=100)
+
+
+def _sales_returns_catalog(t, n_parts, *, sums, sum_names):
+    return _item_store_report(_srcandc_join(t, n_parts),
+                              n_parts, [AggFunction("sum", e, n) for e, n in zip(sums, sum_names)])
+
+
+def q25(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+    """The chain's store profit, return loss and catalog profit."""
+    return _sales_returns_catalog(t, n_parts, sums=[col("ss_net_profit"), col("sr_net_loss"), col("cs_net_profit")],
+                                  sum_names=["store_sales_profit", "store_returns_loss", "catalog_sales_profit"])
+
+
+def q29(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+    """q25's quantity twin."""
+    return _sales_returns_catalog(
+        t, n_parts,
+        sums=[col("ss_quantity").cast(i64), col("sr_return_quantity").cast(i64), col("cs_quantity").cast(i64)],
+        sum_names=["store_sales_quantity", "store_returns_quantity", "catalog_sales_quantity"])
+
+
+def _cov(sd, mean):
+    """sd / mean where the mean is positive, else null."""
+    return Case([(mean > lit(0.0), sd / mean)], None)
+
+
+def q17(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+    """Count, average, sample stddev and coefficient of variation of each
+    leg's quantity along the chain, per (item, store)."""
+    legs = (("ss_quantity", "store"), ("sr_return_quantity", "returns"), ("cs_quantity", "catalog"))
+    aggs, outs = [], [col(c) for c in _ITEM_STORE]
+    for src, nm in legs:
+        e = col(src).cast(i64)
+        aggs += [AggFunction("count", e, f"{nm}_qty_count"), AggFunction("avg", e, f"{nm}_qty_avg"),
+                 AggFunction("stddev_samp", e, f"{nm}_qty_stdev")]
+        avg, sd = col(f"{nm}_qty_avg"), col(f"{nm}_qty_stdev")
+        outs += [col(f"{nm}_qty_count"), avg, sd, _cov(sd, avg).alias(f"{nm}_qty_cov")]
+    return _item_store_report(_srcandc_join(t, n_parts), n_parts, aggs, outs)
+
+
+def _q39_monthly_cov(t, n_parts, moy):
+    """Per (warehouse, item), the mean and coefficient of variation of the
+    quantity on hand in one month of 2001."""
+    dt = ProjectExec(FilterExec(t["date_dim"], (col("d_year") == lit(2001)) & (col("d_moy") == lit(moy))),
+                     [col("d_date_sk")])
+    inv = ProjectExec(t["inventory"], [col(c) for c in ("inv_date_sk", "inv_item_sk", "inv_warehouse_sk",
+                                                         "inv_quantity_on_hand")])
+    j = broadcast_join(dt, inv, [col("d_date_sk")], [col("inv_date_sk")], JoinType.INNER, build_is_left=True)
+    wh = ProjectExec(t["warehouse"], [col("w_warehouse_sk"), col("w_warehouse_name")])
+    j = broadcast_join(wh, j, [col("w_warehouse_sk")], [col("inv_warehouse_sk")], JoinType.INNER,
+                       build_is_left=True)
+    agg = two_stage_agg(j, [GroupingExpr(col("w_warehouse_name"), "w_warehouse_name"),
+                            GroupingExpr(col("inv_item_sk"), "inv_item_sk")],
+                        [AggFunction("avg", col("inv_quantity_on_hand"), "mean"),
+                         AggFunction("stddev_samp", col("inv_quantity_on_hand"), "stdev")], n_parts)
+    return ProjectExec(agg, [col("w_warehouse_name"), col("inv_item_sk"), col("mean"),
+                             _cov(col("stdev"), col("mean")).alias("cov")])
+
+
+def _q39(t, n_parts, thr1, thr2):
+    """(warehouse, item) with a January cov over ``thr1`` and a February
+    cov over ``thr2``, both months side by side."""
+    m1 = FilterExec(_q39_monthly_cov(t, n_parts, 1), col("cov") > lit(thr1))
+    m2 = FilterExec(_q39_monthly_cov(t, n_parts, 2), col("cov") > lit(thr2))
+    m2 = ProjectExec(m2, [col("w_warehouse_name").alias("w2"), col("inv_item_sk").alias("i2"),
+                          col("mean").alias("mean2"), col("cov").alias("cov2")])
+    j = shuffle_join(m1, m2, [col("w_warehouse_name"), col("inv_item_sk")], [col("w2"), col("i2")],
+                     JoinType.INNER, n_parts, build_left=False)
+    proj = ProjectExec(j, [col(c) for c in ("w_warehouse_name", "inv_item_sk", "mean", "cov", "mean2", "cov2")])
+    return single_sorted(proj, [SortField(col("w_warehouse_name")), SortField(col("inv_item_sk"))], fetch=100)
+
+
+def q39a(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+    """cov > 0.7 in both January and February (the generator's stand-in
+    for the spec's 1)."""
+    return _q39(t, n_parts, 0.7, 0.7)
+
+
+def q39b(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+    """q39a with January's cut at 0.85 (the spec's 1.5, scaled)."""
+    return _q39(t, n_parts, 0.85, 0.7)
+
+
+# ---------------------------------------------------------------- concat
+
+
+def q84(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+    """Customers of one city in an income range, one row per store
+    return of their demographics, named ``concat(last, ", ", first)``."""
+    ca = ProjectExec(FilterExec(t["customer_address"], col("ca_city") == lit("Midway")), [col("ca_address_sk")])
+    cust = ProjectExec(t["customer"], [col(c) for c in ("c_customer_id", "c_first_name", "c_last_name",
+                                                         "c_current_addr_sk", "c_current_cdemo_sk",
+                                                         "c_current_hdemo_sk")])
+    j = broadcast_join(ca, cust, [col("ca_address_sk")], [col("c_current_addr_sk")], JoinType.INNER,
+                       build_is_left=True)
+    ib = FilterExec(t["income_band"], (col("ib_lower_bound") >= lit(38128))
+                    & (col("ib_upper_bound") <= lit(38128 + 50000)))
+    ib = ProjectExec(ib, [col("ib_income_band_sk")])
+    hd = ProjectExec(t["household_demographics"], [col("hd_demo_sk"), col("hd_income_band_sk")])
+    hd = broadcast_join(ib, hd, [col("ib_income_band_sk")], [col("hd_income_band_sk")], JoinType.INNER,
+                        build_is_left=True)
+    hd = ProjectExec(hd, [col("hd_demo_sk")])
+    j = broadcast_join(hd, j, [col("hd_demo_sk")], [col("c_current_hdemo_sk")], JoinType.INNER, build_is_left=True)
+    cd = ProjectExec(t["customer_demographics"], [col("cd_demo_sk")])
+    j = broadcast_join(cd, j, [col("cd_demo_sk")], [col("c_current_cdemo_sk")], JoinType.INNER, build_is_left=True)
+    sr = ProjectExec(t["store_returns"], [col("sr_cdemo_sk")])
+    j = shuffle_join(j, sr, [col("cd_demo_sk")], [col("sr_cdemo_sk")], JoinType.INNER, n_parts, build_left=True)
+    proj = ProjectExec(j, [col("c_customer_id").alias("customer_id"),
+                           func("concat", col("c_last_name"), lit(", "), col("c_first_name")).alias("customername")])
+    return single_sorted(proj, [SortField(col("customer_id"))], fetch=100)
+
+
 #: the window family, in the order the tests and the smoke run it
 WINDOW_QUERIES = ("q12", "q20", "q98", "q53", "q63", "q89", "q47", "q57", "q36", "q86", "q70", "q67", "q44", "q49",
                   "q51")
 #: the rollup and union family, in the order the tests and the smoke run it
 ROLLUP_UNION_QUERIES = ("q27", "q18", "q22", "q5", "q77", "q80", "q14a", "q33", "q56", "q60", "q71", "q76", "q66",
                         "q2", "q75", "q54", "q23a", "q23b")
+#: the EXISTS/INTERSECT/EXCEPT family (q10, q35, q69, q38, q87), the
+#: stddev family and the chain it shares (q17, q25, q29, q39a, q39b) and
+#: q84's concat, in the order the tests and the smoke run them
+EXISTS_STDDEV_QUERIES = ("q10", "q35", "q69", "q38", "q87", "q17", "q25", "q29", "q39a", "q39b", "q84")
 
 QUERIES: Dict[str, Callable[[Dict[str, ExecNode], int], ExecNode]] = {
     "q3": q3, "q7": q7,
@@ -1295,6 +1597,8 @@ QUERIES: Dict[str, Callable[[Dict[str, ExecNode], int], ExecNode]] = {
     "q36": q36, "q86": q86, "q70": q70, "q67": q67, "q44": q44, "q49": q49, "q51": q51,
     "q27": q27, "q18": q18, "q22": q22, "q5": q5, "q77": q77, "q80": q80, "q14a": q14a, "q33": q33, "q56": q56,
     "q60": q60, "q71": q71, "q76": q76, "q66": q66, "q2": q2, "q75": q75, "q54": q54, "q23a": q23a, "q23b": q23b,
+    "q10": q10, "q35": q35, "q69": q69, "q38": q38, "q87": q87, "q17": q17, "q25": q25, "q29": q29, "q39a": q39a,
+    "q39b": q39b, "q84": q84,
 }
 
 

@@ -91,8 +91,24 @@ Needs one CUDA card and ``nvcc`` (``/usr/local/cuda``).  In order, it:
    returns, LEFT_SEMI joins on aggregated build sides, decimal scalar
    subqueries, q22's 23.49M inventory rows) the same way, and q23a and
    q23b again at SF 0.002 (from SF 0.01 on they select nothing: ROADMAP
-   queue C, reference defect 14);
-8. reads the CUPTI device time of every timed call in one
+   queue C, reference defect 14); then q10, q35, q69, q38, q87, q17,
+   q25, q29, q39a, q39b and q84 (two EXISTENCE joins renamed by
+   ``RenameColumnsExec``, INTERSECT and EXCEPT as LEFT_SEMI/LEFT_ANTI on
+   three columns, ``stddev_samp`` over ``inventory`` twice, ``concat``)
+   the same way, q17's, q39a's and q39b's doubles within 1e-9 relative
+   between the paths, and q87 again at SF 0.01 (from SF 0.1 on it
+   selects nothing: the generator's customers carry 8 distinct names);
+8. the null-key phase: ``store_sales`` at ``--ds-scale`` with its -1
+   ``ss_customer_sk`` exposed as nulls (``with_null_fks``), through
+   ``split_stages``/``run_stages``: an ``IS NULL`` count, a group by
+   the key with one null group (its exchange through ``murmur3_pids``
+   with nulls present), an INNER join to ``customer`` that drops them
+   (its probe through ``sorted_lookup``) and a LEFT join that
+   null-extends them, each equal to a numpy count; then
+   ``murmur3_pids`` on that key column, held to its plain version, its
+   null rows in the seed's partition, and ``sorted_lookup`` on the
+   largest table and probe the joins gave it;
+9. reads the CUPTI device time of every timed call in one
    ``torch.profiler`` session, and counts every device operation one
    ``pid_histogram`` call issues on each path (one on paths (a) and
    (b), or it fails); then runs q01 and q03 in process under each A/B
@@ -101,9 +117,10 @@ Needs one CUDA card and ``nvcc`` (``/usr/local/cuda``).  In order, it:
    each run, its device operations, the kernels that take its time, and
    the hand-written kernels' device time at the shapes the query gives
    them;
-9. prints where each phase ended on the host clock, the ``kernels``
-   JSON line (launches summed over every query in process, and per
-   query on each path), then ``{"ok": true, ...}`` last.
+10. prints where each phase ended on the host clock, the ``kernels``
+   JSON line (launches summed over the 68 queries in process, and per
+   query on each path; the null-key phase's apart), then
+   ``{"ok": true, ...}`` last.
 
 Any failure raises and exits nonzero before the last line; without a
 CUDA card it exits 2.  Nothing here imports JAX or ``blaze_tpu``.
@@ -734,6 +751,40 @@ QUERY_COLUMNS.update({
     "ds_q23a": _Q23,
     "ds_q23b": {**_Q23, "customer": ("c_customer_sk", "c_last_name", "c_first_name")},
 })
+_ACTIVE = {"date_dim": _YM, "customer": ("c_customer_sk", "c_current_addr_sk", "c_current_cdemo_sk"),
+           "store_sales": ("ss_sold_date_sk", "ss_customer_sk"),
+           "web_sales": ("ws_sold_date_sk", "ws_bill_customer_sk"),
+           "catalog_sales": ("cs_sold_date_sk", "cs_ship_customer_sk")}
+_CHAIN = {"date_dim": ("d_date_sk", "d_year"), "store": ("s_store_sk", "s_store_name"),
+          "item": ("i_item_sk", "i_item_id", "i_item_desc"),
+          "store_sales": ("ss_sold_date_sk", "ss_item_sk", "ss_ticket_number", "ss_customer_sk", "ss_store_sk",
+                          "ss_net_profit", "ss_quantity"),
+          "store_returns": ("sr_item_sk", "sr_ticket_number", "sr_customer_sk", "sr_returned_date_sk",
+                            "sr_net_loss", "sr_return_quantity"),
+          "catalog_sales": ("cs_sold_date_sk", "cs_bill_customer_sk", "cs_item_sk", "cs_net_profit", "cs_quantity")}
+_SETS = {"date_dim": ("d_date_sk", "d_year", "d_date"), "customer": ("c_customer_sk", "c_last_name", "c_first_name"),
+         "store_sales": ("ss_sold_date_sk", "ss_customer_sk"), "catalog_sales": ("cs_sold_date_sk", "cs_bill_customer_sk"),
+         "web_sales": ("ws_sold_date_sk", "ws_bill_customer_sk")}
+_Q39 = {"date_dim": _YM, "inventory": ("inv_date_sk", "inv_item_sk", "inv_warehouse_sk", "inv_quantity_on_hand"),
+        "warehouse": ("w_warehouse_sk", "w_warehouse_name")}
+_DEPS = ("cd_dep_count", "cd_dep_employed_count", "cd_dep_college_count")
+_DEMO5 = ("cd_demo_sk", "cd_gender", "cd_marital_status", "cd_education_status", "cd_purchase_estimate",
+          "cd_credit_rating")
+# EXISTS, INTERSECT and EXCEPT; stddev and the chain it shares; concat
+QUERY_COLUMNS.update({
+    "ds_q10": {**_ACTIVE, "customer_address": ("ca_address_sk", "ca_county"), "customer_demographics": _DEMO5 + _DEPS},
+    "ds_q35": {**_ACTIVE, "customer_address": ("ca_address_sk", "ca_state"),
+               "customer_demographics": ("cd_demo_sk", "cd_gender", "cd_marital_status") + _DEPS},
+    "ds_q69": {**_ACTIVE, "customer_address": ("ca_address_sk", "ca_state"), "customer_demographics": _DEMO5},
+    "ds_q38": _SETS, "ds_q87": _SETS, "ds_q17": _CHAIN, "ds_q25": _CHAIN, "ds_q29": _CHAIN,
+    "ds_q39a": _Q39, "ds_q39b": _Q39,
+    "ds_q84": {"customer_address": ("ca_address_sk", "ca_city"),
+               "customer": ("c_customer_id", "c_first_name", "c_last_name", "c_current_addr_sk", "c_current_cdemo_sk",
+                            "c_current_hdemo_sk"),
+               "income_band": ("ib_income_band_sk", "ib_lower_bound", "ib_upper_bound"),
+               "household_demographics": ("hd_demo_sk", "hd_income_band_sk"),
+               "customer_demographics": ("cd_demo_sk",), "store_returns": ("sr_cdemo_sk",)},
+})
 TPCH_QUERIES = ("q6", "q1", "q3", "q4", "q5", "q10", "q12", "q14", "q19")
 DS_QUERIES = ("ds_q3", "ds_q7")
 # the rest of TPC-H; they run on the tables with dbgen's p_name,
@@ -748,14 +799,22 @@ WINDOW_QUERIES = tuple(f"ds_{q}" for q in ("q12", "q20", "q98", "q53", "q63", "q
 # literals and UnionExec over channels of sales and returns
 ROLLUP_UNION_QUERIES = tuple(f"ds_{q}" for q in ("q27", "q18", "q22", "q5", "q77", "q80", "q14a", "q33", "q56", "q60",
                                                  "q71", "q76", "q66", "q2", "q75", "q54", "q23a", "q23b"))
+# TPC-DS's EXISTS, INTERSECT/EXCEPT, stddev and concat queries
+EXISTS_STDDEV_QUERIES = tuple(f"ds_{q}" for q in ("q10", "q35", "q69", "q38", "q87", "q17", "q25", "q29", "q39a",
+                                                  "q39b", "q84"))
 # q23a and q23b are empty from SF 0.01 on (the generator's -1 customer
 # spends the most): they run again at this scale, where they are not
 Q23_QUERIES, Q23_SCALE = ("ds_q23a", "ds_q23b"), 0.002
+# q87 is empty from SF 0.1 on (the generator's customers carry 8
+# distinct names, so every store (name, day) recurs in another channel):
+# it runs again at this scale, where it is not
+Q87_QUERIES, Q87_SCALE = ("ds_q87",), 0.01
 # the queries that run a scalar subquery while their plan is built
 SUBQUERY_QUERIES = ("q11", "q15", "q22", "ds_q44", "ds_q77", "ds_q14a", "ds_q54", "ds_q23a", "ds_q23b")
 # the queries whose two paths sum doubles in another order (q18's
-# averages of casts to double): their rows agree within 1e-9 relative
-FLOAT_SUM_QUERIES = ("ds_q18",)
+# averages of casts to double; q17's and q39's stddevs merge their
+# states in another order): their rows agree within 1e-9 relative
+FLOAT_SUM_QUERIES = ("ds_q18", "ds_q17", "ds_q39a", "ds_q39b")
 # the kernels each query must launch, and those it must not
 EXPECTED_LAUNCHES = {
     "q6": ((), ("murmur3_pids", "pid_histogram", "sorted_lookup")),
@@ -775,6 +834,12 @@ EXPECTED_LAUNCHES = {
        for q in ("ds_q27", "ds_q18", "ds_q22", "ds_q56", "ds_q60", "ds_q71", "ds_q76", "ds_q66")},
     **{q: (("murmur3_pids", "pid_histogram", "sorted_lookup"), ())
        for q in ("ds_q5", "ds_q77", "ds_q80", "ds_q14a", "ds_q33", "ds_q2", "ds_q75", "ds_q54", "ds_q23a", "ds_q23b")},
+    # int64 customer keys under the EXISTS sets, int keys on the chain's
+    # shuffled joins and q84's
+    **{q: (("murmur3_pids", "pid_histogram", "sorted_lookup"), ())
+       for q in ("ds_q10", "ds_q35", "ds_q69", "ds_q17", "ds_q25", "ds_q29", "ds_q84")},
+    # a string key on every hash exchange (names; the warehouse name)
+    **{q: (("pid_histogram", "sorted_lookup"), ("murmur3_pids",)) for q in ("ds_q38", "ds_q87", "ds_q39a", "ds_q39b")},
 }
 
 
@@ -1080,7 +1145,7 @@ def check_oracle(data, query: str, got: dict) -> str:
         return f"promo_revenue {exact} (unscaled, scale 6) = 10^8 sp / sr of the oracle's sums"
     if query in NEW_QUERIES:
         return check_new_query(query, got, exp, need)
-    if query in WINDOW_QUERIES + ROLLUP_UNION_QUERIES:
+    if query in WINDOW_QUERIES + ROLLUP_UNION_QUERIES + EXISTS_STDDEV_QUERIES:
         from blaze_tpu_torch.tpcds.oracle import check_query
 
         return check_query(query[3:], got, exp)
@@ -1552,6 +1617,116 @@ def ds_phase(torch, cuda_ops, card: str, label: str, queries, data, scale: float
     return out
 
 
+NULL_KEY_CHECKS = ("is null", "null group", "inner join", "left join")
+
+
+def null_key_plan(check: str, sales, customer, n_parts: int):
+    """One of the four checks of the null-key phase over the scans
+    ``sales`` (``ss_customer_sk``, null keys) and ``customer``."""
+    from blaze_tpu_torch.exprs import col
+    from blaze_tpu_torch.ops import AggFunction, FilterExec, GroupingExpr
+    from blaze_tpu_torch.ops.joins import JoinType
+    from blaze_tpu_torch.tpch.queries import broadcast_join, two_stage_agg
+
+    count = [AggFunction("count_star", None, "n")]
+    if check == "is null":
+        return two_stage_agg(FilterExec(sales, col("ss_customer_sk").is_null()), [], count, 1)
+    if check == "null group":
+        return two_stage_agg(sales, [GroupingExpr(col("ss_customer_sk"), "k")], count, n_parts)
+    j = broadcast_join(customer, sales, [col("c_customer_sk")], [col("ss_customer_sk")],
+                       JoinType.INNER if check == "inner join" else JoinType.LEFT, build_is_left=False)
+    if check == "left join":
+        j = FilterExec(j, col("c_customer_sk").is_null())
+    return two_stage_agg(j, [], count, 1)
+
+
+def null_key_phase(torch, cuda_ops, flush, card: str, data, scale: float, n_parts: int, batch_rows: int):
+    """``store_sales`` with its -1 customer keys exposed as nulls
+    (``with_null_fks``) through split_stages/run_stages: the four checks
+    of the reference's end-to-end null-key test, each equal to a numpy
+    count, with its launches (counts reset just before each).  Then
+    ``murmur3_pids`` on the key column, held to its plain version, its
+    null rows in the seed's partition (pmod(42, 8)), and
+    ``sorted_lookup`` held to its plain version on the largest table and
+    probe the joins gave it.  Returns (launches by check, kernel
+    checks)."""
+    import numpy as np
+
+    from blaze_tpu_torch.batch import batch_to_pydict, table_to_batches
+    from blaze_tpu_torch.ops import MemoryScanExec
+    from blaze_tpu_torch.runtime.context import RESOURCES
+    from blaze_tpu_torch.runtime.scheduler import run_stages, split_stages
+    from blaze_tpu_torch.schema import Schema
+    from blaze_tpu_torch.tpcds import TPCDS_SCHEMAS
+    from blaze_tpu_torch.tpcds.datagen import with_null_fks
+
+    ss = with_null_fks({"ss_customer_sk": data["store_sales"]["ss_customer_sk"]}, ["ss_customer_sk"])
+    fk, valid = ss["ss_customer_sk"][0], ss["ss_customer_sk"][2]
+    customers = data["customer"]["c_customer_sk"][0]
+    known = valid & np.isin(fk, customers)
+    keys, counts = np.unique(fk[valid], return_counts=True)
+    want = {"is null": {None: int((~valid).sum())},
+            "null group": {**dict(zip(keys.tolist(), counts.tolist())), None: int((~valid).sum())},
+            "inner join": {None: int(known.sum())}, "left join": {None: int((~known).sum())}}
+    ss_schema = Schema([TPCDS_SCHEMAS["store_sales"].field("ss_customer_sk")])
+    c_schema = Schema([TPCDS_SCHEMAS["customer"].field("c_customer_sk")])
+    sales = MemoryScanExec(table_to_batches(ss, ss_schema, n_parts, batch_rows, device="cuda"), ss_schema,
+                           device="cuda")
+    customer = MemoryScanExec(table_to_batches({"c_customer_sk": data["customer"]["c_customer_sk"]}, c_schema, 1,
+                                               batch_rows, device="cuda"), c_schema, device="cuda")
+    runs = {}
+    with largest_inputs(cuda_ops) as seen:
+        for check in NULL_KEY_CHECKS:
+            cuda_ops.reset_launch_counts()
+            plan = null_key_plan(check, sales, customer, n_parts)
+            stages, manager = split_stages(plan)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            batches = list(run_stages(stages, manager))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            runs[check] = dict(cuda_ops.LAUNCHES)
+            got: Dict[str, list] = {"k": [], "n": []}
+            for b in batches:
+                for k, v in batch_to_pydict(b).items():
+                    got[k].extend(v)
+            rows = dict(zip(got["k"] if check == "null group" else [None] * len(got["n"]), got["n"]))
+            if rows != want[check] or len(rows) != len(got["n"]) or len(RESOURCES):
+                raise AssertionError(f"null keys, {check}: {len(rows)} rows != numpy's {len(want[check])} "
+                                     f"(null row: {rows.get(None)} against {want[check].get(None)})")
+            launched = {"null group": ("murmur3_pids", "pid_histogram"),
+                        "inner join": ("sorted_lookup",), "left join": ("sorted_lookup",)}.get(check, ())
+            require_launches(f"null keys, {check}", runs[check], launched)
+            log(f"null keys, {check} (TPC-DS SF{scale} store_sales, {int((~valid).sum())} of {fk.shape[0]} "
+                f"customer keys null) through run_stages: = numpy ({len(rows)} rows, null row "
+                f"{rows.get(None)}); wall {wall:.4f} s on {card}; launches {runs[check]}")
+    # the key column's hash pids on the card: kernel = plain, nulls at the seed
+    col = sales._partitions[0][0].columns[0]
+    planes, widths = zip(*[cuda_ops.column_word_planes(col)])
+    r = check_murmur3(torch, cuda_ops, flush, list(planes), list(widths), [col.validity],
+                      f"ss_customer_sk with {int((~col.validity[:sales._partitions[0][0].num_rows]).sum())} nulls",
+                      timed=False, n_parts=n_parts)
+    pids = cuda_ops.murmur3_pids(list(planes), list(widths), [col.validity], n_parts)
+    at_seed = pids[~col.validity]
+    if not bool((at_seed == 42 % n_parts).all()):
+        raise AssertionError(f"null keys: murmur3_pids put null rows in partitions {at_seed.unique().tolist()}, "
+                             f"not the seed's {42 % n_parts}")
+    checks = [("murmur3_pids", r)]
+    probed = set()
+    for key, (_, (table, probe)) in sorted((k, v) for k, v in seen.items() if k.startswith("sorted_lookup")):
+        if id(probe) in probed:
+            continue
+        probed.add(id(probe))
+        nulls = int((probe == -1).sum())
+        checks.append(("sorted_lookup", check_sorted_lookup(torch, cuda_ops, flush, table, probe,
+                                                            f"(null keys, {key[14:]}, {nulls} null probes)",
+                                                            timed=False)))
+    for name, c in checks:
+        log_check(name, c)
+    del sales, customer
+    return runs, checks
+
+
 def query_label(query: str) -> str:
     """q6 -> "q06", ds_q7 -> "TPC-DS q07", ds_q14a -> "TPC-DS q14a"."""
     bench, name = ("TPC-DS ", query[3:]) if query.startswith("ds_") else ("", query)
@@ -1636,7 +1811,8 @@ def main() -> int:
     t0 = time.perf_counter()
     data = query_data(TPCH_QUERIES + NEW_QUERIES, args.scale, ds=False)
     new_data = spec_data(data, args.scale)
-    ds_data = query_data(DS_QUERIES + WINDOW_QUERIES + ROLLUP_UNION_QUERIES, args.ds_scale, ds=True)
+    ds_data = query_data(DS_QUERIES + WINDOW_QUERIES + ROLLUP_UNION_QUERIES + EXISTS_STDDEV_QUERIES, args.ds_scale,
+                         ds=True)
     log(f"data at TPC-H SF{args.scale}, TPC-DS SF{args.ds_scale}: " + ", ".join(
         f"{k} {next(iter(v.values()))[0].shape[0]} rows" for k, v in (*data.items(), *ds_data.items()))
         + f" ({time.perf_counter() - t0:.1f} s)")
@@ -1812,6 +1988,19 @@ def main() -> int:
              Q23_SCALE, n_parts, batch_rows, {}, {})
 
     phases.append(("rollup and union queries", time.perf_counter() - T0))
+    # ---- TPC-DS's EXISTS, INTERSECT/EXCEPT, stddev and concat queries on both paths
+    ds_phase(torch, cuda_ops, card, "exists/stddev", EXISTS_STDDEV_QUERIES, ds_data, args.ds_scale, n_parts,
+             batch_rows, runs, sched_runs)
+    ds_phase(torch, cuda_ops, card, "exists/stddev", Q87_QUERIES, query_data(Q87_QUERIES, Q87_SCALE, ds=True),
+             Q87_SCALE, n_parts, batch_rows, {}, {})
+
+    phases.append(("exists and stddev queries", time.perf_counter() - T0))
+    # ---- real null foreign keys through run_stages, and the kernels on them
+    null_runs, null_checks = null_key_phase(torch, cuda_ops, flush, card, ds_data, args.ds_scale, n_parts,
+                                            batch_rows)
+    checks += null_checks
+
+    phases.append(("null keys", time.perf_counter() - T0))
     # ---- the redesigned kernels again, on the largest inputs q01 and q03 gave them
     at_query: Dict[str, list] = {"murmur3_pids": [], "sorted_lookup": [], "pid_histogram": []}
     for query, seen in (("q01", q1_inputs), ("q03", q3_inputs)):
@@ -1900,6 +2089,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": f"blaze_tpu_torch/csrc/{src}",
             "replaces": f"blaze_tpu/kernels/pallas_ops.py:{line}",
             "launches": sum(run[name] for run in runs.values()),
+            "launches_null_keys": {check: run[name] for check, run in null_runs.items()},
             "launches_by_query": {query_label(q): run[name] for q, run in runs.items()},
             "launches_run_stages": {query_label(q): run[name] for q, run in sched_runs.items()},
             "shape": r["shape"], "max_abs_err": errs[name], "ms": r["ms"], "plain_ms": r["plain_ms"],
