@@ -58,6 +58,7 @@
 
 #include <cstdint>
 #include <cuda_runtime.h>
+#include <mutex>
 
 namespace {
 
@@ -195,11 +196,17 @@ int launch(const int32_t* pids, int64_t n, int32_t n_parts, int32_t* out, unsign
   auto kernel = pid_histogram_kernel<kBins>;
   const size_t smem = kBins > 0 ? 0 : static_cast<size_t>(n_parts) * sizeof(int32_t);
   cudaError_t err;
-  // above 48 KB a launch is refused unless the kernel opts in
-  if (smem > 48 * 1024 &&
-      (err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem))) !=
-          cudaSuccess)
-    return static_cast<int>(err);
+  // above 48 KB a launch is refused unless the kernel opts in; the
+  // opt-in is the kernel's attribute, so host threads that launch at
+  // once hold the lock from setting it to launching
+  static std::mutex opt_in;
+  std::unique_lock<std::mutex> hold(opt_in, std::defer_lock);
+  if (smem > 48 * 1024) {
+    hold.lock();
+    if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem))) !=
+        cudaSuccess)
+      return static_cast<int>(err);
+  }
   int resident = 0;
   if (const int e = resident_blocks(reinterpret_cast<const void*>(kernel), smem, &resident)) return e;
   const int64_t rows_per_block = static_cast<int64_t>(kThreads) * 4 * kLoads;

@@ -48,6 +48,7 @@
 
 #include <cstdint>
 #include <cuda_runtime.h>
+#include <mutex>
 
 namespace {
 
@@ -271,7 +272,13 @@ extern "C" int blaze_sorted_lookup(const void* table, int64_t t, int32_t log2_st
   const void* kernel = vec ? reinterpret_cast<const void*>(&sorted_lookup_kernel<true>)
                            : reinterpret_cast<const void*>(&sorted_lookup_kernel<false>);
   cudaError_t err;
+  // The opt-in above 48 KB is the kernel's attribute, not the launch's:
+  // host threads that launch at once (parallel map tasks) hold the lock
+  // from setting it to launching, or one may lower it under another.
+  static std::mutex opt_in;
+  std::unique_lock<std::mutex> hold(opt_in, std::defer_lock);
   if (smem > 48 * 1024) {
+    hold.lock();
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);

@@ -6,7 +6,9 @@ code reused: its own copy of ``blaze_tpu/tpcds/oracle.py``'s
 q51) and of the rollup and union family's (q27, q18, q22, q5, q77, q80,
 q14a, q33, q56, q60, q71, q76, q66, q2, q75, q54, q23a, q23b) and of
 ``EXISTS_STDDEV_QUERIES``' (q10, q35, q69, q38, q87, q17, q25, q29,
-q39a, q39b, q84), which return what the reference's return (q18's
+q39a, q39b, q84) and ``REPORT_QUERIES``' (but q43's and q61's sums of
+no sale, null here as in SQL, 0 in the reference's), which return what
+the reference's return (q18's
 double averages and q17's and q39's stddevs within 1e-9 relative: these
 compute a variance exactly in integers and round once, the reference's
 from a float sum of squares; q39's also list the rows near a cov
@@ -21,54 +23,31 @@ from __future__ import annotations
 
 import datetime
 import math
-from collections import defaultdict
+from collections import Counter, defaultdict
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
 from ..tpch.oracle import _round_half_up, _s_eq, _s_isin, _sv
-from .queries import EXISTS_STDDEV_QUERIES, ROLLUP_UNION_QUERIES
+from .queries import EXISTS_STDDEV_QUERIES, REPORT_QUERIES, ROLLUP_UNION_QUERIES
 
 
 def _brand_rollup(tables, *, year, moy, item_filter_col, item_filter_val, group_cols):
-    """Shared star-join: date slice × item slice × store_sales, grouped
-    sums of ss_ext_sales_price."""
-    dd = tables["date_dim"]
-    it = tables["item"]
-    ss = tables["store_sales"]
-
+    """{(d_year, the item's ``group_cols``): sum of ss_ext_sales_price}
+    over one month (of one year, unless ``year`` is None) and the items
+    whose ``item_filter_col`` is ``item_filter_val`` (q3, q42, q52,
+    q55)."""
+    dd, it, ss = tables["date_dim"], tables["item"], tables["store_sales"]
     d_mask = dd["d_moy"][0] == moy
     if year is not None:
         d_mask &= dd["d_year"][0] == year
-    d_sk = dd["d_date_sk"][0][d_mask]
-    d_year_by_sk = dict(zip(d_sk.tolist(), dd["d_year"][0][d_mask].tolist()))
-
-    i_mask = it[item_filter_col][0] == item_filter_val
-    i_sk = it["i_item_sk"][0][i_mask]
-    group_by_sk = {}
-    gvals = []
-    for gc in group_cols:
-        if it[gc][1] is not None:  # string col
-            gvals.append(np.array(_sv(it, gc)))
-        else:
-            gvals.append(it[gc][0])
-    for idx in np.flatnonzero(i_mask):
-        group_by_sk[int(it["i_item_sk"][0][idx])] = tuple(
-            (gv[idx] if isinstance(gv[idx], str) else int(gv[idx])) for gv in gvals
-        )
-
-    sums: Dict[tuple, int] = {}
-    date_sk = ss["ss_sold_date_sk"][0]
-    item_sk = ss["ss_item_sk"][0]
-    price = ss["ss_ext_sales_price"][0]
-    for i in range(date_sk.shape[0]):
-        dsk = int(date_sk[i])
-        isk = int(item_sk[i])
-        if dsk not in d_year_by_sk or isk not in group_by_sk:
-            continue
-        key = (d_year_by_sk[dsk],) + group_by_sk[isk]
-        sums[key] = sums.get(key, 0) + int(price[i])
-    return sums
+    dates = _dim(dd, "d_date_sk", dd["d_year"][0].tolist(), d_mask)
+    labels = list(zip(*(_sv(it, c) if it[c][1] is not None else it[c][0].tolist() for c in group_cols)))
+    items = _dim(it, "i_item_sk", labels, it[item_filter_col][0] == item_filter_val)
+    dc, ic = _fact_code(dates, ss["ss_sold_date_sk"][0]), _fact_code(items, ss["ss_item_sk"][0])
+    m = _keep(dc, ic)
+    (gd, gi), (s,) = _group_sums([dc[m], ic[m]], [ss["ss_ext_sales_price"][0][m]])
+    return {(dates[2][d],) + items[2][i]: v for d, i, v in zip(gd.tolist(), gi.tolist(), s.tolist())}
 
 
 def oracle_q3(tables):
@@ -1490,6 +1469,542 @@ def oracle_q84(tables):
     return sorted(rows)[:100]
 
 
+# ------------------------------------------------- single-fact reports
+
+
+def _strs(table, name: str, rows) -> List[str]:
+    """The string column ``name`` at ``rows`` only."""
+    data, lengths = table[name]
+    return [bytes(data[r, :lengths[r]]).decode() for r in rows]
+
+
+def _days_where(tables, **equal) -> np.ndarray:
+    """The date_sk of the days whose date_dim columns equal ``equal``'s
+    values."""
+    dd = tables["date_dim"]
+    m = np.ones(dd["d_date_sk"][0].shape[0], bool)
+    for c, v in equal.items():
+        m &= dd[c][0] == v
+    return dd["d_date_sk"][0][m]
+
+
+def oracle_q52(tables):
+    return _brand_rollup(tables, year=2000, moy=11, item_filter_col="i_manager_id", item_filter_val=1,
+                         group_cols=["i_brand_id", "i_brand"])
+
+
+def oracle_q55(tables):
+    return _brand_rollup(tables, year=1999, moy=11, item_filter_col="i_manager_id", item_filter_val=28,
+                         group_cols=["i_brand_id", "i_brand"])
+
+
+def oracle_q42(tables):
+    return _brand_rollup(tables, year=2000, moy=11, item_filter_col="i_manager_id", item_filter_val=1,
+                         group_cols=["i_category_id", "i_category"])
+
+
+def oracle_q19(tables):
+    """{(brand id, brand, manufact id, manufact): sum}: November 1998
+    store sales of manager 8's items to buyers whose 5-digit zip is not
+    the store's."""
+    it, cu, ca, st, ss = (tables[k] for k in ("item", "customer", "customer_address", "store", "store_sales"))
+    labels = list(zip(it["i_brand_id"][0].tolist(), _sv(it, "i_brand"), it["i_manufact_id"][0].tolist(),
+                      _sv(it, "i_manufact")))
+    items = _dim(it, "i_item_sk", labels, it["i_manager_id"][0] == 8)
+    # one code space for both zips
+    zc, _ = _codes([z[:5] for z in _sv(ca, "ca_zip")] + [z[:5] for z in _sv(st, "s_zip")])
+    n_ca = ca["ca_address_sk"][0].shape[0]
+    m = np.isin(ss["ss_sold_date_sk"][0], _days_where(tables, d_moy=11, d_year=1998))
+    ic = _fact_code(items, ss["ss_item_sk"][0])
+    cu_row = _rows_of(cu["c_customer_sk"][0], ss["ss_customer_sk"][0])
+    cz = _fact_code((ca["ca_address_sk"][0], zc[:n_ca], None), cu["c_current_addr_sk"][0][np.maximum(cu_row, 0)])
+    sz = _fact_code((st["s_store_sk"][0], zc[n_ca:], None), ss["ss_store_sk"][0])
+    m &= _keep(ic, cu_row, cz, sz) & (cz != sz)
+    return {k: v[0] for k, v in _label_sums(np.where(m, ic, -1), items[2], [ss["ss_ext_sales_price"][0]]).items()}
+
+
+def oracle_q43(tables):
+    """{store name: [Sunday..Saturday sums]}: the store sales of 2000; a
+    weekday with no sale sums to None, as the engine's sum of no value."""
+    dd, st, ss = tables["date_dim"], tables["store"], tables["store_sales"]
+    d_row = _rows_of(dd["d_date_sk"][0], ss["ss_sold_date_sk"][0])
+    stores = _dim(st, "s_store_sk", _sv(st, "s_store_name"))
+    sc = _fact_code(stores, ss["ss_store_sk"][0])
+    m = _keep(d_row, sc)
+    d_row = np.maximum(d_row, 0)
+    m &= dd["d_year"][0][d_row] == 2000
+    (g, dow), (s,) = _group_sums([sc[m], dd["d_dow"][0][d_row][m]], [ss["ss_sales_price"][0][m]])
+    out: Dict[str, list] = {}
+    for c, k, v in zip(g.tolist(), dow.tolist(), s.tolist()):
+        out.setdefault(stores[2][c], [None] * 7)[k] = v
+    return out
+
+
+def oracle_q96(tables) -> int:
+    """The count of store sales at 20:30-20:59 to 7-dependant households
+    at the stores named "ese"."""
+    td, hd, st, ss = (tables[k] for k in ("time_dim", "household_demographics", "store", "store_sales"))
+    m = np.isin(ss["ss_sold_time_sk"][0], td["t_time_sk"][0][(td["t_hour"][0] == 20) & (td["t_minute"][0] >= 30)])
+    m &= np.isin(ss["ss_hdemo_sk"][0], hd["hd_demo_sk"][0][hd["hd_dep_count"][0] == 7])
+    m &= np.isin(ss["ss_store_sk"][0], st["s_store_sk"][0][_s_eq(st, "s_store_name", "ese")])
+    return int(m.sum())
+
+
+def oracle_q26(tables):
+    """{item id: (avg quantity, avg list price, avg coupon, avg sales
+    price)}: q7's over ``catalog_sales``; decimal averages unscaled at
+    scale 6, exact HALF_UP."""
+    cd, pr, it, cs = (tables[k] for k in ("customer_demographics", "promotion", "item", "catalog_sales"))
+    cd_ok = (_s_eq(cd, "cd_gender", "M") & _s_eq(cd, "cd_marital_status", "S")
+             & _s_eq(cd, "cd_education_status", "College"))
+    p_ok = _s_eq(pr, "p_channel_email", "N") | _s_eq(pr, "p_channel_event", "N")
+    items = _dim(it, "i_item_sk", _sv(it, "i_item_id"))
+    m = (np.isin(cs["cs_bill_cdemo_sk"][0], cd["cd_demo_sk"][0][cd_ok])
+         & np.isin(cs["cs_sold_date_sk"][0], _days_where(tables, d_year=2000))
+         & np.isin(cs["cs_promo_sk"][0], pr["p_promo_sk"][0][p_ok]))
+    ic = _fact_code(items, cs["cs_item_sk"][0])
+    vals = [cs[c][0] for c in ("cs_quantity", "cs_list_price", "cs_coupon_amt", "cs_sales_price")]
+    sums = _label_sums(np.where(m, ic, -1), items[2], vals + [np.ones(ic.shape[0], np.int64)])
+    return {k: (v[0] / v[4], _avg_u(v[1], v[4]), _avg_u(v[2], v[4]), _avg_u(v[3], v[4])) for k, v in sums.items()}
+
+
+def oracle_q6(tables):
+    """{state: buyers} of the states with at least 10 store sales in May
+    2000 of items priced over 1.2 times their category's average (the
+    average unscaled at scale 6, exact HALF_UP, compared as doubles)."""
+    it, cu, ca, ss = tables["item"], tables["customer"], tables["customer_address"], tables["store_sales"]
+    cats, _ = _codes(_sv(it, "i_category"))
+    price = it["i_current_price"][0].astype(np.int64)
+    (g,), (tot, n) = _group_sums([cats], [price, np.ones(cats.shape[0], np.int64)])
+    avg = np.zeros(int(g.max()) + 1, np.int64)
+    avg[g] = [_avg_u(s, k) for s, k in zip(tot.tolist(), n.tolist())]
+    hot = it["i_item_sk"][0][price / 100.0 > 1.2 * (avg[cats] / 1_000_000.0)]
+    m = np.isin(ss["ss_sold_date_sk"][0], _days_where(tables, d_year=2000, d_moy=5))
+    m &= np.isin(ss["ss_item_sk"][0], hot)
+    cu_row = _rows_of(cu["c_customer_sk"][0], ss["ss_customer_sk"][0])
+    states = _dim(ca, "ca_address_sk", _sv(ca, "ca_state"))
+    sc = _fact_code(states, cu["c_current_addr_sk"][0][np.maximum(cu_row, 0)])
+    m &= _keep(cu_row, sc)
+    counts = _label_sums(np.where(m, sc, -1), states[2], [np.ones(sc.shape[0], np.int64)])
+    return {k: v[0] for k, v in counts.items() if v[0] >= 10}
+
+
+def oracle_q41(tables):
+    """The sorted distinct item ids of manufacturer ids 50-120 whose
+    manufacturer makes a (powder or navy, Each or Dozen) or (peach or
+    saddle, Case or Pallet) item."""
+    it = tables["item"]
+    colors, units, manufs, ids = _sv(it, "i_color"), _sv(it, "i_units"), _sv(it, "i_manufact"), _sv(it, "i_item_id")
+    ok = {m for c, u, m in zip(colors, units, manufs)
+          if (c in ("powder", "navy") and u in ("Each", "Dozen"))
+          or (c in ("peach", "saddle") and u in ("Case", "Pallet"))}
+    mids = it["i_manufact_id"][0].tolist()
+    return sorted({ids[k] for k in range(len(ids)) if 50 <= mids[k] <= 120 and manufs[k] in ok})
+
+
+def _q13_mask(tables) -> np.ndarray:
+    """The store sales rows of q13's and q48's bands (2001, a store, the
+    demographic band AND the address band)."""
+    from .queries import Q13_BANDS, Q13_STATE_BANDS
+
+    ss, st, cd, hd, ca = (tables[k] for k in ("store_sales", "store", "customer_demographics",
+                                             "household_demographics", "customer_address"))
+    cd_row = _rows_of(cd["cd_demo_sk"][0], ss["ss_cdemo_sk"][0])
+    hd_row = _rows_of(hd["hd_demo_sk"][0], ss["ss_hdemo_sk"][0])
+    ca_row = _rows_of(ca["ca_address_sk"][0], ss["ss_addr_sk"][0])
+    m = (np.isin(ss["ss_sold_date_sk"][0], _days_where(tables, d_year=2001))
+         & np.isin(ss["ss_store_sk"][0], st["s_store_sk"][0]) & _keep(cd_row, hd_row, ca_row))
+    cd_row, hd_row, ca_row = np.maximum(cd_row, 0), np.maximum(hd_row, 0), np.maximum(ca_row, 0)
+    sp, npf, dep = ss["ss_sales_price"][0], ss["ss_net_profit"][0], hd["hd_dep_count"][0][hd_row]
+    demo = np.zeros(m.shape[0], bool)
+    for ms, ed, lo, hi, n_dep in Q13_BANDS:
+        band = _s_eq(cd, "cd_marital_status", ms) & _s_eq(cd, "cd_education_status", ed)
+        demo |= band[cd_row] & (sp >= lo * 100) & (sp <= hi * 100) & (dep == n_dep)
+    geo = np.zeros(m.shape[0], bool)
+    for states, lo, hi in Q13_STATE_BANDS:
+        geo |= _s_isin(ca, "ca_state", states)[ca_row] & (npf >= lo * 100) & (npf <= hi * 100)
+    return m & demo & geo
+
+
+def oracle_q13(tables):
+    """{avg_qty, avg_ext_sales, avg_ext_disc, cnt} of the banded rows
+    (decimal averages unscaled at scale 6, exact HALF_UP); None if none."""
+    ss = tables["store_sales"]
+    m = _q13_mask(tables)
+    n = int(m.sum())
+    if n == 0:
+        return None
+    total = lambda c: int(ss[c][0][m].astype(np.int64).sum())
+    return dict(avg_qty=total("ss_quantity") / n, avg_ext_sales=_avg_u(total("ss_ext_sales_price"), n),
+                avg_ext_disc=_avg_u(total("ss_ext_discount_amt"), n), cnt=n)
+
+
+def oracle_q48(tables) -> int:
+    """The banded rows' total quantity."""
+    return int(tables["store_sales"]["ss_quantity"][0][_q13_mask(tables)].astype(np.int64).sum())
+
+
+def oracle_q15(tables):
+    """{zip: sum}: catalog sales of 2001 Q2 whose buyer's zip prefix is
+    listed, state is TN, GA or OH, or price is over 250."""
+    from .queries import Q15_ZIPS
+
+    cu, ca, cs = tables["customer"], tables["customer_address"], tables["catalog_sales"]
+    zips = _sv(ca, "ca_zip")
+    ok = np.array([z[:5] in Q15_ZIPS for z in zips], bool) | _s_isin(ca, "ca_state", ("TN", "GA", "OH"))
+    m = np.isin(cs["cs_sold_date_sk"][0], _days_where(tables, d_qoy=2, d_year=2001))
+    cu_row = _rows_of(cu["c_customer_sk"][0], cs["cs_bill_customer_sk"][0])
+    a_row = _rows_of(ca["ca_address_sk"][0], cu["c_current_addr_sk"][0][np.maximum(cu_row, 0)])
+    m &= _keep(cu_row, a_row)
+    price = cs["cs_sales_price"][0]
+    m &= ok[np.maximum(a_row, 0)] | (price > 250 * 100)
+    codes, labels = _codes(zips)
+    return {k: v[0] for k, v in _label_sums(np.where(m, codes[np.maximum(a_row, 0)], -1), labels, [price]).items()}
+
+
+def oracle_q45(tables):
+    """{(zip, city): sum}: web sales of 2000 Q2 whose buyer's zip prefix
+    is listed or whose item's id is one of the items of keys 2-29
+    prime."""
+    it, cu, ca, ws = tables["item"], tables["customer"], tables["customer_address"], tables["web_sales"]
+    ids = _sv(it, "i_item_id")
+    primes = np.isin(it["i_item_sk"][0], (2, 3, 5, 7, 11, 13, 17, 19, 23, 29))
+    hot = {ids[j] for j in np.flatnonzero(primes).tolist()}
+    item_hot = np.array([i in hot for i in ids], bool)
+    zips = _sv(ca, "ca_zip")
+    zip_ok = np.array([z[:5] in ("35000", "35137", "60031", "60062", "60093") for z in zips], bool)
+    m = np.isin(ws["ws_sold_date_sk"][0], _days_where(tables, d_year=2000, d_qoy=2))
+    i_row = _rows_of(it["i_item_sk"][0], ws["ws_item_sk"][0])
+    cu_row = _rows_of(cu["c_customer_sk"][0], ws["ws_bill_customer_sk"][0])
+    a_row = _rows_of(ca["ca_address_sk"][0], cu["c_current_addr_sk"][0][np.maximum(cu_row, 0)])
+    m &= _keep(i_row, cu_row, a_row)
+    a_row = np.maximum(a_row, 0)
+    m &= zip_ok[a_row] | item_hot[np.maximum(i_row, 0)]
+    codes, labels = _codes(list(zip(zips, _sv(ca, "ca_city"))))
+    return {k: v[0] for k, v in _label_sums(np.where(m, codes[a_row], -1), labels, [ws["ws_sales_price"][0]]).items()}
+
+
+def oracle_q8(tables):
+    """{store name: net profit} of 1998 Q2 at the stores whose 2-digit
+    zip prefix is that of a zip of ``Q8_ZIPS`` with ``Q8_MIN_PREFERRED``
+    preferred customers or more."""
+    from .queries import Q8_MIN_PREFERRED, Q8_ZIPS
+
+    ca, cu, st, ss = tables["customer_address"], tables["customer"], tables["store"], tables["store_sales"]
+    zip5s = [z[:5] for z in _sv(ca, "ca_zip")]
+    a1 = set(zip5s) & set(Q8_ZIPS)
+    a_row = _rows_of(ca["ca_address_sk"][0], cu["c_current_addr_sk"][0][_s_eq(cu, "c_preferred_cust_flag", "Y")])
+    counts: Dict[str, int] = defaultdict(int)
+    for r in a_row[a_row >= 0].tolist():
+        counts[zip5s[r]] += 1
+    prefixes = {z[:2] for z in a1 if counts[z] >= Q8_MIN_PREFERRED}
+    names = _sv(st, "s_store_name")
+    stores = _dim(st, "s_store_sk", names, np.array([z[:2] in prefixes for z in _sv(st, "s_zip")], bool))
+    m = np.isin(ss["ss_sold_date_sk"][0], _days_where(tables, d_year=1998, d_qoy=2))
+    sc = np.where(m, _fact_code(stores, ss["ss_store_sk"][0]), -1)
+    return {k: v[0] for k, v in _label_sums(sc, stores[2], [ss["ss_net_profit"][0]]).items()}
+
+
+def oracle_q91(tables):
+    """{(call center, marital status, education): loss}: catalog returns
+    of 2000 by customers of the (M, Unknown) or (W, Advanced Degree)
+    demographics."""
+    cc, cu, cd, cr = (tables[k] for k in ("call_center", "customer", "customer_demographics", "catalog_returns"))
+    bands = (("M", "Unknown"), ("W", "Advanced Degree"))
+    band = np.full(cd["cd_demo_sk"][0].shape[0], -1, np.int64)
+    for k, (ms, es) in enumerate(bands):
+        band[_s_eq(cd, "cd_marital_status", ms) & _s_eq(cd, "cd_education_status", es)] = k
+    centers = _dim(cc, "cc_call_center_sk", _sv(cc, "cc_name"))
+    m = np.isin(cr["cr_returned_date_sk"][0], _days_where(tables, d_year=2000))
+    ccc = _fact_code(centers, cr["cr_call_center_sk"][0])
+    cu_row = _rows_of(cu["c_customer_sk"][0], cr["cr_returning_customer_sk"][0])
+    bc = _fact_code((cd["cd_demo_sk"][0], band, None), cu["c_current_cdemo_sk"][0][np.maximum(cu_row, 0)])
+    m &= _keep(ccc, cu_row, bc)
+    (gc, gb), (s,) = _group_sums([ccc[m], bc[m]], [cr["cr_net_loss"][0][m]])
+    return {(centers[2][c],) + bands[b]: v for c, b, v in zip(gc.tolist(), gb.tolist(), s.tolist())}
+
+
+def _oracle_ticket_report(tables, *, dom_ranges, buy_potentials, cnt_lo, cnt_hi, dep_vehicle_ratio):
+    """{(ticket, customer): (salutation, first, last, preferred flag,
+    lines)} of q34's and q73's tickets."""
+    dd, hd, st, cu, ss = (tables[k] for k in ("date_dim", "household_demographics", "store", "customer",
+                                             "store_sales"))
+    d_ok = np.zeros(dd["d_dom"][0].shape[0], bool)
+    for lo, hi in dom_ranges:
+        d_ok |= (dd["d_dom"][0] >= lo) & (dd["d_dom"][0] <= hi)
+    d_ok &= np.isin(dd["d_year"][0], (1999, 2000, 2001))
+    veh = hd["hd_vehicle_count"][0]
+    h_ok = _s_isin(hd, "hd_buy_potential", buy_potentials) & (veh > 0)
+    h_ok &= hd["hd_dep_count"][0] / np.maximum(veh, 1) > dep_vehicle_ratio
+    s_ok = _s_isin(st, "s_county", ("Williamson County", "Franklin Parish", "Bronx County", "Orange County"))
+    m = (np.isin(ss["ss_sold_date_sk"][0], dd["d_date_sk"][0][d_ok])
+         & np.isin(ss["ss_hdemo_sk"][0], hd["hd_demo_sk"][0][h_ok])
+         & np.isin(ss["ss_store_sk"][0], st["s_store_sk"][0][s_ok]))
+    (tick, cust), (n,) = _group_sums([ss["ss_ticket_number"][0][m], ss["ss_customer_sk"][0][m]],
+                                     [np.ones(int(m.sum()), np.int64)])
+    keep = (n >= cnt_lo) & (n <= cnt_hi)
+    tick, cust, n = tick[keep], cust[keep], n[keep]
+    c_row = _rows_of(cu["c_customer_sk"][0], cust)
+    found = c_row >= 0
+    rows = c_row[found].tolist()
+    info = zip(*(_strs(cu, c, rows) for c in ("c_salutation", "c_first_name", "c_last_name", "c_preferred_cust_flag")))
+    return {(t, c): i + (k,) for t, c, i, k in zip(tick[found].tolist(), cust[found].tolist(), info,
+                                                  n[found].tolist())}
+
+
+def oracle_q34(tables):
+    return _oracle_ticket_report(tables, dom_ranges=[(1, 3), (25, 28)], buy_potentials=(">10000", "Unknown"),
+                                 cnt_lo=15, cnt_hi=20, dep_vehicle_ratio=1.2)
+
+
+def oracle_q73(tables):
+    return _oracle_ticket_report(tables, dom_ranges=[(1, 2)], buy_potentials=(">10000", "Unknown"), cnt_lo=1,
+                                 cnt_hi=5, dep_vehicle_ratio=1.0)
+
+
+def _oracle_city_tickets(tables, *, dow, cities, hd_ok_fn, amt_c, extra):
+    """{(last, first, current city, bought city, ticket): (amount sum,
+    each extra sum)} of q46's and q68's tickets."""
+    dd, st, hd, ca, cu, ss = (tables[k] for k in ("date_dim", "store", "household_demographics",
+                                                 "customer_address", "customer", "store_sales"))
+    city = _dim(ca, "ca_address_sk", _sv(ca, "ca_city"))
+    m = (np.isin(ss["ss_sold_date_sk"][0], dd["d_date_sk"][0][np.isin(dd["d_dow"][0], dow)])
+         & np.isin(ss["ss_store_sk"][0], st["s_store_sk"][0][_s_isin(st, "s_city", cities)])
+         & np.isin(ss["ss_hdemo_sk"][0], hd["hd_demo_sk"][0][hd_ok_fn(hd["hd_dep_count"][0],
+                                                                        hd["hd_vehicle_count"][0])]))
+    bought = _fact_code(city, ss["ss_addr_sk"][0])
+    m &= bought >= 0
+    (tick, cust, bc), sums = _group_sums([ss["ss_ticket_number"][0][m], ss["ss_customer_sk"][0][m], bought[m]],
+                                         [ss[c][0][m] for c in [amt_c] + list(extra)])
+    c_row = _rows_of(cu["c_customer_sk"][0], cust)
+    cur = _fact_code(city, cu["c_current_addr_sk"][0][np.maximum(c_row, 0)])
+    keep = np.flatnonzero(_keep(c_row, cur) & (cur != bc))
+    rows = c_row[keep].tolist()
+    out = {}
+    for j, last, first in zip(keep.tolist(), _strs(cu, "c_last_name", rows), _strs(cu, "c_first_name", rows)):
+        out[(last, first, city[2][cur[j]], city[2][bc[j]], int(tick[j]))] = tuple(int(s[j]) for s in sums)
+    return out
+
+
+def oracle_q46(tables):
+    return _oracle_city_tickets(tables, dow=(6, 0), cities=("Midway", "Fairview"),
+                                hd_ok_fn=lambda d, v: (d == 4) | (v == 3), amt_c="ss_coupon_amt",
+                                extra=["ss_net_profit"])
+
+
+def oracle_q68(tables):
+    return _oracle_city_tickets(tables, dow=(6, 0), cities=("Midway", "Fairview"),
+                                hd_ok_fn=lambda d, v: (d == 5) | (v == 3), amt_c="ss_ext_sales_price",
+                                extra=["ss_ext_list_price"])
+
+
+def oracle_q79(tables):
+    """{(last, first, store city, ticket): (coupon sum, profit sum)} of
+    Monday tickets of 1998-2000 from 6-dependant or 3+-vehicle
+    households."""
+    dd, hd, st, cu, ss = (tables[k] for k in ("date_dim", "household_demographics", "store", "customer",
+                                             "store_sales"))
+    days = dd["d_date_sk"][0][(dd["d_dow"][0] == 1) & (dd["d_year"][0] >= 1998) & (dd["d_year"][0] <= 2000)]
+    h_ok = (hd["hd_dep_count"][0] == 6) | (hd["hd_vehicle_count"][0] > 2)
+    cities = _dim(st, "s_store_sk", _sv(st, "s_city"))
+    sc = _fact_code(cities, ss["ss_store_sk"][0])
+    m = (np.isin(ss["ss_sold_date_sk"][0], days) & np.isin(ss["ss_hdemo_sk"][0], hd["hd_demo_sk"][0][h_ok])
+         & (sc >= 0))
+    (tick, cust, gc), (amt, prof) = _group_sums([ss["ss_ticket_number"][0][m], ss["ss_customer_sk"][0][m], sc[m]],
+                                                [ss["ss_coupon_amt"][0][m], ss["ss_net_profit"][0][m]])
+    c_row = _rows_of(cu["c_customer_sk"][0], cust)
+    keep = np.flatnonzero(c_row >= 0)
+    rows = c_row[keep].tolist()
+    return {(last, first, cities[2][gc[j]], int(tick[j])): (int(amt[j]), int(prof[j]))
+            for j, last, first in zip(keep.tolist(), _strs(cu, "c_last_name", rows), _strs(cu, "c_first_name", rows))}
+
+
+def oracle_q9(tables):
+    """The five buckets: per quantity band, the average discount if its
+    count passes the threshold, else the average net profit (unscaled
+    at scale 6, exact HALF_UP); None for an empty band."""
+    from .queries import Q9_THRESHOLDS
+
+    ss = tables["store_sales"]
+    q = ss["ss_quantity"][0]
+    out = []
+    for b, thresh in enumerate(Q9_THRESHOLDS):
+        m = (q >= 20 * b + 1) & (q <= 20 * (b + 1))
+        n = int(m.sum())
+        vals = ss["ss_ext_discount_amt" if n > thresh else "ss_net_profit"][0][m]
+        out.append(_avg_u(int(vals.astype(np.int64).sum()), n) if n else None)
+    return out
+
+
+def oracle_q88(tables) -> List[int]:
+    """The eight half-hour counts from 8:30 of store sales to the three
+    household bands at the stores named "ese"."""
+    ss, hd, td, st = (tables[k] for k in ("store_sales", "household_demographics", "time_dim", "store"))
+    dep, veh = hd["hd_dep_count"][0], hd["hd_vehicle_count"][0]
+    h_ok = ((dep == 4) & (veh <= 6)) | ((dep == 2) & (veh <= 4)) | ((dep == 0) & (veh <= 2))
+    m = (np.isin(ss["ss_hdemo_sk"][0], hd["hd_demo_sk"][0][h_ok])
+         & np.isin(ss["ss_store_sk"][0], st["s_store_sk"][0][_s_eq(st, "s_store_name", "ese")]))
+    t_row = _rows_of(td["t_time_sk"][0], ss["ss_sold_time_sk"][0])
+    m &= t_row >= 0
+    t_row = np.maximum(t_row, 0)
+    hour, minute = td["t_hour"][0][t_row], td["t_minute"][0][t_row]
+    out = []
+    for k in range(8):
+        h, half = divmod(k + 17, 2)
+        out.append(int((m & (hour == h) & ((minute >= 30) if half else (minute < 30))).sum()))
+    return out
+
+
+def oracle_q28(tables):
+    """{band: (avg list price unscaled at scale 6 or None, count,
+    distinct list prices)} of q28's six bands."""
+    ss = tables["store_sales"]
+    q, lp, cp, wc = (ss[c][0] for c in ("ss_quantity", "ss_list_price", "ss_coupon_amt", "ss_wholesale_cost"))
+    bands = [("B1", 0, 5, 0, 10, 0, 50), ("B2", 6, 10, 10, 20, 50, 100), ("B3", 11, 15, 20, 30, 100, 150),
+             ("B4", 16, 20, 30, 40, 150, 200), ("B5", 21, 25, 40, 50, 200, 250), ("B6", 26, 30, 50, 60, 250, 300)]
+    out = {}
+    for name, q_lo, q_hi, c_lo, c_hi, w_lo, _ in bands:
+        m = (q >= q_lo) & (q <= q_hi) & (((lp >= c_lo * 100) & (lp <= (c_lo + 10) * 100))
+                                         | ((cp >= w_lo * 100) & (cp <= (w_lo + 1000) * 100))
+                                         | ((wc >= c_hi * 100) & (wc <= (c_hi + 20) * 100)))
+        vals = lp[m]
+        n = int(m.sum())
+        out[name] = (_avg_u(int(vals.astype(np.int64).sum()), n) if n else None, n, int(np.unique(vals).shape[0]))
+    return out
+
+
+def oracle_q90(tables):
+    """(morning count, evening count, their ratio) of web sales at 8-9
+    and 19-20 o'clock on pages of 2000-6000 characters."""
+    wp, td, ws = tables["web_page"], tables["time_dim"], tables["web_sales"]
+    pages = np.isin(ws["ws_web_page_sk"][0], wp["wp_web_page_sk"][0][(wp["wp_char_count"][0] >= 2000)
+                                                 & (wp["wp_char_count"][0] <= 6000)])
+
+    def count(lo, hi):
+        hours = td["t_time_sk"][0][(td["t_hour"][0] >= lo) & (td["t_hour"][0] <= hi)]
+        return int((pages & np.isin(ws["ws_sold_time_sk"][0], hours)).sum())
+
+    am, pm = count(8, 9), count(19, 20)
+    return am, pm, am / (pm if pm > 0 else 1.0)
+
+
+def oracle_q61(tables):
+    """(promotional revenue, total revenue), unscaled: store sales of
+    November 1998 of jewelry to -5 GMT customers, with an email or event
+    promotion and in all; a sum of no sale is None, as SQL's."""
+    st, it, ca, cu, pr, ss = (tables[k] for k in ("store", "item", "customer_address", "customer", "promotion",
+                                                 "store_sales"))
+    gmt5 = ca["ca_address_sk"][0][ca["ca_gmt_offset"][0] == -500]
+    custs = cu["c_customer_sk"][0][np.isin(cu["c_current_addr_sk"][0], gmt5)]
+    m = (np.isin(ss["ss_sold_date_sk"][0], _days_where(tables, d_year=1998, d_moy=11))
+         & np.isin(ss["ss_store_sk"][0], st["s_store_sk"][0])
+         & np.isin(ss["ss_item_sk"][0], it["i_item_sk"][0][_s_eq(it, "i_category", "Jewelry")])
+         & np.isin(ss["ss_customer_sk"][0], custs))
+    promo = m & np.isin(ss["ss_promo_sk"][0], pr["p_promo_sk"][0][_s_eq(pr, "p_channel_email", "Y")
+                                                  | _s_eq(pr, "p_channel_event", "Y")])
+    price = ss["ss_ext_sales_price"][0].astype(np.int64)
+    return tuple(int(price[k].sum()) if k.any() else None for k in (promo, m))
+
+
+def _oracle_ship_lag(tables, fact, sold_c, ship_c, wh_c, sm_c, dim_tab, dim_sk_c, dim_name_c, dim_fk, year):
+    """{(warehouse, ship mode type, site or call center): (orders shipped
+    in 30 days, 31-60, 61-90, 91-120, later)} of a year's orders."""
+    dd, f = tables["date_dim"], tables[fact]
+    sold, ship = _rows_of(dd["d_date_sk"][0], f[sold_c][0]), _rows_of(dd["d_date_sk"][0], f[ship_c][0])
+    wh = _dim(tables["warehouse"], "w_warehouse_sk", _sv(tables["warehouse"], "w_warehouse_name"))
+    sm = _dim(tables["ship_mode"], "sm_ship_mode_sk", _sv(tables["ship_mode"], "sm_type"))
+    dim = _dim(tables[dim_tab], dim_sk_c, _sv(tables[dim_tab], dim_name_c))
+    wc, mc, dc = _fact_code(wh, f[wh_c][0]), _fact_code(sm, f[sm_c][0]), _fact_code(dim, f[dim_fk][0])
+    m = _keep(sold, ship, wc, mc, dc)
+    sold, ship = np.maximum(sold, 0), np.maximum(ship, 0)
+    m &= dd["d_year"][0][sold] == year
+    lag = dd["d_date"][0][ship].astype(np.int64) - dd["d_date"][0][sold].astype(np.int64)
+    bucket = np.select([lag <= 30, lag <= 60, lag <= 90, lag <= 120], [0, 1, 2, 3], 4)
+    (gw, gm, gd), counts = _group_sums([wc[m], mc[m], dc[m]], [(bucket[m] == k) for k in range(5)])
+    return {(wh[2][a], sm[2][b], dim[2][c]): tuple(int(s[j]) for s in counts)
+            for j, (a, b, c) in enumerate(zip(gw.tolist(), gm.tolist(), gd.tolist()))}
+
+
+def oracle_q62(tables):
+    return _oracle_ship_lag(tables, "web_sales", "ws_sold_date_sk", "ws_ship_date_sk", "ws_warehouse_sk",
+                            "ws_ship_mode_sk", "web_site", "web_site_sk", "web_name", "ws_web_site_sk", 2001)
+
+
+def oracle_q99(tables):
+    return _oracle_ship_lag(tables, "catalog_sales", "cs_sold_date_sk", "cs_ship_date_sk", "cs_warehouse_sk",
+                            "cs_ship_mode_sk", "call_center", "cc_call_center_sk", "cc_name", "cs_call_center_sk",
+                            2001)
+
+
+def oracle_q21(tables):
+    """{(warehouse, item id): (on hand before, after)} of items priced
+    20-50, summed over the 30 days before and after 2000-03-11, kept
+    where after / before lies in [2/3, 3/2]."""
+    dd, it, wh, inv = tables["date_dim"], tables["item"], tables["warehouse"], tables["inventory"]
+    pivot = _epoch_day(2000, 3, 11)
+    m = np.isin(inv["inv_date_sk"][0], _window(tables, (2000, 2, 10), (2000, 4, 10)))
+    d_sk, i_sk, w_sk, qoh = (inv[c][0][m] for c in ("inv_date_sk", "inv_item_sk", "inv_warehouse_sk",
+                                                    "inv_quantity_on_hand"))
+    price = it["i_current_price"][0]
+    items = _dim(it, "i_item_sk", _sv(it, "i_item_id"), (price >= 2000) & (price <= 5000))
+    whs = _dim(wh, "w_warehouse_sk", _sv(wh, "w_warehouse_name"))
+    ic, wc = _fact_code(items, i_sk), _fact_code(whs, w_sk)
+    k = _keep(ic, wc)
+    before = dd["d_date"][0][_rows_of(dd["d_date_sk"][0], d_sk)] < pivot
+    q = qoh.astype(np.int64)
+    (gw, gi), (b, a) = _group_sums([wc[k], ic[k]], [np.where(before, q, 0)[k], np.where(before, 0, q)[k]])
+    return {(whs[2][w], items[2][i]): (x, y) for w, i, x, y in zip(gw.tolist(), gi.tolist(), b.tolist(), a.tolist())
+            if x > 0 and 2.0 / 3.0 <= y / x <= 1.5}
+
+
+def _excess_discount_oracle(tables, *, sales, date_col, item_col, amt_col):
+    """q32's and q92's total of the discounts of 2000-01-27..04-26 over
+    1.3 times their item's average then (unscaled at scale 6, exact
+    HALF_UP, compared as doubles), of manufacturer ids up to
+    ``Q32_MFG_MAX``; None if none passes."""
+    from .queries import Q32_MFG_MAX
+
+    it, sl = tables["item"], tables[sales]
+    m = np.isin(sl[date_col][0], _window(tables, (2000, 1, 27), (2000, 4, 26)))
+    ik, amt = sl[item_col][0][m], sl[amt_col][0][m].astype(np.int64)
+    (g,), (tot, n) = _group_sums([ik], [amt, np.ones(ik.shape[0], np.int64)])
+    avg = np.array([_avg_u(s, k) for s, k in zip(tot.tolist(), n.tolist())], np.int64)
+    row_avg = avg[np.searchsorted(g, ik)] if g.shape[0] else avg
+    keep = np.isin(ik, it["i_item_sk"][0][it["i_manufact_id"][0] <= Q32_MFG_MAX])
+    keep &= amt / 100.0 > (row_avg / 10**6) * 1.3
+    return int(amt[keep].sum()) if keep.any() else None
+
+
+def oracle_q32(tables):
+    return _excess_discount_oracle(tables, sales="catalog_sales", date_col="cs_sold_date_sk", item_col="cs_item_sk",
+                                   amt_col="cs_ext_discount_amt")
+
+
+def oracle_q92(tables):
+    return _excess_discount_oracle(tables, sales="web_sales", date_col="ws_sold_date_sk", item_col="ws_item_sk",
+                                   amt_col="ws_ext_discount_amt")
+
+
+def oracle_q65(tables):
+    """{(store sk, item sk): (store name, item desc, revenue, price,
+    brand)} of the items whose 2000 revenue at a store is at most a
+    tenth of the store's average item revenue (unscaled at scale 6,
+    exact HALF_UP, compared as doubles)."""
+    st, it, ss = tables["store"], tables["item"], tables["store_sales"]
+    m = np.isin(ss["ss_sold_date_sk"][0], _days_where(tables, d_year=2000))
+    (gs, gi), (rev,) = _group_sums([ss["ss_store_sk"][0][m], ss["ss_item_sk"][0][m]], [ss["ss_sales_price"][0][m]])
+    (stores,), (tot, n) = _group_sums([gs], [rev, np.ones(gs.shape[0], np.int64)])
+    ave = np.array([_avg_u(s, k) for s, k in zip(tot.tolist(), n.tolist())], np.int64)
+    low = rev / 100.0 <= (ave[np.searchsorted(stores, gs)] / 10**6) * 0.1
+    s_row, i_row = _rows_of(st["s_store_sk"][0], gs), _rows_of(it["i_item_sk"][0], gi)
+    keep = np.flatnonzero(low & _keep(s_row, i_row))
+    srows, irows = s_row[keep].tolist(), i_row[keep].tolist()
+    price = it["i_current_price"][0]
+    return {(int(gs[j]), int(gi[j])): (name, desc, int(rev[j]), int(price[r]), brand)
+            for j, r, name, desc, brand in zip(keep.tolist(), irows, _strs(st, "s_store_name", srows),
+                                               _strs(it, "i_item_desc", irows), _strs(it, "i_brand", irows))}
+
+
 # ------------------------------------------------- holding a result to them
 
 
@@ -1764,10 +2279,149 @@ def check_exists_stddev_query(query: str, got: Dict[str, list], exp) -> str:
     return f"{n} of {len(flat)} rows = oracle" + (f" ({len(near)} within 1e-9 of a threshold)" if near else "")
 
 
+def _sort_rows(rows, sort):
+    """``rows`` in the order of ``sort`` ([(column index, descending)]),
+    nulls first either way, as ``SortField`` orders them."""
+    out = list(rows)
+    for i, desc in reversed(sort):
+        out = [r for r in out if r[i] is None] + sorted((r for r in out if r[i] is not None), key=lambda r: r[i],
+                                                        reverse=desc)
+    return out
+
+
+def _check_sorted_rows(need, got, cols, exp_rows, sort, key_len=None, limit=100) -> str:
+    """``got``'s rows (columns ``cols``) against the oracle's rows: each
+    an oracle row, matched on its first ``key_len`` columns (doubles
+    within 1e-9 relative; no key twice) or, without ``key_len``, as a
+    multiset; and their sort keys those of the oracle's first ``limit``
+    rows (all without a limit) in ``sort``'s order."""
+    rows = list(zip(*(got[c] for c in cols)))
+    n = len(rows)
+    need(n > 0 and len(exp_rows) > 0, f"empty result ({n} rows, oracle {len(exp_rows)})")
+    if key_len:
+        by_key = {r[:key_len]: r for r in exp_rows}
+        bad = [r for r in rows if r[:key_len] not in by_key or not _all_close(r, by_key[r[:key_len]])]
+        need(not bad and len({r[:key_len] for r in rows}) == n, f"rows {bad[:3]} != oracle")
+    else:
+        left = Counter(exp_rows)
+        left.subtract(rows)
+        need(min(left.values()) >= 0, "rows != oracle")
+    want = _sort_rows(exp_rows, sort)
+    key = lambda r: tuple(r[i] for i, _ in sort)
+    need([key(r) for r in rows] == [key(r) for r in (want[:limit] if limit else want)],
+         f"not the oracle's first {limit or len(want)} in order")
+    return f"{n} of {len(exp_rows)} rows = oracle"
+
+
+#: per query of ``REPORT_QUERIES`` with rows: (its columns, the oracle's
+#: rows from its return, the sort ([(column index, descending)]), the
+#: columns that key a row (None: rows as a multiset), the fetch)
+_REPORT_ROWS = {
+    "q42": (("d_year", "category_id", "category", "sum_agg"), lambda e: [k + (v,) for k, v in e.items()],
+            [(3, True), (0, False), (1, False), (2, False)], 3, 100),
+    "q52": (("d_year", "brand_id", "brand", "ext_price"), lambda e: [k + (v,) for k, v in e.items()],
+            [(0, False), (3, True), (1, False)], 3, 100),
+    "q55": (("d_year", "brand_id", "brand", "ext_price"), lambda e: [k + (v,) for k, v in e.items()],
+            [(3, True), (1, False)], 3, 100),
+    "q19": (("brand_id", "brand", "manufact_id", "manufact", "ext_price"), lambda e: [k + (v,) for k, v in e.items()],
+            [(4, True), (1, False), (0, False), (2, False), (3, False)], 4, 100),
+    "q43": (("s_store_name",) + tuple(f"{d}_sales" for d in ("sun", "mon", "tue", "wed", "thu", "fri", "sat")),
+            lambda e: [(k,) + tuple(v) for k, v in e.items()], [(0, False)], 1, 100),
+    "q26": (("i_item_id", "agg1", "agg2", "agg3", "agg4"), lambda e: [(k,) + v for k, v in e.items()], [(0, False)],
+            1, 100),
+    "q6": (("state", "cnt"), lambda e: list(e.items()), [(1, False), (0, False)], 1, 100),
+    "q15": (("ca_zip", "sum_price"), lambda e: list(e.items()), [(0, False)], 1, 100),
+    "q45": (("ca_zip", "ca_city", "sum_sales"), lambda e: [k + (v,) for k, v in e.items()], [(0, False), (1, False)],
+            2, 100),
+    "q8": (("s_store_name", "net_profit"), lambda e: list(e.items()), [(0, False)], 1, 100),
+    "q91": (("cc_name", "cd_marital_status", "cd_education_status", "returns_loss"),
+            lambda e: [k + (v,) for k, v in e.items()], [(3, True), (0, False)], 3, 100),
+    # (ticket, customer, salutation, first, last, preferred flag, lines); no fetch
+    "q34": (("ss_ticket_number", "ss_customer_sk", "c_salutation", "c_first_name", "c_last_name",
+             "c_preferred_cust_flag", "cnt"), lambda e: [k + v for k, v in e.items()],
+            [(4, False), (3, False), (2, False), (5, True), (0, False)], 2, None),
+    "q73": (("ss_ticket_number", "ss_customer_sk", "c_salutation", "c_first_name", "c_last_name",
+             "c_preferred_cust_flag", "cnt"), lambda e: [k + v for k, v in e.items()], [(6, True), (4, False)], 2,
+            None),
+    "q46": (("c_last_name", "c_first_name", "current_city", "bought_city", "ss_ticket_number", "amt",
+             "sum_ss_net_profit"), lambda e: [k + v for k, v in e.items()], [(i, False) for i in range(5)], 5, 100),
+    "q68": (("c_last_name", "c_first_name", "current_city", "bought_city", "ss_ticket_number", "amt",
+             "sum_ss_ext_list_price"), lambda e: [k + v for k, v in e.items()], [(i, False) for i in range(5)], 5,
+            100),
+    "q79": (("c_last_name", "c_first_name", "s_city", "ss_ticket_number", "amt", "profit"),
+            lambda e: [k + v for k, v in e.items()], [(0, False), (1, False), (2, False), (5, False), (3, False)], 4,
+            100),
+    "q62": (("w_warehouse_name", "sm_type", "web_name", "d30", "d60", "d90", "d120", "dmore"),
+            lambda e: [k + v for k, v in e.items()], [(0, False), (1, False), (2, False)], 3, 100),
+    "q99": (("w_warehouse_name", "sm_type", "cc_name", "d30", "d60", "d90", "d120", "dmore"),
+            lambda e: [k + v for k, v in e.items()], [(0, False), (1, False), (2, False)], 3, 100),
+    "q21": (("w_warehouse_name", "i_item_id", "inv_before", "inv_after"), lambda e: [k + v for k, v in e.items()],
+            [(0, False), (1, False)], 2, 100),
+    "q65": (("s_store_name", "i_item_desc", "revenue", "i_current_price", "i_brand"), lambda e: list(e.values()),
+            [(0, False), (1, False)], None, 100),
+}
+
+
+def check_report_query(query: str, got: Dict[str, list], exp) -> str:
+    """Raises ``AssertionError`` unless the rows ``got`` (column -> values)
+    of a query of ``REPORT_QUERIES`` equal its oracle ``exp`` on a
+    nonempty result: integers and unscaled decimals exactly, doubles
+    (q26's and q13's int averages, q90's and q61's ratios) within 1e-9
+    relative; a report as the oracle's first 100 rows (q34 and q73: all
+    of them) by the query's sort keys, rows that tie on every sort key
+    compared as a set.  Returns what matched."""
+    def need(ok, what):
+        if not ok:
+            raise AssertionError(f"{query}: {what}")
+
+    if query in _REPORT_ROWS:
+        cols, rows_of, sort, key_len, limit = _REPORT_ROWS[query]
+        return _check_sorted_rows(need, got, cols, rows_of(exp), sort, key_len, limit)
+    if query in ("q96", "q48", "q32", "q92"):
+        name = {"q96": "cnt", "q48": "qty_sum"}.get(query, "excess_discount")
+        need(got[name] == [exp] and bool(exp), f"{got[name]} != oracle {exp}")
+        return f"{name} {exp} = oracle"
+    if query == "q41":
+        need(len(exp) > 0 and got["i_item_id"] == exp[:100], f"{got['i_item_id'][:5]}... != oracle {exp[:5]}...")
+        return f"{len(got['i_item_id'])} of {len(exp)} items = oracle"
+    if query == "q13":
+        need(exp is not None and _all_close([got[k][0] for k in exp], list(exp.values())), f"{got} != oracle {exp}")
+        return f"{exp['cnt']} banded rows = oracle"
+    if query == "q9":
+        got_b = [got[f"bucket{b}"][0] for b in range(1, 6)]
+        need(got_b == exp and any(v is not None for v in exp), f"{got_b} != oracle {exp}")
+        return f"5 buckets = oracle ({exp})"
+    if query == "q28":
+        for band, e in exp.items():
+            g = tuple(got[f"{band}_{m}"][0] for m in ("lp", "cnt", "cntd"))
+            need(g == e, f"{band} {g} != oracle {e}")
+        need(any(e[1] for e in exp.values()), "every band empty")
+        return f"6 bands = oracle ({sum(e[1] for e in exp.values())} rows)"
+    if query == "q88":
+        names = [f"h{h}_{30 if half else 0}" for h, half in (divmod(k + 17, 2) for k in range(8))]
+        need([got[c][0] for c in names] == exp and any(exp), f"{[got[c][0] for c in names]} != oracle {exp}")
+        return f"8 counts = oracle ({sum(exp)} sales)"
+    if query == "q90":
+        am, pm, ratio = exp
+        need(got["am_count"] == [float(am)] and got["pm_count"] == [float(pm)] and _close(got["am_pm_ratio"][0], ratio)
+             and am + pm > 0, f"{got} != oracle {exp}")
+        return f"{am} / {pm} = oracle"
+    if query == "q61":
+        promo, total = exp
+        need(promo is not None and total is not None, f"empty result (oracle {exp})")
+        pct = (promo / 100.0) * 100.0 / (total / 100.0)
+        need(got["promotions"] == [promo] and got["total"] == [total] and _close(got["promo_pct"][0], pct),
+             f"{got} != oracle {exp}")
+        return f"{promo} of {total} = oracle"
+    raise KeyError(query)
+
+
 def check_query(query: str, got: Dict[str, list], exp) -> str:
-    """:func:`check_rollup_union_query` or
-    :func:`check_exists_stddev_query` for those families, else
-    :func:`check_window_query`."""
+    """:func:`check_rollup_union_query`,
+    :func:`check_exists_stddev_query` or :func:`check_report_query` for
+    those families, else :func:`check_window_query`."""
+    if query in REPORT_QUERIES:
+        return check_report_query(query, got, exp)
     if query in ROLLUP_UNION_QUERIES:
         return check_rollup_union_query(query, got, exp)
     if query in EXISTS_STDDEV_QUERIES:

@@ -16,7 +16,11 @@ channels double-ranked and unioned) and q51 (running ``sum`` and
 ``RenameColumnsExec``), q38 and q87 (INTERSECT and EXCEPT as LEFT_SEMI
 and LEFT_ANTI joins on three columns), q25 and q29 (sums along a
 sold-returned-rebought chain), q17, q39a and q39b (``stddev_samp``) and
-q84 (``concat``).
+q84 (``concat``).  ``REPORT_QUERIES``: 31 single-fact reports, broadcast
+joins into one fact table with CASE pivots (q43, q62, q99, q21), a
+grouped average joined back (q6, q32, q92, q65), LEFT_SEMI joins (q6,
+q41, q8) and subqueries run while the plan is built (q9, q28, q88, q90,
+q61; q45's IN subquery).
 """
 
 from __future__ import annotations
@@ -64,7 +68,9 @@ def q3(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
     )
 
 
-def q7(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+def _promo_demographic_averages(t, n_parts, *, sales, cdemo_c, date_c, promo_c, item_c, measures):
+    """q7 and q26: one channel's sales of 2000 to single male college
+    buyers under an email or event promotion, four averages per item."""
     cd = FilterExec(
         t["customer_demographics"],
         (col("cd_gender") == lit("M"))
@@ -75,22 +81,20 @@ def q7(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
     dt_p = ProjectExec(FilterExec(t["date_dim"], col("d_year") == lit(2000)), [col("d_date_sk")])
     pr = FilterExec(t["promotion"], (col("p_channel_email") == lit("N")) | (col("p_channel_event") == lit("N")))
     pr_p = ProjectExec(pr, [col("p_promo_sk")])
-    j = broadcast_join(cd_p, t["store_sales"], [col("cd_demo_sk")], [col("ss_cdemo_sk")], JoinType.INNER,
-                       build_is_left=True)
-    j = broadcast_join(dt_p, j, [col("d_date_sk")], [col("ss_sold_date_sk")], JoinType.INNER, build_is_left=True)
-    j = broadcast_join(pr_p, j, [col("p_promo_sk")], [col("ss_promo_sk")], JoinType.INNER, build_is_left=True)
+    j = broadcast_join(cd_p, t[sales], [col("cd_demo_sk")], [col(cdemo_c)], JoinType.INNER, build_is_left=True)
+    j = broadcast_join(dt_p, j, [col("d_date_sk")], [col(date_c)], JoinType.INNER, build_is_left=True)
+    j = broadcast_join(pr_p, j, [col("p_promo_sk")], [col(promo_c)], JoinType.INNER, build_is_left=True)
     it = ProjectExec(t["item"], [col("i_item_sk"), col("i_item_id")])
-    j = broadcast_join(it, j, [col("i_item_sk")], [col("ss_item_sk")], JoinType.INNER, build_is_left=True)
-    agg = two_stage_agg(
-        j,
-        [GroupingExpr(col("i_item_id"), "i_item_id")],
-        [AggFunction("avg", col("ss_quantity"), "agg1"),
-         AggFunction("avg", col("ss_list_price"), "agg2"),
-         AggFunction("avg", col("ss_coupon_amt"), "agg3"),
-         AggFunction("avg", col("ss_sales_price"), "agg4")],
-        n_parts,
-    )
+    j = broadcast_join(it, j, [col("i_item_sk")], [col(item_c)], JoinType.INNER, build_is_left=True)
+    agg = two_stage_agg(j, [GroupingExpr(col("i_item_id"), "i_item_id")],
+                        [AggFunction("avg", col(m), f"agg{k}") for k, m in enumerate(measures, 1)], n_parts)
     return single_sorted(agg, [SortField(col("i_item_id"))], fetch=100)
+
+
+def q7(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+    return _promo_demographic_averages(t, n_parts, sales="store_sales", cdemo_c="ss_cdemo_sk",
+                                       date_c="ss_sold_date_sk", promo_c="ss_promo_sk", item_c="ss_item_sk",
+                                       measures=("ss_quantity", "ss_list_price", "ss_coupon_amt", "ss_sales_price"))
 
 
 # ------------------------------------------------------ the window family
@@ -551,10 +555,11 @@ def _coalesce0(e):
     return Case([(e.is_not_null(), _d8(e))], _d8(_dz()))
 
 
-def _date_window(t, lo, hi):
-    """The d_date_sk of the days from ``lo`` to ``hi`` (q5, q77, q80)."""
+def _date_window(t, lo, hi, *, extra=()):
+    """The d_date_sk of the days from ``lo`` to ``hi``, and the columns
+    ``extra`` (q5, q77, q80, q21)."""
     dt = FilterExec(t["date_dim"], (col("d_date") >= lit(lo)) & (col("d_date") <= lit(hi)))
-    return ProjectExec(dt, [col("d_date_sk")])
+    return ProjectExec(dt, [col("d_date_sk")] + [col(c) for c in extra])
 
 
 def _rollup_projections(measures, dims, g_type=None):
@@ -1580,6 +1585,713 @@ def q84(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
     return single_sorted(proj, [SortField(col("customer_id"))], fetch=100)
 
 
+# ------------------------------------------------ single-fact reports
+
+
+def _november_item_sums(t, n_parts, *, year, manager, groups, measure):
+    """One manager's items' store sales in November of ``year``, summed
+    per (d_year, ``groups``) ([(item column, name)]): q42, q52, q55."""
+    dt = FilterExec(t["date_dim"], (col("d_moy") == lit(11)) & (col("d_year") == lit(year)))
+    dt_p = ProjectExec(dt, [col("d_date_sk"), col("d_year")])
+    sales = ProjectExec(t["store_sales"], [col("ss_sold_date_sk"), col("ss_item_sk"), col("ss_ext_sales_price")])
+    j = broadcast_join(dt_p, sales, [col("d_date_sk")], [col("ss_sold_date_sk")], JoinType.INNER, True)
+    it = FilterExec(t["item"], col("i_manager_id") == lit(manager))
+    it_p = ProjectExec(it, [col("i_item_sk")] + [col(c) for c, _ in groups])
+    j = broadcast_join(it_p, j, [col("i_item_sk")], [col("ss_item_sk")], JoinType.INNER, True)
+    return two_stage_agg(j, [GroupingExpr(col("d_year"), "d_year")] + [GroupingExpr(col(c), n) for c, n in groups],
+                         [AggFunction("sum", col("ss_ext_sales_price"), measure)], n_parts)
+
+
+def q42(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+    """Category sales of manager 1's items in November 2000."""
+    agg = _november_item_sums(t, n_parts, year=2000, manager=1,
+                              groups=[("i_category_id", "category_id"), ("i_category", "category")], measure="sum_agg")
+    return single_sorted(agg, [SortField(col("sum_agg"), ascending=False), SortField(col("d_year")),
+                               SortField(col("category_id")), SortField(col("category"))], fetch=100)
+
+
+def _brand_report(t, n_parts, *, year, manager, order_year_first):
+    agg = _november_item_sums(t, n_parts, year=year, manager=manager,
+                              groups=[("i_brand_id", "brand_id"), ("i_brand", "brand")], measure="ext_price")
+    sort = [SortField(col("ext_price"), ascending=False), SortField(col("brand_id"))]
+    return single_sorted(agg, ([SortField(col("d_year"))] if order_year_first else []) + sort, fetch=100)
+
+
+def q52(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+    """Brand sales of manager 1's items in November 2000."""
+    return _brand_report(t, n_parts, year=2000, manager=1, order_year_first=True)
+
+
+def q55(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+    """Brand sales of manager 28's items in November 1999."""
+    return _brand_report(t, n_parts, year=1999, manager=28, order_year_first=False)
+
+
+def q19(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+    """Brand revenue from buyers whose zip differs from the store's: five
+    broadcast joins, then a filter on two ``substring`` results."""
+    dt_p = ProjectExec(FilterExec(t["date_dim"], (col("d_moy") == lit(11)) & (col("d_year") == lit(1998))),
+                       [col("d_date_sk")])
+    it = FilterExec(t["item"], col("i_manager_id") == lit(8))
+    it_p = ProjectExec(it, [col(c) for c in ("i_item_sk", "i_brand_id", "i_brand", "i_manufact_id", "i_manufact")])
+    cust = ProjectExec(t["customer"], [col("c_customer_sk"), col("c_current_addr_sk")])
+    addr = ProjectExec(t["customer_address"], [col("ca_address_sk"), col("ca_zip")])
+    st = ProjectExec(t["store"], [col("s_store_sk"), col("s_zip")])
+    j = broadcast_join(dt_p, t["store_sales"], [col("d_date_sk")], [col("ss_sold_date_sk")], JoinType.INNER, True)
+    j = broadcast_join(it_p, j, [col("i_item_sk")], [col("ss_item_sk")], JoinType.INNER, True)
+    j = broadcast_join(cust, j, [col("c_customer_sk")], [col("ss_customer_sk")], JoinType.INNER, True)
+    j = broadcast_join(addr, j, [col("ca_address_sk")], [col("c_current_addr_sk")], JoinType.INNER, True)
+    j = broadcast_join(st, j, [col("s_store_sk")], [col("ss_store_sk")], JoinType.INNER, True)
+    zip5 = lambda c: func("substring", col(c), lit(1), lit(5))
+    j = FilterExec(j, zip5("ca_zip") != zip5("s_zip"))
+    agg = two_stage_agg(j, [GroupingExpr(col("i_brand_id"), "brand_id"), GroupingExpr(col("i_brand"), "brand"),
+                            GroupingExpr(col("i_manufact_id"), "manufact_id"),
+                            GroupingExpr(col("i_manufact"), "manufact")],
+                        [AggFunction("sum", col("ss_ext_sales_price"), "ext_price")], n_parts)
+    return single_sorted(agg, [SortField(col("ext_price"), ascending=False)]
+                         + [SortField(col(c)) for c in ("brand", "brand_id", "manufact_id", "manufact")], fetch=100)
+
+
+_DOW_NAMES = ("sun", "mon", "tue", "wed", "thu", "fri", "sat")
+
+
+def q43(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+    """Each store's sales of 2000 by weekday: seven sums of a CASE that
+    keeps one weekday's price, in one aggregation."""
+    dt_p = ProjectExec(FilterExec(t["date_dim"], col("d_year") == lit(2000)), [col("d_date_sk"), col("d_dow")])
+    st_p = ProjectExec(t["store"], [col("s_store_sk"), col("s_store_name")])
+    sl = ProjectExec(t["store_sales"], [col("ss_sold_date_sk"), col("ss_store_sk"), col("ss_sales_price")])
+    j = broadcast_join(dt_p, sl, [col("d_date_sk")], [col("ss_sold_date_sk")], JoinType.INNER, True)
+    j = broadcast_join(st_p, j, [col("s_store_sk")], [col("ss_store_sk")], JoinType.INNER, True)
+    pivots = [Case([(col("d_dow") == lit(k), col("ss_sales_price"))], None).alias(f"{name}_v")
+              for k, name in enumerate(_DOW_NAMES)]
+    agg = two_stage_agg(ProjectExec(j, [col("s_store_name")] + pivots),
+                        [GroupingExpr(col("s_store_name"), "s_store_name")],
+                        [AggFunction("sum", col(f"{name}_v"), f"{name}_sales") for name in _DOW_NAMES], n_parts)
+    return single_sorted(agg, [SortField(col("s_store_name"))], fetch=100)
+
+
+def q96(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+    """Store sales at 20:30-20:59 to households with 7 dependants at
+    the stores named "ese": one count."""
+    td_p = ProjectExec(FilterExec(t["time_dim"], (col("t_hour") == lit(20)) & (col("t_minute") >= lit(30))),
+                       [col("t_time_sk")])
+    hd_p = ProjectExec(FilterExec(t["household_demographics"], col("hd_dep_count") == lit(7)), [col("hd_demo_sk")])
+    st_p = ProjectExec(FilterExec(t["store"], col("s_store_name") == lit("ese")), [col("s_store_sk")])
+    sales = ProjectExec(t["store_sales"], [col("ss_sold_time_sk"), col("ss_hdemo_sk"), col("ss_store_sk")])
+    j = broadcast_join(td_p, sales, [col("t_time_sk")], [col("ss_sold_time_sk")], JoinType.INNER, True)
+    j = broadcast_join(hd_p, j, [col("hd_demo_sk")], [col("ss_hdemo_sk")], JoinType.INNER, True)
+    j = broadcast_join(st_p, j, [col("s_store_sk")], [col("ss_store_sk")], JoinType.INNER, True)
+    return two_stage_agg(j, [], [AggFunction("count_star", None, "cnt")], n_parts)
+
+
+def q26(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+    """q7 over ``catalog_sales``."""
+    return _promo_demographic_averages(t, n_parts, sales="catalog_sales", cdemo_c="cs_bill_cdemo_sk",
+                                       date_c="cs_sold_date_sk", promo_c="cs_promo_sk", item_c="cs_item_sk",
+                                       measures=("cs_quantity", "cs_list_price", "cs_coupon_amt", "cs_sales_price"))
+
+
+def q6(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+    """States with at least 10 buyers, in May 2000, of items priced over
+    1.2 times their category's average (the correlated subquery as a
+    grouped ``avg`` joined back, then a LEFT_SEMI join)."""
+    cat_avg = two_stage_agg(ProjectExec(t["item"], [col("i_category").alias("avg_cat"), col("i_current_price")]),
+                            [GroupingExpr(col("avg_cat"), "avg_cat")],
+                            [AggFunction("avg", col("i_current_price"), "cat_avg_price")], n_parts)
+    it = ProjectExec(t["item"], [col("i_item_sk"), col("i_category"), col("i_current_price")])
+    it = broadcast_join(cat_avg, it, [col("avg_cat")], [col("i_category")], JoinType.INNER, True)
+    it = FilterExec(it, col("i_current_price").cast(f64) > lit(1.2) * col("cat_avg_price").cast(f64))
+    it = ProjectExec(it, [col("i_item_sk")])
+    dt = ProjectExec(FilterExec(t["date_dim"], (col("d_year") == lit(2000)) & (col("d_moy") == lit(5))),
+                     [col("d_date_sk")])
+    sl = ProjectExec(t["store_sales"], [col("ss_sold_date_sk"), col("ss_item_sk"), col("ss_customer_sk")])
+    j = broadcast_join(dt, sl, [col("d_date_sk")], [col("ss_sold_date_sk")], JoinType.INNER, True)
+    j = broadcast_join(it, j, [col("i_item_sk")], [col("ss_item_sk")], JoinType.LEFT_SEMI, False)
+    cu = ProjectExec(t["customer"], [col("c_customer_sk"), col("c_current_addr_sk")])
+    j = broadcast_join(cu, j, [col("c_customer_sk")], [col("ss_customer_sk")], JoinType.INNER, True)
+    ca = ProjectExec(t["customer_address"], [col("ca_address_sk"), col("ca_state")])
+    j = broadcast_join(ca, j, [col("ca_address_sk")], [col("c_current_addr_sk")], JoinType.INNER, True)
+    agg = two_stage_agg(j, [GroupingExpr(col("ca_state"), "state")], [AggFunction("count_star", None, "cnt")],
+                        n_parts)
+    f = FilterExec(agg, col("cnt") >= lit(10, i64))
+    return single_sorted(f, [SortField(col("cnt")), SortField(col("state"))], fetch=100)
+
+
+def q41(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+    """Distinct items of the manufacturers that make a qualifying (color,
+    units) item: the correlated EXISTS as a LEFT_SEMI join on the string
+    i_manufact.  As in the reference, i_item_id stands in for the
+    spec's i_product_name."""
+    combo = ((col("i_color").isin(lit("powder"), lit("navy")) & col("i_units").isin(lit("Each"), lit("Dozen")))
+             | (col("i_color").isin(lit("peach"), lit("saddle")) & col("i_units").isin(lit("Case"), lit("Pallet"))))
+    manufacts = two_stage_agg(ProjectExec(FilterExec(t["item"], combo), [col("i_manufact")]),
+                              [GroupingExpr(col("i_manufact"), "i_manufact")], [], n_parts)
+    i1 = FilterExec(t["item"], (col("i_manufact_id") >= lit(50)) & (col("i_manufact_id") <= lit(120)))
+    i1 = ProjectExec(i1, [col("i_manufact"), col("i_item_id")])
+    j = broadcast_join(manufacts, i1, [col("i_manufact")], [col("i_manufact")], JoinType.LEFT_SEMI, False)
+    distinct = two_stage_agg(ProjectExec(j, [col("i_item_id")]), [GroupingExpr(col("i_item_id"), "i_item_id")], [],
+                             n_parts)
+    return single_sorted(distinct, [SortField(col("i_item_id"))], fetch=100)
+
+
+#: q13's and q48's bands, sized to the generator's prices as in the
+#: reference: (marital status, education, sales price lo, hi, dependants)
+Q13_BANDS = [("M", "Advanced Degree", 0, 150, 3), ("S", "College", 0, 100, 1), ("W", "2 yr Degree", 50, 200, 1)]
+#: (states, net profit lo, hi)
+Q13_STATE_BANDS = [(("TN", "SD", "AL"), 0, 1000), (("GA", "OH", "TN"), -500, 500), (("SD", "AL", "GA"), -1000, 250)]
+
+
+def _band_preds(*, price_col):
+    """q13's and q48's OR of demographic bands AND OR of address bands."""
+    demo = None
+    for ms, ed, lo, hi, dep in Q13_BANDS:
+        p = ((col("cd_marital_status") == lit(ms)) & (col("cd_education_status") == lit(ed))
+             & (col(price_col) >= lit(str(lo), dec72)) & (col(price_col) <= lit(str(hi), dec72))
+             & (col("hd_dep_count") == lit(dep)))
+        demo = p if demo is None else (demo | p)
+    geo = None
+    for states, lo, hi in Q13_STATE_BANDS:
+        p = (col("ca_state").isin(*[lit(s) for s in states]) & (col("ss_net_profit") >= lit(str(lo), dec72))
+             & (col("ss_net_profit") <= lit(str(hi), dec72)))
+        geo = p if geo is None else (geo | p)
+    return demo & geo
+
+
+def _q13_source(t) -> ExecNode:
+    """The store sales of 2001 joined to store, demographics, household
+    and address, filtered by the bands (q13, q48)."""
+    dt_p = ProjectExec(FilterExec(t["date_dim"], col("d_year") == lit(2001)), [col("d_date_sk")])
+    st_p = ProjectExec(t["store"], [col("s_store_sk")])
+    cd_p = ProjectExec(t["customer_demographics"],
+                       [col("cd_demo_sk"), col("cd_marital_status"), col("cd_education_status")])
+    hd_p = ProjectExec(t["household_demographics"], [col("hd_demo_sk"), col("hd_dep_count")])
+    ca_p = ProjectExec(t["customer_address"], [col("ca_address_sk"), col("ca_state")])
+    j = broadcast_join(dt_p, t["store_sales"], [col("d_date_sk")], [col("ss_sold_date_sk")], JoinType.INNER, True)
+    j = broadcast_join(st_p, j, [col("s_store_sk")], [col("ss_store_sk")], JoinType.INNER, True)
+    j = broadcast_join(cd_p, j, [col("cd_demo_sk")], [col("ss_cdemo_sk")], JoinType.INNER, True)
+    j = broadcast_join(hd_p, j, [col("hd_demo_sk")], [col("ss_hdemo_sk")], JoinType.INNER, True)
+    j = broadcast_join(ca_p, j, [col("ca_address_sk")], [col("ss_addr_sk")], JoinType.INNER, True)
+    return FilterExec(j, _band_preds(price_col="ss_sales_price"))
+
+
+def q13(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+    """Averages of the banded store sales, and their count."""
+    return two_stage_agg(_q13_source(t), [],
+                         [AggFunction("avg", col("ss_quantity"), "avg_qty"),
+                          AggFunction("avg", col("ss_ext_sales_price"), "avg_ext_sales"),
+                          AggFunction("avg", col("ss_ext_discount_amt"), "avg_ext_disc"),
+                          AggFunction("count_star", None, "cnt")], n_parts)
+
+
+def q48(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+    """The banded store sales' total quantity."""
+    return two_stage_agg(_q13_source(t), [], [AggFunction("sum", col("ss_quantity"), "qty_sum")], n_parts)
+
+
+#: q15's zip prefixes, sized to the generator's zips as in the reference
+Q15_ZIPS = ("85669", "86197", "88274", "83405", "86475", "35000", "35137", "60031", "60062", "60093")
+
+
+def q15(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+    """Catalog sales of a quarter per buyer zip, kept where the zip's
+    prefix is listed, the state is one of three or the price is over
+    250."""
+    dt_p = ProjectExec(FilterExec(t["date_dim"], (col("d_qoy") == lit(2)) & (col("d_year") == lit(2001))),
+                       [col("d_date_sk")])
+    cust = ProjectExec(t["customer"], [col("c_customer_sk"), col("c_current_addr_sk")])
+    ca_p = ProjectExec(t["customer_address"], [col("ca_address_sk"), col("ca_zip"), col("ca_state")])
+    sl = ProjectExec(t["catalog_sales"], [col("cs_sold_date_sk"), col("cs_bill_customer_sk"), col("cs_sales_price")])
+    j = broadcast_join(dt_p, sl, [col("d_date_sk")], [col("cs_sold_date_sk")], JoinType.INNER, True)
+    j = broadcast_join(cust, j, [col("c_customer_sk")], [col("cs_bill_customer_sk")], JoinType.INNER, True)
+    j = broadcast_join(ca_p, j, [col("ca_address_sk")], [col("c_current_addr_sk")], JoinType.INNER, True)
+    zip5 = func("substring", col("ca_zip"), lit(1), lit(5))
+    keep = (zip5.isin(*[lit(z) for z in Q15_ZIPS]) | col("ca_state").isin(lit("TN"), lit("GA"), lit("OH"))
+            | (col("cs_sales_price") > lit("250", dec72)))
+    agg = two_stage_agg(FilterExec(j, keep), [GroupingExpr(col("ca_zip"), "ca_zip")],
+                        [AggFunction("sum", col("cs_sales_price"), "sum_price")], n_parts)
+    return single_sorted(agg, [SortField(col("ca_zip"))], fetch=100)
+
+
+def q45(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+    """Web sales of a quarter per buyer (zip, city), kept where the zip's
+    prefix is listed or the item is one of an IN subquery's (run while
+    the plan is built, its ids entering as literals)."""
+    dt = ProjectExec(FilterExec(t["date_dim"], (col("d_year") == lit(2000)) & (col("d_qoy") == lit(2))),
+                     [col("d_date_sk")])
+    hot = FilterExec(t["item"], col("i_item_sk").isin(*[lit(v, i64) for v in (2, 3, 5, 7, 11, 13, 17, 19, 23, 29)]))
+    hot_ids = tpch_queries.collect_columns(ProjectExec(hot, [col("i_item_id")]), ["i_item_id"])["i_item_id"]
+    ws = ProjectExec(t["web_sales"], [col("ws_sold_date_sk"), col("ws_item_sk"), col("ws_bill_customer_sk"),
+                                      col("ws_sales_price")])
+    j = broadcast_join(dt, ws, [col("d_date_sk")], [col("ws_sold_date_sk")], JoinType.INNER, True)
+    cu = ProjectExec(t["customer"], [col("c_customer_sk"), col("c_current_addr_sk")])
+    j = broadcast_join(cu, j, [col("c_customer_sk")], [col("ws_bill_customer_sk")], JoinType.INNER, True)
+    ca = ProjectExec(t["customer_address"], [col("ca_address_sk"), col("ca_city"), col("ca_zip")])
+    j = broadcast_join(ca, j, [col("ca_address_sk")], [col("c_current_addr_sk")], JoinType.INNER, True)
+    it = ProjectExec(t["item"], [col("i_item_sk"), col("i_item_id")])
+    j = broadcast_join(it, j, [col("i_item_sk")], [col("ws_item_sk")], JoinType.INNER, True)
+    pred = func("substring", col("ca_zip"), lit(1), lit(5)).isin(
+        *[lit(z) for z in ("35000", "35137", "60031", "60062", "60093")])
+    if hot_ids:
+        pred = pred | col("i_item_id").isin(*[lit(v) for v in hot_ids])
+    agg = two_stage_agg(FilterExec(j, pred), [GroupingExpr(col("ca_zip"), "ca_zip"),
+                                              GroupingExpr(col("ca_city"), "ca_city")],
+                        [AggFunction("sum", col("ws_sales_price"), "sum_sales")], n_parts)
+    return single_sorted(agg, [SortField(col("ca_zip")), SortField(col("ca_city"))], fetch=100)
+
+
+#: q8's zips and its HAVING count of preferred customers, sized to the
+#: generator as in the reference (the spec lists 400 zips, count > 10)
+Q8_ZIPS = ("35000", "35137", "35274", "35411", "35548", "35685", "60031", "60062", "60093", "60124")
+Q8_MIN_PREFERRED = 2
+
+
+def q8(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+    """Store net profit of a quarter at the stores whose 2-digit zip
+    prefix is one of (listed zips INTERSECT zips with enough preferred
+    customers): a LEFT_SEMI join on a ``substring`` key."""
+    zip5 = func("substring", col("ca_zip"), lit(1), lit(5))
+    a1 = two_stage_agg(ProjectExec(FilterExec(t["customer_address"], zip5.isin(*[lit(z) for z in Q8_ZIPS])),
+                                   [zip5], ["zip5"]),
+                       [GroupingExpr(col("zip5"), "zip5")], [], n_parts)
+    cust_p = ProjectExec(FilterExec(t["customer"], col("c_preferred_cust_flag") == lit("Y")),
+                         [col("c_current_addr_sk")])
+    ca_p = ProjectExec(t["customer_address"], [col("ca_address_sk"), col("ca_zip")])
+    cj = broadcast_join(ca_p, cust_p, [col("ca_address_sk")], [col("c_current_addr_sk")], JoinType.INNER, True)
+    a2 = FilterExec(two_stage_agg(ProjectExec(cj, [zip5], ["zip5"]), [GroupingExpr(col("zip5"), "zip5")],
+                                  [AggFunction("count_star", None, "cnt")], n_parts),
+                    col("cnt") >= lit(Q8_MIN_PREFERRED))
+    inter = broadcast_join(ProjectExec(a2, [col("zip5")]), a1, [col("zip5")], [col("zip5")], JoinType.LEFT_SEMI,
+                           False)
+    prefixes = two_stage_agg(ProjectExec(inter, [func("substring", col("zip5"), lit(1), lit(2))], ["zip2"]),
+                             [GroupingExpr(col("zip2"), "zip2")], [], n_parts)
+    st = broadcast_join(prefixes, ProjectExec(t["store"], [col("s_store_sk"), col("s_store_name"), col("s_zip")]),
+                        [col("zip2")], [func("substring", col("s_zip"), lit(1), lit(2))], JoinType.LEFT_SEMI, False)
+    dt_p = ProjectExec(FilterExec(t["date_dim"], (col("d_year") == lit(1998)) & (col("d_qoy") == lit(2))),
+                       [col("d_date_sk")])
+    sl = ProjectExec(t["store_sales"], [col("ss_sold_date_sk"), col("ss_store_sk"), col("ss_net_profit")])
+    j = broadcast_join(dt_p, sl, [col("d_date_sk")], [col("ss_sold_date_sk")], JoinType.INNER, True)
+    j = broadcast_join(ProjectExec(st, [col("s_store_sk"), col("s_store_name")]), j, [col("s_store_sk")],
+                       [col("ss_store_sk")], JoinType.INNER, True)
+    agg = two_stage_agg(j, [GroupingExpr(col("s_store_name"), "s_store_name")],
+                        [AggFunction("sum", col("ss_net_profit"), "net_profit")], n_parts)
+    return single_sorted(agg, [SortField(col("s_store_name"))], fetch=100)
+
+
+def q91(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+    """Catalog return losses of 2000 per (call center, marital status,
+    education) of two demographic bands.  As in the reference, a year
+    and no gmt filter (the spec's month is empty at test scales)."""
+    dt = ProjectExec(FilterExec(t["date_dim"], col("d_year") == lit(2000)), [col("d_date_sk")])
+    cr = ProjectExec(t["catalog_returns"], [col("cr_returned_date_sk"), col("cr_returning_customer_sk"),
+                                            col("cr_call_center_sk"), col("cr_net_loss")])
+    j = broadcast_join(dt, cr, [col("d_date_sk")], [col("cr_returned_date_sk")], JoinType.INNER, True)
+    cc = ProjectExec(t["call_center"], [col("cc_call_center_sk"), col("cc_name")])
+    j = broadcast_join(cc, j, [col("cc_call_center_sk")], [col("cr_call_center_sk")], JoinType.INNER, True)
+    cu = ProjectExec(t["customer"], [col("c_customer_sk"), col("c_current_cdemo_sk"), col("c_current_addr_sk")])
+    j = broadcast_join(cu, j, [col("c_customer_sk")], [col("cr_returning_customer_sk")], JoinType.INNER, True)
+    cd = FilterExec(t["customer_demographics"],
+                    ((col("cd_marital_status") == lit("M")) & (col("cd_education_status") == lit("Unknown")))
+                    | ((col("cd_marital_status") == lit("W"))
+                       & (col("cd_education_status") == lit("Advanced Degree"))))
+    cd = ProjectExec(cd, [col("cd_demo_sk"), col("cd_marital_status"), col("cd_education_status")])
+    j = broadcast_join(cd, j, [col("cd_demo_sk")], [col("c_current_cdemo_sk")], JoinType.INNER, True)
+    agg = two_stage_agg(j, [GroupingExpr(col(c), c) for c in ("cc_name", "cd_marital_status", "cd_education_status")],
+                        [AggFunction("sum", col("cr_net_loss"), "returns_loss")], n_parts)
+    return single_sorted(agg, [SortField(col("returns_loss"), ascending=False), SortField(col("cc_name"))], fetch=100)
+
+
+def _ticket_report(t, n_parts, *, dom_ranges, buy_potentials, cnt_lo, cnt_hi, dep_vehicle_ratio, order_by):
+    """q34 and q73: lines per (ticket, customer) on some days of
+    1999-2001 in four counties' stores, a HAVING range, then the
+    customer joined: an aggregation below a join."""
+    dt_pred = None
+    for lo, hi in dom_ranges:
+        rng_p = (col("d_dom") >= lit(lo)) & (col("d_dom") <= lit(hi))
+        dt_pred = rng_p if dt_pred is None else (dt_pred | rng_p)
+    dt = FilterExec(t["date_dim"], dt_pred & col("d_year").isin(lit(1999), lit(2000), lit(2001)))
+    dt_p = ProjectExec(dt, [col("d_date_sk")])
+    hd_pred = None
+    for bp in buy_potentials:
+        p = col("hd_buy_potential") == lit(bp)
+        hd_pred = p if hd_pred is None else (hd_pred | p)
+    # the spec's CASE WHEN vehicle_count > 0 THEN dep / vehicle END > ratio
+    # (the > 0 guard makes the CASE's one arm unconditional)
+    hd_pred = hd_pred & (col("hd_vehicle_count") > lit(0))
+    hd_pred = hd_pred & (col("hd_dep_count").cast(f64) / col("hd_vehicle_count").cast(f64) > lit(dep_vehicle_ratio))
+    hd_p = ProjectExec(FilterExec(t["household_demographics"], hd_pred), [col("hd_demo_sk")])
+    st = FilterExec(t["store"], col("s_county").isin(lit("Williamson County"), lit("Franklin Parish"),
+                                                     lit("Bronx County"), lit("Orange County")))
+    st_p = ProjectExec(st, [col("s_store_sk")])
+    j = broadcast_join(dt_p, t["store_sales"], [col("d_date_sk")], [col("ss_sold_date_sk")], JoinType.INNER, True)
+    j = broadcast_join(hd_p, j, [col("hd_demo_sk")], [col("ss_hdemo_sk")], JoinType.INNER, True)
+    j = broadcast_join(st_p, j, [col("s_store_sk")], [col("ss_store_sk")], JoinType.INNER, True)
+    agg = two_stage_agg(j, [GroupingExpr(col("ss_ticket_number"), "ss_ticket_number"),
+                            GroupingExpr(col("ss_customer_sk"), "ss_customer_sk")],
+                        [AggFunction("count_star", None, "cnt")], n_parts)
+    having = FilterExec(agg, (col("cnt") >= lit(cnt_lo)) & (col("cnt") <= lit(cnt_hi)))
+    cust = ProjectExec(t["customer"], [col(c) for c in ("c_customer_sk", "c_salutation", "c_first_name",
+                                                         "c_last_name", "c_preferred_cust_flag")])
+    j2 = broadcast_join(cust, having, [col("c_customer_sk")], [col("ss_customer_sk")], JoinType.INNER, True)
+    return single_sorted(j2, order_by)
+
+
+def q34(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+    """Tickets of 15-20 lines on days 1-3 and 25-28."""
+    return _ticket_report(t, n_parts, dom_ranges=[(1, 3), (25, 28)], buy_potentials=[">10000", "Unknown"],
+                          cnt_lo=15, cnt_hi=20, dep_vehicle_ratio=1.2,
+                          order_by=[SortField(col("c_last_name")), SortField(col("c_first_name")),
+                                    SortField(col("c_salutation")),
+                                    SortField(col("c_preferred_cust_flag"), ascending=False),
+                                    SortField(col("ss_ticket_number"))])
+
+
+def q73(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+    """Tickets of 1-5 lines on days 1-2."""
+    return _ticket_report(t, n_parts, dom_ranges=[(1, 2)], buy_potentials=[">10000", "Unknown"], cnt_lo=1, cnt_hi=5,
+                          dep_vehicle_ratio=1.0,
+                          order_by=[SortField(col("cnt"), ascending=False), SortField(col("c_last_name"))])
+
+
+def _city_ticket_report(t, n_parts, *, dow, cities, hd_pred, amt_c, extra_sums):
+    """q46 and q68: weekend tickets at two cities' stores whose buyer
+    now lives in another city than the one bought from, with sums per
+    ticket."""
+    dt_p = ProjectExec(FilterExec(t["date_dim"], col("d_dow").isin(*[lit(d) for d in dow])), [col("d_date_sk")])
+    st_p = ProjectExec(FilterExec(t["store"], col("s_city").isin(*[lit(c) for c in cities])), [col("s_store_sk")])
+    hd_p = ProjectExec(FilterExec(t["household_demographics"], hd_pred), [col("hd_demo_sk")])
+    ca = ProjectExec(t["customer_address"], [col("ca_address_sk"), col("ca_city")])
+    sum_cols = list(dict.fromkeys([amt_c] + extra_sums))
+    sl = ProjectExec(t["store_sales"], [col(c) for c in ("ss_sold_date_sk", "ss_store_sk", "ss_hdemo_sk",
+                                                          "ss_addr_sk", "ss_ticket_number", "ss_customer_sk")]
+                     + [col(c) for c in sum_cols])
+    j = broadcast_join(dt_p, sl, [col("d_date_sk")], [col("ss_sold_date_sk")], JoinType.INNER, True)
+    j = broadcast_join(st_p, j, [col("s_store_sk")], [col("ss_store_sk")], JoinType.INNER, True)
+    j = broadcast_join(hd_p, j, [col("hd_demo_sk")], [col("ss_hdemo_sk")], JoinType.INNER, True)
+    j = broadcast_join(ca, j, [col("ca_address_sk")], [col("ss_addr_sk")], JoinType.INNER, True)
+    proj = ProjectExec(j, [col("ss_ticket_number"), col("ss_customer_sk"), col("ca_city").alias("bought_city")]
+                       + [col(c) for c in sum_cols])
+    sums = [AggFunction("sum", col(amt_c), "amt")] + [AggFunction("sum", col(c), f"sum_{c}") for c in extra_sums]
+    agg = two_stage_agg(proj, [GroupingExpr(col(c), c) for c in ("ss_ticket_number", "ss_customer_sk",
+                                                                 "bought_city")], sums, n_parts)
+    cu = ProjectExec(t["customer"], [col("c_customer_sk"), col("c_last_name"), col("c_first_name"),
+                                     col("c_current_addr_sk")])
+    j2 = broadcast_join(cu, agg, [col("c_customer_sk")], [col("ss_customer_sk")], JoinType.INNER, True)
+    ca2 = ProjectExec(t["customer_address"], [col("ca_address_sk").alias("cur_addr_sk"),
+                                              col("ca_city").alias("current_city")])
+    j2 = broadcast_join(ca2, j2, [col("cur_addr_sk")], [col("c_current_addr_sk")], JoinType.INNER, True)
+    f = FilterExec(j2, ~(col("current_city") == col("bought_city")))
+    proj2 = ProjectExec(f, [col(c) for c in ("c_last_name", "c_first_name", "current_city", "bought_city",
+                                              "ss_ticket_number", "amt")] + [col(f"sum_{c}") for c in extra_sums])
+    return single_sorted(proj2, [SortField(col(c)) for c in ("c_last_name", "c_first_name", "current_city",
+                                                             "bought_city", "ss_ticket_number")], fetch=100)
+
+
+def q46(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+    """Coupon and net profit sums per ticket."""
+    return _city_ticket_report(t, n_parts, dow=(6, 0), cities=("Midway", "Fairview"),
+                               hd_pred=(col("hd_dep_count") == lit(4)) | (col("hd_vehicle_count") == lit(3)),
+                               amt_c="ss_coupon_amt", extra_sums=["ss_net_profit"])
+
+
+def q68(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+    """Sales and list price sums per ticket."""
+    return _city_ticket_report(t, n_parts, dow=(6, 0), cities=("Midway", "Fairview"),
+                               hd_pred=(col("hd_dep_count") == lit(5)) | (col("hd_vehicle_count") == lit(3)),
+                               amt_c="ss_ext_sales_price", extra_sums=["ss_ext_list_price"])
+
+
+def q79(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+    """Monday tickets of 1998-2000 per store city, coupon and profit
+    sums.  As in the reference, every store qualifies (the generator
+    draws no s_number_employees)."""
+    dt = FilterExec(t["date_dim"], (col("d_dow") == lit(1)) & (col("d_year") >= lit(1998))
+                    & (col("d_year") <= lit(2000)))
+    dt_p = ProjectExec(dt, [col("d_date_sk")])
+    hd = FilterExec(t["household_demographics"], (col("hd_dep_count") == lit(6)) | (col("hd_vehicle_count") > lit(2)))
+    hd_p = ProjectExec(hd, [col("hd_demo_sk")])
+    st_p = ProjectExec(t["store"], [col("s_store_sk"), col("s_city")])
+    sl = ProjectExec(t["store_sales"], [col(c) for c in ("ss_sold_date_sk", "ss_hdemo_sk", "ss_store_sk",
+                                                          "ss_ticket_number", "ss_customer_sk", "ss_coupon_amt",
+                                                          "ss_net_profit")])
+    j = broadcast_join(dt_p, sl, [col("d_date_sk")], [col("ss_sold_date_sk")], JoinType.INNER, True)
+    j = broadcast_join(hd_p, j, [col("hd_demo_sk")], [col("ss_hdemo_sk")], JoinType.INNER, True)
+    j = broadcast_join(st_p, j, [col("s_store_sk")], [col("ss_store_sk")], JoinType.INNER, True)
+    agg = two_stage_agg(j, [GroupingExpr(col(c), c) for c in ("ss_ticket_number", "ss_customer_sk", "s_city")],
+                        [AggFunction("sum", col("ss_coupon_amt"), "amt"),
+                         AggFunction("sum", col("ss_net_profit"), "profit")], n_parts)
+    cu = ProjectExec(t["customer"], [col("c_customer_sk"), col("c_last_name"), col("c_first_name")])
+    j2 = broadcast_join(cu, agg, [col("c_customer_sk")], [col("ss_customer_sk")], JoinType.INNER, True)
+    proj = ProjectExec(j2, [col(c) for c in ("c_last_name", "c_first_name", "s_city", "ss_ticket_number", "amt",
+                                              "profit")])
+    return single_sorted(proj, [SortField(col(c)) for c in ("c_last_name", "c_first_name", "s_city", "profit",
+                                                            "ss_ticket_number")], fetch=100)
+
+
+#: q9's count thresholds, sized to the generator as in the reference
+Q9_THRESHOLDS = (400, 300, 200, 100, 50)
+
+
+def q9(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+    """Five quantity bands of store sales, each the average discount or
+    the average net profit by whether its count passes a threshold: 15
+    scalar subqueries run while the plan is built, projected over one
+    row of ``reason``."""
+    exprs, names = [], []
+    for b, thresh in enumerate(Q9_THRESHOLDS):
+        lo, hi = 20 * b + 1, 20 * (b + 1)
+        band = FilterExec(t["store_sales"], (col("ss_quantity") >= lit(lo)) & (col("ss_quantity") <= lit(hi)))
+        cnt = scalar_subquery(two_stage_agg(band, [], [AggFunction("count_star", None, "c")], n_parts), "c")
+        avg_disc = scalar_subquery(
+            two_stage_agg(band, [], [AggFunction("avg", col("ss_ext_discount_amt"), "a")], n_parts), "a")
+        avg_profit = scalar_subquery(
+            two_stage_agg(band, [], [AggFunction("avg", col("ss_net_profit"), "a")], n_parts), "a")
+        exprs.append(Case([(cnt > lit(thresh), avg_disc)], avg_profit))
+        names.append(f"bucket{b + 1}")
+    return ProjectExec(FilterExec(t["reason"], col("r_reason_sk") == lit(1)), exprs, names)
+
+
+def q88(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+    """Store traffic in eight half hours from 8:30: eight scalar count
+    subqueries, one row."""
+    hd = FilterExec(t["household_demographics"],
+                    ((col("hd_dep_count") == lit(4)) & (col("hd_vehicle_count") <= lit(6)))
+                    | ((col("hd_dep_count") == lit(2)) & (col("hd_vehicle_count") <= lit(4)))
+                    | ((col("hd_dep_count") == lit(0)) & (col("hd_vehicle_count") <= lit(2))))
+    hd_p = ProjectExec(hd, [col("hd_demo_sk")])
+    st_p = ProjectExec(FilterExec(t["store"], col("s_store_name") == lit("ese")), [col("s_store_sk")])
+    exprs, names = [], []
+    for k in range(8):
+        h, half = divmod(k + 17, 2)  # 8:30, 9:00, ..., 12:00
+        td = FilterExec(t["time_dim"], (col("t_hour") == lit(h))
+                        & ((col("t_minute") >= lit(30)) if half else (col("t_minute") < lit(30))))
+        td_p = ProjectExec(td, [col("t_time_sk")])
+        sl = ProjectExec(t["store_sales"], [col("ss_sold_time_sk"), col("ss_hdemo_sk"), col("ss_store_sk")])
+        j = broadcast_join(td_p, sl, [col("t_time_sk")], [col("ss_sold_time_sk")], JoinType.INNER, True)
+        j = broadcast_join(hd_p, j, [col("hd_demo_sk")], [col("ss_hdemo_sk")], JoinType.INNER, True)
+        j = broadcast_join(st_p, j, [col("s_store_sk")], [col("ss_store_sk")], JoinType.INNER, True)
+        exprs.append(scalar_subquery(two_stage_agg(j, [], [AggFunction("count_star", None, "c")], n_parts), "c"))
+        names.append(f"h{h}_{30 if half else 0}")
+    return ProjectExec(FilterExec(t["reason"], col("r_reason_sk") == lit(1)), exprs, names)
+
+
+def q90(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+    """Morning against evening web sales on mid-sized pages: two scalar
+    count subqueries and their ratio.  As in the reference, no
+    household filter (the generator draws no ws_ship_hdemo_sk)."""
+    wp = FilterExec(t["web_page"], (col("wp_char_count") >= lit(2000)) & (col("wp_char_count") <= lit(6000)))
+    wp_p = ProjectExec(wp, [col("wp_web_page_sk")])
+
+    def half(lo, hi, name):
+        td_p = ProjectExec(FilterExec(t["time_dim"], (col("t_hour") >= lit(lo)) & (col("t_hour") <= lit(hi))),
+                           [col("t_time_sk")])
+        ws = ProjectExec(t["web_sales"], [col("ws_sold_time_sk"), col("ws_web_page_sk")])
+        j = broadcast_join(td_p, ws, [col("t_time_sk")], [col("ws_sold_time_sk")], JoinType.INNER, True)
+        j = broadcast_join(wp_p, j, [col("wp_web_page_sk")], [col("ws_web_page_sk")], JoinType.INNER, True)
+        return two_stage_agg(j, [], [AggFunction("count_star", None, name)], n_parts)
+
+    am = scalar_subquery(half(8, 9, "amc"), "amc")
+    pm = scalar_subquery(half(19, 20, "pmc"), "pmc")
+    one_row = two_stage_agg(ProjectExec(t["web_page"], [col("wp_web_page_sk")]), [],
+                            [AggFunction("count_star", None, "ignore")], n_parts)
+    pmf = pm.cast(f64)
+    den = Case([(pmf > lit(0.0), pmf)], lit(1.0))
+    return ProjectExec(one_row, [am.cast(f64), pmf, am.cast(f64) / den], ["am_count", "pm_count", "am_pm_ratio"])
+
+
+def q61(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+    """Promotional against all store revenue of November 1998 from -5
+    GMT buyers of jewelry: two decimal scalar subqueries and their
+    ratio, over one row of ``reason``.  As in the reference, the
+    promotion's channels are its email and event flags."""
+    def revenue(with_promo: bool):
+        dt_p = ProjectExec(FilterExec(t["date_dim"], (col("d_year") == lit(1998)) & (col("d_moy") == lit(11))),
+                           [col("d_date_sk")])
+        st_p = ProjectExec(t["store"], [col("s_store_sk")])
+        it_p = ProjectExec(FilterExec(t["item"], col("i_category") == lit("Jewelry")), [col("i_item_sk")])
+        ca = FilterExec(t["customer_address"], col("ca_gmt_offset") == lit("-5", DataType.decimal(5, 2)))
+        ca_p = ProjectExec(ca, [col("ca_address_sk")])
+        cust = ProjectExec(t["customer"], [col("c_customer_sk"), col("c_current_addr_sk")])
+        cust = broadcast_join(ca_p, cust, [col("ca_address_sk")], [col("c_current_addr_sk")], JoinType.LEFT_SEMI,
+                              False)
+        sl = ProjectExec(t["store_sales"], [col(c) for c in ("ss_sold_date_sk", "ss_store_sk", "ss_item_sk",
+                                                              "ss_customer_sk", "ss_promo_sk", "ss_ext_sales_price")])
+        j = broadcast_join(dt_p, sl, [col("d_date_sk")], [col("ss_sold_date_sk")], JoinType.INNER, True)
+        j = broadcast_join(st_p, j, [col("s_store_sk")], [col("ss_store_sk")], JoinType.INNER, True)
+        j = broadcast_join(it_p, j, [col("i_item_sk")], [col("ss_item_sk")], JoinType.INNER, True)
+        j = broadcast_join(cust, j, [col("c_customer_sk")], [col("ss_customer_sk")], JoinType.INNER, True)
+        if with_promo:
+            pr = FilterExec(t["promotion"], (col("p_channel_email") == lit("Y")) | (col("p_channel_event") == lit("Y")))
+            pr_p = ProjectExec(pr, [col("p_promo_sk")])
+            j = broadcast_join(pr_p, j, [col("p_promo_sk")], [col("ss_promo_sk")], JoinType.INNER, True)
+        return two_stage_agg(j, [], [AggFunction("sum", col("ss_ext_sales_price"), "rev")], n_parts)
+
+    promo = scalar_subquery(revenue(True), "rev")
+    total = scalar_subquery(revenue(False), "rev")
+    ratio = promo.cast(f64) * lit(100.0) / total.cast(f64)
+    return ProjectExec(FilterExec(t["reason"], col("r_reason_sk") == lit(1)), [promo, total, ratio],
+                       ["promotions", "total", "promo_pct"])
+
+
+def q28(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+    """Six price bands of store sales, each (avg list price, count,
+    count of distinct list prices, the last through a grouped agg): 12
+    scalar subqueries of 18 values, one row."""
+    bands = [("B1", 0, 5, 0, 10, 0, 50), ("B2", 6, 10, 10, 20, 50, 100), ("B3", 11, 15, 20, 30, 100, 150),
+             ("B4", 16, 20, 30, 40, 150, 200), ("B5", 21, 25, 40, 50, 200, 250), ("B6", 26, 30, 50, 60, 250, 300)]
+    lits = []
+    for name, q_lo, q_hi, c_lo, c_hi, w_lo, w_hi in bands:
+        f = FilterExec(t["store_sales"],
+                       (col("ss_quantity") >= lit(q_lo)) & (col("ss_quantity") <= lit(q_hi))
+                       & ((col("ss_list_price") >= lit(str(c_lo), dec72))
+                          & (col("ss_list_price") <= lit(str(c_lo + 10), dec72))
+                          | (col("ss_coupon_amt") >= lit(str(w_lo), dec72))
+                          & (col("ss_coupon_amt") <= lit(str(w_lo + 1000), dec72))
+                          | (col("ss_wholesale_cost") >= lit(str(c_hi), dec72))
+                          & (col("ss_wholesale_cost") <= lit(str(c_hi + 20), dec72))))
+        lp = ProjectExec(f, [col("ss_list_price")])
+        distinct = two_stage_agg(lp, [GroupingExpr(col("ss_list_price"), "ss_list_price")], [], n_parts)
+        per_band = two_stage_agg(lp, [], [AggFunction("avg", col("ss_list_price"), f"{name}_lp"),
+                                          AggFunction("count", col("ss_list_price"), f"{name}_cnt")], n_parts)
+        dcnt = two_stage_agg(distinct, [], [AggFunction("count_star", None, f"{name}_cntd")], n_parts)
+        lits.extend(tpch_queries.scalar_subquery_row(per_band, [f"{name}_lp", f"{name}_cnt"]))
+        lits.extend(tpch_queries.scalar_subquery_row(dcnt, [f"{name}_cntd"]))
+    one_row = two_stage_agg(ProjectExec(t["store"], [col("s_store_sk")]), [],
+                            [AggFunction("count_star", None, "ignore")], n_parts)
+    return ProjectExec(one_row, lits, [f"{name}_{m}" for name, *_ in bands for m in ("lp", "cnt", "cntd")])
+
+
+def _ship_lag_pivot(t, n_parts, *, fact, sold_c, ship_c, wh_c, sm_c, dim_tab, dim_sk, dim_name, dim_fk, year):
+    """q62 and q99: a year's orders in five 30-day ship-lag buckets per
+    (warehouse, ship mode, site or call center), CASE pivots summed."""
+    dt_p = ProjectExec(FilterExec(t["date_dim"], col("d_year") == lit(year)), [col("d_date_sk"), col("d_date")])
+    d2 = ProjectExec(t["date_dim"], [col("d_date_sk").alias("d2_sk"), col("d_date").alias("ship_date")])
+    wh = ProjectExec(t["warehouse"], [col("w_warehouse_sk"), col("w_warehouse_name")])
+    sm = ProjectExec(t["ship_mode"], [col("sm_ship_mode_sk"), col("sm_type")])
+    dim = ProjectExec(t[dim_tab], [col(dim_sk), col(dim_name)])
+    sl = ProjectExec(t[fact], [col(sold_c), col(ship_c), col(wh_c), col(sm_c), col(dim_fk)])
+    j = broadcast_join(dt_p, sl, [col("d_date_sk")], [col(sold_c)], JoinType.INNER, True)
+    j = broadcast_join(d2, j, [col("d2_sk")], [col(ship_c)], JoinType.INNER, True)
+    j = broadcast_join(wh, j, [col("w_warehouse_sk")], [col(wh_c)], JoinType.INNER, True)
+    j = broadcast_join(sm, j, [col("sm_ship_mode_sk")], [col(sm_c)], JoinType.INNER, True)
+    j = broadcast_join(dim, j, [col(dim_sk)], [col(dim_fk)], JoinType.INNER, True)
+    lag = (col("ship_date").cast(i64) - col("d_date").cast(i64)).alias("lag")
+    base = ProjectExec(j, [col("w_warehouse_name"), col("sm_type"), col(dim_name), lag])
+    one, zero = lit(1, i64), lit(0, i64)
+    lag_c = col("lag")
+    buckets = [("d30", Case([(lag_c <= lit(30, i64), one)], zero))]
+    for lo, name in ((30, "d60"), (60, "d90"), (90, "d120")):
+        buckets.append((name, Case([((lag_c > lit(lo, i64)) & (lag_c <= lit(lo + 30, i64)), one)], zero)))
+    buckets.append(("dmore", Case([(lag_c > lit(120, i64), one)], zero)))
+    proj = ProjectExec(base, [col("w_warehouse_name"), col("sm_type"), col(dim_name)]
+                       + [e.alias(nm) for nm, e in buckets])
+    groups = ("w_warehouse_name", "sm_type", dim_name)
+    agg = two_stage_agg(proj, [GroupingExpr(col(c), c) for c in groups],
+                        [AggFunction("sum", col(nm), nm) for nm, _ in buckets], n_parts)
+    return single_sorted(agg, [SortField(col(c)) for c in groups], fetch=100)
+
+
+def q62(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+    """Web orders per (warehouse, ship mode, site)."""
+    return _ship_lag_pivot(t, n_parts, fact="web_sales", sold_c="ws_sold_date_sk", ship_c="ws_ship_date_sk",
+                           wh_c="ws_warehouse_sk", sm_c="ws_ship_mode_sk", dim_tab="web_site", dim_sk="web_site_sk",
+                           dim_name="web_name", dim_fk="ws_web_site_sk", year=2001)
+
+
+def q99(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+    """Catalog orders per (warehouse, ship mode, call center)."""
+    return _ship_lag_pivot(t, n_parts, fact="catalog_sales", sold_c="cs_sold_date_sk", ship_c="cs_ship_date_sk",
+                           wh_c="cs_warehouse_sk", sm_c="cs_ship_mode_sk", dim_tab="call_center",
+                           dim_sk="cc_call_center_sk", dim_name="cc_name", dim_fk="cs_call_center_sk", year=2001)
+
+
+def q21(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+    """Inventory on hand per (warehouse, item) in the 30 days before and
+    after 2000-03-11, two CASE sums, kept where after / before lies in
+    [2/3, 3/2]."""
+    pivot = datetime.date(2000, 3, 11)
+    dt = _date_window(t, pivot - datetime.timedelta(days=30), pivot + datetime.timedelta(days=30), extra=("d_date",))
+    price = col("i_current_price")
+    it = FilterExec(t["item"], (price >= lit("20", dec72)) & (price <= lit("50", dec72)))
+    it_p = ProjectExec(it, [col("i_item_sk"), col("i_item_id")])
+    wh = ProjectExec(t["warehouse"], [col("w_warehouse_sk"), col("w_warehouse_name")])
+    inv = ProjectExec(t["inventory"], [col(c) for c in ("inv_date_sk", "inv_item_sk", "inv_warehouse_sk",
+                                                         "inv_quantity_on_hand")])
+    j = broadcast_join(dt, inv, [col("d_date_sk")], [col("inv_date_sk")], JoinType.INNER, True)
+    j = broadcast_join(it_p, j, [col("i_item_sk")], [col("inv_item_sk")], JoinType.INNER, True)
+    j = broadcast_join(wh, j, [col("w_warehouse_sk")], [col("inv_warehouse_sk")], JoinType.INNER, True)
+    pivot_days = lit((pivot - datetime.date(1970, 1, 1)).days, i64)
+    qoh = col("inv_quantity_on_hand").cast(i64)
+    before = Case([(col("d_date").cast(i64) < pivot_days, qoh)], lit(0, i64))
+    after = Case([(col("d_date").cast(i64) >= pivot_days, qoh)], lit(0, i64))
+    proj = ProjectExec(j, [col("w_warehouse_name"), col("i_item_id"), before.alias("b"), after.alias("a")])
+    agg = two_stage_agg(proj, [GroupingExpr(col("w_warehouse_name"), "w_warehouse_name"),
+                               GroupingExpr(col("i_item_id"), "i_item_id")],
+                        [AggFunction("sum", col("b"), "inv_before"), AggFunction("sum", col("a"), "inv_after")],
+                        n_parts)
+    bf, af = col("inv_before").cast(f64), col("inv_after").cast(f64)
+    f = FilterExec(agg, (bf > lit(0.0)) & ((af / bf) >= lit(2.0 / 3.0)) & ((af / bf) <= lit(1.5)))
+    return single_sorted(f, [SortField(col("w_warehouse_name")), SortField(col("i_item_id"))], fetch=100)
+
+
+#: q32's and q92's manufacturers: ids up to this one, as in the reference
+#: (the spec's one id may be absent at small scales)
+Q32_MFG_MAX = 40
+
+
+def _excess_discount(t, n_parts, *, sales, date_col, item_col, amt_col):
+    """q32 and q92: the discounts of 90 days over 1.3 times their item's
+    average in those days (the correlated subquery as a grouped ``avg``
+    joined back), of low manufacturer ids, summed."""
+    dt = FilterExec(t["date_dim"], (col("d_date") >= lit(datetime.date(2000, 1, 27)))
+                    & (col("d_date") <= lit(datetime.date(2000, 4, 26))))
+    dt_p = ProjectExec(dt, [col("d_date_sk")])
+    sl = ProjectExec(t[sales], [col(date_col), col(item_col), col(amt_col)])
+    j = broadcast_join(dt_p, sl, [col("d_date_sk")], [col(date_col)], JoinType.INNER, True)
+    per_item = two_stage_agg(j, [GroupingExpr(col(item_col), "avg_item_sk")],
+                             [AggFunction("avg", col(amt_col), "avg_amt")], n_parts)
+    jj = broadcast_join(per_item, j, [col("avg_item_sk")], [col(item_col)], JoinType.INNER, True)
+    # avg_amt is decimal(11,6): compared as doubles
+    keep = col(amt_col).cast(f64) > col("avg_amt").cast(f64) * lit(1.3)
+    it_p = ProjectExec(FilterExec(t["item"], col("i_manufact_id") <= lit(Q32_MFG_MAX)), [col("i_item_sk")])
+    f = broadcast_join(it_p, FilterExec(jj, keep), [col("i_item_sk")], [col(item_col)], JoinType.LEFT_SEMI, False)
+    return two_stage_agg(f, [], [AggFunction("sum", col(amt_col), "excess_discount")], n_parts)
+
+
+def q32(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+    return _excess_discount(t, n_parts, sales="catalog_sales", date_col="cs_sold_date_sk", item_col="cs_item_sk",
+                            amt_col="cs_ext_discount_amt")
+
+
+def q92(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+    return _excess_discount(t, n_parts, sales="web_sales", date_col="ws_sold_date_sk", item_col="ws_item_sk",
+                            amt_col="ws_ext_discount_amt")
+
+
+def q65(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+    """Items whose 2000 revenue at a store is at most a tenth of the
+    store's average item revenue: an aggregation over an aggregation,
+    joined back to it."""
+    dt_p = ProjectExec(FilterExec(t["date_dim"], col("d_year") == lit(2000)), [col("d_date_sk")])
+    sl = ProjectExec(t["store_sales"], [col("ss_sold_date_sk"), col("ss_store_sk"), col("ss_item_sk"),
+                                        col("ss_sales_price")])
+    j = broadcast_join(dt_p, sl, [col("d_date_sk")], [col("ss_sold_date_sk")], JoinType.INNER, True)
+    per_item = two_stage_agg(j, [GroupingExpr(col("ss_store_sk"), "ss_store_sk"),
+                                 GroupingExpr(col("ss_item_sk"), "ss_item_sk")],
+                             [AggFunction("sum", col("ss_sales_price"), "revenue")], n_parts)
+    per_store = two_stage_agg(per_item, [GroupingExpr(col("ss_store_sk"), "sb_store_sk")],
+                              [AggFunction("avg", col("revenue"), "ave")], n_parts)
+    jj = broadcast_join(per_store, per_item, [col("sb_store_sk")], [col("ss_store_sk")], JoinType.INNER, True)
+    low = FilterExec(jj, col("revenue").cast(f64) <= col("ave").cast(f64) * lit(0.1))
+    st_p = ProjectExec(t["store"], [col("s_store_sk"), col("s_store_name")])
+    it_p = ProjectExec(t["item"], [col("i_item_sk"), col("i_item_desc"), col("i_current_price"), col("i_brand")])
+    out = broadcast_join(st_p, low, [col("s_store_sk")], [col("ss_store_sk")], JoinType.INNER, True)
+    out = broadcast_join(it_p, out, [col("i_item_sk")], [col("ss_item_sk")], JoinType.INNER, True)
+    proj = ProjectExec(out, [col(c) for c in ("s_store_name", "i_item_desc", "revenue", "i_current_price",
+                                              "i_brand")])
+    return single_sorted(proj, [SortField(col("s_store_name")), SortField(col("i_item_desc"))], fetch=100)
+
+
 #: the window family, in the order the tests and the smoke run it
 WINDOW_QUERIES = ("q12", "q20", "q98", "q53", "q63", "q89", "q47", "q57", "q36", "q86", "q70", "q67", "q44", "q49",
                   "q51")
@@ -1590,6 +2302,12 @@ ROLLUP_UNION_QUERIES = ("q27", "q18", "q22", "q5", "q77", "q80", "q14a", "q33", 
 #: stddev family and the chain it shares (q17, q25, q29, q39a, q39b) and
 #: q84's concat, in the order the tests and the smoke run them
 EXISTS_STDDEV_QUERIES = ("q10", "q35", "q69", "q38", "q87", "q17", "q25", "q29", "q39a", "q39b", "q84")
+#: the single-fact reports (broadcast joins into one fact table,
+#: subqueries run while the plan is built, CASE pivots), in the order the
+#: tests and the smoke run them
+REPORT_QUERIES = ("q42", "q52", "q55", "q19", "q43", "q96", "q26", "q6", "q41", "q13", "q48", "q15", "q45", "q8",
+                  "q91", "q34", "q73", "q46", "q68", "q79", "q9", "q28", "q88", "q90", "q61", "q62", "q99", "q21",
+                  "q32", "q92", "q65")
 
 QUERIES: Dict[str, Callable[[Dict[str, ExecNode], int], ExecNode]] = {
     "q3": q3, "q7": q7,
@@ -1599,6 +2317,10 @@ QUERIES: Dict[str, Callable[[Dict[str, ExecNode], int], ExecNode]] = {
     "q60": q60, "q71": q71, "q76": q76, "q66": q66, "q2": q2, "q75": q75, "q54": q54, "q23a": q23a, "q23b": q23b,
     "q10": q10, "q35": q35, "q69": q69, "q38": q38, "q87": q87, "q17": q17, "q25": q25, "q29": q29, "q39a": q39a,
     "q39b": q39b, "q84": q84,
+    "q42": q42, "q52": q52, "q55": q55, "q19": q19, "q43": q43, "q96": q96, "q26": q26, "q6": q6, "q41": q41,
+    "q13": q13, "q48": q48, "q15": q15, "q45": q45, "q8": q8, "q91": q91, "q34": q34, "q73": q73, "q46": q46,
+    "q68": q68, "q79": q79, "q9": q9, "q28": q28, "q88": q88, "q90": q90, "q61": q61, "q62": q62, "q99": q99,
+    "q21": q21, "q32": q32, "q92": q92, "q65": q65,
 }
 
 

@@ -76,30 +76,37 @@ def revenue_expr() -> Expr:
     return col("l_extendedprice") * (dec12(1) - col("l_discount"))
 
 
+def collect_columns(plan: ExecNode, columns: List[str], limit: Optional[int] = None) -> Dict[str, list]:
+    """Runs a subplan now, in process, partition by partition, and
+    returns each requested column's values: every row, or the first
+    ``limit`` rows (the run stops once it has them).  Every subquery
+    that a plan runs while it is built goes through here."""
+    from ..batch import batch_to_pydict
+    from ..runtime.context import TaskContext
+
+    out: Dict[str, list] = {c: [] for c in columns}
+    n = plan.num_partitions()
+    for p in range(n):
+        for b in plan.execute(p, TaskContext(p, n)):
+            d = batch_to_pydict(b)
+            for c in columns:
+                out[c].extend(d[c])
+            if limit is not None and len(out[columns[0]]) >= limit:
+                return {c: v[:limit] for c, v in out.items()}
+    return out
+
+
 def scalar_subquery_row(plan: ExecNode, columns: List[str]) -> List[Expr]:
     """Runs a subplan of at most one row now, in process, and returns
     each requested column of its first row as a typed literal (null
     when it has no row); a decimal is carried unscaled
     (``Lit(..., unscaled=True)``), as the plan contract carries it."""
-    from ..batch import batch_to_pydict
-    from ..runtime.context import TaskContext
-
-    values = dict.fromkeys(columns)
-    n = plan.num_partitions()
-    found = False
-    for p in range(n):
-        for b in plan.execute(p, TaskContext(p, n)):
-            d = batch_to_pydict(b)
-            if d[columns[0]]:
-                values = {c: d[c][0] for c in columns}
-                found = True
-                break
-        if found:
-            break
+    rows = collect_columns(plan, columns, limit=1)
     out: List[Expr] = []
     for c in columns:
         t = plan.schema.field(c).dtype
-        out.append(Lit(values[c], t, unscaled=t.is_decimal and values[c] is not None))
+        v = rows[c][0] if rows[c] else None
+        out.append(Lit(v, t, unscaled=t.is_decimal and v is not None))
     return out
 
 

@@ -98,6 +98,12 @@ Needs one CUDA card and ``nvcc`` (``/usr/local/cuda``).  In order, it:
    the same way, q17's, q39a's and q39b's doubles within 1e-9 relative
    between the paths, and q87 again at SF 0.01 (from SF 0.1 on it
    selects nothing: the generator's customers carry 8 distinct names);
+   then the single-fact reports (q42, q52, q55, q19, q43, q96, q26, q6,
+   q41, q13, q48, q15, q45, q8, q91, q34, q73, q46, q68, q79, q9, q28,
+   q88, q90, q61, q62, q99, q21, q32, q92 and q65: broadcast joins into
+   one fact table, CASE pivots, and scalar subqueries (q45: an IN
+   subquery) run in process while the plan is built, their seconds
+   printed) the same way, with each oracle's host seconds;
 8. the null-key phase: ``store_sales`` at ``--ds-scale`` with its -1
    ``ss_customer_sk`` exposed as nulls (``with_null_fks``), through
    ``split_stages``/``run_stages``: an ``IS NULL`` count, a group by
@@ -118,7 +124,7 @@ Needs one CUDA card and ``nvcc`` (``/usr/local/cuda``).  In order, it:
    the hand-written kernels' device time at the shapes the query gives
    them;
 10. prints where each phase ended on the host clock, the ``kernels``
-   JSON line (launches summed over the 68 queries in process, and per
+   JSON line (launches summed over the 99 queries in process, and per
    query on each path; the null-key phase's apart), then
    ``{"ok": true, ...}`` last.
 
@@ -472,6 +478,45 @@ def check_pid_histogram_streams(torch, cuda_ops, seed: int) -> list:
     return out
 
 
+def check_opt_in_threads(torch, cuda_ops, seed: int) -> list:
+    """sorted_lookup and pid_histogram called from four host threads at
+    once, 200 calls a thread, as parallel map tasks probe and count
+    their own partitions: each thread's inputs need its own amount of
+    shared memory above 48 KB, an opt-in that is the kernel's attribute
+    and not the launch's.  Every result must equal the plain version.
+    Returns check results."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    lookups = [lookup_inputs(torch, t, 1 << 16, seed + i) for i, t in enumerate((6500, 7200, 8000, 14000))]
+    hists = [(hist_pids(torch, 1 << 18, p, seed + 10 + i), p) for i, p in enumerate((13000, 20000, 30000, 50000))]
+    for table, _ in lookups:
+        if 8 * cuda_ops.sorted_lookup_geometry(table.shape[0])[1] <= 48 * 1024:
+            raise AssertionError("sorted_lookup: a threaded input stays under 48 KB of shared memory")
+    barrier = threading.Barrier(4)
+
+    def run(i):
+        barrier.wait()
+        out = []
+        for _ in range(200):
+            out.append((cuda_ops.sorted_lookup(*lookups[i]), cuda_ops.pid_histogram(*hists[i])))
+        return out
+
+    with ThreadPoolExecutor(4) as pool:
+        results = list(pool.map(run, range(4)))
+    torch.cuda.synchronize()
+    for i, calls in enumerate(results):
+        plo, phi = cuda_ops.sorted_lookup_plain(*lookups[i])
+        want = cuda_ops.pid_histogram_plain(*hists[i])
+        for (lo, hi), counts in calls:
+            if not (torch.equal(lo, plo) and torch.equal(hi, phi)):
+                raise AssertionError(f"sorted_lookup: thread {i} differs from plain when four threads launch")
+            if not torch.equal(counts, want):
+                raise AssertionError(f"pid_histogram: thread {i} differs from plain when four threads launch")
+    shape = "four host threads at once, 200 calls each, shared memory 52-200 KB"
+    return [("sorted_lookup", {"shape": shape, "max_abs_err": 0}),
+            ("pid_histogram", {"shape": shape, "max_abs_err": 0})]
+
+
 def q01_group_inputs(torch, lineitem) -> tuple:
     """fused_group_sums at the q01 shape: gids from (l_returnflag,
     l_linestatus), G = 6, with the shipdate filter folded in as -1;
@@ -785,6 +830,103 @@ QUERY_COLUMNS.update({
                "household_demographics": ("hd_demo_sk", "hd_income_band_sk"),
                "customer_demographics": ("cd_demo_sk",), "store_returns": ("sr_cdemo_sk",)},
 })
+_NOV_ITEMS = {"date_dim": _YM, "store_sales": _STORE + ("ss_ext_sales_price",)}
+_BANDS = {"date_dim": ("d_date_sk", "d_year"), "store": ("s_store_sk",),
+          "customer_demographics": ("cd_demo_sk", "cd_marital_status", "cd_education_status"),
+          "household_demographics": ("hd_demo_sk", "hd_dep_count"), "customer_address": ("ca_address_sk", "ca_state")}
+_BAND_SALES = ("ss_sold_date_sk", "ss_store_sk", "ss_cdemo_sk", "ss_hdemo_sk", "ss_addr_sk", "ss_sales_price",
+               "ss_net_profit", "ss_quantity")
+_TICKETS = {"date_dim": ("d_date_sk", "d_dom", "d_year"),
+            "household_demographics": ("hd_demo_sk", "hd_buy_potential", "hd_vehicle_count", "hd_dep_count"),
+            "store": ("s_store_sk", "s_county"),
+            "store_sales": ("ss_sold_date_sk", "ss_hdemo_sk", "ss_store_sk", "ss_ticket_number", "ss_customer_sk"),
+            "customer": ("c_customer_sk", "c_salutation", "c_first_name", "c_last_name", "c_preferred_cust_flag")}
+_CITY = {"date_dim": ("d_date_sk", "d_dow"), "store": ("s_store_sk", "s_city"),
+         "household_demographics": ("hd_demo_sk", "hd_dep_count", "hd_vehicle_count"),
+         "customer_address": ("ca_address_sk", "ca_city"),
+         "customer": ("c_customer_sk", "c_last_name", "c_first_name", "c_current_addr_sk")}
+_CITY_SALES = ("ss_sold_date_sk", "ss_store_sk", "ss_hdemo_sk", "ss_addr_sk", "ss_ticket_number", "ss_customer_sk")
+_SHIP = {"date_dim": ("d_date_sk", "d_year", "d_date"), "warehouse": ("w_warehouse_sk", "w_warehouse_name"),
+         "ship_mode": ("sm_ship_mode_sk", "sm_type")}
+_CUST_ADDR = ("c_customer_sk", "c_current_addr_sk")
+_REASON = {"reason": ("r_reason_sk",)}
+# the single-fact reports
+QUERY_COLUMNS.update({
+    "ds_q42": {**_NOV_ITEMS, "item": ("i_item_sk", "i_manager_id", "i_category_id", "i_category")},
+    "ds_q52": {**_NOV_ITEMS, "item": ("i_item_sk", "i_manager_id", "i_brand_id", "i_brand")},
+    "ds_q55": {**_NOV_ITEMS, "item": ("i_item_sk", "i_manager_id", "i_brand_id", "i_brand")},
+    "ds_q19": {"date_dim": _YM,
+               "item": ("i_item_sk", "i_manager_id", "i_brand_id", "i_brand", "i_manufact_id", "i_manufact"),
+               "customer": _CUST_ADDR, "customer_address": ("ca_address_sk", "ca_zip"),
+               "store": ("s_store_sk", "s_zip"),
+               "store_sales": _STORE + ("ss_customer_sk", "ss_store_sk", "ss_ext_sales_price")},
+    "ds_q43": {"date_dim": ("d_date_sk", "d_year", "d_dow"), "store": ("s_store_sk", "s_store_name"),
+               "store_sales": ("ss_sold_date_sk", "ss_store_sk", "ss_sales_price")},
+    "ds_q96": {"time_dim": ("t_time_sk", "t_hour", "t_minute"),
+               "household_demographics": ("hd_demo_sk", "hd_dep_count"), "store": ("s_store_sk", "s_store_name"),
+               "store_sales": ("ss_sold_time_sk", "ss_hdemo_sk", "ss_store_sk")},
+    "ds_q26": {**{k: v for k, v in QUERY_COLUMNS["ds_q7"].items() if k != "store_sales"},
+               "catalog_sales": ("cs_bill_cdemo_sk", "cs_sold_date_sk", "cs_promo_sk", "cs_item_sk", "cs_quantity",
+                                 "cs_list_price", "cs_coupon_amt", "cs_sales_price")},
+    "ds_q6": {"item": ("i_item_sk", "i_category", "i_current_price"), "date_dim": _YM,
+              "store_sales": _STORE + ("ss_customer_sk",), "customer": _CUST_ADDR,
+              "customer_address": ("ca_address_sk", "ca_state")},
+    "ds_q41": {"item": ("i_color", "i_units", "i_manufact", "i_manufact_id", "i_item_id")},
+    "ds_q13": {**_BANDS, "store_sales": _BAND_SALES + ("ss_ext_sales_price", "ss_ext_discount_amt")},
+    "ds_q48": {**_BANDS, "store_sales": _BAND_SALES},
+    "ds_q15": {"date_dim": ("d_date_sk", "d_qoy", "d_year"), "customer": _CUST_ADDR,
+               "customer_address": ("ca_address_sk", "ca_zip", "ca_state"),
+               "catalog_sales": ("cs_sold_date_sk", "cs_bill_customer_sk", "cs_sales_price")},
+    "ds_q45": {"date_dim": ("d_date_sk", "d_year", "d_qoy"), "item": ("i_item_sk", "i_item_id"),
+               "web_sales": _WEB + ("ws_bill_customer_sk", "ws_sales_price"), "customer": _CUST_ADDR,
+               "customer_address": ("ca_address_sk", "ca_city", "ca_zip")},
+    "ds_q8": {"customer_address": ("ca_address_sk", "ca_zip"),
+              "customer": ("c_preferred_cust_flag", "c_current_addr_sk"),
+              "store": ("s_store_sk", "s_store_name", "s_zip"), "date_dim": ("d_date_sk", "d_year", "d_qoy"),
+              "store_sales": ("ss_sold_date_sk", "ss_store_sk", "ss_net_profit")},
+    "ds_q91": {"date_dim": ("d_date_sk", "d_year"),
+               "catalog_returns": ("cr_returned_date_sk", "cr_returning_customer_sk", "cr_call_center_sk",
+                                   "cr_net_loss"),
+               "call_center": ("cc_call_center_sk", "cc_name"),
+               "customer": ("c_customer_sk", "c_current_cdemo_sk", "c_current_addr_sk"),
+               "customer_demographics": ("cd_demo_sk", "cd_marital_status", "cd_education_status")},
+    "ds_q34": _TICKETS, "ds_q73": _TICKETS,
+    "ds_q46": {**_CITY, "store_sales": _CITY_SALES + ("ss_coupon_amt", "ss_net_profit")},
+    "ds_q68": {**_CITY, "store_sales": _CITY_SALES + ("ss_ext_sales_price", "ss_ext_list_price")},
+    "ds_q79": {"date_dim": ("d_date_sk", "d_dow", "d_year"),
+               "household_demographics": ("hd_demo_sk", "hd_dep_count", "hd_vehicle_count"),
+               "store": ("s_store_sk", "s_city"), "customer": ("c_customer_sk", "c_last_name", "c_first_name"),
+               "store_sales": ("ss_sold_date_sk", "ss_hdemo_sk", "ss_store_sk", "ss_ticket_number", "ss_customer_sk",
+                               "ss_coupon_amt", "ss_net_profit")},
+    "ds_q9": {**_REASON, "store_sales": ("ss_quantity", "ss_ext_discount_amt", "ss_net_profit")},
+    "ds_q28": {"store": ("s_store_sk",),
+               "store_sales": ("ss_quantity", "ss_list_price", "ss_coupon_amt", "ss_wholesale_cost")},
+    "ds_q88": {**_REASON, "household_demographics": ("hd_demo_sk", "hd_dep_count", "hd_vehicle_count"),
+               "store": ("s_store_sk", "s_store_name"), "time_dim": ("t_time_sk", "t_hour", "t_minute"),
+               "store_sales": ("ss_sold_time_sk", "ss_hdemo_sk", "ss_store_sk")},
+    "ds_q90": {"web_page": ("wp_web_page_sk", "wp_char_count"), "time_dim": ("t_time_sk", "t_hour"),
+               "web_sales": ("ws_sold_time_sk", "ws_web_page_sk")},
+    "ds_q61": {**_REASON, "date_dim": _YM, "store": ("s_store_sk",), "item": ("i_item_sk", "i_category"),
+               "customer_address": ("ca_address_sk", "ca_gmt_offset"), "customer": _CUST_ADDR,
+               "promotion": ("p_promo_sk", "p_channel_email", "p_channel_event"),
+               "store_sales": _STORE + ("ss_store_sk", "ss_customer_sk", "ss_promo_sk", "ss_ext_sales_price")},
+    "ds_q62": {**_SHIP, "web_site": ("web_site_sk", "web_name"),
+               "web_sales": ("ws_sold_date_sk", "ws_ship_date_sk", "ws_warehouse_sk", "ws_ship_mode_sk",
+                             "ws_web_site_sk")},
+    "ds_q99": {**_SHIP, "call_center": ("cc_call_center_sk", "cc_name"),
+               "catalog_sales": ("cs_sold_date_sk", "cs_ship_date_sk", "cs_warehouse_sk", "cs_ship_mode_sk",
+                                 "cs_call_center_sk")},
+    "ds_q21": {"date_dim": _DATES, "item": ("i_item_sk", "i_item_id", "i_current_price"),
+               "warehouse": ("w_warehouse_sk", "w_warehouse_name"),
+               "inventory": ("inv_date_sk", "inv_item_sk", "inv_warehouse_sk", "inv_quantity_on_hand")},
+    "ds_q32": {"date_dim": _DATES, "item": ("i_item_sk", "i_manufact_id"),
+               "catalog_sales": _CAT + ("cs_ext_discount_amt",)},
+    "ds_q92": {"date_dim": _DATES, "item": ("i_item_sk", "i_manufact_id"),
+               "web_sales": _WEB + ("ws_ext_discount_amt",)},
+    "ds_q65": {"date_dim": ("d_date_sk", "d_year"), "store": ("s_store_sk", "s_store_name"),
+               "item": ("i_item_sk", "i_item_desc", "i_current_price", "i_brand"),
+               "store_sales": _STORE + ("ss_store_sk", "ss_sales_price")},
+})
 TPCH_QUERIES = ("q6", "q1", "q3", "q4", "q5", "q10", "q12", "q14", "q19")
 DS_QUERIES = ("ds_q3", "ds_q7")
 # the rest of TPC-H; they run on the tables with dbgen's p_name,
@@ -802,6 +944,11 @@ ROLLUP_UNION_QUERIES = tuple(f"ds_{q}" for q in ("q27", "q18", "q22", "q5", "q77
 # TPC-DS's EXISTS, INTERSECT/EXCEPT, stddev and concat queries
 EXISTS_STDDEV_QUERIES = tuple(f"ds_{q}" for q in ("q10", "q35", "q69", "q38", "q87", "q17", "q25", "q29", "q39a",
                                                   "q39b", "q84"))
+# TPC-DS's single-fact reports: broadcast joins into one fact table, scalar
+# and IN subqueries run while the plan is built, CASE pivots
+REPORT_QUERIES = tuple(f"ds_{q}" for q in ("q42", "q52", "q55", "q19", "q43", "q96", "q26", "q6", "q41", "q13", "q48",
+                                           "q15", "q45", "q8", "q91", "q34", "q73", "q46", "q68", "q79", "q9", "q28",
+                                           "q88", "q90", "q61", "q62", "q99", "q21", "q32", "q92", "q65"))
 # q23a and q23b are empty from SF 0.01 on (the generator's -1 customer
 # spends the most): they run again at this scale, where they are not
 Q23_QUERIES, Q23_SCALE = ("ds_q23a", "ds_q23b"), 0.002
@@ -809,8 +956,9 @@ Q23_QUERIES, Q23_SCALE = ("ds_q23a", "ds_q23b"), 0.002
 # distinct names, so every store (name, day) recurs in another channel):
 # it runs again at this scale, where it is not
 Q87_QUERIES, Q87_SCALE = ("ds_q87",), 0.01
-# the queries that run a scalar subquery while their plan is built
-SUBQUERY_QUERIES = ("q11", "q15", "q22", "ds_q44", "ds_q77", "ds_q14a", "ds_q54", "ds_q23a", "ds_q23b")
+# the queries that run a scalar (q45: an IN) subquery while their plan is built
+SUBQUERY_QUERIES = ("q11", "q15", "q22", "ds_q44", "ds_q77", "ds_q14a", "ds_q54", "ds_q23a", "ds_q23b", "ds_q9",
+                    "ds_q28", "ds_q88", "ds_q90", "ds_q61", "ds_q45")
 # the queries whose two paths sum doubles in another order (q18's
 # averages of casts to double; q17's and q39's stddevs merge their
 # states in another order): their rows agree within 1e-9 relative
@@ -840,6 +988,21 @@ EXPECTED_LAUNCHES = {
        for q in ("ds_q10", "ds_q35", "ds_q69", "ds_q17", "ds_q25", "ds_q29", "ds_q84")},
     # a string key on every hash exchange (names; the warehouse name)
     **{q: (("pid_histogram", "sorted_lookup"), ("murmur3_pids",)) for q in ("ds_q38", "ds_q87", "ds_q39a", "ds_q39b")},
+    # the reports: a string key on every hash exchange
+    **{q: (("pid_histogram", "sorted_lookup"), ("murmur3_pids",))
+       for q in ("ds_q42", "ds_q52", "ds_q55", "ds_q19", "ds_q43", "ds_q26", "ds_q6", "ds_q41", "ds_q15", "ds_q45",
+                 "ds_q8", "ds_q91", "ds_q46", "ds_q68", "ds_q79", "ds_q62", "ds_q99", "ds_q21")},
+    # int keys: (ticket, customer), the item, (store, item)
+    **{q: (("murmur3_pids", "pid_histogram", "sorted_lookup"), ()) for q in ("ds_q34", "ds_q73", "ds_q32", "ds_q92",
+                                                                              "ds_q65")},
+    # global aggregates over broadcast joins: no hash exchange
+    **{q: (("sorted_lookup",), ("murmur3_pids", "pid_histogram")) for q in ("ds_q96", "ds_q13", "ds_q48", "ds_q88",
+                                                                             "ds_q90", "ds_q61")},
+    # q9: five bands' global aggregates over one table, no join, no
+    # hash exchange (as TPC-H q06); q28: its distinct prices' exchange
+    # on a decimal key, no join
+    "ds_q9": ((), ("murmur3_pids", "pid_histogram", "sorted_lookup")),
+    "ds_q28": (("murmur3_pids", "pid_histogram"), ("sorted_lookup",)),
 }
 
 
@@ -965,25 +1128,26 @@ def profile_queries(torch, runs) -> list:
 @contextlib.contextmanager
 def timed_subqueries():
     """Adds to the one-element list it yields the host seconds of every
-    scalar subquery that a plan built inside the block runs (each waits
-    for the card before it returns)."""
+    subquery (scalar, or q45's IN list) that a plan built inside the
+    block runs: each goes through ``tpch.queries.collect_columns`` and
+    waits for the card before it returns."""
     from blaze_tpu_torch.tpch import queries
 
     spent = [0.0]
-    real = queries.scalar_subquery_row
+    real = queries.collect_columns
 
-    def timed(plan, columns):
+    def timed(*args, **kwargs):
         t0 = time.perf_counter()
         try:
-            return real(plan, columns)
+            return real(*args, **kwargs)
         finally:
             spent[0] += time.perf_counter() - t0
 
-    queries.scalar_subquery_row = timed
+    queries.collect_columns = timed
     try:
         yield spent
     finally:
-        queries.scalar_subquery_row = real
+        queries.collect_columns = real
 
 
 def timed_build(torch, query: str, scans, n_parts: int, map_tasks=None):
@@ -1074,6 +1238,8 @@ def largest_inputs(cuda_ops):
 
 
 _ORACLES: Dict[tuple, object] = {}
+# host seconds of each oracle's one run, by (tables, query)
+ORACLE_SECONDS: Dict[tuple, float] = {}
 
 
 def oracle(data, query: str):
@@ -1085,7 +1251,9 @@ def oracle(data, query: str):
     key = (id(data), query)
     if key not in _ORACLES:
         fn = getattr(DO, f"oracle_{query[3:]}") if query.startswith("ds_") else getattr(O, f"oracle_{query}")
+        t0 = time.perf_counter()
         _ORACLES[key] = fn(data)
+        ORACLE_SECONDS[key] = time.perf_counter() - t0
     return _ORACLES[key]
 
 
@@ -1145,7 +1313,7 @@ def check_oracle(data, query: str, got: dict) -> str:
         return f"promo_revenue {exact} (unscaled, scale 6) = 10^8 sp / sr of the oracle's sums"
     if query in NEW_QUERIES:
         return check_new_query(query, got, exp, need)
-    if query in WINDOW_QUERIES + ROLLUP_UNION_QUERIES + EXISTS_STDDEV_QUERIES:
+    if query in WINDOW_QUERIES + ROLLUP_UNION_QUERIES + EXISTS_STDDEV_QUERIES + REPORT_QUERIES:
         from blaze_tpu_torch.tpcds.oracle import check_query
 
         return check_query(query[3:], got, exp)
@@ -1601,7 +1769,9 @@ def ds_phase(torch, cuda_ops, card: str, label: str, queries, data, scale: float
             raise AssertionError(f"{query} through run_stages launched {sched_runs[query]}, in process {runs[query]}")
         launches = {k: runs[query][k] for k in ("murmur3_pids", "pid_histogram", "sorted_lookup")}
         sub = f" (its scalar subquery {sub_s:.4f} s of it)" if query in SUBQUERY_QUERIES else ""
-        log(f"{query_label(query)} SF{scale} (8 partitions, 2^20-row batches): {said}; in process wall "
+        oracle_s = ORACLE_SECONDS[(id(data), query)]
+        log(f"{query_label(query)} SF{scale} (8 partitions, 2^20-row batches): {said} (oracle {oracle_s:.2f} s on "
+            f"the host); in process wall "
             f"{wall:.4f} s{sub}, {tasks} tasks, .data bytes 0 (exchanges kept on the card), peak device memory "
             f"{peak / 2**20:.1f} MiB ({(peak - held) / 2**20:.1f} above the {held / 2**20:.1f} held before); "
             f"through run_stages = oracle and = in process, wall {swall:.4f} s, {moved['tasks']} tasks, .data bytes "
@@ -1610,7 +1780,8 @@ def ds_phase(torch, cuda_ops, card: str, label: str, queries, data, scale: float
         rec = {"query": query_label(query), "scale": scale, "rows": len(next(iter(got.values()))),
                "inproc_wall_s": wall, "inproc_tasks": tasks, "held_bytes": held, "inproc_peak_bytes": peak,
                "run_stages_wall_s": swall, "run_stages_tasks": moved["tasks"], "run_stages_peak_bytes": speak,
-               "data_bytes": moved["data_bytes"], "stages": moved["kinds"], "launches": launches, "card": card}
+               "data_bytes": moved["data_bytes"], "stages": moved["kinds"], "launches": launches,
+               "subquery_s": sub_s, "oracle_s": oracle_s, "card": card}
         log(f"{label} " + json.dumps(rec))
         out.append(rec)
         del scans
@@ -1811,8 +1982,8 @@ def main() -> int:
     t0 = time.perf_counter()
     data = query_data(TPCH_QUERIES + NEW_QUERIES, args.scale, ds=False)
     new_data = spec_data(data, args.scale)
-    ds_data = query_data(DS_QUERIES + WINDOW_QUERIES + ROLLUP_UNION_QUERIES + EXISTS_STDDEV_QUERIES, args.ds_scale,
-                         ds=True)
+    ds_data = query_data(DS_QUERIES + WINDOW_QUERIES + ROLLUP_UNION_QUERIES + EXISTS_STDDEV_QUERIES + REPORT_QUERIES,
+                         args.ds_scale, ds=True)
     log(f"data at TPC-H SF{args.scale}, TPC-DS SF{args.ds_scale}: " + ", ".join(
         f"{k} {next(iter(v.values()))[0].shape[0]} rows" for k, v in (*data.items(), *ds_data.items()))
         + f" ({time.perf_counter() - t0:.1f} s)")
@@ -1888,6 +2059,7 @@ def main() -> int:
         checks.append(("pid_histogram", check_pid_histogram(torch, cuda_ops, flush, pids, parts, label,
                                                             timed=False)))
     checks += [("pid_histogram", r) for r in check_pid_histogram_streams(torch, cuda_ops, seed=40)]
+    checks += check_opt_in_threads(torch, cuda_ops, seed=50)
     checks += [
         ("fused_group_sums", check_group_sums(torch, cuda_ops, flush, rand_gids(40), rand_vals(9), 40,
                                               timed=False)),
@@ -1995,6 +2167,11 @@ def main() -> int:
              Q87_SCALE, n_parts, batch_rows, {}, {})
 
     phases.append(("exists and stddev queries", time.perf_counter() - T0))
+    # ---- TPC-DS's single-fact reports on both paths
+    ds_phase(torch, cuda_ops, card, "report", REPORT_QUERIES, ds_data, args.ds_scale, n_parts, batch_rows, runs,
+             sched_runs)
+
+    phases.append(("report queries", time.perf_counter() - T0))
     # ---- real null foreign keys through run_stages, and the kernels on them
     null_runs, null_checks = null_key_phase(torch, cuda_ops, flush, card, ds_data, args.ds_scale, n_parts,
                                             batch_rows)
