@@ -6,15 +6,18 @@ code reused: its own copy of ``blaze_tpu/tpcds/oracle.py``'s
 q51) and of the rollup and union family's (q27, q18, q22, q5, q77, q80,
 q14a, q33, q56, q60, q71, q76, q66, q2, q75, q54, q23a, q23b) and of
 ``EXISTS_STDDEV_QUERIES``' (q10, q35, q69, q38, q87, q17, q25, q29,
-q39a, q39b, q84) and ``REPORT_QUERIES``' (but q43's and q61's sums of
-no sale, null here as in SQL, 0 in the reference's), which return what
-the reference's return (q18's
+q39a, q39b, q84), ``REPORT_QUERIES``' (but q43's and q61's sums of
+no sale, null here as in SQL, 0 in the reference's) and
+``JOINED_QUERIES``' (where the reference's return a set of customers,
+these a sorted list: a customer may pass at two locations), which
+return what the reference's return (q18's
 double averages and q17's and q39's stddevs within 1e-9 relative: these
 compute a variance exactly in integers and round once, the reference's
 from a float sum of squares; q39's also list the rows near a cov
 threshold).  The reference's loop in Python over every fact row (q67's
 nine times, q22's over 23.49M inventory rows at SF1, and its ranks and
-q51's per-item merges are quadratic), which does not finish at SF1;
+q51's per-item merges are quadratic; q72's pairs 59.1M at SF1), which
+does not finish at SF1;
 these join and group the fact rows with numpy (sorted-key joins,
 sums by ``np.add.reduceat`` over a lexsort, exact in int64) and keep
 Python for the groups."""
@@ -29,7 +32,7 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 
 from ..tpch.oracle import _round_half_up, _s_eq, _s_isin, _sv
-from .queries import EXISTS_STDDEV_QUERIES, REPORT_QUERIES, ROLLUP_UNION_QUERIES
+from .queries import _Q64_COLORS, EXISTS_STDDEV_QUERIES, JOINED_QUERIES, REPORT_QUERIES, ROLLUP_UNION_QUERIES
 
 
 def _brand_rollup(tables, *, year, moy, item_filter_col, item_filter_val, group_cols):
@@ -889,16 +892,14 @@ _SALES_QP = (("store_sales", "ss_sold_date_sk", "ss_item_sk", "ss_quantity", "ss
              ("web_sales", "ws_sold_date_sk", "ws_item_sk", "ws_quantity", "ws_list_price"))
 
 
-def oracle_q14a(tables):
-    """{(channel, brand, class, category ids) with None above the level:
-    (sales, number of sales)}: November 2002 cells of the items whose id
-    triple sells in all three channels in 1998-2000, kept above the
-    three channels' 1998-2000 average of quantity x list price (exact
-    HALF_UP at scale 6), ROLLUP over the channels' union."""
+def _q14_base(tables):
+    """(item sk -> id-triple code, the triples by code, the codes of the
+    triples sold in all three channels in 1998-2000, the threshold: the
+    channels' 1998-2000 average of quantity x list price, exact HALF_UP
+    at scale 6, as a double)."""
     dd, it = tables["date_dim"], tables["item"]
-    y, mo = dd["d_year"][0], dd["d_moy"][0]
+    y = dd["d_year"][0]
     years = dd["d_date_sk"][0][(y >= 1998) & (y <= 2000)]
-    nov = dd["d_date_sk"][0][(y == 2002) & (mo == 11)]
     triples = list(zip(*(it[c][0].tolist() for c in ("i_brand_id", "i_class_id", "i_category_id"))))
     tcodes, tlabels = _codes(triples)
     item_triple = (it["i_item_sk"][0], tcodes, tlabels)
@@ -910,18 +911,34 @@ def oracle_q14a(tables):
         seen.append(set(tc[tc >= 0].tolist()))
         total += int((f[q_c][0][m].astype(np.int64) * f[p_c][0][m].astype(np.int64)).sum())
         cnt += int(m.sum())
-    inter = seen[0] & seen[1] & seen[2]
+    inter = np.array(sorted(seen[0] & seen[1] & seen[2]), np.int64)
     q_, r_ = divmod(total * 10_000, cnt)
-    thr = (q_ + (1 if 2 * r_ >= cnt else 0)) / 1_000_000.0
-    cells: Dict[tuple, list] = {}
-    for (fact, d_c, i_c, q_c, p_c), name in zip(_SALES_QP, ("store", "catalog", "web")):
-        f = tables[fact]
-        tc = _fact_code(item_triple, f[i_c][0])
-        m = np.isin(f[d_c][0], nov) & np.isin(tc, np.array(sorted(inter), np.int64))
-        v = f[q_c][0][m].astype(np.int64) * f[p_c][0][m].astype(np.int64)
-        for triple, (s, n) in _label_sums(tc[m], tlabels, [v, np.ones(v.shape[0], np.int64)]).items():
-            if s / 100.0 > thr:
-                cells[(name,) + triple] = [s, n]
+    return item_triple, tlabels, inter, (q_ + (1 if 2 * r_ >= cnt else 0)) / 1_000_000.0
+
+
+def _q14_cells(tables, base, channel, year) -> Dict[tuple, list]:
+    """{id triple: [sales, number of sales]} of one channel's November
+    ``year`` sales of the cross-channel items, kept above the
+    threshold."""
+    item_triple, tlabels, inter, thr = base
+    fact, d_c, i_c, q_c, p_c = channel
+    f = tables[fact]
+    tc = _fact_code(item_triple, f[i_c][0])
+    m = np.isin(f[d_c][0], _days_where(tables, d_year=year, d_moy=11)) & np.isin(tc, inter)
+    v = f[q_c][0][m].astype(np.int64) * f[p_c][0][m].astype(np.int64)
+    return {k: sn for k, sn in _label_sums(tc[m], tlabels, [v, np.ones(v.shape[0], np.int64)]).items()
+            if sn[0] / 100.0 > thr}
+
+
+def oracle_q14a(tables):
+    """{(channel, brand, class, category ids) with None above the level:
+    (sales, number of sales)}: November 2002 cells of the items whose id
+    triple sells in all three channels in 1998-2000, kept above the
+    three channels' 1998-2000 average of quantity x list price (exact
+    HALF_UP at scale 6), ROLLUP over the channels' union."""
+    base = _q14_base(tables)
+    cells = {(name,) + triple: sn for channel, name in zip(_SALES_QP, ("store", "catalog", "web"))
+             for triple, sn in _q14_cells(tables, base, channel, 2002).items()}
     return {k[:4]: tuple(v) for k, v in _rollup_levels(cells, 4).items()}
 
 
@@ -1054,6 +1071,13 @@ def oracle_q66(tables):
     return out
 
 
+def _dow_ratios(sums1, sums2, c1, c2) -> tuple:
+    """Seven day-of-week ratios of q2 and q59: an empty day None, a zero
+    or empty denominator 1.0."""
+    return tuple(None if n1 == 0 else (a / 100.0) / ((b / 100.0) if (n2 > 0 and b > 0) else 1.0)
+                 for a, b, n1, n2 in zip(sums1, sums2, c1, c2))
+
+
 def oracle_q2(tables):
     """{week of 2001: 7 day-of-week ratios}: web and catalog sales per
     (week, day), each 2001 week over the week 52 later in 2002; an empty
@@ -1078,9 +1102,7 @@ def oracle_q2(tables):
         k2 = w1 + 52
         if w1 not in y1 or k2 not in y2 or k2 not in sums:
             continue
-        sums2, c1, c2 = sums[k2], counts[w1], counts[k2]
-        out[w1] = tuple(None if n1 == 0 else (a / 100.0) / ((b / 100.0) if (n2 > 0 and b > 0) else 1.0)
-                        for a, b, n1, n2 in zip(sums1, sums2, c1, c2))
+        out[w1] = _dow_ratios(sums1, sums[k2], counts[w1], counts[k2])
     return out
 
 
@@ -1327,8 +1349,9 @@ def _pairs(left: np.ndarray, right: np.ndarray):
 
 
 def _key2(a: np.ndarray, b: np.ndarray) -> np.ndarray:
-    """Two int64 keys as one (``b`` in [0, 2^32))."""
-    return a.astype(np.int64) * (1 << 32) + b.astype(np.int64)
+    """Two int keys as one int64 (``b`` as its low 32 bits: the
+    generator's -1 null stand-in stays apart from every key)."""
+    return a.astype(np.int64) * (1 << 32) + (b.astype(np.int64) & 0xFFFFFFFF)
 
 
 def _srcandc(tables, columns):
@@ -2005,6 +2028,567 @@ def oracle_q65(tables):
                                                _strs(it, "i_item_desc", irows), _strs(it, "i_brand", irows))}
 
 
+# -------------------------------- multi-fact, shuffled and self joins
+
+
+def _returns_above_avg(tables, rtab, r_date, r_cust, r_loc, r_amt, loc_ok, names):
+    """q1, q30 and q81: the customers' 2000 returns per location above
+    1.2 times the location's average (exact HALF_UP at scale 6,
+    compared as doubles): their ids sorted (q1), or (id, first, last,
+    total) rows, one a (customer, location)."""
+    rt, cu = tables[rtab], tables["customer"]
+    m = np.isin(rt[r_date][0], _days_where(tables, d_year=2000))
+    if loc_ok is not None:
+        m &= np.isin(rt[r_loc][0], loc_ok)
+    (gc, gl), (tot,) = _group_sums([rt[r_cust][0][m], rt[r_loc][0][m]], [rt[r_amt][0][m]])
+    (locs,), (lsum, ln) = _group_sums([gl], [tot, np.ones(gl.shape[0], np.int64)])
+    avg = np.array([_avg_u(s, n) for s, n in zip(lsum.tolist(), ln.tolist())], np.int64)
+    rows = _rows_of(cu["c_customer_sk"][0], gc)
+    keep = np.flatnonzero((tot / 100.0 > 1.2 * (avg[np.searchsorted(locs, gl)] / 1_000_000.0)) & (rows >= 0))
+    r = rows[keep].tolist()
+    ids = _strs(cu, "c_customer_id", r)
+    if not names:
+        return sorted(ids)
+    return sorted(zip(ids, _strs(cu, "c_first_name", r), _strs(cu, "c_last_name", r), tot[keep].tolist()))
+
+
+def oracle_q1(tables):
+    st = tables["store"]
+    return _returns_above_avg(tables, "store_returns", "sr_returned_date_sk", "sr_customer_sk", "sr_store_sk",
+                              "sr_return_amt", st["s_store_sk"][0][_s_eq(st, "s_state", "TN")], False)
+
+
+def oracle_q30(tables):
+    return _returns_above_avg(tables, "web_returns", "wr_returned_date_sk", "wr_returning_customer_sk",
+                              "wr_web_page_sk", "wr_return_amt", None, True)
+
+
+def oracle_q81(tables):
+    return _returns_above_avg(tables, "catalog_returns", "cr_returned_date_sk", "cr_returning_customer_sk",
+                              "cr_call_center_sk", "cr_return_amount", None, True)
+
+
+def _ship_report(tables, *, fact, order_c, wh_c, ship_date_c, addr_c, dim_c, dim_ok, ship_c, profit_c, ret_tab,
+                 r_order_c, lo, hi, state, returned):
+    """q16, q94 and q95: (distinct orders, ship cost, net profit) of the
+    window's lines to ``state`` of multi-warehouse orders (over the
+    whole fact table) with (``returned``) or without a return; sums of
+    no line None."""
+    f, ca = tables[fact], tables["customer_address"]
+    orders = f[order_c][0].astype(np.int64)
+    pairs = np.unique(_key2(orders, f[wh_c][0]))
+    by_order, n_wh = np.unique(pairs >> 32, return_counts=True)
+    m = (np.isin(f[ship_date_c][0], _window(tables, lo, hi))
+         & np.isin(f[addr_c][0], ca["ca_address_sk"][0][_s_eq(ca, "ca_state", state)])
+         & np.isin(f[dim_c][0], dim_ok) & np.isin(orders, by_order[n_wh >= 2])
+         & (np.isin(orders, tables[ret_tab][r_order_c][0]) == returned))
+    n = int(np.unique(orders[m]).shape[0])
+    sums = [int(f[c][0][m].astype(np.int64).sum()) if n else None for c in (ship_c, profit_c)]
+    return (n, *sums)
+
+
+def _web_ship_report(tables, returned):
+    ws = tables["web_site"]
+    return _ship_report(tables, fact="web_sales", order_c="ws_order_number", wh_c="ws_warehouse_sk",
+                        ship_date_c="ws_ship_date_sk", addr_c="ws_ship_addr_sk", dim_c="ws_web_site_sk",
+                        dim_ok=ws["web_site_sk"][0][_s_eq(ws, "web_company_name", "pri")], ship_c="ws_ext_ship_cost",
+                        profit_c="ws_net_profit", ret_tab="web_returns", r_order_c="wr_order_number",
+                        lo=(1999, 2, 1), hi=(1999, 12, 31), state="TN", returned=returned)
+
+
+def oracle_q94(tables):
+    return _web_ship_report(tables, False)
+
+
+def oracle_q95(tables):
+    return _web_ship_report(tables, True)
+
+
+def oracle_q16(tables):
+    cc = tables["call_center"]
+    return _ship_report(tables, fact="catalog_sales", order_c="cs_order_number", wh_c="cs_warehouse_sk",
+                        ship_date_c="cs_ship_date_sk", addr_c="cs_ship_addr_sk", dim_c="cs_call_center_sk",
+                        dim_ok=cc["cc_call_center_sk"][0][_s_eq(cc, "cc_county", "Williamson County")],
+                        ship_c="cs_ext_ship_cost", profit_c="cs_net_profit", ret_tab="catalog_returns",
+                        r_order_c="cr_order_number", lo=(2002, 2, 1), hi=(2002, 12, 31), state="GA", returned=False)
+
+
+def _year_totals(tables, fact, date_c, cust_c, measure, year) -> Tuple[np.ndarray, np.ndarray]:
+    """(customer keys ascending, their total of ``measure``) of one
+    channel's lines of ``year``."""
+    f = tables[fact]
+    m = np.isin(f[date_c][0], _days_where(tables, d_year=year))
+    (g,), (s,) = _group_sums([f[cust_c][0][m]], [measure[m]])
+    return g, s
+
+
+def _customers_in_all(tables, totals) -> np.ndarray:
+    """The customer keys in every ``totals`` and the customer table."""
+    keys = tables["customer"]["c_customer_sk"][0]
+    for g, _ in totals:
+        keys = np.intersect1d(keys, g)
+    return keys
+
+
+def _at(totals, keys: np.ndarray) -> np.ndarray:
+    g, s = totals
+    return s[np.searchsorted(g, keys)]
+
+
+def _yoy_customer(tables, *, store_m, web_m, y1, y2, out_cols):
+    """q74 and q11: the ``out_cols`` rows of the customers whose web
+    total grew faster than their store total from ``y1`` to ``y2`` (the
+    decimals compared as doubles)."""
+    ss, ws = tables["store_sales"], tables["web_sales"]
+    tot = [_year_totals(tables, "store_sales", "ss_sold_date_sk", "ss_customer_sk", store_m(ss), y)
+           for y in (y1, y2)]
+    tot += [_year_totals(tables, "web_sales", "ws_sold_date_sk", "ws_bill_customer_sk", web_m(ws), y)
+            for y in (y1, y2)]
+    keys = _customers_in_all(tables, tot)
+    s1, s2, w1, w2 = (_at(t, keys) for t in tot)
+    ok = (s1 > 0) & (w1 > 0) & ((w2 / 100.0) / (w1 / 100.0) > (s2 / 100.0) / (s1 / 100.0))
+    cu = tables["customer"]
+    rows = _rows_of(cu["c_customer_sk"][0], keys[ok]).tolist()
+    return sorted(zip(*(_strs(cu, c, rows) for c in out_cols)))
+
+
+def oracle_q74(tables):
+    return _yoy_customer(tables, store_m=lambda f: f["ss_net_paid"][0].astype(np.int64),
+                         web_m=lambda f: f["ws_net_paid"][0].astype(np.int64), y1=1999, y2=2000,
+                         out_cols=["c_customer_id", "c_first_name", "c_last_name"])
+
+
+def oracle_q11(tables):
+    return _yoy_customer(
+        tables, store_m=lambda f: f["ss_ext_list_price"][0].astype(np.int64) - f["ss_ext_discount_amt"][0],
+        web_m=lambda f: f["ws_ext_list_price"][0].astype(np.int64) - f["ws_ext_discount_amt"][0], y1=2000, y2=2001,
+        out_cols=["c_customer_id", "c_preferred_cust_flag", "c_first_name", "c_last_name"])
+
+
+def oracle_q4(tables):
+    """The (id, first, last) of the customers whose catalog and web
+    growth of (list - wholesale - discount + sales) / 2 (exact at scale
+    10, compared as doubles) both beat their store growth, 2000 to
+    2001."""
+    tot = []
+    for fact, d_c, c_c, cols in (
+            ("store_sales", "ss_sold_date_sk", "ss_customer_sk",
+             ("ss_ext_list_price", "ss_ext_wholesale_cost", "ss_ext_discount_amt", "ss_ext_sales_price")),
+            ("catalog_sales", "cs_sold_date_sk", "cs_bill_customer_sk",
+             ("cs_ext_list_price", "cs_wholesale_cost", "cs_ext_discount_amt", "cs_ext_sales_price")),
+            ("web_sales", "ws_sold_date_sk", "ws_bill_customer_sk",
+             ("ws_ext_list_price", "ws_wholesale_cost", "ws_ext_discount_amt", "ws_ext_sales_price"))):
+        f = tables[fact]
+        lp, wc, dc, sp = (f[c][0].astype(np.int64) for c in cols)
+        for year in (2000, 2001):
+            g, s = _year_totals(tables, fact, d_c, c_c, lp - wc - dc + sp, year)
+            # x / 2 at scale 10 is x * 5 * 10^7 unscaled; sums of it alike
+            tot.append((g, s * 50_000_000))
+    keys = _customers_in_all(tables, tot)
+    s1, s2, c1, c2, w1, w2 = (_at(t, keys) / 1e10 for t in tot)
+    ok = (s1 > 0) & (c1 > 0) & (w1 > 0) & (c2 / c1 > s2 / s1) & (w2 / w1 > s2 / s1)
+    cu = tables["customer"]
+    rows = _rows_of(cu["c_customer_sk"][0], keys[ok]).tolist()
+    return sorted(zip(*(_strs(cu, c, rows) for c in ("c_customer_id", "c_first_name", "c_last_name"))))
+
+
+def _inv_price_items(tables, fact, item_c):
+    """q37 and q82: the (id, desc, price) of the items priced 30-60 with
+    100-500 on hand in 2000-02-01..04-01, sold in the channel."""
+    it, inv = tables["item"], tables["inventory"]
+    qoh = inv["inv_quantity_on_hand"][0]
+    m = np.isin(inv["inv_date_sk"][0], _window(tables, (2000, 2, 1), (2000, 4, 1))) & (qoh >= 100) & (qoh <= 500)
+    sk, price = it["i_item_sk"][0], it["i_current_price"][0]
+    ok = ((price >= 3000) & (price <= 6000) & np.isin(sk, inv["inv_item_sk"][0][m])
+          & np.isin(sk, tables[fact][item_c][0]))
+    rows = np.flatnonzero(ok).tolist()
+    return set(zip(_strs(it, "i_item_id", rows), _strs(it, "i_item_desc", rows), price[rows].tolist()))
+
+
+def oracle_q37(tables):
+    return _inv_price_items(tables, "catalog_sales", "cs_item_sk")
+
+
+def oracle_q82(tables):
+    return _inv_price_items(tables, "store_sales", "ss_item_sk")
+
+
+def oracle_q40(tables):
+    """{(warehouse state, item id): (sales before, after 2000-03-11)} of
+    items priced 20-50 in the 30 days either side, each line net of its
+    refunds (once per matching return, else once whole); a side with no
+    line None."""
+    dd, it, wh = tables["date_dim"], tables["item"], tables["warehouse"]
+    cs, cr = tables["catalog_sales"], tables["catalog_returns"]
+    rows = np.flatnonzero(np.isin(cs["cs_sold_date_sk"][0], _window(tables, (2000, 2, 10), (2000, 4, 10))))
+    price = it["i_current_price"][0]
+    items = _dim(it, "i_item_sk", _sv(it, "i_item_id"), (price >= 2000) & (price <= 5000))
+    states = _dim(wh, "w_warehouse_sk", _sv(wh, "w_state"))
+    ic, wc = _fact_code(items, cs["cs_item_sk"][0][rows]), _fact_code(states, cs["cs_warehouse_sk"][0][rows])
+    k = _keep(ic, wc)
+    rows, ic, wc = rows[k], ic[k], wc[k]
+    before = dd["d_date"][0][_rows_of(dd["d_date_sk"][0], cs["cs_sold_date_sk"][0][rows])] < _epoch_day(2000, 3, 11)
+    sales = cs["cs_sales_price"][0][rows].astype(np.int64)
+    line, ret = _matches([cr["cr_item_sk"][0], cr["cr_order_number"][0]],
+                         [cs["cs_item_sk"][0][rows], cs["cs_order_number"][0][rows]])
+    alone = np.flatnonzero(np.bincount(line, minlength=rows.shape[0]) == 0)
+    at = np.concatenate([line, alone])
+    net = np.concatenate([sales[line] - cr["cr_refunded_cash"][0][ret].astype(np.int64), sales[alone]])
+    b = before[at]
+    (gw, gi), (sb, sa, nb, na) = _group_sums([wc[at], ic[at]], [np.where(b, net, 0), np.where(b, 0, net),
+                                                                  b.astype(np.int64), (~b).astype(np.int64)])
+    return {(states[2][w], items[2][i]): (x if p else None, y if q else None)
+            for w, i, x, y, p, q in zip(gw.tolist(), gi.tolist(), sb.tolist(), sa.tolist(), nb.tolist(), na.tolist())}
+
+
+def oracle_q50(tables):
+    """{(store name, county, state, zip): lines returned in August 2001
+    within 30, 60, 90, 120 days of the sale and later}: each return
+    joined to its sale on (item, ticket, customer)."""
+    dd, st, ss, sr = tables["date_dim"], tables["store"], tables["store_sales"], tables["store_returns"]
+    r_rows = np.flatnonzero(np.isin(sr["sr_returned_date_sk"][0], _days_where(tables, d_year=2001, d_moy=8)))
+    s_rows = np.flatnonzero(np.isin(ss["ss_ticket_number"][0], sr["sr_ticket_number"][0][r_rows]))
+    s, r = _matches([sr[c][0][r_rows] for c in ("sr_item_sk", "sr_ticket_number", "sr_customer_sk")],
+                    [ss[c][0][s_rows] for c in ("ss_item_sk", "ss_ticket_number", "ss_customer_sk")])
+    s, r = s_rows[s], r_rows[r]
+    stores = _dim(st, "s_store_sk", list(zip(*(_sv(st, c) for c in ("s_store_name", "s_county", "s_state", "s_zip")))))
+    sc = _fact_code(stores, ss["ss_store_sk"][0][s])
+    sold = _rows_of(dd["d_date_sk"][0], ss["ss_sold_date_sk"][0][s])
+    k = (sc >= 0) & (sold >= 0)
+    lag = (dd["d_date"][0][_rows_of(dd["d_date_sk"][0], sr["sr_returned_date_sk"][0][r[k]])].astype(np.int64)
+           - dd["d_date"][0][sold[k]])
+    bounds = (-(1 << 62), 30, 60, 90, 120, 1 << 62)
+    buckets = [(lag > lo) & (lag <= hi) for lo, hi in zip(bounds, bounds[1:])]
+    return {k_: tuple(v) for k_, v in _label_sums(sc[k], stores[2], [b.astype(np.int64) for b in buckets]).items()}
+
+
+def oracle_q93(tables):
+    """{customer sk: sales net of returns} of the store lines returned
+    for 'Stopped working' ((quantity - returned) x price per matching
+    return)."""
+    ss, sr, rs = tables["store_sales"], tables["store_returns"], tables["reason"]
+    ok = rs["r_reason_sk"][0][_s_eq(rs, "r_reason_desc", "Stopped working")]
+    r_rows = np.flatnonzero(np.isin(sr["sr_reason_sk"][0], ok))
+    s_rows = np.flatnonzero(np.isin(ss["ss_ticket_number"][0], sr["sr_ticket_number"][0][r_rows]))
+    s, r = _matches([sr["sr_item_sk"][0][r_rows], sr["sr_ticket_number"][0][r_rows]],
+                    [ss["ss_item_sk"][0][s_rows], ss["ss_ticket_number"][0][s_rows]])
+    s = s_rows[s]
+    act = ((ss["ss_quantity"][0][s].astype(np.int64) - sr["sr_return_quantity"][0][r_rows[r]])
+           * ss["ss_sales_price"][0][s].astype(np.int64))
+    (g,), (v,) = _group_sums([ss["ss_customer_sk"][0][s]], [act])
+    return dict(zip(g.tolist(), v.tolist()))
+
+
+def _q24_cells(tables):
+    """{(last, first, store name, color): net paid} of q24's ssales:
+    the store lines once per matching return on (item, ticket), of
+    market-8 stores, to customers living in the store's county."""
+    ss, sr, st = tables["store_sales"], tables["store_returns"], tables["store"]
+    cu, ca, it = tables["customer"], tables["customer_address"], tables["item"]
+    s_rows = np.flatnonzero(np.isin(ss["ss_ticket_number"][0], sr["sr_ticket_number"][0]))
+    s, _ = _matches([sr["sr_item_sk"][0], sr["sr_ticket_number"][0]],
+                    [ss["ss_item_sk"][0][s_rows], ss["ss_ticket_number"][0][s_rows]])
+    s = s_rows[s]
+    counties, cty_labels = _codes(_sv(st, "s_county") + _sv(ca, "ca_county"))
+    n_st = st["s_store_sk"][0].shape[0]
+    st_row = _rows_of(st["s_store_sk"][0], ss["ss_store_sk"][0][s])
+    cu_row = _rows_of(cu["c_customer_sk"][0], ss["ss_customer_sk"][0][s])
+    ca_row = _rows_of(ca["ca_address_sk"][0], cu["c_current_addr_sk"][0][np.maximum(cu_row, 0)])
+    it_row = _rows_of(it["i_item_sk"][0], ss["ss_item_sk"][0][s])
+    k = (st_row >= 0) & (cu_row >= 0) & (ca_row >= 0) & (it_row >= 0)
+    k[k] &= st["s_market_id"][0][st_row[k]] == 8
+    k[k] &= counties[st_row[k]] == counties[n_st + ca_row[k]]
+    names, name_labels = _codes(list(zip(_sv(cu, "c_last_name"), _sv(cu, "c_first_name"))))
+    store_names, color = _sv(st, "s_store_name"), _sv(it, "i_color")
+    (gn, gs, gi), (v,) = _group_sums([names[cu_row[k]], st_row[k], it_row[k]], [ss["ss_net_paid"][0][s[k]]])
+    cells: Dict[tuple, int] = defaultdict(int)
+    for n, r, i, x in zip(gn.tolist(), gs.tolist(), gi.tolist(), v.tolist()):
+        cells[name_labels[n] + (store_names[r], color[i])] += x
+    return dict(cells)
+
+
+def _q24(tables, color):
+    """{(last, first, store name): net paid} of ``color`` above 5% of
+    the average over every cell (exact HALF_UP at scale 6, compared as
+    doubles)."""
+    cells = _q24_cells(tables)
+    if not cells:
+        return {}
+    thr = 0.05 * (_avg_u(sum(cells.values()), len(cells)) / 1_000_000.0)
+    return {k[:3]: v for k, v in cells.items() if k[3] == color and v / 100.0 > thr}
+
+
+def oracle_q24a(tables):
+    return _q24(tables, "peach")
+
+
+def oracle_q24b(tables):
+    return _q24(tables, "saddle")
+
+
+def oracle_q14b(tables):
+    """{(brand, class, category ids): (sales, number, last year's sales,
+    number)} of November 2002's store cells of the cross-channel items
+    above the average that beat November 2001's."""
+    base = _q14_base(tables)
+    ty, ly = (_q14_cells(tables, base, _SALES_QP[0], year) for year in (2002, 2001))
+    return {k: (s, n, ly[k][0], ly[k][1]) for k, (s, n) in ty.items() if k in ly and s / 100.0 > ly[k][0] / 100.0}
+
+
+def _item_sums(tables, items, fact, date_c, item_c, value_c, dates) -> Dict[str, int]:
+    """{item id: the sum of ``value_c``} of one fact table's rows dated
+    in ``dates``."""
+    f = tables[fact]
+    m = np.isin(f[date_c][0], dates)
+    return {k: v[0] for k, v in _label_sums(_fact_code(items, f[item_c][0][m]), items[2],
+                                            [f[value_c][0][m]]).items()}
+
+
+def oracle_q58(tables):
+    """{item id: (store revenue, share, catalog revenue, share, web
+    revenue, share, average)} in the month of 2000-01-03 of the items
+    whose three revenues lie within 25%-400% of each other."""
+    dd, it = tables["date_dim"], tables["item"]
+    month = dd["d_month_seq"][0][dd["d_date"][0] == _epoch_day(2000, 1, 3)][0]
+    dates = dd["d_date_sk"][0][dd["d_month_seq"][0] == month]
+    items = _dim(it, "i_item_sk", _sv(it, "i_item_id"))
+    ssr, csr, wsr = (_item_sums(tables, items, fact, f"{p}_sold_date_sk", f"{p}_item_sk", f"{p}_ext_sales_price",
+                                dates)
+                     for fact, p in (("store_sales", "ss"), ("catalog_sales", "cs"), ("web_sales", "ws")))
+    out = {}
+    for k in ssr.keys() & csr.keys() & wsr.keys():
+        s, c, w = ssr[k] / 100.0, csr[k] / 100.0, wsr[k] / 100.0
+        if all(0.25 * b <= a <= 4.0 * b for a, b in ((s, c), (s, w), (c, s), (c, w), (w, s), (w, c))):
+            total = s + c + w
+            out[k] = (ssr[k], s / total / 3.0 * 100.0, csr[k], c / total / 3.0 * 100.0, wsr[k],
+                      w / total / 3.0 * 100.0, total / 3.0)
+    return out
+
+
+def oracle_q31(tables):
+    """{county: (web q1->q2, store q1->q2, web q2->q3, store q2->q3
+    growth)} of the counties whose web growth beats the store's in
+    either step of 2000 (a step with a zero denominator does not count;
+    the reported ratios unguarded, inf or nan as the doubles give
+    them)."""
+    ca = tables["customer_address"]
+    counties = _dim(ca, "ca_address_sk", _sv(ca, "ca_county"))
+
+    def branch(fact, date_c, addr_c, price_c, qoy):
+        f = tables[fact]
+        m = np.isin(f[date_c][0], _days_where(tables, d_year=2000, d_qoy=qoy))
+        return {k: v[0] for k, v in _label_sums(_fact_code(counties, f[addr_c][0][m]), counties[2],
+                                                [f[price_c][0][m]]).items()}
+
+    ss = {q: branch("store_sales", "ss_sold_date_sk", "ss_addr_sk", "ss_ext_sales_price", q) for q in (1, 2, 3)}
+    ws = {q: branch("web_sales", "ws_sold_date_sk", "ws_bill_addr_sk", "ws_ext_sales_price", q) for q in (1, 2, 3)}
+    out = {}
+    for c in ss[1]:
+        if any(c not in b[q] for b in (ss, ws) for q in (1, 2, 3)):
+            continue
+        with np.errstate(divide="ignore", invalid="ignore"):
+            w12, s12, w23, s23 = (float(np.float64(b[qb][c] / 100.0) / np.float64(b[qa][c] / 100.0))
+                                  for b, qa, qb in ((ws, 1, 2), (ss, 1, 2), (ws, 2, 3), (ss, 2, 3)))
+        if (ws[1][c] > 0 and ss[1][c] > 0 and w12 > s12) or (ws[2][c] > 0 and ss[2][c] > 0 and w23 > s23):
+            out[c] = (w12, s12, w23, s23)
+    return out
+
+
+def oracle_q59(tables):
+    """{(store name, week of 2001): 7 day-of-week ratios}: store sales
+    per (store, week, day), each 2001 week over the week 52 later in
+    2002."""
+    dd, st, ss = tables["date_dim"], tables["store"], tables["store_sales"]
+    y1 = set(dd["d_week_seq"][0][dd["d_year"][0] == 2001].tolist())
+    y2 = set(dd["d_week_seq"][0][dd["d_year"][0] == 2002].tolist())
+    dates = (dd["d_date_sk"][0], (dd["d_week_seq"][0].astype(np.int64) * 7 + dd["d_dow"][0]), None)
+    wd = _fact_code(dates, ss["ss_sold_date_sk"][0])
+    sc = _rows_of(st["s_store_sk"][0], ss["ss_store_sk"][0])
+    names = _sv(st, "s_store_name")
+    m = (wd >= 0) & (sc >= 0)
+    (gs, gw), (tot, n) = _group_sums([sc[m], wd[m]], [ss["ss_sales_price"][0][m], np.ones(int(m.sum()), np.int64)])
+    sums: Dict[tuple, list] = {}
+    counts: Dict[tuple, list] = {}
+    for s, k, v, c in zip(gs.tolist(), gw.tolist(), tot.tolist(), n.tolist()):
+        sums.setdefault((s, k // 7), [0] * 7)[k % 7] += v
+        counts.setdefault((s, k // 7), [0] * 7)[k % 7] += c
+    return {(names[s], w): _dow_ratios(sums[(s, w)], sums[(s, w + 52)], counts[(s, w)], counts[(s, w + 52)])
+            for s, w in sums if w in y1 and w + 52 in y2 and (s, w + 52) in sums}
+
+
+def oracle_q83(tables):
+    """{item id: (store, catalog, web returned quantity, each one's
+    share in percent, their average)} of 2000, items returned in all
+    three channels."""
+    it = tables["item"]
+    items = _dim(it, "i_item_sk", _sv(it, "i_item_id"))
+    dates = _days_where(tables, d_year=2000)
+    sr, cr, wr = (_item_sums(tables, items, f"{name}_returns", f"{p}_returned_date_sk", f"{p}_item_sk",
+                             f"{p}_return_quantity", dates)
+                  for name, p in (("store", "sr"), ("catalog", "cr"), ("web", "wr")))
+    out = {}
+    for k in sr.keys() & cr.keys() & wr.keys():
+        a, b, c = sr[k], cr[k], wr[k]
+        tot = float(a + b + c)
+        out[k] = (a, b, c, a / tot * 100.0, b / tot * 100.0, c / tot * 100.0, tot / 3.0)
+    return out
+
+
+def oracle_q85(tables):
+    """{reason[:20]: (average quantity, average refund, average fee)}
+    (the decimals exact HALF_UP at scale 6) of the 2000 web lines joined
+    to their returns on (order, item), a page, both demographics, the
+    refund address and the reason, kept by the query's OR'd bands."""
+    ws, wr, cd = tables["web_sales"], tables["web_returns"], tables["customer_demographics"]
+    ca, rs = tables["customer_address"], tables["reason"]
+    w, r = _matches([wr["wr_order_number"][0], wr["wr_item_sk"][0]], [ws["ws_order_number"][0], ws["ws_item_sk"][0]])
+    w_sk = ws["ws_web_page_sk"][0][w]
+    cd1, cd2 = (_rows_of(cd["cd_demo_sk"][0], wr[c][0][r]) for c in ("wr_refunded_cdemo_sk", "wr_returning_cdemo_sk"))
+    ar = _rows_of(ca["ca_address_sk"][0], wr["wr_refunded_addr_sk"][0][r])
+    rr = _rows_of(rs["r_reason_sk"][0], wr["wr_reason_sk"][0][r])
+    k = (np.isin(ws["ws_sold_date_sk"][0][w], _days_where(tables, d_year=2000))
+         & np.isin(w_sk, tables["web_page"]["wp_web_page_sk"][0]) & _keep(cd1, cd2, ar, rr))
+    w, r, cd1, cd2, ar, rr = w[k], r[k], cd1[k], cd2[k], ar[k], rr[k]
+    ms, ms_labels = _codes(_sv(cd, "cd_marital_status"))
+    ms_of = {v: i for i, v in enumerate(ms_labels)}
+    m1, m2 = ms[cd1], ms[cd2]
+    price = ws["ws_sales_price"][0][w] / 100.0
+    profit = ws["ws_net_profit"][0][w] / 100.0
+    demo = np.zeros(w.shape[0], bool)
+    for status, lo, hi in (("M", 0.0, 150.0), ("S", 50.0, 250.0), ("W", 100.0, 300.0)):
+        demo |= (m1 == ms_of.get(status, -1)) & (m1 == m2) & (price >= lo) & (price <= hi)
+    us = _s_eq(ca, "ca_country", "United States")[ar]
+    geo = np.zeros(w.shape[0], bool)
+    for states, lo, hi in ((("OH", "TN", "SD"), -1000.0, 500.0), (("AL", "GA", "SD"), 0.0, 1500.0),
+                           (("TN", "GA", "AL"), -500.0, 1000.0)):
+        geo |= us & _s_isin(ca, "ca_state", states)[ar] & (profit >= lo) & (profit <= hi)
+    k = demo & geo
+    descs = _sv(rs, "r_reason_desc")
+    sums = _label_sums(rr[k], descs, [ws["ws_quantity"][0][w[k]], wr["wr_refunded_cash"][0][r[k]],
+                                      wr["wr_fee"][0][r[k]], np.ones(int(k.sum()), np.int64)])
+    return {d[:20]: (q / n, _avg_u(c, n), _avg_u(f, n)) for d, (q, c, f, n) in sums.items()}
+
+
+def _q78_channel(tables, fact, d_c, i_c, c_c, k2_c, q_c, w_c, s_c, rtab, ri_c, rk2_c):
+    """(keys (item, customer) ascending, quantity, wholesale cost and
+    price sums) of one channel's 2000 lines never returned."""
+    f, rt = tables[fact], tables[rtab]
+    rows = np.flatnonzero(np.isin(f[d_c][0], _days_where(tables, d_year=2000)))
+    rows = rows[~np.isin(_key2(f[i_c][0][rows], f[k2_c][0][rows]), _key2(rt[ri_c][0], rt[rk2_c][0]))]
+    (gi, gc), sums = _group_sums([f[i_c][0][rows], f[c_c][0][rows]], [f[c][0][rows] for c in (q_c, w_c, s_c)])
+    return _key2(gi, gc), gi, gc, sums
+
+
+def oracle_q78(tables):
+    """{(item, customer): (store quantity, wholesale cost, price, ratio,
+    other channels' quantity)} of 2000's never-returned store lines
+    whose pair the web or the catalog sold too."""
+    ss_k, ss_i, ss_c, (q, w, sp) = _q78_channel(tables, "store_sales", "ss_sold_date_sk", "ss_item_sk",
+                                                 "ss_customer_sk", "ss_ticket_number", "ss_quantity",
+                                                 "ss_wholesale_cost", "ss_sales_price", "store_returns", "sr_item_sk",
+                                                 "sr_ticket_number")
+    other = []
+    for fact, p, rtab, r in (("web_sales", "ws", "web_returns", "wr"),
+                             ("catalog_sales", "cs", "catalog_returns", "cr")):
+        keys, _, _, (oq, _, _) = _q78_channel(tables, fact, f"{p}_sold_date_sk", f"{p}_item_sk",
+                                              f"{p}_bill_customer_sk", f"{p}_order_number", f"{p}_quantity",
+                                              f"{p}_wholesale_cost", f"{p}_sales_price", rtab, f"{r}_item_sk",
+                                              f"{r}_order_number")
+        at = _rows_of(keys, ss_k)
+        other.append(np.where(at >= 0, oq[np.maximum(at, 0)], 0))
+    wq, cq = other
+    out = {}
+    for j in np.flatnonzero((wq > 0) | (cq > 0)).tolist():
+        o = int(wq[j] + cq[j])
+        out[(int(ss_i[j]), int(ss_c[j]))] = (int(q[j]), int(w[j]), int(sp[j]), int(q[j]) / (float(o) if o > 0 else 1.0),
+                                             o)
+    return out
+
+
+def oracle_q97(tables):
+    """(store only, catalog only, both): the 2000 (customer, item) pairs
+    of store and catalog sales."""
+    dates = _days_where(tables, d_year=2000)
+
+    def pairs(fact, d_c, c_c, i_c):
+        f = tables[fact]
+        m = np.isin(f[d_c][0], dates)
+        return np.unique(_key2(f[c_c][0][m], f[i_c][0][m]))
+
+    ss = pairs("store_sales", "ss_sold_date_sk", "ss_customer_sk", "ss_item_sk")
+    cs = pairs("catalog_sales", "cs_sold_date_sk", "cs_bill_customer_sk", "cs_item_sk")
+    both = int(np.intersect1d(ss, cs).shape[0])
+    return (int(ss.shape[0]) - both, int(cs.shape[0]) - both, both)
+
+
+def _q64_cells(tables, year):
+    """{(item id, store name, zip): (lines, wholesale cost, list price,
+    coupon sums)} of ``year``'s store lines of the ten colors, once per
+    matching return on (item, ticket)."""
+    ss, sr, it, st = tables["store_sales"], tables["store_returns"], tables["item"], tables["store"]
+    rows = np.flatnonzero(np.isin(ss["ss_sold_date_sk"][0], _days_where(tables, d_year=year)))
+    s, _ = _matches([sr["sr_item_sk"][0], sr["sr_ticket_number"][0]],
+                    [ss["ss_item_sk"][0][rows], ss["ss_ticket_number"][0][rows]])
+    s = rows[s]
+    items = _dim(it, "i_item_sk", _sv(it, "i_item_id"), _s_isin(it, "i_color", _Q64_COLORS))
+    stores = _dim(st, "s_store_sk", list(zip(_sv(st, "s_store_name"), _sv(st, "s_zip"))))
+    ic, sc = _fact_code(items, ss["ss_item_sk"][0][s]), _fact_code(stores, ss["ss_store_sk"][0][s])
+    k = _keep(ic, sc)
+    (gi, gs), sums = _group_sums([ic[k], sc[k]], [np.ones(int(k.sum()), np.int64)]
+                                 + [ss[c][0][s[k]] for c in ("ss_wholesale_cost", "ss_list_price", "ss_coupon_amt")])
+    return {(items[2][i],) + stores[2][j]: tuple(int(v[n]) for v in sums)
+            for n, (i, j) in enumerate(zip(gi.tolist(), gs.tolist()))}
+
+
+def oracle_q64(tables):
+    """{(item id, store name, zip): 2001's four values, then 2002's}
+    where 2002 repeats at most as often."""
+    c1, c2 = _q64_cells(tables, 2001), _q64_cells(tables, 2002)
+    return {k: v + c2[k] for k, v in c1.items() if k in c2 and c2[k][0] <= v[0]}
+
+
+def oracle_q72(tables):
+    """{(item desc, warehouse name, week): lines}: the catalog lines of
+    '>10000'-potential, divorced buyers shipped over 5 days after the
+    sale, counted once per inventory row of their item, in their sale's
+    week, holding fewer than the quantity ordered.  Per warehouse, the
+    inventory is sorted by (item, week, on hand), so each line's count
+    is one ``searchsorted`` difference (no pair is built)."""
+    dd, it, wh = tables["date_dim"], tables["item"], tables["warehouse"]
+    hd, cd = tables["household_demographics"], tables["customer_demographics"]
+    cs, inv = tables["catalog_sales"], tables["inventory"]
+    d_sk, d_date, d_week = dd["d_date_sk"][0], dd["d_date"][0].astype(np.int64), dd["d_week_seq"][0].astype(np.int64)
+    m = (np.isin(cs["cs_bill_hdemo_sk"][0], hd["hd_demo_sk"][0][_s_eq(hd, "hd_buy_potential", ">10000")])
+         & np.isin(cs["cs_bill_cdemo_sk"][0], cd["cd_demo_sk"][0][_s_eq(cd, "cd_marital_status", "D")]))
+    rows = np.flatnonzero(m)
+    sold, ship = (_rows_of(d_sk, cs[c][0][rows]) for c in ("cs_sold_date_sk", "cs_ship_date_sk"))
+    ir = _rows_of(it["i_item_sk"][0], cs["cs_item_sk"][0][rows])
+    k = (sold >= 0) & (ship >= 0) & (ir >= 0)
+    k[k] &= d_date[ship[k]] > d_date[sold[k]] + 5
+    rows, week, ir = rows[k], d_week[sold[k]], ir[k]
+    item, qty = cs["cs_item_sk"][0][rows].astype(np.int64), cs["cs_quantity"][0][rows].astype(np.int64)
+    descs, desc_labels = _codes(_sv(it, "i_item_desc"))
+    inv_d = _rows_of(d_sk, inv["inv_date_sk"][0])
+    inv_w = _rows_of(wh["w_warehouse_sk"][0], inv["inv_warehouse_sk"][0])
+    qoh = inv["inv_quantity_on_hand"][0].astype(np.int64)
+    lo, span = int(qoh.min(initial=0)), int(qoh.max(initial=0)) - int(qoh.min(initial=0)) + 2
+    n_weeks = int(d_week.max()) + 1
+    names = _sv(wh, "w_warehouse_name")
+    out: Dict[tuple, int] = defaultdict(int)
+    for w in range(wh["w_warehouse_sk"][0].shape[0]):
+        at = np.flatnonzero((inv_w == w) & (inv_d >= 0))
+        cell = inv["inv_item_sk"][0][at].astype(np.int64) * n_weeks + d_week[inv_d[at]]
+        keys = np.sort(cell * span + (qoh[at] - lo))
+        line = item * n_weeks + week
+        n = (np.searchsorted(keys, line * span + np.clip(qty - lo, 0, span - 1), "left")
+             - np.searchsorted(keys, line * span, "left"))
+        got = n > 0
+        (gd, gk), (cnt,) = _group_sums([descs[ir[got]], week[got]], [n[got]])
+        for d, wk, c in zip(gd.tolist(), gk.tolist(), cnt.tolist()):
+            out[(desc_labels[d], names[w], wk)] += c
+    return dict(out)
+
+
 # ------------------------------------------------- holding a result to them
 
 
@@ -2102,9 +2686,10 @@ def check_window_query(query: str, got: Dict[str, list], exp) -> str:
 
 
 def _close(a, b) -> bool:
-    """Doubles within 1e-9 relative; anything else equal."""
+    """Doubles within 1e-9 relative (nan equal to nan); anything else
+    equal."""
     if isinstance(a, float) and isinstance(b, float):
-        return a == b or abs(a - b) <= 1e-9 * max(abs(a), abs(b))
+        return a == b or (a != a and b != b) or abs(a - b) <= 1e-9 * max(abs(a), abs(b))
     return a == b
 
 
@@ -2416,10 +3001,83 @@ def check_report_query(query: str, got: Dict[str, list], exp) -> str:
     raise KeyError(query)
 
 
+
+_TRIPLE_IDS = ("i_brand_id", "i_class_id", "i_category_id")
+_DOW_RATIOS = tuple(f"{d}_ratio" for d in ("sun", "mon", "tue", "wed", "thu", "fri", "sat"))
+_Q64_COLS = ("i_item_id", "s_store_name", "s_zip", "cnt", "s1", "s2", "s3", "cnt2", "s1_2", "s2_2", "s3_2")
+
+#: per query of ``JOINED_QUERIES`` with rows, as ``_REPORT_ROWS``: (its
+#: columns, the oracle's rows from its return, the sort, the columns that
+#: key a row (None: rows as a multiset), the fetch)
+_JOINED_ROWS = {
+    "q1": (("c_customer_id",), lambda e: [(k,) for k in e], [(0, False)], None, 100),
+    **{q: (("c_customer_id", "c_first_name", "c_last_name", "ctr_total_return"), list, [(0, False), (3, False)],
+           None, 100) for q in ("q30", "q81")},
+    "q74": (("c_customer_id", "c_first_name", "c_last_name"), list, [(0, False)], None, 100),
+    "q11": (("c_customer_id", "c_preferred_cust_flag", "c_first_name", "c_last_name"), list, [(0, False)], None,
+            100),
+    "q4": (("c_customer_id", "c_first_name", "c_last_name"), list, [(0, False)], None, 100),
+    **{q: (("i_item_id", "i_item_desc", "i_current_price"), list, [(0, False)], None, 100) for q in ("q37", "q82")},
+    "q40": (("w_state", "i_item_id", "sales_before", "sales_after"), lambda e: [k + v for k, v in e.items()],
+            [(0, False), (1, False)], 2, 100),
+    "q50": (("s_store_name", "s_county", "s_state", "s_zip", "d30", "d60", "d90", "d120", "dmore"),
+            lambda e: [k + v for k, v in e.items()], [(i, False) for i in range(4)], 4, 100),
+    "q93": (("ss_customer_sk", "sumsales"), lambda e: list(e.items()), [(1, False), (0, False)], 1, 100),
+    **{q: (("c_last_name", "c_first_name", "s_store_name", "paid"), lambda e: [k + (v,) for k, v in e.items()],
+           [(0, False), (1, False), (2, False)], 3, None) for q in ("q24a", "q24b")},
+    "q14b": (_TRIPLE_IDS + ("sales", "number_sales", "last_sales", "last_number_sales"),
+             lambda e: [k + v for k, v in e.items()], [(0, False), (1, False), (2, False)], 3, 100),
+    "q58": (("item_id", "ss_item_rev", "ss_dev", "cs_item_rev", "cs_dev", "ws_item_rev", "ws_dev", "average"),
+            lambda e: [(k,) + v for k, v in e.items()], [(0, False), (1, False)], 1, 100),
+    "q31": (("ca_county", "web_q1_q2_increase", "store_q1_q2_increase", "web_q2_q3_increase",
+             "store_q2_q3_increase"), lambda e: [(k,) + v for k, v in e.items()], [(0, False)], 1, None),
+    "q59": (("s_store_name", "d_week_seq") + _DOW_RATIOS, lambda e: [k + v for k, v in e.items()],
+            [(0, False), (1, False)], 2, 100),
+    "q83": (("item_id", "sr_qty", "cr_qty", "wr_qty", "sr_dev", "cr_dev", "wr_dev", "average"),
+            lambda e: [(k,) + v for k, v in e.items()], [(0, False), (1, False)], 1, 100),
+    "q85": (("reason", "avg_q", "avg_cash", "avg_fee"), lambda e: [(k,) + v for k, v in e.items()],
+            [(i, False) for i in range(4)], 1, 100),
+    "q78": (("ss_item_sk", "ss_customer_sk", "ss_qty", "ss_wc", "ss_sp", "ratio", "other_chan_qty"),
+            lambda e: [k + v for k, v in e.items()], [(2, True), (0, False), (1, False)], 2, 100),
+    "q64": (_Q64_COLS, lambda e: [k + v for k, v in e.items()], [(4, True), (0, False), (1, False), (2, False)], 3,
+            100),
+    "q72": (("i_item_desc", "w_warehouse_name", "d_week_seq", "no_promo"), lambda e: [k + (v,) for k, v in e.items()],
+            [(3, True), (0, False), (1, False), (2, False)], 3, 100),
+}
+
+
+def check_joined_query(query: str, got: Dict[str, list], exp) -> str:
+    """Raises ``AssertionError`` unless the rows ``got`` (column -> values)
+    of a query of ``JOINED_QUERIES`` equal its oracle ``exp`` on a
+    nonempty result: integers and unscaled decimals exactly, doubles
+    (ratios, shares, q85's average quantity) within 1e-9 relative (q31's
+    unguarded ratios: inf as inf, nan as nan); a report as the oracle's
+    first 100 rows (q24a, q24b and q31: all of them) by the query's sort
+    keys, rows that tie on every sort key compared as a set.  Returns
+    what matched."""
+    def need(ok, what):
+        if not ok:
+            raise AssertionError(f"{query}: {what}")
+
+    if query in ("q94", "q95", "q16", "q97"):
+        cols = (("store_only", "catalog_only", "store_and_catalog") if query == "q97"
+                else ("order_count", "total_shipping_cost", "total_net_profit"))
+        row = tuple(got[c][0] for c in cols)
+        need(len(got[cols[0]]) == 1 and row == exp and exp[0] > 0 and exp[-1] is not None, f"{row} != oracle {exp}")
+        return f"{dict(zip(cols, exp))} = oracle"
+    if query == "q31":
+        need(set(got["d_year"]) == {2000}, f"d_year {set(got['d_year'])}")
+    cols, rows_of, sort, key_len, limit = _JOINED_ROWS[query]
+    return _check_sorted_rows(need, got, cols, rows_of(exp), sort, key_len, limit)
+
+
 def check_query(query: str, got: Dict[str, list], exp) -> str:
     """:func:`check_rollup_union_query`,
-    :func:`check_exists_stddev_query` or :func:`check_report_query` for
-    those families, else :func:`check_window_query`."""
+    :func:`check_exists_stddev_query`, :func:`check_report_query` or
+    :func:`check_joined_query` for those families, else
+    :func:`check_window_query`."""
+    if query in JOINED_QUERIES:
+        return check_joined_query(query, got, exp)
     if query in REPORT_QUERIES:
         return check_report_query(query, got, exp)
     if query in ROLLUP_UNION_QUERIES:

@@ -20,7 +20,12 @@ q84 (``concat``).  ``REPORT_QUERIES``: 31 single-fact reports, broadcast
 joins into one fact table with CASE pivots (q43, q62, q99, q21), a
 grouped average joined back (q6, q32, q92, q65), LEFT_SEMI joins (q6,
 q41, q8) and subqueries run while the plan is built (q9, q28, q88, q90,
-q61; q45's IN subquery).
+q61; q45's IN subquery).  ``JOINED_QUERIES``: the 26 that join two
+or more fact tables, shuffle a join or join a table to itself (sales
+shuffle-joined to their returns on composite keys, per-customer yearly
+totals joined on the customer, channels joined on the item or the
+county, q97's FULL join, q72's shuffle of all of ``inventory``).
+With them the port runs all 103 of the reference's TPC-DS queries.
 """
 
 from __future__ import annotations
@@ -1083,6 +1088,13 @@ def _weekly_dow_pivot(rows_plan, n_parts, group_cols, price_c):
                          [AggFunction("sum", col(f"{nm}_v"), f"{nm}_sales") for nm in _DOW7], n_parts)
 
 
+def _weeks_of(t, n_parts, year, name):
+    """The distinct d_week_seq of ``year``, named ``name`` (q2, q59)."""
+    return two_stage_agg(ProjectExec(FilterExec(t["date_dim"], col("d_year") == lit(year)),
+                                     [col("d_week_seq").alias(name)]),
+                         [GroupingExpr(col(name), name)], [], n_parts)
+
+
 def q2(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
     """Web and catalog weekly day-of-week sales, unioned, each 2001 week
     against the same week a year on.  As in the reference, the year is
@@ -1093,15 +1105,11 @@ def q2(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
                                                  ("catalog_sales", "cs_sold_date_sk", "cs_ext_sales_price"))])
     j = broadcast_join(dt, u, [col("d_date_sk")], [col("sold_date_sk")], JoinType.INNER, True)
     wk = _weekly_dow_pivot(j, n_parts, ["d_week_seq"], "sales_price")
-
-    def weeks_of(year, name):
-        return two_stage_agg(ProjectExec(FilterExec(t["date_dim"], col("d_year") == lit(year)),
-                                         [col("d_week_seq").alias(name)]),
-                             [GroupingExpr(col(name), name)], [], n_parts)
-
-    wk1 = broadcast_join(weeks_of(2001, "wk1"), wk, [col("wk1")], [col("d_week_seq")], JoinType.LEFT_SEMI, False)
+    wk1 = broadcast_join(_weeks_of(t, n_parts, 2001, "wk1"), wk, [col("wk1")], [col("d_week_seq")],
+                         JoinType.LEFT_SEMI, False)
     wk1 = ProjectExec(wk1, [col("d_week_seq")] + [col(f"{nm}_sales").alias(f"{nm}1") for nm in _DOW7])
-    wk2 = broadcast_join(weeks_of(2002, "wk2"), wk, [col("wk2")], [col("d_week_seq")], JoinType.LEFT_SEMI, False)
+    wk2 = broadcast_join(_weeks_of(t, n_parts, 2002, "wk2"), wk, [col("wk2")], [col("d_week_seq")],
+                         JoinType.LEFT_SEMI, False)
     wk2 = ProjectExec(wk2, [(col("d_week_seq") - lit(52)).alias("wk_m52")]
                       + [col(f"{nm}_sales").alias(f"{nm}2") for nm in _DOW7])
     j2 = shuffle_join(wk1, wk2, [col("d_week_seq")], [col("wk_m52")], JoinType.INNER, n_parts, build_left=False)
@@ -2292,6 +2300,752 @@ def q65(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
     return single_sorted(proj, [SortField(col("s_store_name")), SortField(col("i_item_desc"))], fetch=100)
 
 
+# ---------------------------------- multi-fact, shuffled and self joins
+
+
+def _returns_above_avg(t, n_parts, *, rtab, r_cust, r_amt, r_date, r_loc, loc_tab=None, loc_sk=None,
+                       loc_filter_col=None, loc_filter_val=None, names=False):
+    """q1, q30 and q81: each customer's 2000 returns per location, kept
+    above 1.2 times the location's average (the correlated average as a
+    grouped ``avg`` joined on the location; one exchange of the
+    per-customer sums under both consumers), with the customer's id."""
+    dt_p = ProjectExec(FilterExec(t["date_dim"], col("d_year") == lit(2000)), [col("d_date_sk")])
+    rt = ProjectExec(t[rtab], [col(r_date), col(r_cust), col(r_loc), col(r_amt)])
+    j = broadcast_join(dt_p, rt, [col("d_date_sk")], [col(r_date)], JoinType.INNER, True)
+    if loc_tab is not None:
+        loc_p = ProjectExec(FilterExec(t[loc_tab], col(loc_filter_col) == lit(loc_filter_val)), [col(loc_sk)])
+        j = broadcast_join(loc_p, j, [col(loc_sk)], [col(r_loc)], JoinType.INNER, True)
+    per_cust = two_stage_agg(ProjectExec(j, [col(r_cust), col(r_loc), col(r_amt)]),
+                             [GroupingExpr(col(r_cust), "ctr_customer_sk"), GroupingExpr(col(r_loc), "ctr_loc_sk")],
+                             [AggFunction("sum", col(r_amt), "ctr_total_return")], n_parts)
+    loc_avg = two_stage_agg(ProjectExec(per_cust, [col("ctr_loc_sk").alias("avg_loc_sk"), col("ctr_total_return")]),
+                            [GroupingExpr(col("avg_loc_sk"), "avg_loc_sk")],
+                            [AggFunction("avg", col("ctr_total_return"), "avg_return")], n_parts)
+    j2 = broadcast_join(loc_avg, per_cust, [col("avg_loc_sk")], [col("ctr_loc_sk")], JoinType.INNER, True)
+    f = FilterExec(j2, col("ctr_total_return").cast(f64) > lit(1.2) * col("avg_return").cast(f64))
+    cu = ProjectExec(t["customer"], [col("c_customer_sk"), col("c_customer_id")]
+                     + ([col("c_first_name"), col("c_last_name")] if names else []))
+    j3 = broadcast_join(cu, f, [col("c_customer_sk")], [col("ctr_customer_sk")], JoinType.INNER, True)
+    if names:
+        proj = ProjectExec(j3, [col("c_customer_id"), col("c_first_name"), col("c_last_name"),
+                                col("ctr_total_return")])
+        return single_sorted(proj, [SortField(col("c_customer_id")), SortField(col("ctr_total_return"))], fetch=100)
+    return single_sorted(ProjectExec(j3, [col("c_customer_id")]), [SortField(col("c_customer_id"))], fetch=100)
+
+
+def q1(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+    """Store returns of TN stores."""
+    return _returns_above_avg(t, n_parts, rtab="store_returns", r_cust="sr_customer_sk", r_amt="sr_return_amt",
+                              r_date="sr_returned_date_sk", r_loc="sr_store_sk", loc_tab="store", loc_sk="s_store_sk",
+                              loc_filter_col="s_state", loc_filter_val="TN")
+
+
+def q30(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+    """Web returns per web page, with the customer's names.  As in the
+    reference, no state filter (the generator's web_page has no state)."""
+    return _returns_above_avg(t, n_parts, rtab="web_returns", r_cust="wr_returning_customer_sk",
+                              r_amt="wr_return_amt", r_date="wr_returned_date_sk", r_loc="wr_web_page_sk", names=True)
+
+
+def q81(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+    """Catalog returns per call center, with the customer's names."""
+    return _returns_above_avg(t, n_parts, rtab="catalog_returns", r_cust="cr_returning_customer_sk",
+                              r_amt="cr_return_amount", r_date="cr_returned_date_sk", r_loc="cr_call_center_sk",
+                              names=True)
+
+
+def _multi_wh_orders(t, n_parts, fact, order_c, wh_c):
+    """Orders whose lines ship from two warehouses or more (the spec's
+    EXISTS self-join on the order, another warehouse): distinct (order,
+    warehouse) pairs counted per order."""
+    pairs = two_stage_agg(ProjectExec(t[fact], [col(order_c), col(wh_c)]),
+                          [GroupingExpr(col(order_c), order_c), GroupingExpr(col(wh_c), wh_c)], [], n_parts)
+    per_order = two_stage_agg(pairs, [GroupingExpr(col(order_c), order_c)],
+                              [AggFunction("count_star", None, "wh_cnt")], n_parts)
+    return ProjectExec(FilterExec(per_order, col("wh_cnt") > lit(1, i64)), [col(order_c)])
+
+
+def _ship_report_tail(rows, n_parts, order_c, ship_c, profit_c):
+    """count(DISTINCT order) and two sums: sums per order, then a global
+    ``count_star`` (the number of groups is the distinct count) and the
+    sums of the sums."""
+    per_order = two_stage_agg(rows, [GroupingExpr(col(order_c), order_c)],
+                              [AggFunction("sum", col(ship_c), "s1"), AggFunction("sum", col(profit_c), "p1")],
+                              n_parts)
+    return two_stage_agg(per_order, [],
+                         [AggFunction("count_star", None, "order_count"),
+                          AggFunction("sum", col("s1"), "total_shipping_cost"),
+                          AggFunction("sum", col("p1"), "total_net_profit")], n_parts)
+
+
+def _q94_shape(t, n_parts, returns_join):
+    """q94 and q95: web lines of an 11-month ship window to TN from the
+    'pri' site, of multi-warehouse orders (a LEFT_SEMI join whose build
+    side is an aggregate), with (LEFT_SEMI) or without (LEFT_ANTI) a
+    return."""
+    dt = _date_window(t, datetime.date(1999, 2, 1), datetime.date(1999, 12, 31))
+    ca_p = ProjectExec(FilterExec(t["customer_address"], col("ca_state") == lit("TN")), [col("ca_address_sk")])
+    site_p = ProjectExec(FilterExec(t["web_site"], col("web_company_name") == lit("pri")), [col("web_site_sk")])
+    ws1 = ProjectExec(t["web_sales"], [col(c) for c in ("ws_ship_date_sk", "ws_ship_addr_sk", "ws_web_site_sk",
+                                                        "ws_order_number", "ws_ext_ship_cost", "ws_net_profit")])
+    j = broadcast_join(dt, ws1, [col("d_date_sk")], [col("ws_ship_date_sk")], JoinType.INNER, True)
+    j = broadcast_join(ca_p, j, [col("ca_address_sk")], [col("ws_ship_addr_sk")], JoinType.INNER, True)
+    j = broadcast_join(site_p, j, [col("web_site_sk")], [col("ws_web_site_sk")], JoinType.INNER, True)
+    hot = _multi_wh_orders(t, n_parts, "web_sales", "ws_order_number", "ws_warehouse_sk")
+    j = broadcast_join(hot, j, [col("ws_order_number")], [col("ws_order_number")], JoinType.LEFT_SEMI, False)
+    wr = ProjectExec(t["web_returns"], [col("wr_order_number")])
+    j = broadcast_join(wr, j, [col("wr_order_number")], [col("ws_order_number")], returns_join, False)
+    return _ship_report_tail(j, n_parts, "ws_order_number", "ws_ext_ship_cost", "ws_net_profit")
+
+
+def q94(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+    """Multi-warehouse web orders never returned."""
+    return _q94_shape(t, n_parts, JoinType.LEFT_ANTI)
+
+
+def q95(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+    """Multi-warehouse web orders with a return."""
+    return _q94_shape(t, n_parts, JoinType.LEFT_SEMI)
+
+
+def q16(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+    """q94's catalog twin: GA ship addresses, Williamson County call
+    centers, 2002."""
+    dt = _date_window(t, datetime.date(2002, 2, 1), datetime.date(2002, 12, 31))
+    ca_p = ProjectExec(FilterExec(t["customer_address"], col("ca_state") == lit("GA")), [col("ca_address_sk")])
+    cc_p = ProjectExec(FilterExec(t["call_center"], col("cc_county") == lit("Williamson County")),
+                       [col("cc_call_center_sk")])
+    cs1 = ProjectExec(t["catalog_sales"], [col(c) for c in ("cs_ship_date_sk", "cs_ship_addr_sk", "cs_call_center_sk",
+                                                            "cs_order_number", "cs_ext_ship_cost", "cs_net_profit")])
+    j = broadcast_join(dt, cs1, [col("d_date_sk")], [col("cs_ship_date_sk")], JoinType.INNER, True)
+    j = broadcast_join(ca_p, j, [col("ca_address_sk")], [col("cs_ship_addr_sk")], JoinType.INNER, True)
+    j = broadcast_join(cc_p, j, [col("cc_call_center_sk")], [col("cs_call_center_sk")], JoinType.INNER, True)
+    hot = _multi_wh_orders(t, n_parts, "catalog_sales", "cs_order_number", "cs_warehouse_sk")
+    j = broadcast_join(hot, j, [col("cs_order_number")], [col("cs_order_number")], JoinType.LEFT_SEMI, False)
+    cr = ProjectExec(t["catalog_returns"], [col("cr_order_number")])
+    j = broadcast_join(cr, j, [col("cr_order_number")], [col("cs_order_number")], JoinType.LEFT_ANTI, False)
+    return _ship_report_tail(j, n_parts, "cs_order_number", "cs_ext_ship_cost", "cs_net_profit")
+
+
+_CUST_NAMES = ("c_customer_id", "c_first_name", "c_last_name", "c_preferred_cust_flag")
+
+
+def _year_total(t, n_parts, *, fact, date_c, cust_c, fact_cols, measure, year, names=False):
+    """One channel's per-customer total of ``measure`` in ``year`` (the
+    year_total CTE of q4, q11 and q74, one (channel, year) slice)."""
+    dt_p = ProjectExec(FilterExec(t["date_dim"], col("d_year") == lit(year)), [col("d_date_sk")])
+    fc = ProjectExec(t[fact], [col(date_c), col(cust_c)] + [col(c) for c in fact_cols])
+    cu = ProjectExec(t["customer"], [col("c_customer_sk")] + ([col(c) for c in _CUST_NAMES] if names else []))
+    j = broadcast_join(dt_p, fc, [col("d_date_sk")], [col(date_c)], JoinType.INNER, True)
+    j = broadcast_join(cu, j, [col("c_customer_sk")], [col(cust_c)], JoinType.INNER, True)
+    groups = [GroupingExpr(col("c_customer_sk"), "c_customer_sk")] + (
+        [GroupingExpr(col(c), c) for c in _CUST_NAMES] if names else [])
+    return two_stage_agg(j, groups, [AggFunction("sum", measure, "year_total")], n_parts)
+
+
+def _year_slice(t, n_parts, fact, date_c, cust_c, cols, measure, year, alias, names=()):
+    """A year total keyed ``sk_<alias>``, its total named ``alias``, and
+    the customer columns ``names``."""
+    yt = _year_total(t, n_parts, fact=fact, date_c=date_c, cust_c=cust_c, fact_cols=cols, measure=measure, year=year,
+                     names=bool(names))
+    return ProjectExec(yt, [col("c_customer_sk").alias(f"sk_{alias}"), col("year_total").alias(alias)]
+                       + [col(c) for c in names])
+
+
+def _yoy_customer(t, n_parts, *, store_measure, store_cols, web_measure, web_cols, y1, y2, out_cols):
+    """q74 and q11: four (channel, year) totals broadcast-joined on the
+    customer, kept where the web's growth beats the store's."""
+    store = ("store_sales", "ss_sold_date_sk", "ss_customer_sk", store_cols, store_measure)
+    web = ("web_sales", "ws_sold_date_sk", "ws_bill_customer_sk", web_cols, web_measure)
+    s1 = _year_slice(t, n_parts, *store, y1, "s1")
+    s2 = _year_slice(t, n_parts, *store, y2, "s2", _CUST_NAMES)
+    w1, w2 = _year_slice(t, n_parts, *web, y1, "w1"), _year_slice(t, n_parts, *web, y2, "w2")
+    j = broadcast_join(s1, s2, [col("sk_s1")], [col("sk_s2")], JoinType.INNER, True)
+    j = broadcast_join(w1, j, [col("sk_w1")], [col("sk_s2")], JoinType.INNER, True)
+    j = broadcast_join(w2, j, [col("sk_w2")], [col("sk_s2")], JoinType.INNER, True)
+    s1f, s2f, w1f, w2f = (col(c).cast(f64) for c in ("s1", "s2", "w1", "w2"))
+    f = FilterExec(j, (s1f > lit(0.0)) & (w1f > lit(0.0)) & ((w2f / w1f) > (s2f / s1f)))
+    return single_sorted(ProjectExec(f, [col(c) for c in out_cols]), [SortField(col(out_cols[0]))], fetch=100)
+
+
+def q74(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+    """Customers whose web net paid grew faster than their store net
+    paid, 1999 to 2000."""
+    return _yoy_customer(t, n_parts, store_measure=col("ss_net_paid"), store_cols=["ss_net_paid"],
+                         web_measure=col("ws_net_paid"), web_cols=["ws_net_paid"], y1=1999, y2=2000,
+                         out_cols=["c_customer_id", "c_first_name", "c_last_name"])
+
+
+def q11(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+    """q74 on list price less discount, 2000 to 2001, with the preferred
+    flag."""
+    return _yoy_customer(t, n_parts, store_measure=col("ss_ext_list_price") - col("ss_ext_discount_amt"),
+                         store_cols=["ss_ext_list_price", "ss_ext_discount_amt"],
+                         web_measure=col("ws_ext_list_price") - col("ws_ext_discount_amt"),
+                         web_cols=["ws_ext_list_price", "ws_ext_discount_amt"], y1=2000, y2=2001,
+                         out_cols=["c_customer_id", "c_preferred_cust_flag", "c_first_name", "c_last_name"])
+
+
+def q4(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+    """q11 over all three channels, on (list - wholesale - discount +
+    sales) / 2: customers whose catalog and web growth both beat the
+    store's, six year totals joined on the customer.  As in the
+    reference, catalog and web take their per-unit wholesale cost (the
+    generator has no ext_wholesale_cost for them)."""
+    two = lit("2", dec72)
+
+    def measure(lp, wc, dc, sp):
+        return (col(lp) - col(wc) - col(dc) + col(sp)) / two
+
+    ss_cols = ["ss_ext_list_price", "ss_ext_wholesale_cost", "ss_ext_discount_amt", "ss_ext_sales_price"]
+    cs_cols = ["cs_ext_list_price", "cs_wholesale_cost", "cs_ext_discount_amt", "cs_ext_sales_price"]
+    ws_cols = ["ws_ext_list_price", "ws_wholesale_cost", "ws_ext_discount_amt", "ws_ext_sales_price"]
+    store = ("store_sales", "ss_sold_date_sk", "ss_customer_sk", ss_cols, measure(*ss_cols))
+    cat = ("catalog_sales", "cs_sold_date_sk", "cs_bill_customer_sk", cs_cols, measure(*cs_cols))
+    web = ("web_sales", "ws_sold_date_sk", "ws_bill_customer_sk", ws_cols, measure(*ws_cols))
+    s1 = _year_slice(t, n_parts, *store, 2000, "s1")
+    s2 = _year_slice(t, n_parts, *store, 2001, "s2", _CUST_NAMES[:3])
+    c1, c2 = _year_slice(t, n_parts, *cat, 2000, "c1"), _year_slice(t, n_parts, *cat, 2001, "c2")
+    w1, w2 = _year_slice(t, n_parts, *web, 2000, "w1"), _year_slice(t, n_parts, *web, 2001, "w2")
+    j = broadcast_join(s1, s2, [col("sk_s1")], [col("sk_s2")], JoinType.INNER, True)
+    for b, key in ((c1, "sk_c1"), (c2, "sk_c2"), (w1, "sk_w1"), (w2, "sk_w2")):
+        j = broadcast_join(b, j, [col(key)], [col("sk_s2")], JoinType.INNER, True)
+    s1f, s2f, c1f, c2f, w1f, w2f = (col(c).cast(f64) for c in ("s1", "s2", "c1", "c2", "w1", "w2"))
+    f = FilterExec(j, (s1f > lit(0.0)) & (c1f > lit(0.0)) & (w1f > lit(0.0))
+                   & ((c2f / c1f) > (s2f / s1f)) & ((w2f / w1f) > (s2f / s1f)))
+    proj = ProjectExec(f, [col("c_customer_id"), col("c_first_name"), col("c_last_name")])
+    return single_sorted(proj, [SortField(col("c_customer_id"))], fetch=100)
+
+
+def _inv_price_items(t, n_parts, fact, item_c):
+    """q37 and q82: items priced 30-60 with 100-500 on hand in a 60-day
+    window (a shuffled join of the items to the inventory), sold in the
+    channel (a LEFT_SEMI join).  As in the reference, no manufacturer
+    list (the generator's ids are uniform)."""
+    price = col("i_current_price")
+    it = FilterExec(t["item"], (price >= lit("30", dec72)) & (price <= lit("60", dec72)))
+    it_p = ProjectExec(it, [col("i_item_sk"), col("i_item_id"), col("i_item_desc"), col("i_current_price")])
+    dt = _date_window(t, datetime.date(2000, 2, 1), datetime.date(2000, 4, 1))
+    qoh = col("inv_quantity_on_hand")
+    inv_p = ProjectExec(FilterExec(t["inventory"], (qoh >= lit(100)) & (qoh <= lit(500))),
+                        [col("inv_date_sk"), col("inv_item_sk")])
+    j = broadcast_join(dt, inv_p, [col("d_date_sk")], [col("inv_date_sk")], JoinType.INNER, True)
+    j = shuffle_join(it_p, j, [col("i_item_sk")], [col("inv_item_sk")], JoinType.INNER, n_parts, build_left=True)
+    sold = ProjectExec(t[fact], [col(item_c)])
+    j = broadcast_join(sold, j, [col(item_c)], [col("i_item_sk")], JoinType.LEFT_SEMI, False)
+    agg = two_stage_agg(j, [GroupingExpr(col(c), c) for c in ("i_item_id", "i_item_desc", "i_current_price")], [],
+                        n_parts)
+    return single_sorted(agg, [SortField(col("i_item_id"))], fetch=100)
+
+
+def q37(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+    return _inv_price_items(t, n_parts, "catalog_sales", "cs_item_sk")
+
+
+def q82(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+    return _inv_price_items(t, n_parts, "store_sales", "ss_item_sk")
+
+
+def q40(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+    """Catalog sales net of refunds per (warehouse state, item), before
+    and after 2000-03-11: a LEFT shuffled join on (item, order) to the
+    returns, then q21's CASE split (a side with no line sums to null)."""
+    pivot = datetime.date(2000, 3, 11)
+    pivot_days = lit((pivot - datetime.date(1970, 1, 1)).days, i64)
+    dt = _date_window(t, pivot - datetime.timedelta(days=30), pivot + datetime.timedelta(days=30), extra=("d_date",))
+    price = col("i_current_price")
+    it = ProjectExec(FilterExec(t["item"], (price >= lit("20", dec72)) & (price <= lit("50", dec72))),
+                     [col("i_item_sk"), col("i_item_id")])
+    wh = ProjectExec(t["warehouse"], [col("w_warehouse_sk"), col("w_state")])
+    cs = ProjectExec(t["catalog_sales"], [col(c) for c in ("cs_sold_date_sk", "cs_item_sk", "cs_order_number",
+                                                           "cs_warehouse_sk", "cs_sales_price")])
+    j = broadcast_join(dt, cs, [col("d_date_sk")], [col("cs_sold_date_sk")], JoinType.INNER, True)
+    j = broadcast_join(it, j, [col("i_item_sk")], [col("cs_item_sk")], JoinType.INNER, True)
+    j = broadcast_join(wh, j, [col("w_warehouse_sk")], [col("cs_warehouse_sk")], JoinType.INNER, True)
+    cr = ProjectExec(t["catalog_returns"], [col("cr_item_sk"), col("cr_order_number"), col("cr_refunded_cash")])
+    j = shuffle_join(j, cr, [col("cs_item_sk"), col("cs_order_number")], [col("cr_item_sk"), col("cr_order_number")],
+                     JoinType.LEFT, n_parts, build_left=False)
+    net = _d8(col("cs_sales_price")) - _coalesce0(col("cr_refunded_cash"))
+    before = Case([(col("d_date").cast(i64) < pivot_days, net)], None)
+    after = Case([(col("d_date").cast(i64) >= pivot_days, net)], None)
+    proj = ProjectExec(j, [col("w_state"), col("i_item_id"), before.alias("b"), after.alias("a")])
+    agg = two_stage_agg(proj, [GroupingExpr(col("w_state"), "w_state"), GroupingExpr(col("i_item_id"), "i_item_id")],
+                        [AggFunction("sum", col("b"), "sales_before"), AggFunction("sum", col("a"), "sales_after")],
+                        n_parts)
+    return single_sorted(agg, [SortField(col("w_state")), SortField(col("i_item_id"))], fetch=100)
+
+
+#: q50's days-to-return buckets: (name, above, at most)
+_LAG_BUCKETS = (("d30", None, 30), ("d60", 30, 60), ("d90", 60, 90), ("d120", 90, 120), ("dmore", 120, None))
+
+
+def q50(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+    """Store returns of August 2001 joined to their sale (a shuffled
+    join on item, ticket and customer), counted per store in five
+    days-to-return buckets."""
+    sl = ProjectExec(t["store_sales"], [col(c) for c in ("ss_item_sk", "ss_ticket_number", "ss_customer_sk",
+                                                         "ss_store_sk", "ss_sold_date_sk")])
+    sr = ProjectExec(t["store_returns"], [col(c) for c in ("sr_item_sk", "sr_ticket_number", "sr_customer_sk",
+                                                           "sr_returned_date_sk")])
+    j = shuffle_join(sl, sr, [col("ss_item_sk"), col("ss_ticket_number"), col("ss_customer_sk")],
+                     [col("sr_item_sk"), col("sr_ticket_number"), col("sr_customer_sk")], JoinType.INNER, n_parts,
+                     build_left=False)
+    d1 = ProjectExec(t["date_dim"], [col("d_date_sk"), col("d_date")])
+    d2 = ProjectExec(FilterExec(t["date_dim"], (col("d_year") == lit(2001)) & (col("d_moy") == lit(8))),
+                     [col("d_date_sk").alias("d2_sk"), col("d_date").alias("ret_date")])
+    j = broadcast_join(d1, j, [col("d_date_sk")], [col("ss_sold_date_sk")], JoinType.INNER, True)
+    j = broadcast_join(d2, j, [col("d2_sk")], [col("sr_returned_date_sk")], JoinType.INNER, True)
+    stores = ("s_store_name", "s_county", "s_state", "s_zip")
+    st = ProjectExec(t["store"], [col("s_store_sk")] + [col(c) for c in stores])
+    j = broadcast_join(st, j, [col("s_store_sk")], [col("ss_store_sk")], JoinType.INNER, True)
+    lag_days = col("ret_date").cast(i64) - col("d_date").cast(i64)
+    base = ProjectExec(j, [col(c) for c in stores] + [lag_days.alias("lag")])
+    lag = col("lag")
+
+    def bucket(lo, hi):
+        if lo is None:
+            return lag <= lit(hi, i64)
+        if hi is None:
+            return lag > lit(lo, i64)
+        return (lag > lit(lo, i64)) & (lag <= lit(hi, i64))
+
+    proj = ProjectExec(base, [col(c) for c in stores]
+                       + [Case([(bucket(lo, hi), lit(1, i64))], lit(0, i64)).alias(nm) for nm, lo, hi in _LAG_BUCKETS])
+    agg = two_stage_agg(proj, [GroupingExpr(col(c), c) for c in stores],
+                        [AggFunction("sum", col(nm), nm) for nm, _, _ in _LAG_BUCKETS], n_parts)
+    return single_sorted(agg, [SortField(col(c)) for c in stores], fetch=100)
+
+
+def q93(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+    """Sales net of returns per customer for one return reason: a LEFT
+    shuffled join on (item, ticket) whose null side feeds a CASE, then
+    the reason's INNER join (which keeps returned lines alone, as the
+    spec's comma join)."""
+    sl = ProjectExec(t["store_sales"], [col(c) for c in ("ss_item_sk", "ss_ticket_number", "ss_customer_sk",
+                                                         "ss_quantity", "ss_sales_price")])
+    sr = ProjectExec(t["store_returns"], [col(c) for c in ("sr_item_sk", "sr_ticket_number", "sr_reason_sk",
+                                                           "sr_return_quantity")])
+    j = shuffle_join(sl, sr, [col("ss_item_sk"), col("ss_ticket_number")], [col("sr_item_sk"), col("sr_ticket_number")],
+                     JoinType.LEFT, n_parts, build_left=False)
+    reason_p = ProjectExec(FilterExec(t["reason"], col("r_reason_desc") == lit("Stopped working")),
+                           [col("r_reason_sk")])
+    j = broadcast_join(reason_p, j, [col("r_reason_sk")], [col("sr_reason_sk")], JoinType.INNER, True)
+    qty = col("ss_quantity")
+    act = Case([(col("sr_return_quantity").is_not_null(),
+                 (qty - col("sr_return_quantity")).cast(i64) * col("ss_sales_price"))],
+               qty.cast(i64) * col("ss_sales_price"))
+    agg = two_stage_agg(ProjectExec(j, [col("ss_customer_sk"), act.alias("act_sales")]),
+                        [GroupingExpr(col("ss_customer_sk"), "ss_customer_sk")],
+                        [AggFunction("sum", col("act_sales"), "sumsales")], n_parts)
+    return single_sorted(agg, [SortField(col("sumsales")), SortField(col("ss_customer_sk"))], fetch=100)
+
+
+def _q24_ssales(t, n_parts):
+    """q24's ssales: returned store lines (a shuffled join on (item,
+    ticket)) of market-8 stores to customers living in the store's
+    county, net paid per (last, first, store, color).  As in the
+    reference, the county stands in for the zip (the generator's ca_zip
+    carries a -nnnn suffix)."""
+    sl = ProjectExec(t["store_sales"], [col(c) for c in ("ss_item_sk", "ss_ticket_number", "ss_store_sk",
+                                                         "ss_customer_sk", "ss_net_paid")])
+    sr = ProjectExec(t["store_returns"], [col("sr_item_sk"), col("sr_ticket_number")])
+    j = shuffle_join(sl, sr, [col("ss_item_sk"), col("ss_ticket_number")], [col("sr_item_sk"), col("sr_ticket_number")],
+                     JoinType.INNER, n_parts, build_left=False)
+    st_p = ProjectExec(FilterExec(t["store"], col("s_market_id") == lit(8)),
+                       [col("s_store_sk"), col("s_store_name"), col("s_county")])
+    j = broadcast_join(st_p, j, [col("s_store_sk")], [col("ss_store_sk")], JoinType.INNER, True)
+    cu = ProjectExec(t["customer"], [col("c_customer_sk"), col("c_last_name"), col("c_first_name"),
+                                     col("c_current_addr_sk")])
+    j = broadcast_join(cu, j, [col("c_customer_sk")], [col("ss_customer_sk")], JoinType.INNER, True)
+    ca = ProjectExec(t["customer_address"], [col("ca_address_sk"), col("ca_county")])
+    j = broadcast_join(ca, j, [col("ca_address_sk")], [col("c_current_addr_sk")], JoinType.INNER, True)
+    j = FilterExec(j, col("ca_county") == col("s_county"))
+    it = ProjectExec(t["item"], [col("i_item_sk"), col("i_color")])
+    j = broadcast_join(it, j, [col("i_item_sk")], [col("ss_item_sk")], JoinType.INNER, True)
+    return two_stage_agg(j, [GroupingExpr(col(c), c) for c in ("c_last_name", "c_first_name", "s_store_name",
+                                                                "i_color")],
+                         [AggFunction("sum", col("ss_net_paid"), "netpaid")], n_parts)
+
+
+def _q24(t, n_parts, color):
+    """One color's net paid per (last, first, store), kept above 5% of
+    the average over every color (a decimal scalar subquery over a
+    subtree of its own)."""
+    avg_all = two_stage_agg(_q24_ssales(t, n_parts), [], [AggFunction("avg", col("netpaid"), "avg_netpaid")], n_parts)
+    avg_lit = scalar_subquery(avg_all, "avg_netpaid")
+    cells = FilterExec(_q24_ssales(t, n_parts), col("i_color") == lit(color))
+    agg = two_stage_agg(cells, [GroupingExpr(col(c), c) for c in ("c_last_name", "c_first_name", "s_store_name")],
+                        [AggFunction("sum", col("netpaid"), "paid")], n_parts)
+    f = FilterExec(agg, col("paid").cast(f64) > lit(0.05) * avg_lit.cast(f64))
+    return single_sorted(f, [SortField(col(c)) for c in ("c_last_name", "c_first_name", "s_store_name")])
+
+
+def q24a(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+    return _q24(t, n_parts, "peach")
+
+
+def q24b(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+    return _q24(t, n_parts, "saddle")
+
+
+def q14b(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+    """This November's store cells of the cross-channel items against
+    last November's (a shuffled join on the three ids), kept where sales
+    grew; both years above the average (a decimal scalar subquery)."""
+    cross = _q14_cross_items(t, n_parts)
+    avg_lit = scalar_subquery(_q14_avg_sales(t, n_parts), "average_sales")
+    store = _Q14_CHANNELS[0]
+    ty = _q14_channel_cells(t, n_parts, *store, cross, avg_lit, 2002)
+    ly = _q14_channel_cells(t, n_parts, *store, cross, avg_lit, 2001)
+    ly = ProjectExec(ly, [col("i_brand_id").alias("l_brand_id"), col("i_class_id").alias("l_class_id"),
+                          col("i_category_id").alias("l_category_id"), col("sales").alias("last_sales"),
+                          col("number_sales").alias("last_number_sales")])
+    j = shuffle_join(ty, ly, [col(c) for c in _TRIPLE], [col("l_brand_id"), col("l_class_id"), col("l_category_id")],
+                     JoinType.INNER, n_parts, build_left=False)
+    f = FilterExec(j, col("sales").cast(f64) > col("last_sales").cast(f64))
+    proj = ProjectExec(f, [col(c) for c in _TRIPLE + ("sales", "number_sales", "last_sales", "last_number_sales")])
+    return single_sorted(proj, [SortField(col(c)) for c in _TRIPLE], fetch=100)
+
+
+def q58(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+    """Items whose revenue in the month of 2000-01-03 (a scalar
+    subquery for its month_seq) is even across the three channels, each
+    channel's revenue within 25%-400% of the others'.  As in the
+    reference, the month for the spec's week and the wider band (the
+    spec's select nothing from the generator's sparse cells)."""
+    wk = FilterExec(t["date_dim"], col("d_date") == lit(datetime.date(2000, 1, 3)))
+    wk = two_stage_agg(ProjectExec(wk, [col("d_month_seq").alias("wk_sel")]), [GroupingExpr(col("wk_sel"), "wk_sel")],
+                       [], n_parts)
+    wk_seq = scalar_subquery(wk, "wk_sel")
+
+    def channel(fact, item_c, date_c, price_c, rev_name, id_name):
+        dd = ProjectExec(FilterExec(t["date_dim"], col("d_month_seq") == wk_seq), [col("d_date_sk")])
+        sl = ProjectExec(t[fact], [col(date_c), col(item_c), col(price_c)])
+        j = broadcast_join(dd, sl, [col("d_date_sk")], [col(date_c)], JoinType.INNER, True)
+        it = ProjectExec(t["item"], [col("i_item_sk"), col("i_item_id")])
+        j = broadcast_join(it, j, [col("i_item_sk")], [col(item_c)], JoinType.INNER, True)
+        return two_stage_agg(j, [GroupingExpr(col("i_item_id"), id_name)], [AggFunction("sum", col(price_c), rev_name)],
+                             n_parts)
+
+    ss_items = channel("store_sales", "ss_item_sk", "ss_sold_date_sk", "ss_ext_sales_price", "ss_item_rev", "item_id")
+    cs_items = channel("catalog_sales", "cs_item_sk", "cs_sold_date_sk", "cs_ext_sales_price", "cs_item_rev",
+                       "cs_item_id")
+    ws_items = channel("web_sales", "ws_item_sk", "ws_sold_date_sk", "ws_ext_sales_price", "ws_item_rev", "ws_item_id")
+    j = shuffle_join(ss_items, cs_items, [col("item_id")], [col("cs_item_id")], JoinType.INNER, n_parts,
+                     build_left=False)
+    j = shuffle_join(j, ws_items, [col("item_id")], [col("ws_item_id")], JoinType.INNER, n_parts, build_left=False)
+    ssr, csr, wsr = (col(c).cast(f64) for c in ("ss_item_rev", "cs_item_rev", "ws_item_rev"))
+
+    def near(a, b):
+        return (a >= lit(0.25) * b) & (a <= lit(4.0) * b)
+
+    f = FilterExec(j, near(ssr, csr) & near(ssr, wsr) & near(csr, ssr) & near(csr, wsr) & near(wsr, ssr)
+                   & near(wsr, csr))
+    total = ssr + csr + wsr
+    proj = ProjectExec(f, [col("item_id"), col("ss_item_rev"), (ssr / total / lit(3.0) * lit(100.0)).alias("ss_dev"),
+                           col("cs_item_rev"), (csr / total / lit(3.0) * lit(100.0)).alias("cs_dev"),
+                           col("ws_item_rev"), (wsr / total / lit(3.0) * lit(100.0)).alias("ws_dev"),
+                           (total / lit(3.0)).alias("average")])
+    return single_sorted(proj, [SortField(col("item_id")), SortField(col("ss_item_rev"))], fetch=100)
+
+
+def _q31_channel(t, n_parts, fact, date_c, addr_c, price_c, qoy, pre):
+    """One channel's 2000 sales per county in quarter ``qoy``."""
+    dt = ProjectExec(FilterExec(t["date_dim"], (col("d_year") == lit(2000)) & (col("d_qoy") == lit(qoy))),
+                     [col("d_date_sk")])
+    sl = ProjectExec(t[fact], [col(date_c), col(addr_c), col(price_c)])
+    j = broadcast_join(dt, sl, [col("d_date_sk")], [col(date_c)], JoinType.INNER, True)
+    ca = ProjectExec(t["customer_address"], [col("ca_address_sk"), col("ca_county")])
+    j = broadcast_join(ca, j, [col("ca_address_sk")], [col(addr_c)], JoinType.INNER, True)
+    return two_stage_agg(j, [GroupingExpr(col("ca_county"), f"{pre}_county")],
+                         [AggFunction("sum", col(price_c), f"{pre}_sales")], n_parts)
+
+
+def q31(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+    """Counties whose web growth beats their store growth from one
+    quarter of 2000 to the next: six (channel, quarter) sums
+    shuffle-joined on the county.  As in the reference, the two
+    quarter-on-quarter comparisons are OR'd (no county passes both at
+    the generator's scales); each CASE-guards its denominators."""
+    channels = {"ss": ("store_sales", "ss_sold_date_sk", "ss_addr_sk", "ss_ext_sales_price"),
+                "ws": ("web_sales", "ws_sold_date_sk", "ws_bill_addr_sk", "ws_ext_sales_price")}
+    branches = {f"{c}{q}": _q31_channel(t, n_parts, *channels[c], q, f"{c}{q}")
+                for c in ("ss", "ws") for q in (1, 2, 3)}
+    j = branches["ss1"]
+    for pre in ("ss2", "ss3", "ws1", "ws2", "ws3"):
+        j = shuffle_join(j, branches[pre], [col("ss1_county")], [col(f"{pre}_county")], JoinType.INNER, n_parts,
+                         build_left=False)
+
+    def ratio(num, den):
+        return col(num).cast(f64) / col(den).cast(f64)
+
+    def guarded(num, den):
+        return Case([(col(den).cast(f64) > lit(0.0), ratio(num, den))], None)
+
+    f = FilterExec(j, (guarded("ws2_sales", "ws1_sales") > guarded("ss2_sales", "ss1_sales"))
+                   | (guarded("ws3_sales", "ws2_sales") > guarded("ss3_sales", "ss2_sales")))
+    proj = ProjectExec(f, [col("ss1_county").alias("ca_county"), lit(2000).alias("d_year"),
+                           ratio("ws2_sales", "ws1_sales").alias("web_q1_q2_increase"),
+                           ratio("ss2_sales", "ss1_sales").alias("store_q1_q2_increase"),
+                           ratio("ws3_sales", "ws2_sales").alias("web_q2_q3_increase"),
+                           ratio("ss3_sales", "ss2_sales").alias("store_q2_q3_increase")])
+    return single_sorted(proj, [SortField(col("ca_county"))])
+
+
+def q59(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+    """q2 per store over store sales: each 2001 week's day-of-week sales
+    against the week 52 later (a shuffled join on (store, week))."""
+    dt = ProjectExec(t["date_dim"], [col("d_date_sk"), col("d_week_seq"), col("d_dow")])
+    sl = ProjectExec(t["store_sales"], [col("ss_sold_date_sk"), col("ss_store_sk"), col("ss_sales_price")])
+    j = broadcast_join(dt, sl, [col("d_date_sk")], [col("ss_sold_date_sk")], JoinType.INNER, True)
+    wk = _weekly_dow_pivot(j, n_parts, ["ss_store_sk", "d_week_seq"], "ss_sales_price")
+    st = ProjectExec(t["store"], [col("s_store_sk"), col("s_store_name")])
+    wk = broadcast_join(st, wk, [col("s_store_sk")], [col("ss_store_sk")], JoinType.INNER, True)
+    wk1 = broadcast_join(_weeks_of(t, n_parts, 2001, "wk1"), wk, [col("wk1")], [col("d_week_seq")],
+                         JoinType.LEFT_SEMI, False)
+    wk1 = ProjectExec(wk1, [col("s_store_name"), col("ss_store_sk"), col("d_week_seq")]
+                      + [col(f"{nm}_sales").alias(f"{nm}1") for nm in _DOW7])
+    wk2 = broadcast_join(_weeks_of(t, n_parts, 2002, "wk2"), wk, [col("wk2")], [col("d_week_seq")],
+                         JoinType.LEFT_SEMI, False)
+    wk2 = ProjectExec(wk2, [col("ss_store_sk").alias("store2"), (col("d_week_seq") - lit(52)).alias("wk_m52")]
+                      + [col(f"{nm}_sales").alias(f"{nm}2") for nm in _DOW7])
+    j2 = shuffle_join(wk1, wk2, [col("ss_store_sk"), col("d_week_seq")], [col("store2"), col("wk_m52")],
+                      JoinType.INNER, n_parts, build_left=False)
+    proj = ProjectExec(j2, [col("s_store_name"), col("d_week_seq")] + _dow_ratio_projection())
+    return single_sorted(proj, [SortField(col("s_store_name")), SortField(col("d_week_seq"))], fetch=100)
+
+
+def q83(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+    """Each item's 2000 returned quantity in the three channels (two
+    shuffled joins on the item id), each channel's share and the
+    average."""
+    dt = ProjectExec(FilterExec(t["date_dim"], col("d_year") == lit(2000)), [col("d_date_sk")])
+    it = ProjectExec(t["item"], [col("i_item_sk"), col("i_item_id")])
+
+    def channel(rtab, r_date, r_item, r_qty, nm):
+        rt = ProjectExec(t[rtab], [col(r_date), col(r_item), col(r_qty)])
+        j = broadcast_join(dt, rt, [col("d_date_sk")], [col(r_date)], JoinType.INNER, True)
+        j = broadcast_join(it, j, [col("i_item_sk")], [col(r_item)], JoinType.INNER, True)
+        return two_stage_agg(ProjectExec(j, [col("i_item_id").alias(f"{nm}_item_id"),
+                                             col(r_qty).cast(i64).alias("q")]),
+                             [GroupingExpr(col(f"{nm}_item_id"), f"{nm}_item_id")],
+                             [AggFunction("sum", col("q"), f"{nm}_qty")], n_parts)
+
+    sr = channel("store_returns", "sr_returned_date_sk", "sr_item_sk", "sr_return_quantity", "sr")
+    cr = channel("catalog_returns", "cr_returned_date_sk", "cr_item_sk", "cr_return_quantity", "cr")
+    wr = channel("web_returns", "wr_returned_date_sk", "wr_item_sk", "wr_return_quantity", "wr")
+    j = shuffle_join(sr, cr, [col("sr_item_id")], [col("cr_item_id")], JoinType.INNER, n_parts, build_left=False)
+    j = shuffle_join(j, wr, [col("sr_item_id")], [col("wr_item_id")], JoinType.INNER, n_parts, build_left=False)
+    total = (col("sr_qty") + col("cr_qty") + col("wr_qty")).cast(f64)
+    outs = [col("sr_item_id").alias("item_id"), col("sr_qty"), col("cr_qty"), col("wr_qty")]
+    outs += [(col(f"{nm}_qty").cast(f64) / total * lit(100.0)).alias(f"{nm}_dev") for nm in ("sr", "cr", "wr")]
+    proj = ProjectExec(j, outs + [(total / lit(3.0)).alias("average")])
+    return single_sorted(proj, [SortField(col("item_id")), SortField(col("sr_qty"))], fetch=100)
+
+
+def q85(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+    """Web sales joined to their returns (a shuffled join on (order,
+    item)), the page, both demographics of the return, the refund
+    address and the reason, kept by OR'd bands, three averages per
+    reason.  As in the reference, the bands are widened and the
+    education conjuncts dropped (the spec's select nothing from the
+    generator)."""
+    ws = ProjectExec(t["web_sales"], [col(c) for c in ("ws_item_sk", "ws_order_number", "ws_web_page_sk",
+                                                       "ws_sold_date_sk", "ws_quantity", "ws_sales_price",
+                                                       "ws_net_profit")])
+    wr = ProjectExec(t["web_returns"], [col(c) for c in ("wr_item_sk", "wr_order_number", "wr_refunded_cdemo_sk",
+                                                         "wr_returning_cdemo_sk", "wr_refunded_addr_sk",
+                                                         "wr_reason_sk", "wr_refunded_cash", "wr_fee")])
+    j = shuffle_join(ws, wr, [col("ws_order_number"), col("ws_item_sk")], [col("wr_order_number"), col("wr_item_sk")],
+                     JoinType.INNER, n_parts, build_left=False)
+    wp = ProjectExec(t["web_page"], [col("wp_web_page_sk")])
+    j = broadcast_join(wp, j, [col("wp_web_page_sk")], [col("ws_web_page_sk")], JoinType.INNER, True)
+    dt = ProjectExec(FilterExec(t["date_dim"], col("d_year") == lit(2000)), [col("d_date_sk")])
+    j = broadcast_join(dt, j, [col("d_date_sk")], [col("ws_sold_date_sk")], JoinType.INNER, True)
+    for nm, fk in (("cd1", "wr_refunded_cdemo_sk"), ("cd2", "wr_returning_cdemo_sk")):
+        cd = ProjectExec(t["customer_demographics"], [col("cd_demo_sk").alias(f"{nm}_sk"),
+                                                      col("cd_marital_status").alias(f"{nm}_ms")])
+        j = broadcast_join(cd, j, [col(f"{nm}_sk")], [col(fk)], JoinType.INNER, True)
+    ca = ProjectExec(t["customer_address"], [col("ca_address_sk"), col("ca_country"), col("ca_state")])
+    j = broadcast_join(ca, j, [col("ca_address_sk")], [col("wr_refunded_addr_sk")], JoinType.INNER, True)
+    rs = ProjectExec(t["reason"], [col("r_reason_sk"), col("r_reason_desc")])
+    j = broadcast_join(rs, j, [col("r_reason_sk")], [col("wr_reason_sk")], JoinType.INNER, True)
+    price, profit = col("ws_sales_price").cast(f64), col("ws_net_profit").cast(f64)
+
+    def demo(ms, lo, hi):
+        return ((col("cd1_ms") == lit(ms)) & (col("cd1_ms") == col("cd2_ms")) & (price >= lit(lo))
+                & (price <= lit(hi)))
+
+    def geo(states, lo, hi):
+        return ((col("ca_country") == lit("United States")) & col("ca_state").isin(*[lit(s) for s in states])
+                & (profit >= lit(lo)) & (profit <= lit(hi)))
+
+    f = FilterExec(j, (demo("M", 0.0, 150.0) | demo("S", 50.0, 250.0) | demo("W", 100.0, 300.0))
+                   & (geo(("OH", "TN", "SD"), -1000.0, 500.0) | geo(("AL", "GA", "SD"), 0.0, 1500.0)
+                      | geo(("TN", "GA", "AL"), -500.0, 1000.0)))
+    agg = two_stage_agg(f, [GroupingExpr(col("r_reason_desc"), "r")],
+                        [AggFunction("avg", col("ws_quantity"), "avg_q"),
+                         AggFunction("avg", col("wr_refunded_cash"), "avg_cash"),
+                         AggFunction("avg", col("wr_fee"), "avg_fee")], n_parts)
+    proj = ProjectExec(agg, [func("substring", col("r"), lit(1), lit(20)).alias("reason"), col("avg_q"),
+                             col("avg_cash"), col("avg_fee")])
+    return single_sorted(proj, [SortField(col(c)) for c in ("reason", "avg_q", "avg_cash", "avg_fee")], fetch=100)
+
+
+def _q78_channel(t, n_parts, fact, date_c, item_c, cust_c, qty_c, wc_c, sp_c, rtab, r_item_c, r_key2_c, key2_c,
+                 prefix):
+    """One channel's never-returned lines of 2000 (a LEFT_ANTI shuffled
+    join on (item, order or ticket)), summed per (item, customer)."""
+    dt_p = ProjectExec(FilterExec(t["date_dim"], col("d_year") == lit(2000)), [col("d_date_sk")])
+    sl = ProjectExec(t[fact], [col(c) for c in (date_c, item_c, cust_c, key2_c, qty_c, wc_c, sp_c)])
+    j = broadcast_join(dt_p, sl, [col("d_date_sk")], [col(date_c)], JoinType.INNER, True)
+    ret = ProjectExec(t[rtab], [col(r_item_c), col(r_key2_c)])
+    j = shuffle_join(j, ret, [col(item_c), col(key2_c)], [col(r_item_c), col(r_key2_c)], JoinType.LEFT_ANTI, n_parts,
+                     build_left=False)
+    proj = ProjectExec(j, [col(item_c).alias(f"{prefix}_item_sk"), col(cust_c).alias(f"{prefix}_customer_sk"),
+                           col(qty_c).cast(i64).alias("q"), col(wc_c), col(sp_c)])
+    return two_stage_agg(proj, [GroupingExpr(col(f"{prefix}_item_sk"), f"{prefix}_item_sk"),
+                                GroupingExpr(col(f"{prefix}_customer_sk"), f"{prefix}_customer_sk")],
+                         [AggFunction("sum", col("q"), f"{prefix}_qty"), AggFunction("sum", col(wc_c), f"{prefix}_wc"),
+                          AggFunction("sum", col(sp_c), f"{prefix}_sp")], n_parts)
+
+
+def q78(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+    """Store sums per (item, customer) LEFT shuffle-joined with the web's
+    and the catalog's, kept where another channel sold any."""
+    ss = _q78_channel(t, n_parts, "store_sales", "ss_sold_date_sk", "ss_item_sk", "ss_customer_sk", "ss_quantity",
+                      "ss_wholesale_cost", "ss_sales_price", "store_returns", "sr_item_sk", "sr_ticket_number",
+                      "ss_ticket_number", "ss")
+    ws = _q78_channel(t, n_parts, "web_sales", "ws_sold_date_sk", "ws_item_sk", "ws_bill_customer_sk", "ws_quantity",
+                      "ws_wholesale_cost", "ws_sales_price", "web_returns", "wr_item_sk", "wr_order_number",
+                      "ws_order_number", "ws")
+    cs = _q78_channel(t, n_parts, "catalog_sales", "cs_sold_date_sk", "cs_item_sk", "cs_bill_customer_sk",
+                      "cs_quantity", "cs_wholesale_cost", "cs_sales_price", "catalog_returns", "cr_item_sk",
+                      "cr_order_number", "cs_order_number", "cs")
+    keys = [col("ss_item_sk"), col("ss_customer_sk")]
+    j = shuffle_join(ss, ws, keys, [col("ws_item_sk"), col("ws_customer_sk")], JoinType.LEFT, n_parts,
+                     build_left=False)
+    j = shuffle_join(j, cs, keys, [col("cs_item_sk"), col("cs_customer_sk")], JoinType.LEFT, n_parts,
+                     build_left=False)
+
+    def czero(c):
+        return Case([(col(c).is_not_null(), col(c))], lit(0, i64))
+
+    f = FilterExec(j, (czero("ws_qty") > lit(0, i64)) | (czero("cs_qty") > lit(0, i64)))
+    other = (czero("ws_qty") + czero("cs_qty")).cast(f64)
+    den = Case([(other > lit(0.0), other)], lit(1.0))
+    proj = ProjectExec(f, [col("ss_item_sk"), col("ss_customer_sk"), col("ss_qty"), col("ss_wc"), col("ss_sp"),
+                           (col("ss_qty").cast(f64) / den).alias("ratio"),
+                           (czero("ws_qty") + czero("cs_qty")).alias("other_chan_qty")])
+    return single_sorted(proj, [SortField(col("ss_qty"), ascending=False), SortField(col("ss_item_sk")),
+                                SortField(col("ss_customer_sk"))], fetch=100)
+
+
+def q97(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+    """The 2000 (customer, item) pairs of store and catalog sales, each
+    set DISTINCT, FULL shuffle-joined and counted store only, catalog
+    only and both."""
+    dt_p = ProjectExec(FilterExec(t["date_dim"], col("d_year") == lit(2000)), [col("d_date_sk")])
+
+    def pairs(fact, date_c, cust_c, item_c, pc, pi):
+        sl = ProjectExec(t[fact], [col(date_c), col(cust_c), col(item_c)])
+        j = broadcast_join(dt_p, sl, [col("d_date_sk")], [col(date_c)], JoinType.INNER, True)
+        proj = ProjectExec(j, [col(cust_c).alias(pc), col(item_c).alias(pi)])
+        return two_stage_agg(proj, [GroupingExpr(col(pc), pc), GroupingExpr(col(pi), pi)], [], n_parts)
+
+    ss = pairs("store_sales", "ss_sold_date_sk", "ss_customer_sk", "ss_item_sk", "sc", "si")
+    cs = pairs("catalog_sales", "cs_sold_date_sk", "cs_bill_customer_sk", "cs_item_sk", "cc", "ci")
+    j = shuffle_join(ss, cs, [col("sc"), col("si")], [col("cc"), col("ci")], JoinType.FULL, n_parts, build_left=False)
+    one, zero = lit(1, i64), lit(0, i64)
+    store, cat = col("sc").is_not_null(), col("cc").is_not_null()
+    flags = ProjectExec(j, [Case([(store & col("cc").is_null(), one)], zero).alias("store_only"),
+                            Case([(col("sc").is_null() & cat, one)], zero).alias("catalog_only"),
+                            Case([(store & cat, one)], zero).alias("store_and_catalog")])
+    return two_stage_agg(flags, [], [AggFunction("sum", col(c), c) for c in ("store_only", "catalog_only",
+                                                                             "store_and_catalog")], n_parts)
+
+
+_Q64_COLORS = ("purple", "burlywood", "indian", "spring", "floral", "medium", "peach", "saddle", "navy", "slate")
+
+
+def _q64_cross_sales(t, n_parts, year):
+    """q64's cross_sales, cut as in the reference (the generator has no
+    income bands, first-sale dates or address pairs): returned store
+    lines of ``year`` (the year's slice before the shuffled (item,
+    ticket) join) of ten colors, counts and cost sums per (item id,
+    store, zip)."""
+    sl = ProjectExec(t["store_sales"], [col(c) for c in ("ss_item_sk", "ss_ticket_number", "ss_store_sk",
+                                                         "ss_sold_date_sk", "ss_wholesale_cost", "ss_list_price",
+                                                         "ss_coupon_amt")])
+    dt_p = ProjectExec(FilterExec(t["date_dim"], col("d_year") == lit(year)), [col("d_date_sk")])
+    sl = broadcast_join(dt_p, sl, [col("d_date_sk")], [col("ss_sold_date_sk")], JoinType.INNER, True)
+    sr = ProjectExec(t["store_returns"], [col("sr_item_sk"), col("sr_ticket_number")])
+    j = shuffle_join(sl, sr, [col("ss_item_sk"), col("ss_ticket_number")], [col("sr_item_sk"), col("sr_ticket_number")],
+                     JoinType.INNER, n_parts, build_left=False)
+    it_p = ProjectExec(FilterExec(t["item"], col("i_color").isin(*[lit(c) for c in _Q64_COLORS])),
+                       [col("i_item_sk"), col("i_item_id")])
+    j = broadcast_join(it_p, j, [col("i_item_sk")], [col("ss_item_sk")], JoinType.INNER, True)
+    st_p = ProjectExec(t["store"], [col("s_store_sk"), col("s_store_name"), col("s_zip")])
+    j = broadcast_join(st_p, j, [col("s_store_sk")], [col("ss_store_sk")], JoinType.INNER, True)
+    return two_stage_agg(j, [GroupingExpr(col(c), c) for c in ("i_item_id", "s_store_name", "s_zip")],
+                         [AggFunction("count_star", None, "cnt"), AggFunction("sum", col("ss_wholesale_cost"), "s1"),
+                          AggFunction("sum", col("ss_list_price"), "s2"),
+                          AggFunction("sum", col("ss_coupon_amt"), "s3")], n_parts)
+
+
+def q64(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+    """q64's cross_sales of 2001 and 2002 joined on (item id, store,
+    zip), three string keys (a shuffled join through the plain murmur3),
+    kept where 2002 repeats at most as often."""
+    cs1 = _q64_cross_sales(t, n_parts, 2001)
+    cs2 = ProjectExec(_q64_cross_sales(t, n_parts, 2002),
+                      [col("i_item_id").alias("r_item_id"), col("s_store_name").alias("r_store_name"),
+                       col("s_zip").alias("r_zip"), col("cnt").alias("cnt2"), col("s1").alias("s1_2"),
+                       col("s2").alias("s2_2"), col("s3").alias("s3_2")])
+    j = shuffle_join(cs1, cs2, [col("i_item_id"), col("s_store_name"), col("s_zip")],
+                     [col("r_item_id"), col("r_store_name"), col("r_zip")], JoinType.INNER, n_parts, build_left=False)
+    f = FilterExec(j, col("cnt2") <= col("cnt"))
+    proj = ProjectExec(f, [col(c) for c in ("i_item_id", "s_store_name", "s_zip", "cnt", "s1", "s2", "s3", "cnt2",
+                                            "s1_2", "s2_2", "s3_2")])
+    return single_sorted(proj, [SortField(col("s1"), ascending=False), SortField(col("i_item_id")),
+                                SortField(col("s_store_name")), SortField(col("s_zip"))], fetch=100)
+
+
+def q72(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+    """Catalog lines of divorced '>10000'-potential buyers shipped over 5
+    days after the sale, promised from a warehouse whose inventory in
+    the sale's week held fewer than the quantity ordered: the lines
+    shuffle-joined to all of ``inventory`` on the item, counted per
+    (item, warehouse, week)."""
+    hd_p = ProjectExec(FilterExec(t["household_demographics"], col("hd_buy_potential") == lit(">10000")),
+                       [col("hd_demo_sk")])
+    cd_p = ProjectExec(FilterExec(t["customer_demographics"], col("cd_marital_status") == lit("D")),
+                       [col("cd_demo_sk")])
+    d1 = ProjectExec(t["date_dim"], [col("d_date_sk"), col("d_date"), col("d_week_seq")])
+    d3 = ProjectExec(t["date_dim"], [col("d_date_sk").alias("d3_date_sk"), col("d_date").alias("d3_date")])
+    it = ProjectExec(t["item"], [col("i_item_sk"), col("i_item_desc")])
+    wh = ProjectExec(t["warehouse"], [col("w_warehouse_sk"), col("w_warehouse_name")])
+    d2 = ProjectExec(t["date_dim"], [col("d_date_sk").alias("d2_date_sk"), col("d_week_seq").alias("d2_week_seq")])
+    cs = ProjectExec(t["catalog_sales"], [col(c) for c in ("cs_sold_date_sk", "cs_ship_date_sk", "cs_item_sk",
+                                                           "cs_bill_cdemo_sk", "cs_bill_hdemo_sk", "cs_quantity")])
+    j = broadcast_join(hd_p, cs, [col("hd_demo_sk")], [col("cs_bill_hdemo_sk")], JoinType.INNER, True)
+    j = broadcast_join(cd_p, j, [col("cd_demo_sk")], [col("cs_bill_cdemo_sk")], JoinType.INNER, True)
+    j = broadcast_join(d1, j, [col("d_date_sk")], [col("cs_sold_date_sk")], JoinType.INNER, True)
+    j = broadcast_join(d3, j, [col("d3_date_sk")], [col("cs_ship_date_sk")], JoinType.INNER, True)
+    j = FilterExec(j, col("d3_date").cast(i64) > (col("d_date").cast(i64) + lit(5, i64)))
+    inv = ProjectExec(t["inventory"], [col(c) for c in ("inv_date_sk", "inv_item_sk", "inv_warehouse_sk",
+                                                        "inv_quantity_on_hand")])
+    j = shuffle_join(j, inv, [col("cs_item_sk")], [col("inv_item_sk")], JoinType.INNER, n_parts, build_left=True)
+    j = broadcast_join(d2, j, [col("d2_date_sk")], [col("inv_date_sk")], JoinType.INNER, True)
+    j = FilterExec(j, (col("d2_week_seq") == col("d_week_seq")) & (col("inv_quantity_on_hand") < col("cs_quantity")))
+    j = broadcast_join(it, j, [col("i_item_sk")], [col("cs_item_sk")], JoinType.INNER, True)
+    j = broadcast_join(wh, j, [col("w_warehouse_sk")], [col("inv_warehouse_sk")], JoinType.INNER, True)
+    agg = two_stage_agg(j, [GroupingExpr(col(c), c) for c in ("i_item_desc", "w_warehouse_name", "d_week_seq")],
+                        [AggFunction("count_star", None, "no_promo")], n_parts)
+    return single_sorted(agg, [SortField(col("no_promo"), ascending=False), SortField(col("i_item_desc")),
+                               SortField(col("w_warehouse_name")), SortField(col("d_week_seq"))], fetch=100)
+
+
 #: the window family, in the order the tests and the smoke run it
 WINDOW_QUERIES = ("q12", "q20", "q98", "q53", "q63", "q89", "q47", "q57", "q36", "q86", "q70", "q67", "q44", "q49",
                   "q51")
@@ -2308,6 +3062,10 @@ EXISTS_STDDEV_QUERIES = ("q10", "q35", "q69", "q38", "q87", "q17", "q25", "q29",
 REPORT_QUERIES = ("q42", "q52", "q55", "q19", "q43", "q96", "q26", "q6", "q41", "q13", "q48", "q15", "q45", "q8",
                   "q91", "q34", "q73", "q46", "q68", "q79", "q9", "q28", "q88", "q90", "q61", "q62", "q99", "q21",
                   "q32", "q92", "q65")
+#: the multi-fact, shuffled and self joins, in the order the tests and the
+#: smoke run them (by shared helpers, the heaviest last)
+JOINED_QUERIES = ("q1", "q30", "q81", "q94", "q95", "q16", "q74", "q11", "q4", "q37", "q82", "q40", "q50", "q93",
+                  "q24a", "q24b", "q14b", "q58", "q31", "q59", "q83", "q85", "q78", "q97", "q64", "q72")
 
 QUERIES: Dict[str, Callable[[Dict[str, ExecNode], int], ExecNode]] = {
     "q3": q3, "q7": q7,
@@ -2321,6 +3079,9 @@ QUERIES: Dict[str, Callable[[Dict[str, ExecNode], int], ExecNode]] = {
     "q13": q13, "q48": q48, "q15": q15, "q45": q45, "q8": q8, "q91": q91, "q34": q34, "q73": q73, "q46": q46,
     "q68": q68, "q79": q79, "q9": q9, "q28": q28, "q88": q88, "q90": q90, "q61": q61, "q62": q62, "q99": q99,
     "q21": q21, "q32": q32, "q92": q92, "q65": q65,
+    "q1": q1, "q30": q30, "q81": q81, "q94": q94, "q95": q95, "q16": q16, "q74": q74, "q11": q11, "q4": q4,
+    "q37": q37, "q82": q82, "q40": q40, "q50": q50, "q93": q93, "q24a": q24a, "q24b": q24b, "q14b": q14b,
+    "q58": q58, "q31": q31, "q59": q59, "q83": q83, "q85": q85, "q78": q78, "q97": q97, "q64": q64, "q72": q72,
 }
 
 

@@ -103,7 +103,13 @@ Needs one CUDA card and ``nvcc`` (``/usr/local/cuda``).  In order, it:
    q88, q90, q61, q62, q99, q21, q32, q92 and q65: broadcast joins into
    one fact table, CASE pivots, and scalar subqueries (q45: an IN
    subquery) run in process while the plan is built, their seconds
-   printed) the same way, with each oracle's host seconds;
+   printed) the same way, with each oracle's host seconds; then the 26
+   multi-fact, shuffled and self joins (q1, q30, q81, q94, q95, q16,
+   q74, q11, q4, q37, q82, q40, q50, q93, q24a, q24b, q14b, q58, q31,
+   q59, q83, q85, q78, q97, q64 and q72: shuffled joins on composite
+   and string keys, a FULL shuffled join, LEFT_SEMI/LEFT_ANTI joins on
+   aggregates, q72's shuffle of all of ``inventory``) the same way,
+   each record with its oracle's row count;
 8. the null-key phase: ``store_sales`` at ``--ds-scale`` with its -1
    ``ss_customer_sk`` exposed as nulls (``with_null_fks``), through
    ``split_stages``/``run_stages``: an ``IS NULL`` count, a group by
@@ -118,13 +124,13 @@ Needs one CUDA card and ``nvcc`` (``/usr/local/cuda``).  In order, it:
    ``torch.profiler`` session, and counts every device operation one
    ``pid_histogram`` call issues on each path (one on paths (a) and
    (b), or it fails); then runs q01 and q03 in process under each A/B
-   setting and q10, TPC-DS q47, q67, q5 and q22 under the defaults, all in one more
+   setting and q10, TPC-DS q47, q67, q5, q22 and q72 under the defaults, all in one more
    ``torch.profiler`` session, and prints the device's busy share of
    each run, its device operations, the kernels that take its time, and
    the hand-written kernels' device time at the shapes the query gives
    them;
 10. prints where each phase ended on the host clock, the ``kernels``
-   JSON line (launches summed over the 99 queries in process, and per
+   JSON line (launches summed over the 125 queries in process, and per
    query on each path; the null-key phase's apart), then
    ``{"ok": true, ...}`` last.
 
@@ -927,6 +933,106 @@ QUERY_COLUMNS.update({
                "item": ("i_item_sk", "i_item_desc", "i_current_price", "i_brand"),
                "store_sales": _STORE + ("ss_store_sk", "ss_sales_price")},
 })
+_Y = ("d_date_sk", "d_year")
+_NAMES = ("c_customer_sk", "c_customer_id", "c_first_name", "c_last_name")
+_YOY_CUST = _NAMES + ("c_preferred_cust_flag",)
+
+
+def _yoy(store: tuple, catalog: tuple = (), web: tuple = ()) -> dict:
+    """q74, q11 and q4: each channel's date and customer keys and its
+    measure's columns."""
+    out = {"date_dim": _Y, "customer": _YOY_CUST, "store_sales": ("ss_sold_date_sk", "ss_customer_sk") + store,
+           "web_sales": ("ws_sold_date_sk", "ws_bill_customer_sk") + web}
+    if catalog:
+        out["catalog_sales"] = ("cs_sold_date_sk", "cs_bill_customer_sk") + catalog
+    return out
+
+
+_INV_PRICE = {"item": ("i_item_sk", "i_item_id", "i_item_desc", "i_current_price"), "date_dim": _DATES,
+              "inventory": ("inv_date_sk", "inv_item_sk", "inv_quantity_on_hand")}
+_Q24 = {"store_sales": ("ss_item_sk", "ss_ticket_number", "ss_store_sk", "ss_customer_sk", "ss_net_paid"),
+        "store_returns": ("sr_item_sk", "sr_ticket_number"),
+        "store": ("s_store_sk", "s_store_name", "s_county", "s_market_id"),
+        "customer": ("c_customer_sk", "c_last_name", "c_first_name", "c_current_addr_sk"),
+        "customer_address": ("ca_address_sk", "ca_county"), "item": ("i_item_sk", "i_color")}
+_THREE = (("store_sales", "ss"), ("catalog_sales", "cs"), ("web_sales", "ws"))
+_RETURNS3 = (("store_returns", "sr"), ("catalog_returns", "cr"), ("web_returns", "wr"))
+_Q78 = {"date_dim": _Y, "store_returns": ("sr_item_sk", "sr_ticket_number"),
+        "web_returns": ("wr_item_sk", "wr_order_number"), "catalog_returns": ("cr_item_sk", "cr_order_number"),
+        "store_sales": ("ss_sold_date_sk", "ss_item_sk", "ss_customer_sk", "ss_ticket_number", "ss_quantity",
+                        "ss_wholesale_cost", "ss_sales_price"),
+        **{f: tuple(f"{p}_{c}" for c in ("sold_date_sk", "item_sk", "bill_customer_sk", "order_number", "quantity",
+                                         "wholesale_cost", "sales_price"))
+           for f, p in (("web_sales", "ws"), ("catalog_sales", "cs"))}}
+# the multi-fact, shuffled and self joins
+QUERY_COLUMNS.update({
+    "ds_q1": {"date_dim": _Y, "store": ("s_store_sk", "s_state"), "customer": _NAMES[:2],
+              "store_returns": ("sr_returned_date_sk", "sr_customer_sk", "sr_store_sk", "sr_return_amt")},
+    "ds_q30": {"date_dim": _Y, "customer": _NAMES,
+               "web_returns": ("wr_returned_date_sk", "wr_returning_customer_sk", "wr_web_page_sk", "wr_return_amt")},
+    "ds_q81": {"date_dim": _Y, "customer": _NAMES,
+               "catalog_returns": ("cr_returned_date_sk", "cr_returning_customer_sk", "cr_call_center_sk",
+                                   "cr_return_amount")},
+    **{q: {"date_dim": _DATES, "customer_address": ("ca_address_sk", "ca_state"),
+           "web_site": ("web_site_sk", "web_company_name"), "web_returns": ("wr_order_number",),
+           "web_sales": ("ws_ship_date_sk", "ws_ship_addr_sk", "ws_web_site_sk", "ws_order_number",
+                         "ws_ext_ship_cost", "ws_net_profit", "ws_warehouse_sk")} for q in ("ds_q94", "ds_q95")},
+    "ds_q16": {"date_dim": _DATES, "customer_address": ("ca_address_sk", "ca_state"),
+               "call_center": ("cc_call_center_sk", "cc_county"), "catalog_returns": ("cr_order_number",),
+               "catalog_sales": ("cs_ship_date_sk", "cs_ship_addr_sk", "cs_call_center_sk", "cs_order_number",
+                                 "cs_ext_ship_cost", "cs_net_profit", "cs_warehouse_sk")},
+    "ds_q74": _yoy(("ss_net_paid",), web=("ws_net_paid",)),
+    "ds_q11": _yoy(("ss_ext_list_price", "ss_ext_discount_amt"), web=("ws_ext_list_price", "ws_ext_discount_amt")),
+    "ds_q4": _yoy(("ss_ext_list_price", "ss_ext_wholesale_cost", "ss_ext_discount_amt", "ss_ext_sales_price"),
+                  ("cs_ext_list_price", "cs_wholesale_cost", "cs_ext_discount_amt", "cs_ext_sales_price"),
+                  ("ws_ext_list_price", "ws_wholesale_cost", "ws_ext_discount_amt", "ws_ext_sales_price")),
+    "ds_q37": {**_INV_PRICE, "catalog_sales": ("cs_item_sk",)},
+    "ds_q82": {**_INV_PRICE, "store_sales": ("ss_item_sk",)},
+    "ds_q40": {"date_dim": _DATES, "item": ("i_item_sk", "i_item_id", "i_current_price"),
+               "warehouse": ("w_warehouse_sk", "w_state"),
+               "catalog_sales": ("cs_sold_date_sk", "cs_item_sk", "cs_order_number", "cs_warehouse_sk",
+                                 "cs_sales_price"),
+               "catalog_returns": ("cr_item_sk", "cr_order_number", "cr_refunded_cash")},
+    "ds_q50": {"date_dim": ("d_date_sk", "d_date", "d_year", "d_moy"),
+               "store": ("s_store_sk", "s_store_name", "s_county", "s_state", "s_zip"),
+               "store_sales": ("ss_item_sk", "ss_ticket_number", "ss_customer_sk", "ss_store_sk", "ss_sold_date_sk"),
+               "store_returns": ("sr_item_sk", "sr_ticket_number", "sr_customer_sk", "sr_returned_date_sk")},
+    "ds_q93": {"reason": ("r_reason_sk", "r_reason_desc"),
+               "store_sales": ("ss_item_sk", "ss_ticket_number", "ss_customer_sk", "ss_quantity", "ss_sales_price"),
+               "store_returns": ("sr_item_sk", "sr_ticket_number", "sr_reason_sk", "sr_return_quantity")},
+    "ds_q24a": _Q24, "ds_q24b": _Q24,
+    "ds_q14b": QUERY_COLUMNS["ds_q14a"],
+    "ds_q58": {"date_dim": ("d_date_sk", "d_date", "d_month_seq"), "item": ("i_item_sk", "i_item_id"),
+               **{f: (f"{p}_sold_date_sk", f"{p}_item_sk", f"{p}_ext_sales_price") for f, p in _THREE}},
+    "ds_q31": {"date_dim": ("d_date_sk", "d_year", "d_qoy"), "customer_address": ("ca_address_sk", "ca_county"),
+               "store_sales": ("ss_sold_date_sk", "ss_addr_sk", "ss_ext_sales_price"),
+               "web_sales": ("ws_sold_date_sk", "ws_bill_addr_sk", "ws_ext_sales_price")},
+    "ds_q59": {"date_dim": ("d_date_sk", "d_week_seq", "d_dow", "d_year"), "store": ("s_store_sk", "s_store_name"),
+               "store_sales": ("ss_sold_date_sk", "ss_store_sk", "ss_sales_price")},
+    "ds_q83": {"date_dim": _Y, "item": ("i_item_sk", "i_item_id"),
+               **{f: (f"{p}_returned_date_sk", f"{p}_item_sk", f"{p}_return_quantity") for f, p in _RETURNS3}},
+    "ds_q85": {"date_dim": _Y, "web_page": ("wp_web_page_sk",), "reason": ("r_reason_sk", "r_reason_desc"),
+               "customer_demographics": ("cd_demo_sk", "cd_marital_status"),
+               "customer_address": ("ca_address_sk", "ca_country", "ca_state"),
+               "web_sales": ("ws_item_sk", "ws_order_number", "ws_web_page_sk", "ws_sold_date_sk", "ws_quantity",
+                             "ws_sales_price", "ws_net_profit"),
+               "web_returns": ("wr_item_sk", "wr_order_number", "wr_refunded_cdemo_sk", "wr_returning_cdemo_sk",
+                               "wr_refunded_addr_sk", "wr_reason_sk", "wr_refunded_cash", "wr_fee")},
+    "ds_q78": _Q78,
+    "ds_q97": {"date_dim": _Y, "store_sales": ("ss_sold_date_sk", "ss_customer_sk", "ss_item_sk"),
+               "catalog_sales": ("cs_sold_date_sk", "cs_bill_customer_sk", "cs_item_sk")},
+    "ds_q64": {"date_dim": _Y, "item": ("i_item_sk", "i_item_id", "i_color"),
+               "store": ("s_store_sk", "s_store_name", "s_zip"), "store_returns": ("sr_item_sk", "sr_ticket_number"),
+               "store_sales": ("ss_item_sk", "ss_ticket_number", "ss_store_sk", "ss_sold_date_sk",
+                               "ss_wholesale_cost", "ss_list_price", "ss_coupon_amt")},
+    "ds_q72": {"household_demographics": ("hd_demo_sk", "hd_buy_potential"),
+               "customer_demographics": ("cd_demo_sk", "cd_marital_status"),
+               "date_dim": ("d_date_sk", "d_date", "d_week_seq"), "item": ("i_item_sk", "i_item_desc"),
+               "warehouse": ("w_warehouse_sk", "w_warehouse_name"),
+               "catalog_sales": ("cs_sold_date_sk", "cs_ship_date_sk", "cs_item_sk", "cs_bill_cdemo_sk",
+                                 "cs_bill_hdemo_sk", "cs_quantity"),
+               "inventory": ("inv_date_sk", "inv_item_sk", "inv_warehouse_sk", "inv_quantity_on_hand")},
+})
 TPCH_QUERIES = ("q6", "q1", "q3", "q4", "q5", "q10", "q12", "q14", "q19")
 DS_QUERIES = ("ds_q3", "ds_q7")
 # the rest of TPC-H; they run on the tables with dbgen's p_name,
@@ -949,6 +1055,10 @@ EXISTS_STDDEV_QUERIES = tuple(f"ds_{q}" for q in ("q10", "q35", "q69", "q38", "q
 REPORT_QUERIES = tuple(f"ds_{q}" for q in ("q42", "q52", "q55", "q19", "q43", "q96", "q26", "q6", "q41", "q13", "q48",
                                            "q15", "q45", "q8", "q91", "q34", "q73", "q46", "q68", "q79", "q9", "q28",
                                            "q88", "q90", "q61", "q62", "q99", "q21", "q32", "q92", "q65"))
+# TPC-DS's multi-fact, shuffled and self joins, the heaviest (q72) last
+JOINED_QUERIES = tuple(f"ds_{q}" for q in ("q1", "q30", "q81", "q94", "q95", "q16", "q74", "q11", "q4", "q37", "q82",
+                                           "q40", "q50", "q93", "q24a", "q24b", "q14b", "q58", "q31", "q59", "q83",
+                                           "q85", "q78", "q97", "q64", "q72"))
 # q23a and q23b are empty from SF 0.01 on (the generator's -1 customer
 # spends the most): they run again at this scale, where they are not
 Q23_QUERIES, Q23_SCALE = ("ds_q23a", "ds_q23b"), 0.002
@@ -958,7 +1068,7 @@ Q23_QUERIES, Q23_SCALE = ("ds_q23a", "ds_q23b"), 0.002
 Q87_QUERIES, Q87_SCALE = ("ds_q87",), 0.01
 # the queries that run a scalar (q45: an IN) subquery while their plan is built
 SUBQUERY_QUERIES = ("q11", "q15", "q22", "ds_q44", "ds_q77", "ds_q14a", "ds_q54", "ds_q23a", "ds_q23b", "ds_q9",
-                    "ds_q28", "ds_q88", "ds_q90", "ds_q61", "ds_q45")
+                    "ds_q28", "ds_q88", "ds_q90", "ds_q61", "ds_q45", "ds_q24a", "ds_q24b", "ds_q14b", "ds_q58")
 # the queries whose two paths sum doubles in another order (q18's
 # averages of casts to double; q17's and q39's stddevs merge their
 # states in another order): their rows agree within 1e-9 relative
@@ -1003,6 +1113,12 @@ EXPECTED_LAUNCHES = {
     # on a decimal key, no join
     "ds_q9": ((), ("murmur3_pids", "pid_histogram", "sorted_lookup")),
     "ds_q28": (("murmur3_pids", "pid_histogram"), ("sorted_lookup",)),
+    # the joined queries: an int key on at least one hash exchange (q64's
+    # last join, on three strings, takes the plain murmur3)
+    **{q: (("murmur3_pids", "pid_histogram", "sorted_lookup"), ())
+       for q in JOINED_QUERIES if q not in ("ds_q31", "ds_q83")},
+    # county and item-id strings on every hash exchange
+    **{q: (("pid_histogram", "sorted_lookup"), ("murmur3_pids",)) for q in ("ds_q31", "ds_q83")},
 }
 
 
@@ -1313,7 +1429,7 @@ def check_oracle(data, query: str, got: dict) -> str:
         return f"promo_revenue {exact} (unscaled, scale 6) = 10^8 sp / sr of the oracle's sums"
     if query in NEW_QUERIES:
         return check_new_query(query, got, exp, need)
-    if query in WINDOW_QUERIES + ROLLUP_UNION_QUERIES + EXISTS_STDDEV_QUERIES + REPORT_QUERIES:
+    if query in WINDOW_QUERIES + ROLLUP_UNION_QUERIES + EXISTS_STDDEV_QUERIES + REPORT_QUERIES + JOINED_QUERIES:
         from blaze_tpu_torch.tpcds.oracle import check_query
 
         return check_query(query[3:], got, exp)
@@ -1777,7 +1893,9 @@ def ds_phase(torch, cuda_ops, card: str, label: str, queries, data, scale: float
             f"through run_stages = oracle and = in process, wall {swall:.4f} s, {moved['tasks']} tasks, .data bytes "
             f"{moved['data_bytes']}, peak device memory {speak / 2**20:.1f} MiB ({(speak - held) / 2**20:.1f} "
             f"above); on {card}; launches {launches} on each path")
+        exp = oracle(data, query)
         rec = {"query": query_label(query), "scale": scale, "rows": len(next(iter(got.values()))),
+               "oracle_rows": len(exp) if isinstance(exp, (dict, list, set)) else None,
                "inproc_wall_s": wall, "inproc_tasks": tasks, "held_bytes": held, "inproc_peak_bytes": peak,
                "run_stages_wall_s": swall, "run_stages_tasks": moved["tasks"], "run_stages_peak_bytes": speak,
                "data_bytes": moved["data_bytes"], "stages": moved["kinds"], "launches": launches,
@@ -1982,8 +2100,8 @@ def main() -> int:
     t0 = time.perf_counter()
     data = query_data(TPCH_QUERIES + NEW_QUERIES, args.scale, ds=False)
     new_data = spec_data(data, args.scale)
-    ds_data = query_data(DS_QUERIES + WINDOW_QUERIES + ROLLUP_UNION_QUERIES + EXISTS_STDDEV_QUERIES + REPORT_QUERIES,
-                         args.ds_scale, ds=True)
+    ds_data = query_data(DS_QUERIES + WINDOW_QUERIES + ROLLUP_UNION_QUERIES + EXISTS_STDDEV_QUERIES + REPORT_QUERIES
+                         + JOINED_QUERIES, args.ds_scale, ds=True)
     log(f"data at TPC-H SF{args.scale}, TPC-DS SF{args.ds_scale}: " + ", ".join(
         f"{k} {next(iter(v.values()))[0].shape[0]} rows" for k, v in (*data.items(), *ds_data.items()))
         + f" ({time.perf_counter() - t0:.1f} s)")
@@ -2172,6 +2290,11 @@ def main() -> int:
              sched_runs)
 
     phases.append(("report queries", time.perf_counter() - T0))
+    # ---- TPC-DS's multi-fact, shuffled and self joins on both paths
+    ds_phase(torch, cuda_ops, card, "joined", JOINED_QUERIES, ds_data, args.ds_scale, n_parts, batch_rows, runs,
+             sched_runs)
+
+    phases.append(("joined queries", time.perf_counter() - T0))
     # ---- real null foreign keys through run_stages, and the kernels on them
     null_runs, null_checks = null_key_phase(torch, cuda_ops, flush, card, ds_data, args.ds_scale, n_parts,
                                             batch_rows)
@@ -2242,8 +2365,9 @@ def main() -> int:
                              optimized(build_plan(query, scans[query], n_parts), map_tasks)))
     profiled.append((query_label("q10"), optimized(build_plan("q10", scans["q10"], n_parts))))
     # two window queries: q47's stacked windows, q67's nine-way expand;
-    # two rollup queries: q5's unions of sales and returns, q22's inventory
-    for query in ("ds_q47", "ds_q67", "ds_q5", "ds_q22"):
+    # two rollup queries: q5's unions of sales and returns, q22's
+    # inventory; q72's shuffled join of catalog lines to all of inventory
+    for query in ("ds_q47", "ds_q67", "ds_q5", "ds_q22", "ds_q72"):
         profiled.append((query_label(query), optimized(build_plan(
             query, query_scans(ds_data, query, n_parts, batch_rows), n_parts))))
     for r in profile_queries(torch, profiled):

@@ -2,15 +2,17 @@
 the reference's (``blaze_tpu/ops/fusion.py``) and a Python oracle.
 
 (a) Both packages' builders give every TPC-H query, TPC-DS q03 and
-q07, the 15 TPC-DS window queries, the 11 of ``EXISTS_STDDEV_QUERIES``
-and the 31 of ``REPORT_QUERIES`` the same unoptimized plan (node for
-node), and ``optimize_plan`` must then give the same node-class
-sequence in both, fused chains compared by their operators too (a
-window at a chain's bottom over a ``BufferPartitionExec``, a fused
-expand; a ``RenameColumnsExec`` stays where it is in both).  No query
-is skipped: all 81 build the same plan in both packages.  q65 alone
-optimizes to another plan (its shared exchange stays one node in the
-port); ``test_torch_tpcds_report_share.py`` checks it.
+q07, the 15 TPC-DS window queries, the 11 of ``EXISTS_STDDEV_QUERIES``,
+the 31 of ``REPORT_QUERIES`` and the 26 of ``JOINED_QUERIES`` the same
+unoptimized plan (node for node), and ``optimize_plan`` must then give
+the same node-class sequence in both, fused chains compared by their
+operators too (a window at a chain's bottom over a
+``BufferPartitionExec``, a fused expand; a ``RenameColumnsExec`` stays
+where it is in both).  No query is skipped: all 107 build the same plan
+in both packages.  q65, q1, q30, q81 and q59 alone optimize to another
+plan (an exchange under two consumers stays one node in the port);
+``test_torch_tpcds_report_share.py`` and
+``test_torch_tpcds_joined_share.py`` check them.
 
 (b) Each tier alone, column pruning alone and the whole optimizer leave
 the rows of five plans over one seeded table equal to the unoptimized
@@ -57,7 +59,7 @@ from blaze_tpu_torch.parallel.shuffle import IpcReaderExec, LocalShuffleManager
 from blaze_tpu_torch.runtime.context import RESOURCES, TaskContext
 from blaze_tpu_torch.tpcds import TPCDS_SCHEMAS
 from blaze_tpu_torch.tpcds import build_query as build_ds
-from blaze_tpu_torch.tpcds.queries import EXISTS_STDDEV_QUERIES, REPORT_QUERIES, WINDOW_QUERIES
+from blaze_tpu_torch.tpcds.queries import EXISTS_STDDEV_QUERIES, JOINED_QUERIES, REPORT_QUERIES, WINDOW_QUERIES
 from blaze_tpu_torch.tpch import TPCH_SCHEMAS, build_query
 from blaze_tpu_torch.tpch.datagen import generate_all
 
@@ -100,7 +102,8 @@ def _ds_plans(q):
 
 @pytest.mark.parametrize("q", [f"q{i}" for i in range(1, 23)] + ["ds_q3", "ds_q7"]
                          + [f"ds_{q}" for q in WINDOW_QUERIES + EXISTS_STDDEV_QUERIES
-                            + tuple(q for q in REPORT_QUERIES if q != "q65")])
+                            + tuple(q for q in REPORT_QUERIES if q != "q65")
+                            + tuple(q for q in JOINED_QUERIES if q not in ("q1", "q30", "q81", "q59"))])
 def test_optimized_plan_has_the_reference_node_sequence(tpch_data, q):
     port, ref = _ds_plans(q[3:]) if q.startswith("ds_") else _tpch_plans(tpch_data, q)
     assert node_classes(port) == node_classes(ref)

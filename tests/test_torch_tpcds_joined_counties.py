@@ -1,0 +1,17 @@
+"""TPC-DS q31 through the port: six (channel, quarter) county sums
+shuffle-joined on the county, two CASE-guarded growth comparisons.
+Against the reference in process and the port's oracle on both paths,
+as ``test_torch_tpcds_joined_share.py`` describes."""
+
+import pytest
+
+from test_torch_tpcds_joined_share import check
+from test_torch_tpcds_window_share import on_cpu  # noqa: F401
+
+QUERIES = ["q31"]
+
+
+@pytest.mark.parametrize("q", QUERIES)
+def test_equals_the_reference_and_the_oracle_on_both_paths(q):
+    kinds = check(q)
+    assert kinds.count("map") >= 6 and kinds[-1] == "result"
