@@ -370,12 +370,24 @@ class HostCopy:
 
 class HostStaging:
     """Zeroed host arrays allocated in one byte buffer, filled by the
-    caller, then moved to a device in ONE host-to-device copy."""
+    caller, then moved to a device in ONE host-to-device copy.  With
+    ``pinned`` the buffer is page-locked (from torch's caching host
+    allocator) and the copy is issued without waiting for it; the
+    allocator keeps the buffer until the copy has finished."""
 
-    def __init__(self):
+    def __init__(self, pinned: bool = False):
         self._regions: List[Tuple[int, np.dtype, tuple]] = []
         self._size = 0
         self._buf: Optional[np.ndarray] = None
+        self._pinned = pinned
+        self._host: Optional[torch.Tensor] = None
+
+    def _alloc(self) -> None:
+        if self._pinned:
+            self._host = torch.zeros(self._size, dtype=torch.uint8, pin_memory=True)
+            self._buf = self._host.numpy()
+        else:
+            self._buf = np.zeros(self._size, np.uint8)
 
     def region(self, shape: tuple, np_dtype) -> int:
         """Reserve a region; returns its index (allocate before filling)."""
@@ -388,7 +400,7 @@ class HostStaging:
     def array(self, i: int) -> np.ndarray:
         """The host view of region ``i`` (zeroed until written)."""
         if self._buf is None:
-            self._buf = np.zeros(self._size, np.uint8)
+            self._alloc()
         off, np_dtype, shape = self._regions[i]
         nbytes = int(np.prod(shape, dtype=np.int64)) * np_dtype.itemsize
         return self._buf[off:off + nbytes].view(np_dtype).reshape(shape)
@@ -396,8 +408,11 @@ class HostStaging:
     def to_device(self, device: torch.device) -> List[torch.Tensor]:
         """Every region as a tensor on ``device``."""
         if self._buf is None:
-            self._buf = np.zeros(self._size, np.uint8)
-        dev = torch.from_numpy(self._buf).to(device)
+            self._alloc()
+        if self._host is not None:
+            dev = self._host.to(device, non_blocking=True)
+        else:
+            dev = torch.from_numpy(self._buf).to(device)
         count_copy("host_to_device")
         out = []
         for off, np_dtype, shape in self._regions:

@@ -56,3 +56,12 @@ SHUFFLE_ASYNC_WRITE = ConfEntry("spark.blaze.shuffle.asyncWrite", True, _bool)
 SHUFFLE_ASYNC_QUEUE_DEPTH = ConfEntry("spark.blaze.shuffle.asyncWrite.queueDepth", 2, int)
 # map and broadcast stages of run_stages run this many tasks at a time
 STAGE_TASK_CONCURRENCY = ConfEntry("spark.blaze.stage.taskConcurrency", 1, int)
+# rows per batch a file scan emits, and the target of CoalesceBatchesExec
+BATCH_SIZE = ConfEntry("spark.blaze.batchSize", 8192, int)
+# a file scan skips (and counts) a file whose metadata it cannot read
+IGNORE_CORRUPT_FILES = ConfEntry("spark.files.ignoreCorruptFiles", False, _bool)
+# a parquet scan prunes row groups by its predicate over chunk statistics
+PARQUET_FILTER_PUSHDOWN = ConfEntry("spark.blaze.parquet.enable.pageFiltering", True, _bool)
+# batches a file scan's producer thread decodes ahead of its consumer;
+# 0 decodes on the consumer's thread
+PIPELINE_DEPTH = ConfEntry("spark.blaze.pipeline.depth", 2, int)

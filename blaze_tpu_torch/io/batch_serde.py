@@ -129,13 +129,14 @@ def decode_columns(data: bytes, schema: Schema) -> Tuple[int, List[HostColumn]]:
 
 
 def stage_columns(schema: Schema, parts: Sequence[Tuple[int, Sequence[HostColumn]]],
-                  device: torch.device) -> RecordBatch:
+                  device: torch.device, pinned: bool = False) -> RecordBatch:
     """The rows of every part, in order, as one batch on ``device``:
     padded to its capacity bucket with zeroed padding, string widths
-    merged to the widest part, in one host-to-device copy."""
+    merged to the widest part, in one host-to-device copy (from a
+    page-locked buffer with ``pinned``)."""
     n = sum(k for k, _ in parts)
     cap = bucket_capacity(max(n, 1))
-    staging = HostStaging()
+    staging = HostStaging(pinned)
     slots = []
     for i, f in enumerate(schema.fields):
         if f.dtype.is_string:

@@ -2,10 +2,16 @@
 
 from .agg import AggExec, AggFunction, AggMode, GroupingExpr
 from .base import ExecNode
+from .coalesce import CoalesceBatchesExec
+from .debug import DebugExec
+from .empty import EmptyPartitionsExec
 from .expand import ExpandExec
 from .filter import FilterExec
 from .limit import LimitExec
 from .memory_scan import MemoryScanExec
+from .orc_scan import OrcScanExec
+from .parquet_scan import ParquetScanExec
+from .parquet_sink import ParquetSinkExec
 from .project import ProjectExec
 from .rename import RenameColumnsExec
 from .sort import SortExec, SortField
@@ -13,7 +19,8 @@ from .union import UnionExec
 from .window import WindowExec, WindowFunction
 
 __all__ = [
-    "AggExec", "AggFunction", "AggMode", "ExecNode", "ExpandExec", "FilterExec", "GroupingExpr",
-    "LimitExec", "MemoryScanExec", "ProjectExec", "RenameColumnsExec", "SortExec", "SortField", "UnionExec",
-    "WindowExec", "WindowFunction",
+    "AggExec", "AggFunction", "AggMode", "CoalesceBatchesExec", "DebugExec", "EmptyPartitionsExec", "ExecNode",
+    "ExpandExec", "FilterExec", "GroupingExpr", "LimitExec", "MemoryScanExec", "OrcScanExec", "ParquetScanExec",
+    "ParquetSinkExec", "ProjectExec", "RenameColumnsExec", "SortExec", "SortField", "UnionExec", "WindowExec",
+    "WindowFunction",
 ]

@@ -2,11 +2,13 @@
 its ancestors use (≙ ``blaze_tpu/ops/pruning.py``).
 
 Name-based column resolution makes the rewrite safe: an operator keeps
-working as long as the names it references survive.  A narrowed child
-gets the free select (``ProjectExec`` of bare columns, a host-side pick
-of the batch's columns), a memory scan included, as in the reference,
-whose ``_narrow`` rebuilds only file scans (the port has none).  An
-operator the pass does not know keeps all of its children's columns.
+working as long as the names it references survive.  A file scan
+(parquet or ORC) is narrowed at its source: it is rebuilt with the
+narrowed schema, so a column no operator reads is never decoded.  Any
+other narrowed child gets the free select (``ProjectExec`` of bare
+columns, a host-side pick of the batch's columns), a memory scan
+included, as in the reference.  An operator the pass does not know
+keeps all of its children's columns.
 
 Apply with ``prune_columns(plan)``; ``optimize_plan`` (ops/fusion.py)
 runs it between the tiers.
@@ -31,7 +33,11 @@ def expr_columns(e: Expr) -> Set[str]:
 
 
 def _narrow(child, needed: Set[str]):
-    """``child`` cut to the ``needed`` columns, in its column order."""
+    """``child`` cut to the ``needed`` columns, in its column order: a
+    file scan rebuilt to read only them, anything else under a select."""
+    from ..schema import Schema
+    from .orc_scan import OrcScanExec
+    from .parquet_scan import ParquetScanExec
     from .project import ProjectExec
 
     if not needed <= set(child.schema.names):
@@ -43,6 +49,9 @@ def _narrow(child, needed: Set[str]):
         names = [child.schema.names[0]]
     if len(names) == len(child.schema.names):
         return child
+    if isinstance(child, (ParquetScanExec, OrcScanExec)):
+        return type(child)(child.file_groups, Schema([child.schema.field(n) for n in names]), child.predicate,
+                           child.batch_rows, device=child.device)
     return ProjectExec(child, [Col(n) for n in names], names)
 
 
@@ -81,6 +90,7 @@ def _prune(plan, required: Optional[Set[str]], prune_columns):
     from ..parallel.exchange import NativeShuffleExchangeExec
     from ..parallel.shuffle import HashPartitioning
     from .agg import AggExec, AggMode
+    from .coalesce import CoalesceBatchesExec
     from .filter import FilterExec
     from .joins import BroadcastJoinExec, HashJoinExec
     from .limit import LimitExec
@@ -164,7 +174,7 @@ def _prune(plan, required: Optional[Set[str]], prune_columns):
             return plan
         return UnionExec([_narrow(prune_columns(c, set(req)), set(req)) for c in plan.children])
 
-    if isinstance(plan, LimitExec):
+    if isinstance(plan, (LimitExec, CoalesceBatchesExec)):
         plan.children[0] = _narrow(prune_columns(plan.children[0], req), req)
         return plan
 

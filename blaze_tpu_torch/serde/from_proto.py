@@ -114,10 +114,12 @@ def _window_function(f: pb.WindowFunctionProto):
 
 def plan_from_proto(n: pb.PhysicalPlanNode):
     """A plan tree from its message.  A memory scan pops its partitions
-    from ``RESOURCES`` and stages them on the package's default device."""
+    from ``RESOURCES``; every scan stages on the package's default
+    device."""
     from ..ops import (
-        AggExec, AggFunction, AggMode, ExpandExec, FilterExec, GroupingExpr, LimitExec, MemoryScanExec,
-        ProjectExec, RenameColumnsExec, SortExec, SortField, UnionExec, WindowExec,
+        AggExec, AggFunction, AggMode, CoalesceBatchesExec, DebugExec, EmptyPartitionsExec, ExpandExec, FilterExec,
+        GroupingExpr, LimitExec, MemoryScanExec, OrcScanExec, ParquetScanExec, ProjectExec, RenameColumnsExec,
+        SortExec, SortField, UnionExec, WindowExec,
     )
     from ..ops.joins import BroadcastJoinExec, HashJoinExec
     from ..parallel.broadcast import IpcWriterExec
@@ -128,6 +130,23 @@ def plan_from_proto(n: pb.PhysicalPlanNode):
     if kind == "memory_scan":
         m = n.memory_scan
         return MemoryScanExec(RESOURCES.get(m.resource_id), schema_from_proto(m.schema))
+    if kind in ("parquet_scan", "orc_scan"):
+        s = getattr(n, kind)
+        pred = None
+        for e in s.predicate:
+            sub = expr_from_proto(e)
+            pred = sub if pred is None else (pred & sub)
+        groups = [g.split(";") if g else [] for g in s.file_groups]
+        cls = ParquetScanExec if kind == "parquet_scan" else OrcScanExec
+        return cls(groups, schema_from_proto(s.schema), pred)
+    if kind == "empty_partitions":
+        e = n.empty_partitions
+        return EmptyPartitionsExec(schema_from_proto(e.schema), e.num_partitions)
+    if kind == "debug":
+        return DebugExec(plan_from_proto(n.debug.input), n.debug.tag, n.debug.verbose)
+    if kind == "coalesce_batches":
+        c = n.coalesce_batches
+        return CoalesceBatchesExec(plan_from_proto(c.input), c.target_rows)
     if kind == "project":
         p = n.project
         return ProjectExec(plan_from_proto(p.input), [expr_from_proto(e) for e in p.exprs], list(p.names))

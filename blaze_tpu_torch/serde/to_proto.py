@@ -1,9 +1,11 @@
 """ExecNode and Expr trees -> plan-contract messages (≙
 ``blaze_tpu/serde/to_proto.py``).
 
-Covers the nodes and expressions the port has: memory scan, project,
-filter, agg, sort, limit, union, rename, expand, window, shuffle writer, IPC
-reader and writer, broadcast and shuffled hash joins; columns,
+Covers the nodes and expressions the port has: memory, parquet and ORC
+scans, empty partitions, project, filter, agg, sort, limit, union,
+rename, expand, window, debug, coalesce, shuffle writer, IPC reader and
+writer, broadcast and shuffled hash joins (the parquet sink has no
+node, as in the reference); columns,
 literals, aliases, binary operators, NOT, IS [NOT] NULL, casts, CASE,
 IN, LIKE and scalar functions.  Anything else raises
 ``NotImplementedError`` naming it.
@@ -142,8 +144,9 @@ def plan_to_proto(node) -> pb.PhysicalPlanNode:
     one serialized task reads them once): a serialized plan that is
     never run strands its entry, so serialize only what runs."""
     from ..ops import (
-        AggExec, ExpandExec, FilterExec, LimitExec, MemoryScanExec, ProjectExec, RenameColumnsExec, SortExec,
-        UnionExec, WindowExec,
+        AggExec, CoalesceBatchesExec, DebugExec, EmptyPartitionsExec, ExpandExec, FilterExec, LimitExec,
+        MemoryScanExec, OrcScanExec, ParquetScanExec, ProjectExec, RenameColumnsExec, SortExec, UnionExec,
+        WindowExec,
     )
     from ..ops.joins import BroadcastJoinExec, HashJoinExec
     from ..parallel.broadcast import IpcWriterExec
@@ -161,6 +164,24 @@ def plan_to_proto(node) -> pb.PhysicalPlanNode:
             staged.append(rid)
         out.memory_scan = pb.MemoryScanNode(resource_id=rid, schema=schema_to_proto(node.schema),
                                             num_partitions=node.num_partitions())
+    elif isinstance(node, (ParquetScanExec, OrcScanExec)):
+        # a partition's files ';'-joined; the predicate is one conjunct,
+        # which the decoder ANDs back with any others
+        scan = (pb.ParquetScanNode if isinstance(node, ParquetScanExec) else pb.OrcScanNode)(
+            schema=schema_to_proto(node.schema), file_groups=[";".join(g) for g in node.file_groups],
+            predicate=[] if node.predicate is None else [expr_to_proto(node.predicate)])
+        if isinstance(node, ParquetScanExec):
+            out.parquet_scan = scan
+        else:
+            out.orc_scan = scan
+    elif isinstance(node, EmptyPartitionsExec):
+        out.empty_partitions = pb.EmptyPartitionsNode(schema=schema_to_proto(node.schema),
+                                                      num_partitions=node.num_partitions())
+    elif isinstance(node, DebugExec):
+        out.debug = pb.DebugNode(input=plan_to_proto(node.children[0]), tag=node.tag, verbose=node.verbose)
+    elif isinstance(node, CoalesceBatchesExec):
+        out.coalesce_batches = pb.CoalesceBatchesNode(input=plan_to_proto(node.children[0]),
+                                                      target_rows=node.target_rows)
     elif isinstance(node, ProjectExec):
         out.project = pb.ProjectNode(input=plan_to_proto(node.children[0]),
                                      exprs=[expr_to_proto(e) for e in node.exprs], names=node.names)

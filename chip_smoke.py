@@ -71,7 +71,7 @@ Needs one CUDA card and ``nvcc`` (``/usr/local/cuda``).  In order, it:
    false, 1 map task at a time), under the defaults with 4 tasks at a
    time (``spark.blaze.stage.taskConcurrency`` 4 on ``run_stages``) and
    under the defaults one task at a time,
-   in turns (A, B, C, C, B, A), each run equal to its oracle, and
+   once each in turns (A, B, C), each run equal to its oracle, and
    prints each one's walls, syncs with the card, ``.data`` bytes and
    launches (equal on both paths under one setting);
 7. runs TPC-DS's window queries (q12, q20, q98, q53, q63, q89, q47,
@@ -110,7 +110,24 @@ Needs one CUDA card and ``nvcc`` (``/usr/local/cuda``).  In order, it:
    and string keys, a FULL shuffled join, LEFT_SEMI/LEFT_ANTI joins on
    aggregates, q72's shuffle of all of ``inventory``) the same way,
    each record with its oracle's row count;
-8. the null-key phase: ``store_sales`` at ``--ds-scale`` with its -1
+8. the file phase: writes, with the port's own writers, into a
+   temporary directory, one file a partition (8) and row groups of the
+   2^20-row batches, so the scans yield the memory scans' batches:
+   every TPC-H table at SF 0.1 as gzip parquet (the four tables
+   ``with_spec_columns`` changes again), and runs all 22 queries from
+   them on both paths (``ParquetScanExec`` over each whole table, the
+   optimizer narrowing it at its source), each equal to its oracle on a
+   nonempty result, the paths' rows alike; q01, q03 and q06 must equal
+   their memory-scan runs at that scale, row for row and launch for
+   launch on each path; q03's result goes through
+   ``ParquetSinkExec`` (by ``o_shippriority``) and back through a scan;
+   then q01, q03 and q06 from zlib ORC at SF 0.1, q01 and q06 from
+   snappy parquet at SF 0.01, and q06 and q03 at SF1 from lineitem's
+   numeric and date columns and the whole of orders and customer, with
+   ``spark.blaze.pipeline.depth`` 2 and 0; each run prints its wall,
+   the scans' decode seconds, bytes read, pruned row groups, peak
+   device memory above what the run held, and launches;
+9. the null-key phase: ``store_sales`` at ``--ds-scale`` with its -1
    ``ss_customer_sk`` exposed as nulls (``with_null_fks``), through
    ``split_stages``/``run_stages``: an ``IS NULL`` count, a group by
    the key with one null group (its exchange through ``murmur3_pids``
@@ -120,18 +137,20 @@ Needs one CUDA card and ``nvcc`` (``/usr/local/cuda``).  In order, it:
    ``murmur3_pids`` on that key column, held to its plain version, its
    null rows in the seed's partition, and ``sorted_lookup`` on the
    largest table and probe the joins gave it;
-9. reads the CUPTI device time of every timed call in one
+10. reads the CUPTI device time of every timed call in one
    ``torch.profiler`` session, and counts every device operation one
    ``pid_histogram`` call issues on each path (one on paths (a) and
    (b), or it fails); then runs q01 and q03 in process under each A/B
-   setting and q10, TPC-DS q47, q67, q5, q22 and q72 under the defaults, all in one more
+   setting and q10, TPC-DS q47, q67, q5, q22 and q72 under the defaults,
+   and q03 from the SF1 parquet files, all in one more
    ``torch.profiler`` session, and prints the device's busy share of
    each run, its device operations, the kernels that take its time, and
    the hand-written kernels' device time at the shapes the query gives
    them;
-10. prints where each phase ended on the host clock, the ``kernels``
-   JSON line (launches summed over the 125 queries in process, and per
-   query on each path; the null-key phase's apart), then
+11. prints where each phase ended on the host clock, the ``kernels``
+   JSON line (launches summed over the 125 queries and the file phase's
+   runs in process, and per query on each path; the null-key phase's
+   and the file phase's apart too), then
    ``{"ok": true, ...}`` last.
 
 Any failure raises and exits nonzero before the last line; without a
@@ -1208,14 +1227,18 @@ def profile_queries(torch, runs) -> list:
     from torch.profiler import ProfilerActivity, profile
 
     walls = []
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # the card's activity alone, read from the profiler's raw events:
+    # building its function events (the host's among them) for the
+    # runs' half a million device operations took most of the phase
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _, plan in runs:
             torch.cuda._sleep(1000)
             walls.append(run_plan(torch, plan)[1])
             torch.cuda._sleep(1000)
         torch.cuda.synchronize()
-    device = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA), key=lambda e: e.time_range.start)
-    spins = [i for i, e in enumerate(device) if "spin_kernel" in e.name]
+    device = sorted((e for e in prof.profiler.kineto_results.events() if e.device_type() == DeviceType.CUDA),
+                    key=lambda e: e.start_ns())
+    spins = [i for i, e in enumerate(device) if "spin_kernel" in e.name()]
     if len(spins) != 2 * len(runs):
         raise AssertionError(f"the profiler saw {len(spins)} spin kernels, not {2 * len(runs)}")
     out = []
@@ -1223,8 +1246,8 @@ def profile_queries(torch, runs) -> list:
         events = device[spins[2 * i] + 1:spins[2 * i + 1]]
         by_name: Dict[str, list] = {}
         for e in events:
-            t = by_name.setdefault(e.name, [0.0, 0])
-            t[0] += e.time_range.elapsed_us()
+            t = by_name.setdefault(e.name(), [0.0, 0])
+            t[0] += e.duration_ns() / 1e3
             t[1] += 1
         busy = sum(t for t, _ in by_name.values()) / 1e6
         log(f"{label} profile: wall {wall:.4f} s, device busy {busy:.4f} s ({100 * busy / wall:.1f}%), "
@@ -1583,7 +1606,7 @@ def pipeline_conf(fusion: bool, async_write: bool, task_concurrency: int):
 
 def ab_phase(torch, cuda_ops, card: str, scans, datas, n_parts: int) -> list:
     """Each of AB_QUERIES on both paths under every AB_SETTINGS, timed
-    in turns (A, B, C, C, B, A), every run held to the oracle; then one
+    once each in turns (A, B, C), every run held to the oracle; then one
     untimed run a setting counts the syncs with the card.  The two
     paths must launch each kernel as often under one setting.  Returns
     one dict a (query, path, setting); the profiled runs are in the
@@ -1594,7 +1617,7 @@ def ab_phase(torch, cuda_ops, card: str, scans, datas, n_parts: int) -> list:
         for path in ("in process", "run_stages"):
             walls = {label: [] for label, *_ in AB_SETTINGS}
             last = {}
-            for label, fusion, async_write, map_tasks, tasks in AB_SETTINGS + AB_SETTINGS[::-1]:
+            for label, fusion, async_write, map_tasks, tasks in AB_SETTINGS:
                 with pipeline_conf(fusion, async_write, tasks):
                     if path == "in process":
                         got, wall, launches, _ = run_query(torch, cuda_ops, query, scans[query], n_parts, map_tasks)
@@ -2016,6 +2039,250 @@ def null_key_phase(torch, cuda_ops, flush, card: str, data, scale: float, n_part
     return runs, checks
 
 
+# the file phase: TPC-H read from files the port wrote (io/, the scans, the
+# sink, the producer thread); see file_phase
+FILE_SCALE = 0.1
+ORC_QUERIES = ("q1", "q3", "q6")
+SNAPPY_QUERIES, SNAPPY_SCALE = ("q1", "q6"), 0.01
+SF1_FILE_QUERIES = ("q6", "q3")
+LAUNCH_MATCH_QUERIES = ("q1", "q3", "q6")
+
+
+@contextlib.contextmanager
+def scans_seen():
+    """Collects every parquet and ORC scan that runs inside the block, on
+    either path (a decoded task's scans too)."""
+    from blaze_tpu_torch.ops import OrcScanExec, ParquetScanExec
+
+    seen: Dict[int, tuple] = {}  # id -> (scan, its metrics when first seen in the block)
+    lock = threading.Lock()
+    reals = {cls: cls.execute for cls in (ParquetScanExec, OrcScanExec)}
+
+    def wrap(real):
+        def execute(self, partition, ctx):
+            with lock:
+                seen.setdefault(id(self), (self, dict(self.metrics.values)))
+            return real(self, partition, ctx)
+        return execute
+
+    for cls, real in reals.items():
+        cls.execute = wrap(real)
+    try:
+        yield seen
+    finally:
+        for cls, real in reals.items():
+            cls.execute = real
+
+
+def scan_totals(seen) -> dict:
+    """The scans' decode seconds, bytes read and pruned row groups (or
+    stripes) in the block, summed (a scan two runs share counts once a
+    run)."""
+    total = lambda k: sum(s.metrics.values.get(k, 0) - was.get(k, 0) for s, was in seen.values())  # noqa: E731
+    return {"decode_s": total("input_io_time") / 1e9, "bytes_read": total("bytes_read"),
+            "pruned_row_groups": total("pruned_row_groups") + total("pruned_stripes"), "scans": len(seen)}
+
+
+def write_tables(tables, names, directory: str, n_parts: int, batch_rows: int, fmt: str = "parquet",
+                 codec=None, numeric_only=()) -> dict:
+    """``tables[name]`` for each of ``names`` as ``n_parts`` files (one a
+    partition, row groups of ``batch_rows``: the memory scans' batches),
+    every column the table holds, only its numeric and date ones for a
+    table in ``numeric_only``; returns name -> (file groups, schema)."""
+    from blaze_tpu_torch.io.table_files import write_table_files
+    from blaze_tpu_torch.schema import Schema
+    from blaze_tpu_torch.tpch import TPCH_SCHEMAS
+
+    out = {}
+    for name in names:
+        schema = Schema([f for f in TPCH_SCHEMAS[name].fields if f.name in tables[name]
+                         and not (name in numeric_only and f.dtype.is_string)])
+        groups = write_table_files(tables[name], schema, os.path.join(directory, fmt, name), n_parts, batch_rows,
+                                   fmt, codec, workers=n_parts)
+        out[name] = (groups, schema)
+    return out
+
+
+def file_scans(written: dict, fmt: str, batch_rows: int) -> dict:
+    """A scan over each written table, staged on the card; the task
+    optimizer narrows each to the columns its query reads."""
+    from blaze_tpu_torch.ops import OrcScanExec, ParquetScanExec
+
+    cls = ParquetScanExec if fmt == "parquet" else OrcScanExec
+    return {name: cls(groups, schema, batch_rows=batch_rows, device="cuda") for name, (groups, schema) in written.items()}
+
+
+def file_query(torch, cuda_ops, query: str, scans, n_parts: int, path: str) -> tuple:
+    """One query over file scans on ``path`` ("in process" or
+    "run_stages"), with the launch counts reset just before it: (rows,
+    wall, launches, scan totals, peak device memory above what the run
+    held before)."""
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with scans_seen() as seen:
+        if path == "in process":
+            got, wall, launches, _ = run_query(torch, cuda_ops, query, scans, n_parts)
+        else:
+            got, wall, launches, _ = run_scheduled(torch, cuda_ops, query, scans, n_parts)
+    return got, wall, launches, scan_totals(seen), torch.cuda.max_memory_allocated() - held
+
+
+def file_runs(torch, cuda_ops, card: str, label: str, queries, scans, tables, n_parts: int,
+              launches_of: dict) -> dict:
+    """``queries`` over ``scans`` on both paths: each equal to its oracle
+    on a nonempty result, the paths' rows alike, each launching what
+    EXPECTED_LAUNCHES asks; one record per query and path.  (The paths
+    may launch apart where the memory scans' paths do: q18 at SF 0.1.)
+    Returns the in-process rows by query."""
+    rows = {}
+    for query in queries:
+        qdata = tables[1] if query in NEW_QUERIES else tables[0]
+        got = {}
+        for path in ("in process", "run_stages"):
+            got[path], wall, launches, totals, above = file_query(torch, cuda_ops, query, scans, n_parts, path)
+            said = check_oracle(qdata, query, got[path])
+            name = f"{query_label(query)} {label}" + (" (run_stages)" if path == "run_stages" else "")
+            require_launches(name, launches, *EXPECTED_LAUNCHES[query])
+            launches_of[name] = launches
+            rec = {"query": query_label(query), "files": label, "path": path, "wall_s": wall, **totals,
+                   "peak_above_held_bytes": above, "launches": {k: launches[k] for k in LAUNCH_KEYS}, "card": card}
+            log(f"files {query_label(query)} {label} {path}: {said}; wall {wall:.4f} s, decode "
+                f"{totals['decode_s']:.4f} s, bytes read {totals['bytes_read']}, pruned row groups "
+                f"{totals['pruned_row_groups']}, peak device memory {above / 2**20:.1f} MiB above what the run held; "
+                f"on {card}; launches {rec['launches']}")
+            log("files " + json.dumps(rec))
+        if not same_rows(got["run_stages"], got["in process"]):
+            raise AssertionError(f"{query} {label} through run_stages: {got['run_stages']} != in process")
+        rows[query] = got["in process"]
+    return rows
+
+
+LAUNCH_KEYS = ("murmur3_pids", "pid_histogram", "sorted_lookup")
+
+
+def sink_round_trip(torch, query_rows: dict, scans, n_parts: int, directory: str) -> str:
+    """q03 over ``scans`` on the card, written through ParquetSinkExec by
+    o_shippriority, read back through ParquetScanExec: the rows must be
+    q03's (the partition column from the directory names)."""
+    from blaze_tpu_torch.batch import batch_to_pydict
+    from blaze_tpu_torch.ops import ParquetScanExec, ParquetSinkExec
+    from blaze_tpu_torch.runtime.context import TaskContext
+    from blaze_tpu_torch.schema import Schema
+
+    plan = optimized(build_plan("q3", scans, n_parts))
+    sink = ParquetSinkExec(plan, directory, ["o_shippriority"])
+    n = sink.num_partitions()
+    for p in range(n):
+        for _ in sink.execute(p, TaskContext(p, n)):
+            raise AssertionError("the sink yielded a batch")
+    schema = Schema([f for f in plan.schema.fields if f.name != "o_shippriority"])
+    back = []
+    for path in sink.written_files:
+        value = int(Path(path).parent.name.split("=", 1)[1])
+        for b in ParquetScanExec([[path]], schema, device="cuda").execute(0, TaskContext(0, 1)):
+            d = {**batch_to_pydict(b), "o_shippriority": [value] * b.num_rows}
+            back += list(zip(*(d[f.name] for f in plan.schema.fields)))
+    want = query_rows["q3"]
+    want = list(zip(*(want[f.name] for f in plan.schema.fields)))
+    if sorted(back, key=repr) != sorted(want, key=repr) or not back:
+        raise AssertionError(f"sink round trip: {back} != q03's {want}")
+    return f"{len(back)} rows in {len(sink.written_files)} file(s) = q03's"
+
+
+def file_phase(torch, cuda_ops, card: str, data, scale: float, n_parts: int, batch_rows: int, workdir: str) -> tuple:
+    """TPC-H from files the port writes under ``workdir``, on both paths
+    (see the module docstring, step 8).  Returns (the launches of each
+    run, the SF1 files for the profiled runs)."""
+    from blaze_tpu_torch import conf
+    from blaze_tpu_torch.io import parquet as pq
+    from blaze_tpu_torch.tpch import datagen
+
+    launches_of = {}
+    conf.BATCH_SIZE.set(batch_rows)  # a decoded scan's batches: the memory scans'
+    try:
+        # ---- every table at FILE_SCALE, gzip parquet; the 13 later queries on
+        # dbgen's columns, whose four tables are written again
+        t0 = time.perf_counter()
+        plain = datagen.generate_all(FILE_SCALE)
+        spec = datagen.with_spec_columns(plain, FILE_SCALE)
+        gen_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        written = write_tables(plain, list(plain), os.path.join(workdir, "plain"), n_parts, batch_rows)
+        spec_names = [k for k in spec if spec[k] is not plain[k]]
+        spec_written = {**written, **write_tables(spec, spec_names, os.path.join(workdir, "spec"), n_parts,
+                                                  batch_rows)}
+        write_s = time.perf_counter() - t0
+        size = sum(os.path.getsize(g[0]) for w in (written, spec_written) for gs, _ in w.values() for g in gs)
+        log(f"files: TPC-H SF{FILE_SCALE} generated in {gen_s:.2f} s, written as gzip parquet ({n_parts} files a "
+            f"table, {len(spec_names)} tables again with dbgen's columns) in {write_s:.2f} s, {size} bytes")
+        rows = file_runs(torch, cuda_ops, card, f"parquet SF{FILE_SCALE}", TPCH_QUERIES,
+                         file_scans(written, "parquet", batch_rows), (plain, spec), n_parts, launches_of)
+        rows.update(file_runs(torch, cuda_ops, card, f"parquet SF{FILE_SCALE}", NEW_QUERIES,
+                              file_scans(spec_written, "parquet", batch_rows), (plain, spec), n_parts, launches_of))
+        # ---- q01, q03 and q06 launch as their memory-scan runs at the same
+        # scale and batches, on each path
+        for query in LAUNCH_MATCH_QUERIES:
+            mem_scans = query_scans(plain, query, n_parts, batch_rows)
+            got, wall, mem, _ = run_query(torch, cuda_ops, query, mem_scans, n_parts)
+            sgot, swall, smem, _ = run_scheduled(torch, cuda_ops, query, mem_scans, n_parts)
+            name = f"{query_label(query)} parquet SF{FILE_SCALE}"
+            if mem != launches_of[name] or smem != launches_of[name + " (run_stages)"] or got != rows[query]:
+                raise AssertionError(f"{name}: launched {launches_of[name]} in process and "
+                                     f"{launches_of[name + ' (run_stages)']} through run_stages, its memory scans "
+                                     f"{mem} and {smem}; rows equal: {got == rows[query]}")
+            log(f"files {name}: = its memory-scan runs (walls {wall:.4f} s in process, {swall:.4f} s through "
+                f"run_stages) row for row, and launched as they did ({ {k: mem[k] for k in LAUNCH_KEYS} } in "
+                f"process, { {k: smem[k] for k in LAUNCH_KEYS} } through run_stages)")
+        log("files sink: " + sink_round_trip(torch, rows, file_scans(written, "parquet", batch_rows), n_parts,
+                                             os.path.join(workdir, "sink")))
+        # ---- ORC (zlib, Spark's ORC default) at FILE_SCALE
+        t0 = time.perf_counter()
+        orc_written = write_tables(plain, ("lineitem", "orders", "customer"), workdir, n_parts, batch_rows, "orc")
+        log(f"files: lineitem, orders and customer at SF{FILE_SCALE} written as zlib ORC in "
+            f"{time.perf_counter() - t0:.2f} s")
+        file_runs(torch, cuda_ops, card, f"orc SF{FILE_SCALE}", ORC_QUERIES, file_scans(orc_written, "orc", batch_rows),
+                  (plain, spec), n_parts, launches_of)
+        # ---- snappy (Spark's parquet default, pure-python here) at SNAPPY_SCALE
+        small = {"lineitem": datagen.generate_table("lineitem", SNAPPY_SCALE)}
+        t0 = time.perf_counter()
+        snappy = write_tables(small, ("lineitem",), os.path.join(workdir, "snappy"), n_parts, batch_rows,
+                              codec=pq.CODEC_SNAPPY)
+        log(f"files: lineitem at SF{SNAPPY_SCALE} written as snappy parquet in {time.perf_counter() - t0:.2f} s")
+        file_runs(torch, cuda_ops, card, f"snappy parquet SF{SNAPPY_SCALE}", SNAPPY_QUERIES,
+                  file_scans(snappy, "parquet", batch_rows), (small, small), n_parts, launches_of)
+        # ---- q06 and q03 at --scale (SF1): lineitem's numeric and date columns,
+        # orders and customer whole; the producer thread on (depth 2) and off (0)
+        t0 = time.perf_counter()
+        sf1 = {"lineitem": data["lineitem"], "orders": datagen.generate_table("orders", scale),
+               "customer": datagen.generate_table("customer", scale)}
+        gen_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sf1_written = write_tables(sf1, list(sf1), os.path.join(workdir, "sf1"), n_parts, batch_rows,
+                                   numeric_only=("lineitem",))
+        log(f"files: SF{scale} orders and customer generated in {gen_s:.2f} s; lineitem's "
+            f"{len(sf1_written['lineitem'][1].fields)} numeric and date columns, orders and customer written as gzip "
+            f"parquet in {time.perf_counter() - t0:.2f} s")
+        del sf1
+        sf1_scans = file_scans(sf1_written, "parquet", batch_rows)
+        for depth in (2, 0):
+            conf.PIPELINE_DEPTH.set(depth)
+            try:
+                file_runs(torch, cuda_ops, card, f"parquet SF{scale}, pipeline depth {depth}", SF1_FILE_QUERIES, sf1_scans,
+                          (data, data), n_parts, launches_of)
+            finally:
+                conf.PIPELINE_DEPTH.set(2)
+    finally:
+        conf.BATCH_SIZE.set(8192)
+    return launches_of, sf1_written
+
+
+def end_phase(phases: list, name: str) -> None:
+    """Notes, and prints, the seconds from the start of the script to the
+    end of phase ``name``."""
+    phases.append((name, time.perf_counter() - T0))
+    log(f"phase {name} ended at {phases[-1][1]:.1f} s")
+
+
 def query_label(query: str) -> str:
     """q6 -> "q06", ds_q7 -> "TPC-DS q07", ds_q14a -> "TPC-DS q14a"."""
     bench, name = ("TPC-DS ", query[3:]) if query.startswith("ds_") else ("", query)
@@ -2095,7 +2362,7 @@ def main() -> int:
         if "ptxas info" in line:
             log("  " + line.strip())
 
-    phases.append(("build", time.perf_counter() - T0))
+    end_phase(phases, "build")
     # ---- host tables (set-up, not timed)
     t0 = time.perf_counter()
     data = query_data(TPCH_QUERIES + NEW_QUERIES, args.scale, ds=False)
@@ -2106,7 +2373,7 @@ def main() -> int:
         f"{k} {next(iter(v.values()))[0].shape[0]} rows" for k, v in (*data.items(), *ds_data.items()))
         + f" ({time.perf_counter() - t0:.1f} s)")
 
-    phases.append(("tables", time.perf_counter() - T0))
+    end_phase(phases, "tables")
     # ---- kernels against their plain versions, main-path shapes
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     one = torch.zeros(1, device="cuda")
@@ -2188,10 +2455,10 @@ def main() -> int:
         log_check(name, r)
     log(f"fused_group_sums [{gq['shape']}]: max relative error to float64 sums {gq['max_rel_err_f64']:.3g}")
 
-    phases.append(("kernel checks", time.perf_counter() - T0))
+    end_phase(phases, "kernel checks")
     log("decimal -> double on the card: " + check_decimal_to_double(torch))
 
-    phases.append(("decimal check", time.perf_counter() - T0))
+    end_phase(phases, "decimal check")
     # ---- the main path: every query, each with the counts reset just before it
     n_parts, batch_rows = 8, 1 << 20
     runs, inproc, scans, q_inputs = {}, {}, {}, {}
@@ -2213,7 +2480,7 @@ def main() -> int:
         require_launches(query_label(query), runs[query], *EXPECTED_LAUNCHES[query])
     q1_inputs, q3_inputs = q_inputs["q1"], q_inputs["q3"]
 
-    phases.append(("queries in process", time.perf_counter() - T0))
+    end_phase(phases, "queries in process")
     # ---- the same queries through the plan contract: every task from
     # TaskDefinition bytes, hash exchanges through .data/.index files
     sched_runs = {}
@@ -2253,22 +2520,22 @@ def main() -> int:
     require_launches("q06 (run_stages)", sched_runs["q6"], (), tuple(runs["q6"]))
     log("corrupted block: " + corrupt_block_check(scans["q6"], n_parts))
 
-    phases.append(("queries through run_stages", time.perf_counter() - T0))
+    end_phase(phases, "queries through run_stages")
     # ---- the A/B phase: the pipeline unfused and serial against the defaults
     ab_phase(torch, cuda_ops, card, scans, {q: new_data if q in NEW_QUERIES else data for q in AB_QUERIES},
              n_parts)
 
-    phases.append(("A/B pipeline", time.perf_counter() - T0))
+    end_phase(phases, "A/B pipeline")
     # ---- the join code no TPC-H query runs, on the card
     for line in check_build_preserving_joins(cuda_ops, "cuda", n_parts, 1 << 18, seed=60):
         log(line)
 
-    phases.append(("build-preserving joins", time.perf_counter() - T0))
+    end_phase(phases, "build-preserving joins")
     # ---- TPC-DS's window queries on both paths
     ds_phase(torch, cuda_ops, card, "window", WINDOW_QUERIES, ds_data, args.ds_scale, n_parts, batch_rows, runs,
              sched_runs)
 
-    phases.append(("window queries", time.perf_counter() - T0))
+    end_phase(phases, "window queries")
     # ---- TPC-DS's rollup and union queries on both paths
     ds_phase(torch, cuda_ops, card, "rollup/union", ROLLUP_UNION_QUERIES, ds_data, args.ds_scale, n_parts,
              batch_rows, runs, sched_runs)
@@ -2277,30 +2544,35 @@ def main() -> int:
     ds_phase(torch, cuda_ops, card, "rollup/union", Q23_QUERIES, query_data(Q23_QUERIES, Q23_SCALE, ds=True),
              Q23_SCALE, n_parts, batch_rows, {}, {})
 
-    phases.append(("rollup and union queries", time.perf_counter() - T0))
+    end_phase(phases, "rollup and union queries")
     # ---- TPC-DS's EXISTS, INTERSECT/EXCEPT, stddev and concat queries on both paths
     ds_phase(torch, cuda_ops, card, "exists/stddev", EXISTS_STDDEV_QUERIES, ds_data, args.ds_scale, n_parts,
              batch_rows, runs, sched_runs)
     ds_phase(torch, cuda_ops, card, "exists/stddev", Q87_QUERIES, query_data(Q87_QUERIES, Q87_SCALE, ds=True),
              Q87_SCALE, n_parts, batch_rows, {}, {})
 
-    phases.append(("exists and stddev queries", time.perf_counter() - T0))
+    end_phase(phases, "exists and stddev queries")
     # ---- TPC-DS's single-fact reports on both paths
     ds_phase(torch, cuda_ops, card, "report", REPORT_QUERIES, ds_data, args.ds_scale, n_parts, batch_rows, runs,
              sched_runs)
 
-    phases.append(("report queries", time.perf_counter() - T0))
+    end_phase(phases, "report queries")
     # ---- TPC-DS's multi-fact, shuffled and self joins on both paths
     ds_phase(torch, cuda_ops, card, "joined", JOINED_QUERIES, ds_data, args.ds_scale, n_parts, batch_rows, runs,
              sched_runs)
 
-    phases.append(("joined queries", time.perf_counter() - T0))
+    end_phase(phases, "joined queries")
+    # ---- TPC-H from Parquet and ORC files the port writes, on both paths
+    workdir = tempfile.mkdtemp(prefix="blaze-files-")
+    file_launches, sf1_files = file_phase(torch, cuda_ops, card, data, args.scale, n_parts, batch_rows, workdir)
+
+    end_phase(phases, "file scans")
     # ---- real null foreign keys through run_stages, and the kernels on them
     null_runs, null_checks = null_key_phase(torch, cuda_ops, flush, card, ds_data, args.ds_scale, n_parts,
                                             batch_rows)
     checks += null_checks
 
-    phases.append(("null keys", time.perf_counter() - T0))
+    end_phase(phases, "null keys")
     # ---- the redesigned kernels again, on the largest inputs q01 and q03 gave them
     at_query: Dict[str, list] = {"murmur3_pids": [], "sorted_lookup": [], "pid_histogram": []}
     for query, seen in (("q01", q1_inputs), ("q03", q3_inputs)):
@@ -2324,7 +2596,7 @@ def main() -> int:
             at_query["sorted_lookup"].append(r)
             log_check("sorted_lookup", r)
 
-    phases.append(("kernels at query shapes", time.perf_counter() - T0))
+    end_phase(phases, "kernels at query shapes")
     # ---- the timed kernels' own device time, the same calls again; and
     # every device operation one pid_histogram call issues, on each path
     timed_calls = [(name, r) for name, r in checks if "device_job" in r]
@@ -2355,7 +2627,7 @@ def main() -> int:
         if label != "global atomics" and k != 1:
             raise AssertionError(f"pid_histogram [{label}]: {k:g} device operations a call, not 1")
 
-    phases.append(("device times", time.perf_counter() - T0))
+    end_phase(phases, "device times")
     # q01 and q03 in process under each A/B setting, q10 under the defaults
     profiled = []
     for query in ("q1", "q3"):
@@ -2370,9 +2642,13 @@ def main() -> int:
     for query in ("ds_q47", "ds_q67", "ds_q5", "ds_q22", "ds_q72"):
         profiled.append((query_label(query), optimized(build_plan(
             query, query_scans(ds_data, query, n_parts, batch_rows), n_parts))))
+    # q03 from the SF1 parquet files: the card's busy share beside the host's decoding
+    profiled.append((f"q03 from parquet SF{args.scale}", optimized(build_plan("q3", file_scans(sf1_files, "parquet", batch_rows),
+                                                                  n_parts))))
     for r in profile_queries(torch, profiled):
         log("profile " + json.dumps({**r, "card": card}))
-    phases.append(("profiled queries", time.perf_counter() - T0))
+    shutil.rmtree(workdir)
+    end_phase(phases, "profiled queries")
     log("phase ends, seconds from the start of the script: "
         + ", ".join(f"{name} {t:.1f}" for name, t in phases))
 
@@ -2389,10 +2665,12 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": f"blaze_tpu_torch/csrc/{src}",
             "replaces": f"blaze_tpu/kernels/pallas_ops.py:{line}",
-            "launches": sum(run[name] for run in runs.values()),
+            "launches": sum(run[name] for run in runs.values())
+            + sum(run[name] for label, run in file_launches.items() if not label.endswith("(run_stages)")),
             "launches_null_keys": {check: run[name] for check, run in null_runs.items()},
             "launches_by_query": {query_label(q): run[name] for q, run in runs.items()},
             "launches_run_stages": {query_label(q): run[name] for q, run in sched_runs.items()},
+            "launches_files": {label: run[name] for label, run in file_launches.items()},
             "shape": r["shape"], "max_abs_err": errs[name], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "device_ms": r.get("device_ms"),

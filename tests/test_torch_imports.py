@@ -1,7 +1,9 @@
 """The port stands alone: no module of ``blaze_tpu_torch`` and no line of
-``chip_smoke.py`` or ``ab_walls.py`` imports JAX or the JAX package, nor ``google.protobuf``
-or ``zstandard``, which the machine with the card does not have (the
-port speaks the protobuf wire format itself and has no zstd codec)."""
+``chip_smoke.py`` or ``ab_walls.py`` imports JAX or the JAX package, nor ``google.protobuf``,
+``zstandard`` or ``pyarrow``, which the machine with the card does not have (the
+port speaks the protobuf wire format itself, has no zstd codec and reads
+and writes Parquet and ORC itself; pyarrow is an oracle of the CPU tests
+only)."""
 
 import ast
 import os
@@ -15,7 +17,7 @@ REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "blaze_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "ab_walls.py"]
 FORBIDDEN = ("jax", "jaxlib", "blaze_tpu")
 # modules absent from the card's machine (checked by full dotted name)
-ABSENT_ON_THE_CARD = ("google.protobuf", "zstandard")
+ABSENT_ON_THE_CARD = ("google.protobuf", "zstandard", "pyarrow")
 
 
 def _imported_modules(path: Path):

@@ -9,7 +9,7 @@ hash exchange hashes null keys to the seed); an INNER join that drops
 the null keys (its probe keeps them from the lookup); a LEFT join that
 null-extends them.
 
-(b) TPC-DS q10 and q80 over null keys: ``test_torch_null_fks_queries.py``.
+(b) TPC-DS q10 and q80 over null keys: ``test_torch_tpcds_union_channels.py``.
 """
 
 import shutil

@@ -398,8 +398,8 @@ def test_q6_and_q3_literals_in_the_tasks(data):
 
 
 def test_unsupported_nodes_raise_naming_them():
-    n = pb.PhysicalPlanNode(empty_partitions=pb.EmptyPartitionsNode()).SerializeToString()
-    with pytest.raises(NotImplementedError, match="empty_partitions"):
+    n = pb.PhysicalPlanNode(sort_merge_join=pb.SortMergeJoinNode()).SerializeToString()
+    with pytest.raises(NotImplementedError, match="sort_merge_join"):
         from_proto.plan_from_proto(wire.PhysicalPlanNode.decode(n))
     e = pb.ExprNode(host_udf=pb.HostUdfExpr()).SerializeToString()
     with pytest.raises(NotImplementedError, match="host_udf"):

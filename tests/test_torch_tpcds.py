@@ -9,7 +9,7 @@ and equal the reference's rows and the oracles; q07's decimal averages
 are held to the oracle within one unit at the HALF_UP boundary and its
 int average within 1e-9, as ``tests/test_tpcds.py`` does.  q03 also
 runs through the port's ``run_stages`` (see
-``tests/test_torch_scheduler_queries.py`` for the TPC-H ones).
+``tests/test_torch_tpch_joins.py`` for the TPC-H ones).
 """
 
 import numpy as np

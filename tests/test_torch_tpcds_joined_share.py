@@ -11,7 +11,13 @@ through ``split_stages``/``run_stages``, as
 ``test_torch_tpcds_window_share.py`` describes, at SF 0.002 (every one
 of the 26 selects rows there). The generated tables and the
 reference's rows are kept once per worker
-(``test_torch_tpcds_report_share.py`` ``tables``)."""
+(``test_torch_tpcds_report_share.py`` ``tables``).
+
+q72 (catalog lines of one buyer profile shuffle-joined to all of
+``inventory`` on the item, the heaviest join of the port, then filtered
+on the week and the quantity on hand) runs here, one of the family's
+longest tests beside its quickest, so that pytest-xdist (which hands
+out the files with the most tests first) does not start it last."""
 
 import pytest
 
@@ -61,3 +67,9 @@ def test_keeps_its_shared_exchange_one_node(q):
     assert node_classes(port) == node_classes(ref)
     ex = _exchanges(optimize_plan(port), [])
     assert len(ex) > len({id(e) for e in ex})
+
+
+@pytest.mark.parametrize("q", ["q72"])
+def test_equals_the_reference_and_the_oracle_on_both_paths(q):
+    kinds = check(q)
+    assert kinds.count("map") >= 2 and kinds[-1] == "result"
