@@ -6,6 +6,9 @@
   shape buckets; operators here may compute on the live prefix, but
   every batch they emit keeps the padded layout.
 - strings are fixed-width ``(cap, W)`` uint8 rows plus int32 lengths.
+- OPAQUE columns (UDAF states) hold python objects in a numpy object
+  array with a CPU validity tensor: they never leave the host, and every
+  reshape below moves them on the host beside the device columns.
 
 A batch's device is the device of its tensors; operators create new
 tensors on the device of their inputs, so data never changes device
@@ -54,6 +57,14 @@ _TORCH_OF_NP = {
 }
 
 
+def pad_objects(objs: np.ndarray, cap: int) -> np.ndarray:
+    """An object array cut or padded with None to ``cap`` rows."""
+    out = np.empty(cap, dtype=object)
+    k = min(cap, objs.shape[0])
+    out[:k] = objs[:k]
+    return out
+
+
 def pad_rows(t: torch.Tensor, cap: int) -> torch.Tensor:
     """``t`` with its leading axis cut or zero-padded to ``cap`` rows."""
     n = t.shape[0]
@@ -83,18 +94,33 @@ class Column:
     def device(self) -> torch.device:
         return self.validity.device
 
+    @property
+    def is_opaque(self) -> bool:
+        return self.dtype.kind == TypeKind.OPAQUE
+
     def to(self, device: torch.device) -> "Column":
+        if self.is_opaque:
+            return self  # python objects never leave the host
         mv = lambda t: None if t is None else t.to(device)
         return Column(self.dtype, mv(self.data), mv(self.validity), mv(self.lengths))
 
-    def take(self, idx: torch.Tensor, cap: Optional[int] = None) -> "Column":
+    def take(self, idx: torch.Tensor, cap: Optional[int] = None,
+             host_idx: Optional[torch.Tensor] = None) -> "Column":
         """Rows ``idx`` (int64 indices of rows to keep), padded with
-        invalid zero rows to ``cap`` (default: no padding)."""
-        g = lambda t: None if t is None else t.index_select(0, idx)
-        out = Column(self.dtype, g(self.data), g(self.validity), g(self.lengths))
+        invalid zero rows to ``cap`` (default: no padding).  An opaque
+        column gathers on the host, by ``host_idx`` (``idx`` on the
+        CPU; copied from ``idx`` when None)."""
+        if self.is_opaque:
+            h = idx.cpu() if host_idx is None else host_idx
+            out = Column(self.dtype, self.data[h.numpy()], self.validity.index_select(0, h))
+        else:
+            g = lambda t: None if t is None else t.index_select(0, idx)
+            out = Column(self.dtype, g(self.data), g(self.validity), g(self.lengths))
         return out if cap is None else out.pad(cap)
 
     def pad(self, cap: int) -> "Column":
+        if self.is_opaque:
+            return Column(self.dtype, pad_objects(self.data, cap), pad_rows(self.validity, cap))
         p = lambda t: None if t is None else pad_rows(t, cap)
         return Column(self.dtype, p(self.data), p(self.validity), p(self.lengths))
 
@@ -120,7 +146,12 @@ class RecordBatch:
 
     @property
     def device(self) -> torch.device:
-        return self.columns[0].device
+        """The device of the batch's first device column (the CPU when
+        every column is opaque)."""
+        for c in self.columns:
+            if not c.is_opaque:
+                return c.device
+        return torch.device("cpu")
 
     def to(self, device: torch.device) -> "RecordBatch":
         if self.columns and self.device == torch.device(device):
@@ -131,7 +162,9 @@ class RecordBatch:
         """Rows ``idx`` re-padded to ``cap`` (default: their bucket)."""
         n = int(idx.shape[0])
         cap = bucket_capacity(n) if cap is None else cap
-        return RecordBatch(self.schema, [c.take(idx, cap) for c in self.columns], n)
+        # one host copy of the order serves every opaque column
+        h = idx.cpu() if any(c.is_opaque for c in self.columns) else None
+        return RecordBatch(self.schema, [c.take(idx, cap, h) for c in self.columns], n)
 
 
 # ------------------------------------------------------------ builders
@@ -184,10 +217,13 @@ def column_from_strings(
     if any(len(b) > width for b in bs):
         raise ValueError(f"string longer than column width {width}")
     dtype = dtype or DataType.string(width)
-    cap = capacity or bucket_capacity(len(bs))
-    data = np.zeros((cap, width), np.uint8)
-    lengths = np.zeros(cap, np.int32)
-    validity = np.zeros(cap, np.bool_)
+    n = len(bs)
+    cap = capacity or bucket_capacity(n)
+    # the host holds the rows alone; the padding is zeroed on the device
+    # (a 0.9 MB bloom filter payload is one row of a 1 MiB-wide column)
+    data = np.zeros((n, width), np.uint8)
+    lengths = np.zeros(n, np.int32)
+    validity = np.zeros(n, np.bool_)
     for i, (v, b) in enumerate(zip(values, bs)):
         if v is None:
             continue
@@ -197,10 +233,51 @@ def column_from_strings(
     dev = resolve_device(device)
     return Column(
         dtype,
-        torch.from_numpy(data).to(dev),
-        torch.from_numpy(validity).to(dev),
-        torch.from_numpy(lengths).to(dev),
+        pad_rows(torch.from_numpy(data).to(dev), cap),
+        pad_rows(torch.from_numpy(validity).to(dev), cap),
+        pad_rows(torch.from_numpy(lengths).to(dev), cap),
     )
+
+
+def column_from_pylist(
+    dtype: DataType,
+    values: Sequence,
+    capacity: Optional[int] = None,
+    device: Union[None, str, torch.device] = None,
+) -> Column:
+    """A flat column from python values (None = null): strings and
+    binaries as str/bytes, decimals as unscaled ints, dates as days
+    since the epoch, opaque columns as any objects (kept on the host)."""
+    from . import resolve_device
+
+    n = len(values)
+    cap = capacity or bucket_capacity(n)
+    if dtype.is_string:
+        return column_from_strings(values, capacity=cap, dtype=dtype, device=device)
+    validity = np.zeros(cap, np.bool_)
+    validity[:n] = [v is not None for v in values]
+    if dtype.kind == TypeKind.OPAQUE:
+        objs = np.empty(cap, dtype=object)
+        for i, v in enumerate(values):
+            objs[i] = v
+        return Column(dtype, objs, torch.from_numpy(validity))
+    data = np.zeros(cap, dtype.np_dtype)
+    data[:n] = [0 if v is None else v for v in values]
+    dev = resolve_device(device)
+    return Column(dtype, torch.from_numpy(data).to(dev), torch.from_numpy(validity).to(dev))
+
+
+def batch_from_pydict(
+    data: Dict[str, Sequence],
+    schema: Schema,
+    capacity: Optional[int] = None,
+    device: Union[None, str, torch.device] = None,
+) -> RecordBatch:
+    """A batch from python lists (None = null), one per field."""
+    n = len(next(iter(data.values()))) if data else 0
+    cap = capacity or bucket_capacity(n)
+    cols = [column_from_pylist(f.dtype, data[f.name], cap, device) for f in schema.fields]
+    return RecordBatch(schema, cols, n)
 
 
 def batch_from_numpy(
@@ -340,14 +417,16 @@ class HostCopy:
     buffer is held until its copy has finished."""
 
     def __init__(self, tensors: Sequence[torch.Tensor]):
-        self._packed, self._layout = _pack(tensors)
         self._event = None
-        if self._packed.is_cuda:
+        self._packed, self._layout = _pack(tensors) if tensors else (None, [])
+        if self._packed is not None and self._packed.is_cuda:
             self._event = torch.cuda.Event()
             self._event.record(torch.cuda.current_stream(self._packed.device))
 
     def result(self) -> List[np.ndarray]:
         packed = self._packed
+        if packed is None:
+            return []  # nothing on a device: every column was opaque
         if self._event is None:
             host = packed.numpy()  # a CPU tensor packs into a host buffer
         else:
@@ -428,6 +507,8 @@ def column_to_pylist(col: Column, num_rows: int) -> List:
     """Python values of the first ``num_rows`` rows (None = null;
     decimals unscaled, as exact ints)."""
     validity = col.validity[:num_rows].cpu().numpy()
+    if col.is_opaque:
+        return [col.data[i] if validity[i] else None for i in range(num_rows)]
     data = col.data[:num_rows].cpu().numpy()
     if col.dtype.is_string:
         lengths = col.lengths[:num_rows].cpu().numpy()
@@ -455,6 +536,9 @@ def concat_columns(parts: Sequence[Column], cap: int) -> Column:
     into one column padded to ``cap``; string widths merge to the
     widest part."""
     dtype = parts[0].dtype
+    if dtype.kind == TypeKind.OPAQUE:
+        return Column(dtype, pad_objects(np.concatenate([p.data for p in parts]), cap),
+                      pad_rows(torch.cat([p.validity for p in parts]), cap))
     if dtype.is_string:
         w = max(p.data.shape[1] for p in parts)
         datas = [
@@ -490,6 +574,8 @@ def slice_rows(batch: RecordBatch, lo: int, n: int) -> RecordBatch:
     """Rows ``[lo, lo + n)`` re-padded to their own bucket."""
     cap = bucket_capacity(n)
     cols = [
+        Column(c.dtype, pad_objects(c.data[lo:lo + n], cap), pad_rows(c.validity[lo:lo + n], cap))
+        if c.is_opaque else
         Column(c.dtype, *(None if t is None else pad_rows(t[lo:lo + n], cap)
                           for t in (c.data, c.validity, c.lengths)))
         for c in batch.columns

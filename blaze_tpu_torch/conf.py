@@ -65,3 +65,7 @@ PARQUET_FILTER_PUSHDOWN = ConfEntry("spark.blaze.parquet.enable.pageFiltering", 
 # batches a file scan's producer thread decodes ahead of its consumer;
 # 0 decodes on the consumer's thread
 PIPELINE_DEPTH = ConfEntry("spark.blaze.pipeline.depth", 2, int)
+# pickled payloads (a TaskDefinition's UDAFs, the opaque columns of the
+# batch wire format) run arbitrary code when they are decoded: a
+# deployment across a trust boundary sets this false
+ALLOW_PICKLED_UDFS = ConfEntry("spark.blaze.udf.allowPickled", True, _bool)

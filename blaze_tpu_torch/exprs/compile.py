@@ -13,10 +13,13 @@ decimals, casts (``exprs/cast.py``), the registered scalar functions
 ``NotImplementedError``.
 
 A LIKE pattern with ``_`` or with more than one inner segment has no
-device form: ``lower`` evaluates it on the host, one batch at a time
-(``host_like``), wherever it stands in an expression.  The reference
-hoists such subtrees out of filter and project at construction because
-its lowering runs under jit; eager lowering needs no hoist.
+device form, and neither have the host functions and the JSON functions
+(``functions.HOST_IMPLS``, ``functions.JSON_FUNCS``): ``lower``
+evaluates them on the host, one batch at a time (``host_like``,
+``functions.host_function``), wherever they stand in an expression.  The
+reference hoists such subtrees out of filter and project at
+construction (``split_host_exprs``) because its lowering runs under
+jit; eager lowering needs no hoist.
 """
 
 from __future__ import annotations
@@ -80,6 +83,8 @@ def infer_lit_dtype(value, dtype: Optional[DataType]) -> DataType:
         return DataType.float64()
     if isinstance(value, str):
         return DataType.string(string_width_for(len(value.encode("utf-8"))))
+    if isinstance(value, bytes):
+        return DataType.binary(string_width_for(len(value)))
     if isinstance(value, datetime.date):
         return DataType.date32()
     raise TypeError(f"cannot infer literal type of {value!r}")
@@ -408,8 +413,10 @@ def lower(expr: Expr, schema: Schema, cols: Dict[str, Column], n: int) -> Column
     if isinstance(expr, Cast):
         return lower_cast(lower(expr.child, schema, cols, n), expr.to)
     if isinstance(expr, ScalarFunc):
-        from .functions import lower_func
+        from .functions import host_function, is_host_function, lower_func
 
+        if is_host_function(expr.name):
+            return host_function(expr, schema, cols, n, lower)
         return lower_func(expr, schema, cols, n, lower)
     if isinstance(expr, Not):
         c = lower(expr.child, schema, cols, n)
@@ -506,10 +513,15 @@ def expr_children(expr: Expr) -> List[Expr]:
 
 def needs_host(expr: Expr) -> bool:
     """True when ``lower`` evaluates part of the tree on the host (a
-    LIKE with no device form): an operator holding such an expression
-    cannot join a fused chain, whose transforms never wait for the
-    device (≙ the reference's ``needs_host``)."""
+    LIKE with no device form, a host or JSON function): an operator
+    holding such an expression cannot join a fused chain, whose
+    transforms never wait for the device (≙ the reference's
+    ``needs_host``)."""
+    from .functions import is_host_function
+
     if isinstance(expr, Like) and like_needs_host(expr.pattern):
+        return True
+    if isinstance(expr, ScalarFunc) and is_host_function(expr.name):
         return True
     return any(needs_host(c) for c in expr_children(expr))
 

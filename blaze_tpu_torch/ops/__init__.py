@@ -2,6 +2,7 @@
 
 from .agg import AggExec, AggFunction, AggMode, GroupingExpr
 from .base import ExecNode
+from .bloom_agg import BloomFilterAggExec
 from .coalesce import CoalesceBatchesExec
 from .debug import DebugExec
 from .empty import EmptyPartitionsExec
@@ -9,6 +10,7 @@ from .expand import ExpandExec
 from .filter import FilterExec
 from .limit import LimitExec
 from .memory_scan import MemoryScanExec
+from .object_agg import ObjectAggExec, Udaf
 from .orc_scan import OrcScanExec
 from .parquet_scan import ParquetScanExec
 from .parquet_sink import ParquetSinkExec
@@ -19,8 +21,8 @@ from .union import UnionExec
 from .window import WindowExec, WindowFunction
 
 __all__ = [
-    "AggExec", "AggFunction", "AggMode", "CoalesceBatchesExec", "DebugExec", "EmptyPartitionsExec", "ExecNode",
-    "ExpandExec", "FilterExec", "GroupingExpr", "LimitExec", "MemoryScanExec", "OrcScanExec", "ParquetScanExec",
-    "ParquetSinkExec", "ProjectExec", "RenameColumnsExec", "SortExec", "SortField", "UnionExec", "WindowExec",
+    "AggExec", "AggFunction", "AggMode", "BloomFilterAggExec", "CoalesceBatchesExec", "DebugExec", "EmptyPartitionsExec", "ExecNode",
+    "ExpandExec", "FilterExec", "GroupingExpr", "LimitExec", "MemoryScanExec", "ObjectAggExec", "OrcScanExec", "ParquetScanExec",
+    "ParquetSinkExec", "ProjectExec", "RenameColumnsExec", "SortExec", "SortField", "Udaf", "UnionExec", "WindowExec",
     "WindowFunction",
 ]

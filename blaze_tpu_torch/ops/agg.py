@@ -26,6 +26,10 @@ squares cancels; a decimal is divided by ``10**scale`` first, and the
 value is null unless a group counts two values).  Float sums accumulate
 within each group (a segmented scan), so one group's magnitude never
 cancels against another's; integer sums difference one cumulative sum.
+``first`` and ``first_ignores_null`` keep a ``#value`` state: the
+group's first row in input order (every sort here is stable), its first
+non-null one for ``first_ignores_null``; a merge of states skips null
+states for both, as the reference's does.
 """
 
 from __future__ import annotations
@@ -49,6 +53,7 @@ from .filter import predicate_mask
 
 class AggMode(enum.Enum):
     PARTIAL = 0
+    PARTIAL_MERGE = 1
     FINAL = 2
 
 
@@ -61,7 +66,7 @@ class GroupingExpr:
 @dataclass
 class AggFunction:
     """One aggregate call: ``fn`` in sum/count/count_star/avg/min/max/
-    stddev_samp/var_samp."""
+    first/first_ignores_null/stddev_samp/var_samp."""
 
     fn: str
     expr: Optional[Expr]
@@ -71,6 +76,7 @@ class AggFunction:
 # ---------------------------------------------------------------- typing
 
 MINMAX = ("min", "max")
+FIRST = ("first", "first_ignores_null")
 VARIANCE = ("stddev_samp", "var_samp")
 
 
@@ -89,7 +95,7 @@ def agg_result_type(fn: str, in_t: Optional[DataType]) -> DataType:
         return sum_result_type(in_t)
     if fn == "avg":
         return decimal_avg_agg_type(in_t) if in_t.is_decimal else DataType.float64()
-    if fn in MINMAX:
+    if fn in MINMAX or fn in FIRST:
         return in_t
     if fn in VARIANCE:
         return DataType.float64()
@@ -108,7 +114,7 @@ def agg_state_fields(fn: str, in_t: Optional[DataType], name: str) -> List[Field
     inputs, ``#nonnull`` for sum and ``#count`` for avg."""
     if fn in ("count", "count_star"):
         return [Field(f"{name}#count", DataType.int64())]
-    if fn in MINMAX:
+    if fn in MINMAX or fn in FIRST:
         return [Field(f"{name}#value", in_t)]
     if fn in VARIANCE:
         return [Field(f"{name}#cnt", DataType.int64()), Field(f"{name}#fsum", DataType.float64()),
@@ -132,7 +138,7 @@ def _state_input_type(a: AggFunction, in_schema: Schema) -> Optional[DataType]:
     p; a variance state is float64)."""
     if a.fn in ("count", "count_star"):
         return None
-    if a.fn in MINMAX:
+    if a.fn in MINMAX or a.fn in FIRST:
         return in_schema.field(f"{a.name}#value").dtype
     if a.fn in VARIANCE:
         return DataType.float64()
@@ -283,6 +289,28 @@ def seg_minmax(v: Column, seg: Optional[Segments], is_min: bool) -> Column:
     return out
 
 
+def seg_first(v: Column, pick: torch.Tensor, seg: Optional[Segments]) -> Column:
+    """Per group, the first row (rows already in group order, each
+    group's in input order) where ``pick`` holds; null where no row
+    does (≙ the reference's ``_seg_first``/``_seg_gather_first``)."""
+    n = v.capacity
+    idx = torch.where(pick, torch.arange(n, device=v.device), n)
+    if seg is None:
+        first = idx.min().reshape(1) if n else idx.new_full((1,), n)
+    else:
+        mark = torch.zeros(n, dtype=torch.int64, device=v.device)
+        mark[seg.starts] = 1
+        first = torch.full((seg.n_groups,), n, dtype=torch.int64, device=v.device)
+        first = first.scatter_reduce(0, torch.cumsum(mark, 0) - 1, idx, "amin")
+    has = first < n
+    out = v.take(first.clamp(max=max(n - 1, 0)))
+    valid = out.validity & has
+    if v.dtype.is_string:
+        return Column(v.dtype, out.data, valid, torch.where(has, out.lengths, 0))
+    return Column(v.dtype, torch.where(valid, out.data, torch.zeros((), dtype=out.data.dtype,
+                                                                      device=v.device)), valid)
+
+
 def _combine_limbs(hi: Column, lo: Column):
     """Wide-sum limbs (hi * 2^32 + lo) -> int128 (hi64, lo64)."""
     return I.add(hi.data >> 32, hi.data << 32, *I.from_i64(lo.data))
@@ -380,6 +408,18 @@ class AggExec(ExecNode):
                 out.append(seg_minmax(Column(v.dtype, perm(v.data), perm(v.validity),
                                              None if v.lengths is None else perm(v.lengths)),
                                       seg, a.fn == "min"))
+                continue
+            if a.fn in FIRST:
+                # a merge skips null states (the reference's rule:
+                # ``ignore = ... or mode != PARTIAL``)
+                v = env[fields[0].name] if merging else lower(a.expr, schema, env, n)
+                pick = v.validity if a.fn == "first_ignores_null" or merging else torch.ones_like(v.validity)
+                if keep is not None:
+                    pick = pick & keep
+                    v = Column(v.dtype, v.data, v.validity & keep, v.lengths)
+                out.append(seg_first(Column(v.dtype, perm(v.data), perm(v.validity),
+                                            None if v.lengths is None else perm(v.lengths)),
+                                     perm(pick), seg))
                 continue
             if a.fn in VARIANCE:
                 out.extend(self._variance_state(a, fields, schema, env, n, keep, perm, seg, merging))
@@ -480,7 +520,7 @@ class AggExec(ExecNode):
             if a.fn in ("count", "count_star"):
                 out.append(env[f"{a.name}#count"])
                 continue
-            if a.fn in MINMAX:
+            if a.fn in MINMAX or a.fn in FIRST:
                 out.append(env[f"{a.name}#value"])
                 continue
             if a.fn == "avg":
@@ -536,7 +576,7 @@ class AggExec(ExecNode):
 
     def execute(self, partition: int, ctx: TaskContext) -> BatchStream:
         child_stream = self.children[0].execute(partition, ctx)
-        merging = self.mode == AggMode.FINAL
+        merging = self.mode != AggMode.PARTIAL
 
         def stream():
             states: List[RecordBatch] = []

@@ -50,7 +50,8 @@ from ..exprs.compile import lower
 from ..exprs.hash import murmur3_columns, pmod
 from ..exprs.ir import Expr
 from ..io.batch_serde import (
-    HostColumn, column_tensors, decode_columns, serialize_columns, split_host_columns, stage_columns,
+    HostColumn, column_layout, column_tensors, decode_columns, serialize_columns, split_host_columns,
+    stage_columns,
 )
 from ..io.ipc_compression import IpcFrameWriter, iter_blob_frames, iter_stream_frames
 from ..kernels import cuda_ops
@@ -58,7 +59,7 @@ from ..ops.base import BatchStream, ExecNode
 from ..ops.filter import live_mask
 from ..runtime.context import ResourcesMap, TaskContext
 from ..runtime.integrity import BlockCorruptionError
-from ..schema import Schema
+from ..schema import Schema, TypeKind
 
 
 class Partitioning:
@@ -200,13 +201,15 @@ class ShuffleRepartitioner:
         return lengths
 
 
-def _insert_host(rep: ShuffleRepartitioner, host: Sequence[np.ndarray], has_lengths: Sequence[bool],
+def _insert_host(rep: ShuffleRepartitioner, host: Sequence[np.ndarray], layout: Sequence,
                  n: Optional[int], counts: Optional[Sequence[int]]) -> None:
     """Hand one batch's host copy to the repartitioner: the arrays of
-    its pid-sorted columns, then (hashed) its counts.  ``n`` None: the
-    rows came padded to their capacity and the counts' sum is the live
-    count (the fused write); ``counts`` None: they are in ``host``."""
-    cols, rest = split_host_columns(host, has_lengths)
+    its pid-sorted device columns, then (hashed) its counts; ``layout``
+    (``column_layout``) puts the opaque columns' host rows in place.
+    ``n`` None: the rows came padded to their capacity and the counts'
+    sum is the live count (the fused write); ``counts`` None: they are
+    in ``host``."""
+    cols, rest = split_host_columns(host, layout)
     if counts is None:
         counts = rest[0].tolist()
     if n is None:
@@ -245,10 +248,10 @@ class _AsyncInserter:
                 return
             if self._errs or self._aborted:
                 continue  # failing or cancelled: discard, stage nothing
-            copy, has_lengths, n, counts = item
+            copy, layout, n, counts = item
             try:
                 with self._metrics.timer("shuffle_host_stage_time"):
-                    _insert_host(self._rep, copy.result(), has_lengths, n, counts)
+                    _insert_host(self._rep, copy.result(), layout, n, counts)
             except BaseException as e:  # noqa: BLE001 - surfaced to the producer
                 self._errs.append(e)
 
@@ -317,29 +320,32 @@ class ShuffleWriterExec(ExecNode):
             self.children[0] = BufferPartitionExec(bottom) if buffered else bottom
 
     def _sorted_rows(self, batch: RecordBatch):
-        """(the tensors of the batch's one host copy: its rows sorted by
-        partition id, then, hashed, the counts; whether each column has
-        lengths; the live row count, None when only the counts know it;
-        the counts when the host knows them already).  No host read."""
+        """(the tensors of the batch's one host copy: its device rows
+        sorted by partition id, then, hashed, the counts; the columns'
+        ``column_layout``, with the opaque columns' sorted host rows;
+        the live row count, None when only the counts know it; the
+        counts when the host knows them already).  No host read, but
+        for one copy of the sort order when a column is opaque."""
         n_out = self.partitioning.num_partitions
         cols, n = batch.columns, batch.num_rows
         if self._fused_chain is not None:
             cols, n = self._fused_chain(cols, n)
-        has_lengths = [c.lengths is not None for c in cols]
         if not (isinstance(self.partitioning, HashPartitioning) and n_out > 1):
-            return column_tensors(cols, n), has_lengths, n, [n] + [0] * (n_out - 1)
+            return column_tensors(cols, n), column_layout(cols, n), n, [n] + [0] * (n_out - 1)
         exprs = self.partitioning.exprs
         if not self.fused:
             head = [c.head(n) for c in cols]
             pids = hash_pids(self.schema, exprs, head, n, n_out)
             batch, counts = sort_by_pid(batch, pids, n_out)
-            return column_tensors(batch.columns, n) + [counts], has_lengths, n, None
+            return (column_tensors(batch.columns, n) + [counts], column_layout(batch.columns, n),
+                    n, None)
         cap = cols[0].capacity
         live = live_mask(cap, n, cols[0].device)
         pids = torch.where(live, hash_pids(self.schema, exprs, cols, cap, n_out), -1)
         counts = cuda_ops.pid_histogram(pids, n_out)
         order = torch.sort(torch.where(live, pids, n_out), stable=True).indices
-        return column_tensors([c.take(order) for c in cols]) + [counts], has_lengths, None, None
+        cols = [c.take(order) for c in cols]
+        return column_tensors(cols) + [counts], column_layout(cols), None, None
 
     def execute(self, partition: int, ctx: TaskContext) -> BatchStream:
         def stream():
@@ -352,11 +358,11 @@ class ShuffleWriterExec(ExecNode):
                     if not ctx.is_task_running():
                         return
                     with self.metrics.timer("elapsed_compute"):
-                        tensors, has_lengths, n, counts = self._sorted_rows(batch)
+                        tensors, layout, n, counts = self._sorted_rows(batch)
                         if inserter is None:
-                            _insert_host(rep, tensors_to_host(tensors), has_lengths, n, counts)
+                            _insert_host(rep, tensors_to_host(tensors), layout, n, counts)
                         else:
-                            inserter.put((HostCopy(tensors), has_lengths, n, counts))
+                            inserter.put((HostCopy(tensors), layout, n, counts))
                 if inserter is not None:
                     inserter, staging = None, inserter
                     staging.close()

@@ -9,6 +9,7 @@ unscaled=True)``.
 
 from __future__ import annotations
 
+import pickle
 
 from ..exprs.ir import (
     Alias, BinOp, Case, Cast, Col, Expr, InList, IsNotNull, IsNull, Like, Lit, Not, ScalarFunc,
@@ -23,8 +24,8 @@ def dtype_from_proto(t: pb.DataTypeProto) -> DataType:
         return DataType.decimal(t.precision, t.scale)
     if kind in (TypeKind.STRING, TypeKind.BINARY):
         return DataType(kind, string_width=t.string_width or 64)
-    if kind in (TypeKind.ARRAY, TypeKind.MAP, TypeKind.STRUCT, TypeKind.OPAQUE):
-        raise NotImplementedError(f"from_proto for type {kind.name}")
+    if kind in (TypeKind.ARRAY, TypeKind.MAP, TypeKind.STRUCT):
+        raise NotImplementedError(f"from_proto for type {kind.name}: nested columns are not ported")
     return DataType(kind)
 
 
@@ -205,6 +206,22 @@ def plan_from_proto(n: pb.PhysicalPlanNode):
             *args,
             build_data_schema=schema_from_proto(j.build_data_schema) if len(j.build_data_schema.fields) else None,
             cached_build_id=j.cached_build_id or None)
+    if kind == "object_agg":
+        from .. import conf
+        from ..ops.object_agg import ObjectAggExec
+
+        o = n.object_agg
+        if not bool(conf.ALLOW_PICKLED_UDFS.get()):
+            raise PermissionError("pickled UDAF payload rejected: set spark.blaze.udf.allowPickled")
+        return ObjectAggExec(plan_from_proto(o.input), AggMode(o.mode),
+                             [GroupingExpr(expr_from_proto(g.expr), g.name) for g in o.groupings],
+                             pickle.loads(o.udafs_payload))
+    if kind == "bloom_filter_agg":
+        from ..ops.bloom_agg import BloomFilterAggExec
+
+        b = n.bloom_filter_agg
+        return BloomFilterAggExec(plan_from_proto(b.input), expr_from_proto(b.expr) if b.has_expr else None,
+                                  b.name, AggMode(b.mode), b.expected_items, b.num_bits or None)
     raise NotImplementedError(f"from_proto node {kind}")
 
 

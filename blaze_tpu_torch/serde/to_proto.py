@@ -4,8 +4,8 @@
 Covers the nodes and expressions the port has: memory, parquet and ORC
 scans, empty partitions, project, filter, agg, sort, limit, union,
 rename, expand, window, debug, coalesce, shuffle writer, IPC reader and
-writer, broadcast and shuffled hash joins (the parquet sink has no
-node, as in the reference); columns,
+writer, broadcast and shuffled hash joins, object and bloom-filter
+aggregates (the parquet sink has no node, as in the reference); columns,
 literals, aliases, binary operators, NOT, IS [NOT] NULL, casts, CASE,
 IN, LIKE and scalar functions.  Anything else raises
 ``NotImplementedError`` naming it.
@@ -16,6 +16,7 @@ from __future__ import annotations
 import contextvars
 import datetime
 import itertools
+import pickle
 
 from ..exprs.compile import infer_lit_dtype, unscaled_decimal
 from ..exprs.ir import (
@@ -148,7 +149,9 @@ def plan_to_proto(node) -> pb.PhysicalPlanNode:
         MemoryScanExec, OrcScanExec, ParquetScanExec, ProjectExec, RenameColumnsExec, SortExec, UnionExec,
         WindowExec,
     )
+    from ..ops.bloom_agg import BloomFilterAggExec
     from ..ops.joins import BroadcastJoinExec, HashJoinExec
+    from ..ops.object_agg import ObjectAggExec
     from ..parallel.broadcast import IpcWriterExec
     from ..parallel.shuffle import IpcReaderExec, ShuffleWriterExec
     from ..runtime.context import RESOURCES
@@ -247,6 +250,21 @@ def plan_to_proto(node) -> pb.PhysicalPlanNode:
             out.broadcast_join = msg
         else:
             out.hash_join = msg
+    elif isinstance(node, ObjectAggExec):
+        # the UDAFs travel pickled: a TaskDefinition names the module of
+        # the package that wrote it, so each package reads only its own
+        out.object_agg = pb.ObjectAggNode(
+            input=plan_to_proto(node.children[0]), mode=node.mode.value,
+            groupings=[pb.NamedExpr(expr=expr_to_proto(g.expr), name=g.name) for g in node.groupings],
+            udafs_payload=pickle.dumps(node.udafs))
+    elif isinstance(node, BloomFilterAggExec):
+        bloom = pb.BloomFilterAggNode(input=plan_to_proto(node.children[0]), name=node.agg_name,
+                                      mode=node.mode.value, expected_items=node.expected_items,
+                                      num_bits=node.num_bits)
+        if node.expr is not None:
+            bloom.has_expr = True
+            bloom.expr = expr_to_proto(node.expr)
+        out.bloom_filter_agg = bloom
     else:
         raise NotImplementedError(f"to_proto for {type(node).__name__}")
     return out

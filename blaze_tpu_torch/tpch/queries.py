@@ -146,15 +146,17 @@ def q1(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
     return single_sorted(agg, [SortField(col("l_returnflag")), SortField(col("l_linestatus"))])
 
 
-def q3(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+def _q3_customer_orders(t: Dict[str, ExecNode]) -> ExecNode:
     cust = FilterExec(t["customer"], col("c_mktsegment") == lit("BUILDING"))
     cust_p = ProjectExec(cust, [col("c_custkey")])
     orders = FilterExec(t["orders"], col("o_orderdate") < lit(D(1995, 3, 15)))
     orders_p = ProjectExec(orders, [col("o_orderkey"), col("o_custkey"), col("o_orderdate"),
                                     col("o_shippriority")])
-    co = broadcast_join(cust_p, orders_p, [col("c_custkey")], [col("o_custkey")],
-                        JoinType.INNER, build_is_left=True)
-    line = FilterExec(t["lineitem"], col("l_shipdate") > lit(D(1995, 3, 15)))
+    return broadcast_join(cust_p, orders_p, [col("c_custkey")], [col("o_custkey")],
+                          JoinType.INNER, build_is_left=True)
+
+
+def _q3_tail(co: ExecNode, line: ExecNode, n_parts: int) -> ExecNode:
     line_p = ProjectExec(line, [col("l_orderkey"), revenue_expr().alias("rev")])
     j = shuffle_join(co, line_p, [col("o_orderkey")], [col("l_orderkey")], JoinType.INNER, n_parts)
     agg = two_stage_agg(
@@ -172,6 +174,41 @@ def q3(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
         [SortField(col("revenue"), ascending=False), SortField(col("o_orderdate"))],
         fetch=10,
     )
+
+
+def q3(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:
+    line = FilterExec(t["lineitem"], col("l_shipdate") > lit(D(1995, 3, 15)))
+    return _q3_tail(_q3_customer_orders(t), line, n_parts)
+
+
+def q3_bloom_payload(t: Dict[str, ExecNode], n_parts: int, expected_items: int = 1_000_000) -> bytes:
+    """The creation side of q03's runtime filter, run now, in process:
+    ``bloom_filter_agg(xxhash64(o_orderkey))`` over q03's filtered
+    orders joined to its customers (PARTIAL per partition, one exchange,
+    FINAL), on a subtree of its own.  Returns the serialized filter."""
+    from ..ops import BloomFilterAggExec
+
+    key = func("xxhash64", col("o_orderkey"))
+    partial = BloomFilterAggExec(_q3_customer_orders(t), key, "bloom", AggMode.PARTIAL, expected_items)
+    final = BloomFilterAggExec(NativeShuffleExchangeExec(partial, SinglePartitioning()), None, "bloom",
+                               AggMode.FINAL, expected_items)
+    return collect_columns(final, ["bloom"])["bloom"][0]
+
+
+def q3_runtime_filter(t: Dict[str, ExecNode], n_parts: int, expected_items: int = 1_000_000) -> ExecNode:
+    """q03 with the runtime filter Spark 3.5's InjectRuntimeFilter plants
+    on its shuffled join: the creation side's bloom filter
+    (:func:`q3_bloom_payload`) enters as a BINARY literal, and
+    ``might_contain(filter, xxhash64(l_orderkey))`` filters the
+    ``lineitem`` scan, under q03's own filter and below its hash
+    exchange.  The rows are q03's."""
+    from ..schema import string_width_for
+
+    payload = q3_bloom_payload(t, n_parts, expected_items)
+    bloom = Lit(payload, DataType.binary(string_width_for(len(payload))))
+    line = FilterExec(t["lineitem"], func("might_contain", bloom, func("xxhash64", col("l_orderkey"))))
+    line = FilterExec(line, col("l_shipdate") > lit(D(1995, 3, 15)))
+    return _q3_tail(_q3_customer_orders(t), line, n_parts)
 
 
 def q6(t: Dict[str, ExecNode], n_parts: int) -> ExecNode:

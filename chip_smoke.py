@@ -127,7 +127,32 @@ Needs one CUDA card and ``nvcc`` (``/usr/local/cuda``).  In order, it:
    ``spark.blaze.pipeline.depth`` 2 and 0; each run prints its wall,
    the scans' decode seconds, bytes read, pruned row groups, peak
    device memory above what the run held, and launches;
-9. the null-key phase: ``store_sales`` at ``--ds-scale`` with its -1
+9. the functions and object aggs phase, each run on both paths (in
+   process through the optimizer, and through ``run_stages``), 8
+   partitions and 2^20-row batches, launches equal on both: TPC-H q03
+   at ``--scale`` with the runtime bloom filter Spark 3.5's
+   InjectRuntimeFilter plants (``tpch.queries.q3_runtime_filter``: the
+   creation side's ``bloom_filter_agg(xxhash64(o_orderkey))`` with
+   1,000,000 expected items, 0.9 MB, run while the plan is built and
+   put in as a BINARY literal; ``might_contain`` on the lineitem scan),
+   equal to q03's oracle, with no false negative over the creation
+   side's keys and the device probe equal to the host's on every
+   lineitem row, its launches beside q03's without the filter;
+   ``approx_count_distinct`` and ``approx_percentile`` (HLL and
+   t-digest states on the host, OPAQUE columns through the exchange) by
+   ``l_suppkey`` over lineitem and globally over part at SF 0.1 (cut
+   from SF1: the states update row by row in python, as in the
+   reference), equal to the same plans on the CPU, every HLL within 5%
+   of the exact distinct count and the global median within 2% of
+   numpy's; ``first``/``first_ignores_null`` by ``l_orderkey`` at SF 0.1
+   against an exact oracle; and one projection per function family
+   (date, math, device string, hash, decimal, casts over lineitem at SF
+   0.1; host string functions over customer and part at SF1; JSON paths
+   over ``concat`` of customer's columns at SF1), every column equal to
+   the port's CPU evaluation of the same plan (floats within 2 ulps),
+   the JSON round trip returning ``c_name``, ``c_custkey`` and
+   ``c_acctbal`` exactly; one JSON record a run;
+10. the null-key phase: ``store_sales`` at ``--ds-scale`` with its -1
    ``ss_customer_sk`` exposed as nulls (``with_null_fks``), through
    ``split_stages``/``run_stages``: an ``IS NULL`` count, a group by
    the key with one null group (its exchange through ``murmur3_pids``
@@ -137,7 +162,7 @@ Needs one CUDA card and ``nvcc`` (``/usr/local/cuda``).  In order, it:
    ``murmur3_pids`` on that key column, held to its plain version, its
    null rows in the seed's partition, and ``sorted_lookup`` on the
    largest table and probe the joins gave it;
-10. reads the CUPTI device time of every timed call in one
+11. reads the CUPTI device time of every timed call in one
    ``torch.profiler`` session, and counts every device operation one
    ``pid_histogram`` call issues on each path (one on paths (a) and
    (b), or it fails); then runs q01 and q03 in process under each A/B
@@ -147,10 +172,11 @@ Needs one CUDA card and ``nvcc`` (``/usr/local/cuda``).  In order, it:
    each run, its device operations, the kernels that take its time, and
    the hand-written kernels' device time at the shapes the query gives
    them;
-11. prints where each phase ended on the host clock, the ``kernels``
-   JSON line (launches summed over the 125 queries and the file phase's
-   runs in process, and per query on each path; the null-key phase's
-   and the file phase's apart too), then
+12. prints where each phase ended on the host clock, the ``kernels``
+   JSON line (launches summed over the 125 queries, the file phase's
+   and the functions phase's runs in process, and per query on each
+   path; the null-key phase's, the file phase's and the functions
+   phase's apart too), then
    ``{"ok": true, ...}`` last.
 
 Any failure raises and exits nonzero before the last line; without a
@@ -2276,6 +2302,470 @@ def file_phase(torch, cuda_ops, card: str, data, scale: float, n_parts: int, bat
     return launches_of, sf1_written
 
 
+# ------------------------------------------------ functions and object aggs
+
+# the phase's scale for lineitem's object aggs, first and the device
+# function families: the object aggs update their states row by row in
+# python, as in the reference, so SF1's 6M rows would take minutes
+FN_SCALE = 0.1
+# float results held to the port's CPU evaluation: torch's CPU and CUDA
+# libraries may round transcendental functions apart, each within an ulp
+# of numpy (tests/test_torch_functions.py)
+FN_ULPS = 2
+FN_HOST_SCALE = 1.0
+
+
+def batches_arrays(schema, batches) -> dict:
+    """The batches' rows as host arrays per column, in order:
+    (data, validity, lengths or None), one device-to-host copy a batch."""
+    import numpy as np
+
+    from blaze_tpu_torch.io.batch_serde import host_columns
+
+    parts = [host_columns(b)[0] for b in batches]
+    out = {}
+    for i, f in enumerate(schema.fields):
+        cols = [p[i] for p in parts]
+        data = [c[0] for c in cols]
+        if cols and cols[0][2] is not None:
+            w = max(d.shape[1] for d in data)
+            data = [np.pad(d, ((0, 0), (0, w - d.shape[1]))) for d in data]
+        out[f.name] = (np.concatenate(data) if data else np.zeros(0),
+                       np.concatenate([c[1] for c in cols]) if cols else np.zeros(0, bool),
+                       np.concatenate([c[2] for c in cols]) if cols and cols[0][2] is not None else None)
+    return out
+
+
+def _ordered_bits(x):
+    """float64 values as int64 keys whose differences count ulps."""
+    import numpy as np
+
+    i = x.astype(np.float64).view(np.int64)
+    return np.where(i < 0, -(i & 0x7FFFFFFFFFFFFFFF), i)
+
+
+def same_arrays(got: dict, want: dict, label: str, ulps: int = 0) -> None:
+    """Raises unless every column of ``got`` equals ``want``'s row for
+    row: the same nulls; integers, strings (bytes up to each length) and
+    booleans exactly; floats within ``ulps`` units in the last place, a
+    NaN equal to a NaN."""
+    import numpy as np
+
+    if list(got) != list(want):
+        raise AssertionError(f"{label}: columns {list(got)} != {list(want)}")
+    for name in got:
+        (a, va, la), (b, vb, lb) = got[name], want[name]
+        if a.shape[0] != b.shape[0] or not np.array_equal(va, vb):
+            raise AssertionError(f"{label} {name}: the rows or their nulls differ")
+        a, b = a[va], b[va]
+        if la is not None:
+            la, lb = la[va], lb[va]
+            w = max(a.shape[1], b.shape[1])
+            pos = np.arange(w)[None, :]
+            a = np.where(pos < la[:, None], np.pad(a, ((0, 0), (0, w - a.shape[1]))), 0)
+            b = np.where(pos < lb[:, None], np.pad(b, ((0, 0), (0, w - b.shape[1]))), 0)
+            bad = (la != lb) | (a != b).any(axis=1)
+        elif a.dtype.kind == "f":
+            both_nan = np.isnan(a) & np.isnan(b)
+            with np.errstate(over="ignore"):
+                dist = np.abs(_ordered_bits(a) - _ordered_bits(b))
+            bad = ~both_nan & (dist > ulps)
+        else:
+            bad = a != b
+        if bad.any():
+            i = int(np.argmax(bad))
+            raise AssertionError(f"{label} {name}: {int(bad.sum())} rows differ, first "
+                                 f"{a[i]!r} against {b[i]!r}")
+
+
+def table_scans(tables: dict, names, n_parts: int, batch_rows: int, device: str) -> dict:
+    from blaze_tpu_torch.batch import table_to_batches
+    from blaze_tpu_torch.ops import MemoryScanExec
+    from blaze_tpu_torch.tpch import TPCH_SCHEMAS
+
+    return {name: MemoryScanExec(table_to_batches(tables[name], TPCH_SCHEMAS[name], n_parts, batch_rows, device),
+                                 TPCH_SCHEMAS[name], device=device) for name in names}
+
+
+def plan_batches(plan) -> list:
+    from blaze_tpu_torch.runtime.context import TaskContext
+
+    n = plan.num_partitions()
+    return [b for p in range(n) for b in plan.execute(p, TaskContext(p, n))]
+
+
+def both_paths(torch, cuda_ops, label: str, build, launches_of: dict, arrays: bool = False) -> tuple:
+    """``build()``'s plan in process (through the optimizer) and through
+    split_stages/run_stages, launch counts reset before each build, the
+    walls from the build to the last batch on the card; the launches
+    equal, and the rows alike: as multisets of python values, or with
+    ``arrays`` as host arrays in order (``same_arrays``, exactly).
+    Returns (in-process rows or arrays, wall, run_stages wall)."""
+    from blaze_tpu_torch.batch import batch_to_pydict
+    from blaze_tpu_torch.runtime.scheduler import run_stages, split_stages
+
+    cuda_ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plan = optimized(build())
+    batches = plan_batches(plan)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches_of[label] = dict(cuda_ops.LAUNCHES)
+    cuda_ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stages, manager = split_stages(build())
+    sbatches = list(run_stages(stages, manager))
+    torch.cuda.synchronize()
+    swall = time.perf_counter() - t0
+    launches_of[f"{label} (run_stages)"] = dict(cuda_ops.LAUNCHES)
+    if arrays:
+        got = batches_arrays(plan.schema, batches)
+        same_arrays(batches_arrays(plan.schema, sbatches), got, f"{label} through run_stages")
+    else:
+        got, sgot = ({f.name: [] for f in plan.schema.fields} for _ in range(2))
+        for rows, bs in ((got, batches), (sgot, sbatches)):
+            for b in bs:
+                for k, v in batch_to_pydict(b).items():
+                    rows[k].extend(v)
+        if not same_rows(sgot, got):
+            raise AssertionError(f"{label} through run_stages differs from in process")
+    if launches_of[label] != launches_of[f"{label} (run_stages)"]:
+        raise AssertionError(f"{label}: launches {launches_of[label]} in process, "
+                             f"{launches_of[f'{label} (run_stages)']} through run_stages")
+    return got, wall, swall
+
+
+def cpu_rows(plan) -> dict:
+    """A plan's rows, run in process on CPU scans (the port's CPU
+    evaluation, the plain versions of the kernels)."""
+    from blaze_tpu_torch.batch import batch_to_pydict
+
+    out = {f.name: [] for f in plan.schema.fields}
+    for b in plan_batches(plan):
+        for k, v in batch_to_pydict(b).items():
+            out[k].extend(v)
+    return out
+
+
+def runtime_filter_run(torch, cuda_ops, card: str, data, scale: float, n_parts: int, batch_rows: int,
+                       runs: dict, launches_of: dict) -> dict:
+    """TPC-H q03 with the runtime bloom filter (see the module
+    docstring, step 9)."""
+    import numpy as np
+
+    from blaze_tpu_torch.batch import column_to_pylist
+    from blaze_tpu_torch.exprs.bloom import SparkBloomFilter
+    from blaze_tpu_torch.exprs.compile import lower
+    from blaze_tpu_torch.exprs.ir import col, func
+    from blaze_tpu_torch.ops import ProjectExec
+    from blaze_tpu_torch.runtime.context import TaskContext
+    from blaze_tpu_torch.tpch import queries as Q
+
+    scans = query_scans(data, "q3", n_parts, batch_rows)
+    got, wall, swall = both_paths(torch, cuda_ops, "q03 runtime filter",
+                                  lambda: Q.q3_runtime_filter(scans, n_parts), launches_of)
+    said = check_oracle(data, "q3", got)
+    payload = Q.q3_bloom_payload(scans, n_parts)
+    filt = SparkBloomFilter.deserialize(payload)
+    # every lineitem row: the device probe against the host's, and no
+    # false negative over the creation side's keys
+    keys = set()
+    co = ProjectExec(Q._q3_customer_orders(scans), [col("o_orderkey")], ["k"])
+    for p in range(co.num_partitions()):
+        for b in co.execute(p, TaskContext(p, co.num_partitions())):
+            keys.update(column_to_pylist(b.columns[0], b.num_rows))
+    line = scans["lineitem"]
+    creation_keys = np.fromiter(keys, np.int64, len(keys))
+    rows, passed, missed, differ = 0, 0, 0, 0
+    for p in range(line.num_partitions()):
+        for b in line.execute(p, TaskContext(p, line.num_partitions())):
+            env = {f.name: c.head(b.num_rows) for f, c in zip(line.schema.fields, b.columns)}
+            h = lower(func("xxhash64", col("l_orderkey")), line.schema, env, b.num_rows)
+            dev = filt.might_contain_device(h).cpu().numpy()
+            host = filt.might_contain_longs(h.data.cpu().numpy())
+            differ += int((dev != host).sum())
+            on_creation_side = np.isin(env["l_orderkey"].data.cpu().numpy(), creation_keys)
+            missed += int((on_creation_side & ~dev).sum())
+            rows += b.num_rows
+            passed += int(dev.sum())
+    if differ or missed:
+        raise AssertionError(f"runtime filter: {differ} rows where the device probe differs from the host's, "
+                             f"{missed} false negatives")
+    rec = {"run": "q03 runtime filter", "scale": scale, "payload_bytes": len(payload),
+           "expected_items": 1_000_000, "creation_side_keys": len(keys), "lineitem_rows": rows,
+           "lineitem_rows_passing_filter": passed, "false_negatives": 0, "probe_differs_from_host": 0,
+           "inproc_wall_s": wall, "run_stages_wall_s": swall, "launches": launches_of["q03 runtime filter"],
+           "launches_q03_without_filter": {k: runs["q3"][k] for k in launches_of["q03 runtime filter"]},
+           "card": card}
+    log(f"q03 with the runtime bloom filter SF{scale}: {said} on both paths; filter {len(payload)} bytes over "
+        f"{len(keys)} creation-side keys, lineitem {rows} -> {passed} rows, no false negative, the device "
+        f"probe = the host's on every row; walls {wall:.4f} s in process, {swall:.4f} s through run_stages "
+        f"on {card}; launches {rec['launches']} on each path (q03 without it {rec['launches_q03_without_filter']})")
+    return rec
+
+
+def object_agg_runs(torch, cuda_ops, card: str, lineitem, part, n_parts: int, batch_rows: int,
+                    launches_of: dict) -> list:
+    """approx_count_distinct and approx_percentile (see the module
+    docstring, step 9): grouped over lineitem, global over part."""
+    import numpy as np
+
+    from blaze_tpu_torch.exprs.ir import col
+    from blaze_tpu_torch.ops import AggMode, GroupingExpr, ObjectAggExec
+    from blaze_tpu_torch.ops import udafs as U
+    from blaze_tpu_torch.parallel.exchange import NativeShuffleExchangeExec
+    from blaze_tpu_torch.parallel.shuffle import HashPartitioning, SinglePartitioning
+
+    # (label, table, group key, distinct column, percentile column)
+    runs = [("object agg by l_suppkey", "lineitem", "l_suppkey", "l_orderkey", "l_extendedprice"),
+            ("object agg, global", "part", None, "p_size", "p_retailprice")]
+
+    def plan(scans, table, key, ndv_col, p50_col):
+        udafs = [U.approx_count_distinct(col(ndv_col), "ndv"), U.approx_percentile(col(p50_col), 0.5, "p50")]
+        g = [GroupingExpr(col(key), key)] if key else []
+        partial = ObjectAggExec(scans[table], AggMode.PARTIAL, g, udafs)
+        part_by = HashPartitioning([col(key)], n_parts) if key else SinglePartitioning()
+        return ObjectAggExec(NativeShuffleExchangeExec(partial, part_by), AggMode.FINAL, g, udafs)
+
+    tables = {"lineitem": lineitem, "part": part}
+    card_scans = table_scans(tables, list(tables), n_parts, batch_rows, "cuda")
+    cpu_scans = table_scans(tables, list(tables), n_parts, batch_rows, "cpu")
+    out = []
+    for label, table, key, ndv_col, p50_col in runs:
+        args = (table, key, ndv_col, p50_col)
+        got, wall, swall = both_paths(torch, cuda_ops, label, lambda: plan(card_scans, *args), launches_of)
+        cpu = cpu_rows(plan(cpu_scans, *args))
+        keyed = lambda rows: {k: (n, p) for k, n, p in zip(rows.get(key, [None] * len(rows["ndv"])),
+                                                           rows["ndv"], rows["p50"])}
+        g, c = keyed(got), keyed(cpu)
+        if g != c:
+            raise AssertionError(f"{label}: the sketches on the card differ from the CPU run's")
+        keys_col = tables[table][key][0] if key else None
+        ndv_err, p50_err = [], []
+        for k, (ndv, p50) in g.items():
+            rows = keys_col == k if key else np.ones(len(tables[table][ndv_col][0]), bool)
+            exact = len(np.unique(tables[table][ndv_col][0][rows]))
+            median = float(np.percentile(tables[table][p50_col][0][rows], 50))
+            ndv_err.append(abs(ndv - exact) / exact)
+            p50_err.append(abs(p50 - median) / median)
+        # every HLL within 5%; a median within 2% (the reference's
+        # tolerance, over 12,000 values) where it summarizes a whole table:
+        # a supplier's ~600 values meet 100 centroids too coarsely to hold
+        # 2% each, and are held to the CPU run above
+        if max(ndv_err) > 0.05 or (not key and max(p50_err) > 0.02):
+            raise AssertionError(f"{label}: HLL {max(ndv_err):.4f} or median {max(p50_err):.4f} off the "
+                                 f"exact values")
+        scale = FN_SCALE
+        rec = {"run": label, "table": table, "scale": scale, "groups": len(g), "worst_ndv_rel_err": max(ndv_err),
+               "median_rel_err_p50_p90_max": [float(np.percentile(p50_err, 50)), float(np.percentile(p50_err, 90)),
+                                              max(p50_err)],
+               "inproc_wall_s": wall, "run_stages_wall_s": swall, "launches": launches_of[label], "card": card,
+               "cut": f"SF{scale}, from SF1: the states update row by row in python, as in the reference"}
+        log(f"{label} over {table} SF{scale}: {len(g)} groups = the CPU run's, HLL within {max(ndv_err):.4f} of "
+            f"the exact distinct counts, medians {rec['median_rel_err_p50_p90_max']} (p50, p90, max relative) "
+            f"off numpy's; walls {wall:.4f} s in process, {swall:.4f} s through run_stages on {card}; "
+            f"launches {rec['launches']} on each path")
+        out.append(rec)
+    return out
+
+
+def first_run(torch, cuda_ops, card: str, lineitem, n_parts: int, batch_rows: int, launches_of: dict) -> dict:
+    """first and first_ignores_null over a hash exchange, against an
+    exact oracle (see the module docstring, step 9)."""
+    import numpy as np
+
+    from blaze_tpu_torch.exprs.ir import Case, Cast, col, lit
+    from blaze_tpu_torch.ops import AggFunction, GroupingExpr
+    from blaze_tpu_torch.schema import DataType
+    from blaze_tpu_torch.tpch.queries import two_stage_agg
+
+    scans = table_scans({"lineitem": lineitem}, ["lineitem"], n_parts, batch_rows, "cuda")
+    dep = col("l_orderkey") * lit(7)
+    holes = Case([(col("l_linenumber") == lit(1), lit(None, DataType.int64()))], dep)
+    aggs = [AggFunction("first", dep, "f"), AggFunction("first_ignores_null", holes, "fin"),
+            AggFunction("first", Cast(col("l_orderkey"), DataType.string(24)), "fs")]
+    build = lambda: two_stage_agg(scans["lineitem"], [GroupingExpr(col("l_orderkey"), "k")], aggs, n_parts)
+    got, wall, swall = both_paths(torch, cuda_ops, "first by l_orderkey", build, launches_of)
+    okey, line = lineitem["l_orderkey"][0], lineitem["l_linenumber"][0]
+    multi = set(np.unique(okey[line != 1]).tolist())
+    for k, f, fin, fs in zip(got["k"], got["f"], got["fin"], got["fs"]):
+        if f != 7 * k or fs != str(k) or fin != (7 * k if k in multi else None):
+            raise AssertionError(f"first: group {k} gave {(f, fin, fs)}")
+    if len(got["k"]) != len(np.unique(okey)):
+        raise AssertionError("first: a group is missing")
+    rec = {"run": "first by l_orderkey", "scale": FN_SCALE, "groups": len(got["k"]),
+           "groups_all_null_for_ignores_null": len(got["k"]) - len(multi), "inproc_wall_s": wall,
+           "run_stages_wall_s": swall, "launches": launches_of["first by l_orderkey"], "card": card}
+    log(f"first/first_ignores_null SF{FN_SCALE}: {len(got['k'])} groups = the oracle on both paths; walls "
+        f"{wall:.4f} s in process, {swall:.4f} s through run_stages on {card}; launches {rec['launches']}")
+    return rec
+
+
+def function_families():
+    """The card's function families: (family, table, [(name, expr)]
+    [, a projection of the table the expressions read])."""
+    from blaze_tpu_torch.exprs.ir import Cast, col, func, lit
+    from blaze_tpu_torch.schema import DataType as T
+
+    f, c = func, col
+    ts = Cast(c("l_orderkey") * lit(1234567891), T.timestamp())
+    price, disc = c("l_extendedprice"), c("l_discount")
+    json_doc = f("concat", lit('{"key":'), Cast(c("c_custkey"), T.string(24)), lit(',"name":"'), c("c_name"),
+                 lit('","bal":'), Cast(c("c_acctbal"), T.string(24)), lit("}"))
+    return [
+        ("date", "lineitem", [
+            ("quarter", f("quarter", c("l_shipdate"))), ("dayofweek", f("dayofweek", c("l_shipdate"))),
+            ("weekday", f("weekday", c("l_commitdate"))), ("dayofyear", f("dayofyear", c("l_receiptdate"))),
+            ("weekofyear", f("weekofyear", c("l_shipdate"))), ("last_day", f("last_day", c("l_shipdate"))),
+            ("add_months", f("add_months", c("l_shipdate"), c("l_linenumber"))),
+            ("date_add", f("date_add", c("l_shipdate"), c("l_linenumber"))),
+            ("date_sub", f("date_sub", c("l_commitdate"), lit(7))),
+            ("datediff", f("datediff", c("l_receiptdate"), c("l_shipdate"))),
+            ("unix_timestamp", f("unix_timestamp", c("l_shipdate"))), ("hour", f("hour", ts)),
+            ("minute", f("minute", ts)), ("second", f("second", ts))]),
+        ("math", "lineitem", [
+            ("sqrt", f("sqrt", price)), ("cbrt", f("cbrt", price)), ("ln", f("ln", price)),
+            ("log10", f("log10", price)), ("exp", f("exp", disc)), ("sin", f("sin", price)),
+            ("atan", f("atan", disc)), ("tanh", f("tanh", disc)), ("ceil", f("ceil", price)),
+            ("floor", f("floor", price)), ("trunc", f("trunc", price)), ("signum", f("signum", disc)),
+            ("degrees", f("degrees", disc)), ("pow", f("pow", c("l_quantity"), c("l_tax"))),
+            ("atan2", f("atan2", disc, c("l_tax"))), ("round", f("round", price, lit(1)))]),
+        ("device string", "lineitem", [
+            ("length", f("length", c("l_comment"))), ("upper", f("upper", c("l_comment"))),
+            ("lower", f("lower", c("l_shipinstruct"))), ("trim", f("trim", c("l_comment"))),
+            ("ltrim", f("ltrim", c("l_comment"), lit("abcdefghijklmnop"))), ("rtrim", f("rtrim", c("l_comment"))),
+            ("starts_with", f("starts_with", c("l_shipinstruct"), lit("DELIVER"))),
+            ("ends_with", f("ends_with", c("l_comment"), lit("s"))),
+            ("repeat", f("repeat", c("l_shipmode"), lit(2))), ("space", f("space", c("l_linenumber"))),
+            ("concat_ws", f("concat_ws", lit("|"), c("l_shipmode"), c("l_returnflag"))),
+            ("octet_length", f("octet_length", c("l_comment"))),
+            ("coalesce", f("coalesce", f("nullif", c("l_shipmode"), lit("AIR")), c("l_returnflag")))]),
+        ("hash", "lineitem", [
+            ("murmur3_hash", f("murmur3_hash", c("l_orderkey"))),
+            ("murmur3_hash-string", f("murmur3_hash", c("l_comment"))),
+            ("xxhash64", f("xxhash64", c("l_orderkey"), c("l_shipmode"))),
+            ("xxhash64-decimal", f("xxhash64", price))]),
+        ("decimal", "lineitem", [
+            ("unscaled_value", f("unscaled_value", price)),
+            ("make_decimal", f("make_decimal", c("l_orderkey"), lit(18), lit(2))),
+            ("check_overflow", f("check_overflow", price, lit(7), lit(1))),
+            ("round-decimal", f("round", price, lit(1))), ("negative", f("negative", disc)),
+            ("null_if_zero", f("null_if_zero", disc))]),
+        ("casts", "lineitem", [
+            ("decimal-string", Cast(price, T.string(24))), ("long-string", Cast(c("l_orderkey"), T.string(24))),
+            ("date-string", Cast(c("l_shipdate"), T.string(16))),
+            ("bool-string", Cast(c("l_returnflag") == lit("R"), T.string(8))),
+            ("string-long", Cast(Cast(c("l_orderkey"), T.string(24)), T.int64())),
+            ("string-decimal", Cast(Cast(price, T.string(24)), T.decimal(12, 2))),
+            ("string-date", Cast(Cast(c("l_shipdate"), T.string(16)), T.date32())),
+            ("string-int", Cast(c("l_shipmode"), T.int32()))]),
+        # the host families: ~5 us a row and function in python, as in the
+        # reference, on each path and in the CPU evaluation
+        ("host string", "customer", [
+            ("md5", f("md5", c("c_name"))), ("sha2", f("sha2", c("c_phone"), lit(256))),
+            ("regexp_extract", f("regexp_extract", c("c_name"), lit("#(\\d+)"), lit(1))),
+            ("lpad", f("lpad", c("c_name"), lit(24), lit("*"))),
+            ("split_part", f("split_part", c("c_phone"), lit("-"), lit(2))),
+            ("to_hex", f("to_hex", c("c_custkey")))]),
+        ("host string", "part", [
+            ("translate", f("translate", c("p_name"), lit("aeiou"), lit("AEIOU"))),
+            ("rlike", f("rlike", c("p_name"), lit("green|red"))), ("chr", f("chr", c("p_size"))),
+            ("locate", f("locate", lit("e"), c("p_name"), lit(3))),
+            ("date_format", f("date_format", Cast(c("p_size"), T.date32()), lit("yyyy-MM-dd")))]),
+        # the document is built once, by a projection under the JSON paths
+        ("JSON", "customer", [
+            ("name", f("get_json_object", c("doc"), lit("$.name"))),
+            ("key", f("get_json_object", c("doc"), lit("$.key"))),
+            ("bal", f("get_json_object", c("doc"), lit("$.bal"))),
+            ("parsed_key", f("get_parsed_json_object", f("parse_json", c("doc")), lit("$.key")))],
+         [("doc", json_doc)]),
+    ]
+
+
+def family_runs(torch, cuda_ops, card: str, lineitem, host_tables, n_parts: int, batch_rows: int,
+                launches_of: dict) -> list:
+    """One plan per function family on both paths, each column equal to
+    the port's CPU evaluation of the same plan (see the module
+    docstring, step 9)."""
+    from decimal import Decimal
+
+    from blaze_tpu_torch.ops import ProjectExec
+
+    tables = {"lineitem": lineitem, **host_tables}
+    card_scans = table_scans(tables, list(tables), n_parts, batch_rows, "cuda")
+    cpu_scans = table_scans(tables, list(tables), n_parts, batch_rows, "cpu")
+    out = []
+    for family, table, cases, *pre in function_families():
+        label = f"functions: {family} over {table}"
+        names = [n for n, _ in cases]
+
+        def build(scans, table=table, cases=cases, pre=pre):
+            src = scans[table]
+            if pre:
+                src = ProjectExec(src, [e for _, e in pre[0]], [n for n, _ in pre[0]])
+            return ProjectExec(src, [e for _, e in cases], [n for n, _ in cases])
+
+        got, wall, swall = both_paths(torch, cuda_ops, label, lambda: build(card_scans), launches_of, arrays=True)
+        cpu_plan = build(cpu_scans)
+        t0 = time.perf_counter()
+        same_arrays(got, batches_arrays(cpu_plan.schema, plan_batches(cpu_plan)), f"{label} against the CPU",
+                    FN_ULPS)
+        cpu_s = time.perf_counter() - t0
+        nulls = {n: int((~got[n][1]).sum()) for n in names}
+        out.append({"run": label, "scale": FN_SCALE if table == "lineitem" else FN_HOST_SCALE,
+                    "rows": int(got[names[0]][1].shape[0]), "functions": names, "nulls": nulls, "inproc_wall_s": wall,
+                    "run_stages_wall_s": swall, "cpu_evaluation_s": cpu_s, "launches": launches_of[label],
+                    "card": card})
+        if family == "JSON":
+            from blaze_tpu_torch.exprs.ir import col
+
+            src = cpu_rows(ProjectExec(cpu_scans[table], [col("c_custkey"), col("c_name"), col("c_acctbal")],
+                                       ["k", "n", "b"]))
+            text = {n: [bytes(d[:ln]).decode() for d, ln in zip(got[n][0], got[n][2])]
+                    for n in ("name", "key", "bal")}
+            bad = sum(1 for k, n, b, gk, gn, gb in zip(src["k"], src["n"], src["b"], text["key"], text["name"],
+                                                        text["bal"])
+                      if gn != n or int(gk) != k or Decimal(gb) != Decimal(b).scaleb(-2))
+            if bad:
+                raise AssertionError(f"JSON round trip: {bad} rows lost c_name, c_custkey or c_acctbal")
+        log(f"{label} SF{out[-1]['scale']}: {len(names)} functions over {out[-1]['rows']} rows = the CPU "
+            f"evaluation ({cpu_s:.2f} s on the host) on both paths; walls {wall:.4f} s in process, {swall:.4f} s "
+            f"through run_stages on {card}; launches {launches_of[label]}")
+    return out
+
+
+def functions_phase(torch, cuda_ops, card: str, data, scale: float, n_parts: int, batch_rows: int,
+                    runs: dict) -> tuple:
+    """The functions and aggregates no TPC query uses, on both paths
+    (see the module docstring, step 9).  Returns the launches of each
+    run."""
+    import gc
+
+    from blaze_tpu_torch.tpch import datagen
+
+    # the host functions and the sketches allocate python objects by the
+    # million: keep the collector from rescanning the run's earlier tables
+    # on each of its passes
+    gc.freeze()
+    launches_of: Dict[str, dict] = {}
+    t0 = time.perf_counter()
+    lineitem = datagen.generate_table("lineitem", FN_SCALE)
+    part = datagen.generate_table("part", FN_SCALE)
+    host_tables = {name: datagen.generate_table(name, FN_HOST_SCALE) for name in ("customer", "part")}
+    log(f"functions: lineitem and part SF{FN_SCALE}, customer and part SF{FN_HOST_SCALE} generated in "
+        f"{time.perf_counter() - t0:.2f} s")
+    records = [runtime_filter_run(torch, cuda_ops, card, data, scale, n_parts, batch_rows, runs, launches_of)]
+    records += object_agg_runs(torch, cuda_ops, card, lineitem, part, n_parts, batch_rows, launches_of)
+    records.append(first_run(torch, cuda_ops, card, lineitem, n_parts, batch_rows, launches_of))
+    records += family_runs(torch, cuda_ops, card, lineitem, host_tables, n_parts, batch_rows, launches_of)
+    gc.unfreeze()
+    for rec in records:
+        log("functions " + json.dumps(rec))
+    return launches_of
+
+
 def end_phase(phases: list, name: str) -> None:
     """Notes, and prints, the seconds from the start of the script to the
     end of phase ``name``."""
@@ -2567,6 +3057,10 @@ def main() -> int:
     file_launches, sf1_files = file_phase(torch, cuda_ops, card, data, args.scale, n_parts, batch_rows, workdir)
 
     end_phase(phases, "file scans")
+    # ---- the functions and aggregates no TPC query uses
+    fn_launches = functions_phase(torch, cuda_ops, card, data, args.scale, n_parts, batch_rows, runs)
+
+    end_phase(phases, "functions and object aggs")
     # ---- real null foreign keys through run_stages, and the kernels on them
     null_runs, null_checks = null_key_phase(torch, cuda_ops, flush, card, ds_data, args.ds_scale, n_parts,
                                             batch_rows)
@@ -2666,11 +3160,13 @@ def main() -> int:
             "name": name, "route": "cuda", "source": f"blaze_tpu_torch/csrc/{src}",
             "replaces": f"blaze_tpu/kernels/pallas_ops.py:{line}",
             "launches": sum(run[name] for run in runs.values())
-            + sum(run[name] for label, run in file_launches.items() if not label.endswith("(run_stages)")),
+            + sum(run[name] for label, run in file_launches.items() if not label.endswith("(run_stages)"))
+            + sum(run[name] for label, run in fn_launches.items() if not label.endswith("(run_stages)")),
             "launches_null_keys": {check: run[name] for check, run in null_runs.items()},
             "launches_by_query": {query_label(q): run[name] for q, run in runs.items()},
             "launches_run_stages": {query_label(q): run[name] for q, run in sched_runs.items()},
             "launches_files": {label: run[name] for label, run in file_launches.items()},
+            "launches_functions": {label: run[name] for label, run in fn_launches.items()},
             "shape": r["shape"], "max_abs_err": errs[name], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "device_ms": r.get("device_ms"),
