@@ -6,6 +6,9 @@
   shape buckets; operators here may compute on the live prefix, but
   every batch they emit keeps the padded layout.
 - strings are fixed-width ``(cap, W)`` uint8 rows plus int32 lengths.
+- ARRAY/MAP/STRUCT columns carry child columns in the reference's
+  padded layout (``Column``): arrays and maps hold at most
+  ``max_elems`` elements a row.
 - OPAQUE columns (UDAF states) hold python objects in a numpy object
   array with a CPU validity tensor: they never leave the host, and every
   reshape below moves them on the host beside the device columns.
@@ -77,14 +80,38 @@ def pad_rows(t: torch.Tensor, cap: int) -> torch.Tensor:
     return out
 
 
+def _bcast(mask: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """A row mask (``(cap,)``, or ``(cap, M)`` over an element layout)
+    viewed to broadcast over ``t``'s trailing axes."""
+    return mask.view(tuple(mask.shape) + (1,) * (t.dim() - mask.dim()))
+
+
 @dataclass
 class Column:
-    """data + validity (+ byte lengths for strings)."""
+    """data + validity (+ byte lengths for strings; + children for
+    nested types).
+
+    Nested layouts (≙ ``blaze_tpu/batch.py`` ``Column``: a fixed
+    element budget ``M = dtype.max_elems``, padded):
+
+    - ARRAY(T, M): ``data`` None, ``validity (cap,)`` row validity,
+      ``lengths (cap,)`` int32 element counts, ``children = (elem,)``,
+      a Column of T whose buffers lead with ``(cap, M)``: data
+      ``(cap, M)`` (strings ``(cap, M, W)``), validity ``(cap, M)``
+      element validity, lengths ``(cap, M)`` for strings.
+    - MAP(K, V, M): like ARRAY with ``children = (keys, values)``
+      sharing ``lengths``.
+    - STRUCT: ``data`` None, ``validity (cap,)``, one child Column per
+      field.
+
+    Every buffer at every depth leads with the row axis, so a row
+    gather, pad or slice applies to each alike, recursively."""
 
     dtype: DataType
-    data: torch.Tensor                      # (cap,) or (cap, W) uint8 strings
+    data: Optional[torch.Tensor]            # (cap,), (cap, W) strings, None nested
     validity: torch.Tensor                  # bool (cap,)
-    lengths: Optional[torch.Tensor] = None  # int32 (cap,) strings only
+    lengths: Optional[torch.Tensor] = None  # int32 (cap,): strings, array/map counts
+    children: Optional[Tuple["Column", ...]] = None  # nested types only
 
     @property
     def capacity(self) -> int:
@@ -98,11 +125,17 @@ class Column:
     def is_opaque(self) -> bool:
         return self.dtype.kind == TypeKind.OPAQUE
 
+    def map_buffers(self, fn) -> "Column":
+        """Every buffer (children's included) through ``fn``; None
+        stays None."""
+        f = lambda t: None if t is None else fn(t)
+        return Column(self.dtype, f(self.data), f(self.validity), f(self.lengths),
+                      None if self.children is None else tuple(k.map_buffers(fn) for k in self.children))
+
     def to(self, device: torch.device) -> "Column":
         if self.is_opaque:
             return self  # python objects never leave the host
-        mv = lambda t: None if t is None else t.to(device)
-        return Column(self.dtype, mv(self.data), mv(self.validity), mv(self.lengths))
+        return self.map_buffers(lambda t: t.to(device))
 
     def take(self, idx: torch.Tensor, cap: Optional[int] = None,
              host_idx: Optional[torch.Tensor] = None) -> "Column":
@@ -114,20 +147,56 @@ class Column:
             h = idx.cpu() if host_idx is None else host_idx
             out = Column(self.dtype, self.data[h.numpy()], self.validity.index_select(0, h))
         else:
-            g = lambda t: None if t is None else t.index_select(0, idx)
-            out = Column(self.dtype, g(self.data), g(self.validity), g(self.lengths))
+            out = self.map_buffers(lambda t: t.index_select(0, idx))
         return out if cap is None else out.pad(cap)
 
     def pad(self, cap: int) -> "Column":
         if self.is_opaque:
             return Column(self.dtype, pad_objects(self.data, cap), pad_rows(self.validity, cap))
-        p = lambda t: None if t is None else pad_rows(t, cap)
-        return Column(self.dtype, p(self.data), p(self.validity), p(self.lengths))
+        return self.map_buffers(lambda t: pad_rows(t, cap))
 
     def head(self, n: int) -> "Column":
         """The first ``n`` rows, unpadded (views)."""
-        h = lambda t: None if t is None else t[:n]
-        return Column(self.dtype, h(self.data), h(self.validity), h(self.lengths))
+        return self.rows(0, n)
+
+    def rows(self, lo: int, hi: int) -> "Column":
+        """Rows ``[lo, hi)``, unpadded (views; an opaque column's data
+        is a view of its object array)."""
+        if self.is_opaque:
+            return Column(self.dtype, self.data[lo:hi], self.validity[lo:hi])
+        return self.map_buffers(lambda t: t[lo:hi])
+
+    def mask_rows(self, live: torch.Tensor) -> "Column":
+        """Rows where ``live`` (bool (cap,), or (cap, M) over an element
+        layout) is False become padding: invalid, data and lengths
+        zeroed, at every depth."""
+        zero = lambda t: torch.where(_bcast(live, t), t, torch.zeros((), dtype=t.dtype, device=t.device))
+        return Column(
+            self.dtype,
+            None if self.data is None else zero(self.data),
+            self.validity & _bcast(live, self.validity),
+            None if self.lengths is None else zero(self.lengths),
+            None if self.children is None else tuple(k.mask_rows(live) for k in self.children),
+        )
+
+
+def child_types(dtype: DataType) -> List[DataType]:
+    """A nested type's child column types, in ``children`` order."""
+    if dtype.kind == TypeKind.ARRAY:
+        return [dtype.elem]
+    if dtype.kind == TypeKind.MAP:
+        return [dtype.key, dtype.value]
+    return [f.dtype for f in dtype.struct_fields]
+
+
+def _reshape_leading(col: Column, cap: int, m: int) -> Column:
+    """A flat ``(cap*m, ...)`` column in element layout ``(cap, m, ...)``."""
+    return col.map_buffers(lambda t: t.reshape((cap, m) + tuple(t.shape[1:])))
+
+
+def _flatten_leading(col: Column) -> Column:
+    """Inverse of :func:`_reshape_leading`: ``(cap, m, ...)`` -> ``(cap*m, ...)``."""
+    return col.map_buffers(lambda t: t.reshape((-1,) + tuple(t.shape[2:])))
 
 
 @dataclass
@@ -245,13 +314,17 @@ def column_from_pylist(
     capacity: Optional[int] = None,
     device: Union[None, str, torch.device] = None,
 ) -> Column:
-    """A flat column from python values (None = null): strings and
+    """A column from python values (None = null): strings and
     binaries as str/bytes, decimals as unscaled ints, dates as days
-    since the epoch, opaque columns as any objects (kept on the host)."""
+    since the epoch, opaque columns as any objects (kept on the host);
+    arrays as lists, maps as dicts (insertion-ordered) and structs as
+    dicts keyed by field name."""
     from . import resolve_device
 
     n = len(values)
     cap = capacity or bucket_capacity(n)
+    if dtype.is_nested:
+        return _nested_from_pylist(dtype, values, cap, device)
     if dtype.is_string:
         return column_from_strings(values, capacity=cap, dtype=dtype, device=device)
     validity = np.zeros(cap, np.bool_)
@@ -265,6 +338,38 @@ def column_from_pylist(
     data[:n] = [0 if v is None else v for v in values]
     dev = resolve_device(device)
     return Column(dtype, torch.from_numpy(data).to(dev), torch.from_numpy(validity).to(dev))
+
+
+def _nested_from_pylist(dtype: DataType, values: Sequence, cap: int, device) -> Column:
+    from . import resolve_device
+
+    dev = resolve_device(device)
+    n = len(values)
+    validity = np.zeros(cap, np.bool_)
+    validity[:n] = [v is not None for v in values]
+    if dtype.kind == TypeKind.STRUCT:
+        kids = tuple(
+            column_from_pylist(f.dtype, [None if v is None else v.get(f.name) for v in values], cap, dev)
+            for f in dtype.struct_fields)
+        return Column(dtype, None, torch.from_numpy(validity).to(dev), None, kids)
+    m = dtype.max_elems
+    lengths = np.zeros(cap, np.int32)
+    flats = [[None] * (cap * m) for _ in child_types(dtype)]
+    for i, v in enumerate(values):
+        if v is None:
+            continue
+        items = list(v.items()) if dtype.kind == TypeKind.MAP and isinstance(v, dict) else list(v)
+        if len(items) > m:
+            raise ValueError(f"{dtype.kind.name.lower()} of {len(items)} elements exceeds max_elems {m}")
+        lengths[i] = len(items)
+        for j, e in enumerate(items):
+            if dtype.kind == TypeKind.MAP:
+                flats[0][i * m + j], flats[1][i * m + j] = e
+            else:
+                flats[0][i * m + j] = e
+    kids = tuple(_reshape_leading(column_from_pylist(t, flat, cap * m, dev), cap, m)
+                 for t, flat in zip(child_types(dtype), flats))
+    return Column(dtype, None, torch.from_numpy(validity).to(dev), torch.from_numpy(lengths).to(dev), kids)
 
 
 def batch_from_pydict(
@@ -507,6 +612,8 @@ def column_to_pylist(col: Column, num_rows: int) -> List:
     """Python values of the first ``num_rows`` rows (None = null;
     decimals unscaled, as exact ints)."""
     validity = col.validity[:num_rows].cpu().numpy()
+    if col.dtype.is_nested:
+        return _nested_to_pylist(col, num_rows, validity)
     if col.is_opaque:
         return [col.data[i] if validity[i] else None for i in range(num_rows)]
     data = col.data[:num_rows].cpu().numpy()
@@ -518,6 +625,26 @@ def column_to_pylist(col: Column, num_rows: int) -> List:
         return [None if b is None else b.decode("utf-8", errors="replace") for b in raw]
     conv = bool if col.dtype.kind == TypeKind.BOOL else float if col.dtype.is_float else int
     return [conv(data[i]) if validity[i] else None for i in range(num_rows)]
+
+
+def _nested_to_pylist(col: Column, num_rows: int, validity: np.ndarray) -> List:
+    dtype = col.dtype
+    if dtype.kind == TypeKind.STRUCT:
+        kids = [column_to_pylist(k, num_rows) for k in col.children]
+        return [{f.name: kids[j][i] for j, f in enumerate(dtype.struct_fields)} if validity[i] else None
+                for i in range(num_rows)]
+    m = dtype.max_elems
+    lengths = col.lengths[:num_rows].cpu().numpy()
+    kids = [column_to_pylist(_flatten_leading(k.head(num_rows)), num_rows * m) for k in col.children]
+    out: List = []
+    for i in range(num_rows):
+        if not validity[i]:
+            out.append(None)
+        elif dtype.kind == TypeKind.MAP:
+            out.append({kids[0][i * m + j]: kids[1][i * m + j] for j in range(int(lengths[i]))})
+        else:
+            out.append(kids[0][i * m:i * m + int(lengths[i])])
+    return out
 
 
 def batch_to_pydict(batch: RecordBatch) -> Dict[str, List]:
@@ -533,26 +660,25 @@ def batch_to_pydict(batch: RecordBatch) -> Dict[str, List]:
 
 def concat_columns(parts: Sequence[Column], cap: int) -> Column:
     """Row-concatenate live column prefixes (given by ``Column.head``)
-    into one column padded to ``cap``; string widths merge to the
-    widest part."""
+    into one column padded to ``cap``; string widths (at any depth)
+    merge to the widest part."""
     dtype = parts[0].dtype
     if dtype.kind == TypeKind.OPAQUE:
         return Column(dtype, pad_objects(np.concatenate([p.data for p in parts]), cap),
                       pad_rows(torch.cat([p.validity for p in parts]), cap))
+    cat = lambda ts: pad_rows(torch.cat(ts), cap)
+    lengths = None if parts[0].lengths is None else cat([p.lengths for p in parts])
+    if dtype.is_nested:
+        kids = tuple(concat_columns([p.children[i] for p in parts], cap)
+                     for i in range(len(parts[0].children)))
+        return Column(dtype, None, cat([p.validity for p in parts]), lengths, kids)
     if dtype.is_string:
-        w = max(p.data.shape[1] for p in parts)
-        datas = [
-            p.data if p.data.shape[1] == w
-            else torch.nn.functional.pad(p.data, (0, w - p.data.shape[1]))
-            for p in parts
-        ]
-        data = torch.cat(datas)
-        lengths = pad_rows(torch.cat([p.lengths for p in parts]), cap)
+        w = max(p.data.shape[-1] for p in parts)
+        data = cat([p.data if p.data.shape[-1] == w
+                    else torch.nn.functional.pad(p.data, (0, w - p.data.shape[-1])) for p in parts])
     else:
-        data = torch.cat([p.data for p in parts])
-        lengths = None
-    return Column(dtype, pad_rows(data, cap),
-                  pad_rows(torch.cat([p.validity for p in parts]), cap), lengths)
+        data = cat([p.data for p in parts])
+    return Column(dtype, data, cat([p.validity for p in parts]), lengths)
 
 
 def concat_batches(batches: Sequence[RecordBatch]) -> RecordBatch:
@@ -573,11 +699,4 @@ def concat_batches(batches: Sequence[RecordBatch]) -> RecordBatch:
 def slice_rows(batch: RecordBatch, lo: int, n: int) -> RecordBatch:
     """Rows ``[lo, lo + n)`` re-padded to their own bucket."""
     cap = bucket_capacity(n)
-    cols = [
-        Column(c.dtype, pad_objects(c.data[lo:lo + n], cap), pad_rows(c.validity[lo:lo + n], cap))
-        if c.is_opaque else
-        Column(c.dtype, *(None if t is None else pad_rows(t[lo:lo + n], cap)
-                          for t in (c.data, c.validity, c.lengths)))
-        for c in batch.columns
-    ]
-    return RecordBatch(batch.schema, cols, n)
+    return RecordBatch(batch.schema, [c.rows(lo, lo + n).pad(cap) for c in batch.columns], n)

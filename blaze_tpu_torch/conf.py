@@ -69,3 +69,6 @@ PIPELINE_DEPTH = ConfEntry("spark.blaze.pipeline.depth", 2, int)
 # batch wire format) run arbitrary code when they are decoded: a
 # deployment across a trust boundary sets this false
 ALLOW_PICKLED_UDFS = ConfEntry("spark.blaze.udf.allowPickled", True, _bool)
+# the element budget of a collect_list/collect_set result: the padded
+# layout holds at most this many elements a group, and drops the rest
+COLLECT_MAX_ELEMS = ConfEntry("spark.blaze.collect.maxElems", 64, int)

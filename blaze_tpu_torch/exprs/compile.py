@@ -9,8 +9,11 @@ int128 (``exprs/int128.py``) with HALF_UP rounding and overflow to
 null.  The port lowers column refs, literals, aliases, comparisons,
 AND/OR/NOT, IS [NOT] NULL, ``+ - * / %`` over integers, floats and
 decimals, casts (``exprs/cast.py``), the registered scalar functions
-(``exprs/functions.py``), CASE, IN and LIKE; anything else raises
-``NotImplementedError``.
+(``exprs/functions.py``), CASE, IN and LIKE, and the nested accessors
+(an array's element at a literal index, a map's value at a literal key,
+a struct's field, ``named_struct``; ≙ the reference's
+``_lower_get_indexed``/``_lower_get_map_value``, the same 0-based index
+and null rules); anything else raises ``NotImplementedError``.
 
 A LIKE pattern with ``_`` or with more than one inner segment has no
 device form, and neither have the host functions and the JSON functions
@@ -35,6 +38,7 @@ import torch
 from ..batch import Column, torch_dtype
 from ..schema import (
     DataType,
+    Field,
     Schema,
     TypeKind,
     decimal_add_type,
@@ -45,7 +49,10 @@ from ..schema import (
 from . import int128 as I
 from . import strings as S
 from .cast import decimal_overflow_null, decimal_to_float, lower_cast, rescale_decimal
-from .ir import Alias, BinOp, Case, Cast, Col, Expr, InList, IsNotNull, IsNull, Like, Lit, Not, ScalarFunc
+from .ir import (
+    Alias, BinOp, Case, Cast, Col, Expr, GetIndexedField, GetMapValue, GetStructField, InList, IsNotNull, IsNull,
+    Like, Lit, NamedStruct, Not, ScalarFunc,
+)
 
 _RANK = {
     TypeKind.INT8: 0,
@@ -149,6 +156,26 @@ def infer_dtype(expr: Expr, schema: Schema) -> DataType:
         if expr.else_ is not None:
             t = _common_type(t, infer_dtype(expr.else_, schema))
         return t
+    if isinstance(expr, GetIndexedField):
+        t = infer_dtype(expr.child, schema)
+        if t.kind != TypeKind.ARRAY:
+            raise TypeError(f"get_item over {t!r}")
+        return t.elem
+    if isinstance(expr, GetMapValue):
+        t = infer_dtype(expr.child, schema)
+        if t.kind != TypeKind.MAP:
+            raise TypeError(f"map_value over {t!r}")
+        return t.value
+    if isinstance(expr, GetStructField):
+        t = infer_dtype(expr.child, schema)
+        if t.kind != TypeKind.STRUCT:
+            raise TypeError(f"get_field over {t!r}")
+        for f in t.struct_fields:
+            if f.name == expr.name:
+                return f.dtype
+        raise KeyError(f"no struct field {expr.name!r} in {t!r}")
+    if isinstance(expr, NamedStruct):
+        return DataType.struct([Field(nm, infer_dtype(e, schema)) for nm, e in zip(expr.names, expr.exprs)])
     raise NotImplementedError(f"type of {type(expr).__name__}")
 
 
@@ -172,6 +199,8 @@ def _coerce(col: Column, to: DataType) -> Column:
     if col.dtype == to:
         return col
     n, dev = col.capacity, col.device
+    if col.dtype.kind == TypeKind.NULL and to.is_nested:
+        return null_nested_column(to, (n,), dev)
     if col.dtype.kind == TypeKind.NULL:
         zeros_b = torch.zeros(n, dtype=torch.bool, device=dev)
         if to.is_string:
@@ -240,6 +269,24 @@ def _lit_column(value, dtype: DataType, n: int, device: torch.device,
 def null_column(dtype: DataType, n: int, device: torch.device) -> Column:
     """An all-null column of ``n`` rows."""
     return _lit_column(None, dtype, n, device)
+
+
+def null_nested_column(dtype: DataType, shape: tuple, device: torch.device) -> Column:
+    """An all-null column of any type whose buffers lead with ``shape``
+    (an element layout adds an axis at each ARRAY/MAP level)."""
+    zeros_b = torch.zeros(shape, dtype=torch.bool, device=device)
+    if dtype.kind in (TypeKind.ARRAY, TypeKind.MAP):
+        inner = shape + (dtype.max_elems,)
+        kids = [dtype.elem] if dtype.kind == TypeKind.ARRAY else [dtype.key, dtype.value]
+        return Column(dtype, None, zeros_b, torch.zeros(shape, dtype=torch.int32, device=device),
+                      tuple(null_nested_column(k, inner, device) for k in kids))
+    if dtype.kind == TypeKind.STRUCT:
+        return Column(dtype, None, zeros_b, None,
+                      tuple(null_nested_column(f.dtype, shape, device) for f in dtype.struct_fields))
+    if dtype.is_string:
+        return Column(dtype, torch.zeros(shape + (dtype.string_width,), dtype=torch.uint8, device=device),
+                      zeros_b, torch.zeros(shape, dtype=torch.int32, device=device))
+    return Column(dtype, torch.zeros(shape, dtype=torch_dtype(dtype), device=device), zeros_b)
 
 
 def _decimal_binop(op: str, l: Column, r: Column) -> Column:
@@ -439,7 +486,72 @@ def lower(expr: Expr, schema: Schema, cols: Dict[str, Column], n: int) -> Column
         return _lower_like(expr, schema, cols, n)
     if isinstance(expr, Case):
         return _lower_case(expr, schema, cols, n)
+    if isinstance(expr, GetIndexedField):
+        return _lower_get_indexed(expr, schema, cols, n)
+    if isinstance(expr, GetMapValue):
+        return _lower_get_map_value(expr, schema, cols, n)
+    if isinstance(expr, GetStructField):
+        c = lower(expr.child, schema, cols, n)
+        kid = c.children[[f.name for f in c.dtype.struct_fields].index(expr.name)]
+        return Column(kid.dtype, kid.data, kid.validity & c.validity, kid.lengths, kid.children)
+    if isinstance(expr, NamedStruct):
+        kids = tuple(lower(e, schema, cols, n) for e in expr.exprs)
+        return Column(infer_dtype(expr, schema), None, torch.ones_like(kids[0].validity), None, kids)
     raise NotImplementedError(f"lowering of {type(expr).__name__}")
+
+
+def elem_at(elem: Column, i: int) -> Column:
+    """Element ``i`` of every row of an element-layout column
+    (``(cap, M, ...)`` buffers -> ``(cap, ...)``)."""
+    return elem.map_buffers(lambda t: t[:, i])
+
+
+def elem_gather(elem: Column, idx: torch.Tensor) -> Column:
+    """Per row ``r``, element ``idx[r]`` of an element-layout column."""
+    def g(t):
+        ix = idx.to(torch.int64).view((-1, 1) + (1,) * (t.dim() - 2))
+        return torch.gather(t, 1, ix.expand((t.shape[0], 1) + tuple(t.shape[2:]))).squeeze(1)
+
+    return elem.map_buffers(g)
+
+
+def _lower_get_indexed(expr: GetIndexedField, schema: Schema, cols: Dict[str, Column], n: int) -> Column:
+    """The element at a literal 0-based index: null where the array is
+    null, shorter than the index, or its element is null; an index
+    outside ``[0, M)`` is null everywhere."""
+    c = lower(expr.child, schema, cols, n)
+    i = expr.index
+    if i < 0 or i >= c.dtype.max_elems:
+        return null_nested_column(c.dtype.elem, (c.capacity,), c.device)
+    out = elem_at(c.children[0], i)
+    valid = c.validity & (c.lengths > i) & out.validity
+    return Column(out.dtype, out.data, valid, out.lengths, out.children)
+
+
+def _lower_get_map_value(expr: GetMapValue, schema: Schema, cols: Dict[str, Column], n: int) -> Column:
+    """The value at the first key equal to a literal key; null where the
+    map is null, the key absent or its value null."""
+    c = lower(expr.child, schema, cols, n)
+    keys, vals = c.children
+    m = c.dtype.max_elems
+    within = (torch.arange(m, device=c.device)[None, :] < c.lengths[:, None]) & keys.validity
+    if c.dtype.key.is_string:
+        kb = expr.key.encode("utf-8") if isinstance(expr.key, str) else bytes(expr.key)
+        w = keys.data.shape[-1]
+        if len(kb) > w:
+            eq = torch.zeros_like(within)
+        else:
+            pat = np.zeros(w, np.uint8)
+            pat[:len(kb)] = np.frombuffer(kb, np.uint8)
+            eq = (keys.data == torch.from_numpy(pat).to(c.device)).all(-1) & (keys.lengths == len(kb))
+    else:
+        key = _lit_column(expr.key, c.dtype.key, 1, c.device)
+        eq = keys.data == key.data[0]
+    hit = eq & within
+    found = hit.any(1)
+    out = elem_gather(vals, hit.to(torch.int8).argmax(1))
+    valid = c.validity & found & out.validity
+    return Column(out.dtype, out.data, valid, out.lengths, out.children)
 
 
 def _lower_in(expr: InList, schema: Schema, cols: Dict[str, Column], n: int) -> Column:
@@ -508,6 +620,10 @@ def expr_children(expr: Expr) -> List[Expr]:
         return out + ([] if expr.else_ is None else [expr.else_])
     if isinstance(expr, ScalarFunc):
         return list(expr.args)
+    if isinstance(expr, (GetIndexedField, GetMapValue, GetStructField)):
+        return [expr.child]
+    if isinstance(expr, NamedStruct):
+        return list(expr.exprs)
     return []
 
 

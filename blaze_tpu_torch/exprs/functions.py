@@ -10,10 +10,12 @@ decimal interop, hashes and ``might_contain``.  The long tail
 runs per row in python on the host, as in the reference;
 ``compile.lower`` evaluates such a call one batch at a time wherever it
 stands in an expression, and so it does the JSON functions
-(``exprs/json_path.py``).  What needs nested columns (``make_array``,
+(``exprs/json_path.py``).  The nested functions (``make_array``,
 ``size``/``cardinality``, ``map_keys``, ``map_values``,
-``array_contains``, ``array_union``/``brickhouse_array_union``,
-``split``) waits for them; an unknown name raises, naming it.
+``array_contains``, ``array_union``/``brickhouse_array_union``) run on
+the device over the padded element layout; ``split`` runs on the host
+and keeps at most 16 parts, as in the reference.  An unknown name
+raises, naming it.
 """
 
 from __future__ import annotations
@@ -759,6 +761,149 @@ def _unix_timestamp(expr, schema, cols, n, lower_fn):
     return Column(DataType.int64(), secs, c.validity)
 
 
+# --------------------------------------------------------------- nested
+
+
+def _make_array_t(e, ts):
+    from .compile import _common_type
+
+    t = DataType.null()
+    for a in ts:
+        t = _common_type(t, a)
+    if t.kind == TypeKind.NULL:
+        t = DataType.int32()
+    return DataType.array(t, max(1, len(ts)))
+
+
+def _stack_elems(cols) -> Column:
+    """Columns of one type as the elements of k-element rows: every
+    buffer stacked along a new element axis."""
+    first = cols[0]
+    st = lambda get: None if get(first) is None else torch.stack([get(c) for c in cols], 1)
+    kids = None
+    if first.children is not None:
+        kids = tuple(_stack_elems([c.children[i] for c in cols]) for i in range(len(first.children)))
+    return Column(first.dtype, st(lambda c: c.data), st(lambda c: c.validity), st(lambda c: c.lengths), kids)
+
+
+@register("make_array", _make_array_t)
+def _make_array(expr, schema, cols, n, lower_fn):
+    """``make_array(e1, ..., ek)``: k-element arrays, never null; a null
+    argument is a null element (Spark's CreateArray)."""
+    from .compile import _coerce, infer_dtype
+
+    out_t = _make_array_t(expr, [infer_dtype(a, schema) for a in expr.args])
+    elems = [_coerce(lower_fn(a, schema, cols, n), out_t.elem) for a in expr.args]
+    if out_t.elem.is_string:
+        w = out_t.elem.string_width
+        elems = [Column(e.dtype, _fit_width(e.data, w), e.validity, e.lengths) for e in elems]
+    dev = elems[0].validity.device
+    return Column(out_t, None, torch.ones(n, dtype=torch.bool, device=dev),
+                  torch.full((n,), len(expr.args), dtype=torch.int32, device=dev), (_stack_elems(elems),))
+
+
+@register("size", _int32_t)
+@register("cardinality", _int32_t)
+def _size(expr, schema, cols, n, lower_fn):
+    """The element count of an array or map; -1 for a null one (Spark's
+    ``spark.sql.legacy.sizeOfNull``, as in the reference)."""
+    c = lower_fn(expr.args[0], schema, cols, n)
+    if c.dtype.kind not in (TypeKind.ARRAY, TypeKind.MAP):
+        raise TypeError(f"size over {c.dtype!r}")
+    return Column(DataType.int32(), torch.where(c.validity, c.lengths, -1).to(torch.int32),
+                  torch.ones_like(c.validity))
+
+
+def _map_keys_t(e, ts):
+    return DataType.array(ts[0].key, ts[0].max_elems)
+
+
+def _map_values_t(e, ts):
+    return DataType.array(ts[0].value, ts[0].max_elems)
+
+
+@register("map_keys", _map_keys_t)
+def _map_keys(expr, schema, cols, n, lower_fn):
+    c = lower_fn(expr.args[0], schema, cols, n)
+    return Column(_map_keys_t(expr, [c.dtype]), None, c.validity, c.lengths, (c.children[0],))
+
+
+@register("map_values", _map_values_t)
+def _map_values(expr, schema, cols, n, lower_fn):
+    c = lower_fn(expr.args[0], schema, cols, n)
+    return Column(_map_values_t(expr, [c.dtype]), None, c.validity, c.lengths, (c.children[1],))
+
+
+@register("array_contains", lambda e, ts: DataType.bool_())
+def _array_contains(expr, schema, cols, n, lower_fn):
+    """True where an element equals the value; null where the array or
+    the value is null, or where no element matches and one is null
+    (Spark's three-valued ArrayContains)."""
+    from .compile import _coerce
+
+    c = lower_fn(expr.args[0], schema, cols, n)
+    elem = c.children[0]
+    m = c.dtype.max_elems
+    needle = _coerce(lower_fn(expr.args[1], schema, cols, n), c.dtype.elem)
+    in_bounds = torch.arange(m, device=c.device)[None, :] < c.lengths[:, None]
+    has_null = (in_bounds & ~elem.validity).any(1)
+    if c.dtype.elem.is_string:
+        w = max(elem.data.shape[-1], needle.data.shape[-1])
+        ed = torch.nn.functional.pad(elem.data, (0, w - elem.data.shape[-1]))
+        nd = _fit_width(needle.data, w)
+        eq = (ed == nd[:, None, :]).all(-1) & (elem.lengths == needle.lengths[:, None])
+    else:
+        eq = elem.data == needle.data[:, None]
+    hit = (eq & in_bounds & elem.validity).any(1)
+    return Column(DataType.bool_(), hit, c.validity & needle.validity & (hit | ~has_null))
+
+
+def _array_union_t(e, ts):
+    return DataType.array(ts[0].elem, ts[0].max_elems + ts[1].max_elems)
+
+
+@register("brickhouse_array_union", _array_union_t)
+@register("array_union", _array_union_t)
+def _array_union(expr, schema, cols, n, lower_fn):
+    """The distinct elements of two arrays, a budget of both arrays'
+    (≙ the reference's: a's elements, then b's, deduplicated by
+    ``ops.agg.dedup_array_state``); null where either array is null."""
+    from ..ops.agg import dedup_array_state
+
+    a = lower_fn(expr.args[0], schema, cols, n)
+    b = lower_fn(expr.args[1], schema, cols, n)
+    out_t = _array_union_t(expr, [a.dtype, b.dtype])
+    m, ma = out_t.max_elems, a.dtype.max_elems
+    la = torch.where(a.validity, a.lengths, 0)
+    lb = torch.where(b.validity, b.lengths, 0)
+    pos = torch.arange(m, device=a.device)[None, :]
+    from_b = pos >= la[:, None]
+    # slot j holds a's element j below a's length, else b's element j - la
+    src = torch.where(from_b, ma + (pos - la[:, None]).clamp(0, m - ma - 1), pos.clamp(max=ma - 1))
+
+    def merged(ta, tb):
+        if ta is None:
+            return None
+        if tb.shape[2:] != ta.shape[2:]:  # string widths
+            w = max(ta.shape[-1], tb.shape[-1])
+            ta = torch.nn.functional.pad(ta, (0, w - ta.shape[-1]))
+            tb = torch.nn.functional.pad(tb, (0, w - tb.shape[-1]))
+        cat = torch.cat([ta, tb], 1)
+        ix = src.view(src.shape + (1,) * (cat.dim() - 2)).expand((cat.shape[0], m) + tuple(cat.shape[2:]))
+        return torch.gather(cat, 1, ix)
+
+    def zip_cols(ca: Column, cb: Column) -> Column:
+        return Column(ca.dtype, merged(ca.data, cb.data), merged(ca.validity, cb.validity),
+                      merged(ca.lengths, cb.lengths),
+                      None if ca.children is None else tuple(zip_cols(x, y) for x, y in zip(ca.children, cb.children)))
+
+    elem = zip_cols(a.children[0], b.children[0])
+    total = la + lb
+    elem = Column(elem.dtype, elem.data, elem.validity & (pos < total[:, None]), elem.lengths, elem.children)
+    merged_col = Column(out_t, None, a.validity & b.validity, total.to(torch.int32), (elem,))
+    return dedup_array_state(merged_col)
+
+
 # ------------------------------------------------- JSON (host-evaluated)
 
 
@@ -978,6 +1123,20 @@ def _to_hex(x):
     return format(int(x) & 0xFFFFFFFFFFFFFFFF, "X")
 
 
+@register_host("split", lambda e, ts: DataType.array(DataType.string(ts[0].string_width), 16))
+def _split(s, pattern, limit=-1):
+    """Spark's ``split(str, regex[, limit])``; at most 16 parts (the
+    result's element budget, as in the reference): more are cut, with a
+    warning."""
+    import re
+
+    limit = int(limit)
+    parts = re.split(pattern, s) if limit <= 0 else re.split(pattern, s, maxsplit=limit - 1)
+    if len(parts) > 16:
+        logging.getLogger(__name__).warning("split: %d parts truncated to the 16-element array budget", len(parts))
+    return parts[:16]
+
+
 @register_host("split_part", _str_same_t)
 def _split_part(s, delim, idx):
     parts = s.split(delim)
@@ -1075,9 +1234,7 @@ def host_function(expr: ScalarFunc, schema: Schema, cols: Dict[str, Column], n: 
     small = column_from_pylist(out_t, out, capacity=max(k, 1), device=device)
 
     def scatter(t):
-        if t is None:
-            return None
         full = torch.zeros((cap,) + tuple(t.shape[1:]), dtype=t.dtype, device=device)
         return full.index_copy_(0, idx, t[:k])
 
-    return Column(out_t, scatter(small.data), scatter(small.validity), scatter(small.lengths))
+    return small.map_buffers(scatter)

@@ -59,6 +59,15 @@ class Expr:
     def alias(self, name: str) -> "Expr":
         return Alias(self, name)
 
+    def get_item(self, index: int) -> "Expr":
+        return GetIndexedField(self, index)
+
+    def map_value(self, key) -> "Expr":
+        return GetMapValue(self, key)
+
+    def get_field(self, name: str) -> "Expr":
+        return GetStructField(self, name)
+
 
 @dataclass(eq=False)
 class Col(Expr):
@@ -144,6 +153,39 @@ class ScalarFunc(Expr):
 
     name: str
     args: List[Expr]
+
+
+@dataclass(eq=False)
+class GetIndexedField(Expr):
+    """``array[index]``, a literal 0-based index (Spark's GetArrayItem):
+    null past the row's length or the type's budget."""
+
+    child: Expr
+    index: int
+
+
+@dataclass(eq=False)
+class GetMapValue(Expr):
+    """``map[key]`` for a literal key: null where the key is absent."""
+
+    child: Expr
+    key: Any
+
+
+@dataclass(eq=False)
+class GetStructField(Expr):
+    """``struct.field`` by name: null where the struct is null."""
+
+    child: Expr
+    name: str
+
+
+@dataclass(eq=False)
+class NamedStruct(Expr):
+    """``named_struct(n1, e1, ...)``: never null."""
+
+    names: List[str]
+    exprs: List[Expr]
 
 
 def _wrap(v) -> Expr:

@@ -17,11 +17,16 @@
   base / delta), DIRECT_V2 and DICTIONARY(_V2) strings.  Stripe
   statistics drive predicate pruning (``ops/orc_scan.py``).
   ``read_stripe`` decodes only the columns it is asked for.
-- LIST/MAP/STRUCT fields: the file's type tree is read, so a nested
-  field is named by its type and the flat fields beside it read
-  normally, but a nested field is never decoded (the port's batches
-  have no nested columns): asking for one raises
-  ``NotImplementedError``, as writing one does.
+- LIST/MAP/STRUCT fields (≙ the reference's): a LIST of a fixed-width
+  type reads on a vectorized path (LENGTH stream + the child's
+  PRESENT/DATA), rectangularized to the declared ``max_elems`` (a
+  longer list raises); MAP, STRUCT, nested LIST and LIST of strings
+  read through a recursive python-value decoder.  ``read_stripe``
+  returns a nested field as an ``io.batch_serde.HostNested``.  The
+  writer mirrors them: a LIST of a fixed-width type as
+  ``(None, validity, lengths, (elem_data, elem_validity))``, the
+  others as python values per row (``batch_to_pydict``'s shape:
+  decimals unscaled ints, dates days), through a recursive encoder.
 - ZSTD raises :class:`MissingCodecError` both ways (no zstd codec in
   the port).
 
@@ -683,6 +688,78 @@ def _encode_column(
     return streams
 
 
+def _encode_list_column(col_id: int, dtype: DataType, validity: np.ndarray, lengths: np.ndarray,
+                        edata: np.ndarray, evalid: np.ndarray) -> List[_Stream]:
+    """A LIST of a fixed-width type: LENGTH at the list column, the
+    live elements' PRESENT/DATA at ``col_id + 1`` (its child's preorder
+    id)."""
+    if dtype.elem.is_nested or dtype.elem.is_string:
+        raise NotImplementedError(f"ORC subset writer: {dtype!r}")
+    streams: List[_Stream] = []
+    live = validity.astype(bool)
+    if not bool(live.all()):
+        streams.append(_Stream(S_PRESENT, col_id, _bool_encode(validity)))
+    streams.append(_Stream(S_LENGTH, col_id, _rlev1_encode(lengths[live].astype(np.int64), signed=False)))
+    within = (np.arange(edata.shape[1])[None, :] < lengths[:, None]) & live[:, None]
+    streams.extend(_encode_column(col_id + 1, dtype.elem, edata[within], evalid[within], None))
+    return streams
+
+
+def _type_size(dt: DataType) -> int:
+    """The preorder type-tree slots a type takes."""
+    if dt.kind == TypeKind.ARRAY:
+        return 1 + _type_size(dt.elem)
+    if dt.kind == TypeKind.MAP:
+        return 1 + _type_size(dt.key) + _type_size(dt.value)
+    if dt.kind == TypeKind.STRUCT:
+        return 1 + sum(_type_size(f.dtype) for f in dt.struct_fields)
+    return 1
+
+
+def _is_compound(dt: DataType) -> bool:
+    """Columns on the recursive python-value path, writer and reader
+    alike: maps, structs, and lists of nested or string elements."""
+    return dt.kind in (TypeKind.MAP, TypeKind.STRUCT) or (
+        dt.kind == TypeKind.ARRAY and (dt.elem.is_nested or dt.elem.is_string))
+
+
+def _encode_pyvalues(col_id: int, dtype: DataType, vals: list, counts: Dict[int, Tuple[int, bool]]) -> List[_Stream]:
+    """A compound column from python values (None, a list per ARRAY,
+    a dict per MAP/STRUCT; decimals unscaled): a PRESENT stream at each
+    level, the children one entry per live parent slot (per element
+    for LIST/MAP)."""
+    streams: List[_Stream] = []
+    validity = np.array([v is not None for v in vals], bool)
+    live = [v for v in vals if v is not None]
+    counts[col_id] = (len(live), len(live) < len(vals))
+    if not bool(validity.all()):
+        streams.append(_Stream(S_PRESENT, col_id, _bool_encode(validity)))
+    k = dtype.kind
+    if k in (TypeKind.ARRAY, TypeKind.MAP):
+        ln = np.array([len(v) for v in live], np.int64)
+        streams.append(_Stream(S_LENGTH, col_id, _rlev1_encode(ln, signed=False)))
+        if k == TypeKind.ARRAY:
+            return streams + _encode_pyvalues(col_id + 1, dtype.elem, [e for v in live for e in v], counts)
+        streams += _encode_pyvalues(col_id + 1, dtype.key, [e for v in live for e in v.keys()], counts)
+        return streams + _encode_pyvalues(col_id + 1 + _type_size(dtype.key), dtype.value,
+                                          [e for v in live for e in v.values()], counts)
+    if k == TypeKind.STRUCT:
+        sub = col_id + 1
+        for f in dtype.struct_fields:
+            streams += _encode_pyvalues(sub, f.dtype, [v.get(f.name) for v in live], counts)
+            sub += _type_size(f.dtype)
+        return streams
+    if dtype.is_string:
+        bodies = [s.encode() if isinstance(s, str) else bytes(s) for s in live]
+        streams.append(_Stream(S_LENGTH, col_id, _rlev1_encode(np.array([len(b) for b in bodies], np.int64),
+                                                             signed=False)))
+        streams.append(_Stream(S_DATA, col_id, b"".join(bodies)))
+        return streams
+    data = np.array(live, dtype.np_dtype) if live else np.zeros(0, dtype.np_dtype)
+    body = _encode_column(col_id, dtype, data, np.ones(len(live), bool), None)
+    return streams + body
+
+
 def _col_stats(dtype: DataType, data, validity, lengths) -> "PbWriter":
     w = PbWriter()
     live = validity.astype(bool)
@@ -717,6 +794,14 @@ def _col_stats(dtype: DataType, data, validity, lengths) -> "PbWriter":
     return w
 
 
+def _count_stats(nvals: int, had_null: bool) -> bytes:
+    """A column's statistics with its value count and null flag only."""
+    w = PbWriter()
+    w.varint(1, nvals)
+    w.varint(10, 1 if had_null else 0)
+    return w.getvalue()
+
+
 def write_orc(
     path: str,
     schema: Schema,
@@ -725,22 +810,27 @@ def write_orc(
     compression: str = "none",
 ) -> None:
     """columns: name -> (data, validity|None, lengths|None for strings);
-    a nested field raises ``NotImplementedError``.
+    a LIST of a fixed-width type: ``(None, validity|None, lengths,
+    (elem_data (rows, M), elem_validity (rows, M)))``; MAP, STRUCT and
+    other LIST fields: python values, one per row.
     ``compression``: "none", "zlib" (Spark's ORC default), "zstd",
     "snappy", or "lz4" — every stream, stripe footer, Metadata and
     Footer region gets the chunked [u24 header][block] framing; the
     PostScript stays raw."""
     comp_kind = {"none": C_NONE, "zlib": C_ZLIB, "zstd": C_ZSTD,
                  "snappy": C_SNAPPY, "lz4": C_LZ4}[compression]
-    for fld in schema.fields:
-        if fld.dtype.is_nested:
-            raise NotImplementedError(f"ORC writer: nested field {fld.name!r} ({fld.dtype.kind.name} {fld.dtype!r})")
-    n = next(iter(columns.values()))[0].shape[0]
+    first = schema.fields[0]
+    any_col = columns[first.name]
+    n = (len(any_col) if _is_compound(first.dtype) else any_col[2].shape[0] if first.dtype.kind == TypeKind.ARRAY
+         else any_col[0].shape[0])
     from .fs import get_fs
 
-    # preorder type ids: root = 0, then one per flat field
-    field_type_ids = list(range(1, len(schema.fields) + 1))
-    total_type_ids = len(schema.fields) + 1
+    # preorder type ids: root = 0; a nested field takes a slot per node
+    field_type_ids: List[int] = []
+    total_type_ids = 1
+    for fld in schema.fields:
+        field_type_ids.append(total_type_ids)
+        total_type_ids += _type_size(fld.dtype)
 
     with get_fs(path).create(path) as f:
         f.write(MAGIC)
@@ -759,10 +849,26 @@ def write_orc(
             root.varint(10, 0)
             stats_msgs.append(root.getvalue())
             for ci, fld in zip(field_type_ids, schema.fields):
+                sl = slice(start, start + rows)
+                if _is_compound(fld.dtype):
+                    counts: Dict[int, Tuple[int, bool]] = {}
+                    streams.extend(_encode_pyvalues(ci, fld.dtype, list(columns[fld.name][sl]), counts))
+                    for slot in range(ci, ci + _type_size(fld.dtype)):
+                        stats_msgs.append(_count_stats(*counts.get(slot, (0, False))))
+                    continue
+                if fld.dtype.kind == TypeKind.ARRAY:
+                    _, validity, lengths, (edata, evalid) = columns[fld.name]
+                    if validity is None:
+                        validity = np.ones(lengths.shape[0], bool)
+                    v, ln, ev = validity[sl], lengths[sl], evalid[sl]
+                    streams.extend(_encode_list_column(ci, fld.dtype, v, ln, edata[sl], ev))
+                    within = (np.arange(ev.shape[1])[None, :] < ln[:, None]) & v[:, None]
+                    stats_msgs.append(_count_stats(int(v.sum()), not bool(v.all())))
+                    stats_msgs.append(_count_stats(int((within & ev).sum()), bool((within & ~ev).any())))
+                    continue
                 data, validity, lengths = columns[fld.name]
                 if validity is None:
                     validity = np.ones(data.shape[0], bool)
-                sl = slice(start, start + rows)
                 d, v = data[sl], validity[sl]
                 ln = None if lengths is None else lengths[sl]
                 streams.extend(_encode_column(ci, fld.dtype, d, v, ln))
@@ -824,13 +930,45 @@ def write_orc(
             root_t.string(3, fld.name)
         ft.msg(4, root_t)
 
-        for fld in schema.fields:
+        def emit_type(dt: DataType, tid: int) -> None:
             t = PbWriter()
-            t.varint(1, _orc_kind(fld.dtype))
-            if fld.dtype.is_decimal:
-                t.varint(5, fld.dtype.precision)
-                t.varint(6, fld.dtype.scale)
+            if dt.kind == TypeKind.ARRAY:
+                t.varint(1, K_LIST)
+                t.varint(2, tid + 1)
+                ft.msg(4, t)
+                emit_type(dt.elem, tid + 1)
+                return
+            if dt.kind == TypeKind.MAP:
+                kid, vid = tid + 1, tid + 1 + _type_size(dt.key)
+                t.varint(1, K_MAP)
+                t.varint(2, kid)
+                t.varint(2, vid)
+                ft.msg(4, t)
+                emit_type(dt.key, kid)
+                emit_type(dt.value, vid)
+                return
+            if dt.kind == TypeKind.STRUCT:
+                t.varint(1, K_STRUCT)
+                subs = []
+                sub = tid + 1
+                for f2 in dt.struct_fields:
+                    subs.append(sub)
+                    t.varint(2, sub)
+                    sub += _type_size(f2.dtype)
+                for f2 in dt.struct_fields:
+                    t.string(3, f2.name)
+                ft.msg(4, t)
+                for f2, s2 in zip(dt.struct_fields, subs):
+                    emit_type(f2.dtype, s2)
+                return
+            t.varint(1, _orc_kind(dt))
+            if dt.is_decimal:
+                t.varint(5, dt.precision)
+                t.varint(6, dt.scale)
             ft.msg(4, t)
+
+        for tid, fld in zip(field_type_ids, schema.fields):
+            emit_type(fld.dtype, tid)
         ft.varint(6, n)  # numberOfRows
         ft_bytes = orc_compress(ft.getvalue(), comp_kind)
         f.write(ft_bytes)
@@ -870,6 +1008,9 @@ class OrcFileMeta:
     # per top-level field: its column id in the flattened type tree
     # (flat files: 1..n; a nested field's children take ids after it)
     field_ids: List[int] = None
+    # type id -> (kind, subtype ids): the whole type tree, to walk
+    # nested columns
+    type_tree: dict = None
 
 
 def _decode_type(b: bytes) -> Tuple[int, List[int], List[str], int, int]:
@@ -1013,10 +1154,13 @@ def read_metadata(path: str, list_elems: int = 16, string_width: int = 64) -> Or
             return _KIND_TO_DTYPE[kind]
         raise NotImplementedError(f"ORC subset: type kind {kind}")
 
+    type_tree: dict = {}
+
     def full_dtype(tid: int) -> DataType:
-        """The field's type, nested types too, so that a nested field is
-        named by its type when it is asked for."""
+        """The field's type, nested types too (every ARRAY and MAP with
+        the ``list_elems`` budget)."""
         kind, subs, cnames, precision, scale = _decode_type(types[tid])
+        type_tree[tid] = (kind, list(subs))
         if kind == K_LIST:
             return DataType.array(full_dtype(subs[0]), list_elems)
         if kind == K_MAP:
@@ -1044,7 +1188,7 @@ def read_metadata(path: str, list_elems: int = 16, string_width: int = 64) -> Or
             for ci, fld in zip(field_ids, schema.fields):
                 if ci < len(cols):
                     st.stats[fld.name] = _decode_col_stats(cols[ci])
-    return OrcFileMeta(schema, stripes, num_rows, compression, field_ids=field_ids)
+    return OrcFileMeta(schema, stripes, num_rows, compression, field_ids=field_ids, type_tree=type_tree)
 
 
 S_ROW_INDEX, S_BLOOM_FILTER, S_BLOOM_FILTER_UTF8 = 6, 7, 8
@@ -1076,10 +1220,12 @@ def _varint_stream_decode(raw: bytes, nvals: int) -> np.ndarray:
 def read_stripe(
     path: str, meta: OrcFileMeta, stripe: StripeInfo, columns: Optional[Sequence[str]] = None,
 ) -> Dict[str, Tuple[np.ndarray, np.ndarray, Optional[np.ndarray]]]:
-    """name -> (data, validity, lengths|None) of the flat ``columns``
+    """name -> (data, validity, lengths|None) of the ``columns``
     (default: every field of the file); strings return (rows, W) uint8
-    data at the column's declared width.  A nested field among them
-    raises ``NotImplementedError`` naming its type.
+    data at the column's declared width.  A LIST of a fixed-width type
+    returns ``(None, validity, lengths, (elem_data, elem_validity))``
+    at the type's ``max_elems``; a MAP, STRUCT or other LIST returns
+    ``("py", values)``, python values per row (decimals unscaled).
 
     Handles DIRECT (RLEv1) and DIRECT_V2 (RLEv2) integer encodings,
     DICTIONARY(_V2) strings, and per-stream compressed framing."""
@@ -1130,6 +1276,102 @@ def read_stripe(
             return _rlev2_decode(raw, nvals, signed)
         return _rlev1_decode(raw, nvals, signed)
 
+    tree = meta.type_tree or {}
+
+    def decode_nested(tid: int, dtype: DataType, count: int) -> list:
+        """Python values of a compound column: each level has its own
+        PRESENT stream; a child holds one entry per live parent slot
+        (per element for LIST/MAP)."""
+        encn, dsz = encodings[tid] if tid < len(encodings) else (E_DIRECT, 0)
+        valid = (_bool_decode(dec(tid, S_PRESENT), count) if S_PRESENT in per_col.get(tid, {})
+                 else np.ones(count, bool))
+        nv = int(valid.sum())
+        k = dtype.kind
+
+        def scatter(vals) -> list:
+            it = iter(vals)
+            return [next(it) if ok else None for ok in valid]
+
+        def runs(items, ln):
+            ends = np.cumsum(ln)
+            return [items[int(e - L):int(e)] for e, L in zip(ends, ln)]
+
+        if k in (TypeKind.ARRAY, TypeKind.MAP):
+            ln = int_decode(dec(tid, S_LENGTH), nv, False, encn)
+            total = int(ln.sum())
+            subs = tree[tid][1]
+            if k == TypeKind.ARRAY:
+                return scatter(runs(decode_nested(subs[0], dtype.elem, total), ln))
+            keys = runs(decode_nested(subs[0], dtype.key, total), ln)
+            vals = runs(decode_nested(subs[1], dtype.value, total), ln)
+            return scatter(dict(zip(a, b)) for a, b in zip(keys, vals))
+        if k == TypeKind.STRUCT:
+            kids = [decode_nested(s2, f2.dtype, nv) for s2, f2 in zip(tree[tid][1], dtype.struct_fields)]
+            return scatter({f2.name: kid[j] for f2, kid in zip(dtype.struct_fields, kids)} for j in range(nv))
+        if dtype.is_string:
+            if encn in (E_DICTIONARY, E_DICTIONARY_V2):
+                dlen = int_decode(dec(tid, S_LENGTH), dsz, False, encn)
+                words = runs(dec(tid, S_DICTIONARY_DATA), dlen)
+                idx = int_decode(dec(tid, S_DATA), nv, False, encn)
+                return scatter(bytes(words[int(i)]).decode() for i in idx)
+            ln = int_decode(dec(tid, S_LENGTH), nv, False, encn)
+            return scatter(bytes(b).decode() for b in runs(dec(tid, S_DATA), ln))
+        if k == TypeKind.BOOL:
+            return scatter(bool(v) for v in _bool_decode(dec(tid, S_DATA), nv))
+        if k == TypeKind.DECIMAL:
+            vals = _rescale_decimals(_varint_stream_decode(dec(tid, S_DATA), nv),
+                                     int_decode(dec(tid, S_SECONDARY), nv, True, encn), dtype.scale)
+            return scatter(int(v) for v in vals)
+        if k == TypeKind.INT8:
+            return scatter(int(v) for v in np.frombuffer(_byte_rle_decode(dec(tid, S_DATA), nv), np.int8))
+        if k in (TypeKind.INT16, TypeKind.INT32, TypeKind.INT64, TypeKind.DATE32):
+            return scatter(int(v) for v in int_decode(dec(tid, S_DATA), nv, True, encn))
+        if k in (TypeKind.FLOAT32, TypeKind.FLOAT64):
+            return scatter(float(v) for v in np.frombuffer(dec(tid, S_DATA), dtype.np_dtype, nv))
+        if k == TypeKind.TIMESTAMP:
+            return scatter(int(v) for v in _decode_ts_micros(int_decode(dec(tid, S_DATA), nv, True, encn),
+                                                             int_decode(dec(tid, S_SECONDARY), nv, False, encn)))
+        raise NotImplementedError(f"ORC subset: nested element {dtype!r}")
+
+    def decode_list(ci: int, name: str, dtype: DataType, validity: np.ndarray, enc: int):
+        """A LIST of a fixed-width type, rectangularized to ``max_elems``."""
+        et, m = dtype.elem, dtype.max_elems
+        nvals = int(validity.sum())
+        ln = int_decode(dec(ci, S_LENGTH), nvals, False, enc)
+        if ln.size and int(ln.max()) > m:
+            raise NotImplementedError(
+                f"ORC subset: list length {int(ln.max())} exceeds the declared max_elems {m} for {name!r}; "
+                "read with a wider ARRAY type")
+        lengths = np.zeros(rows, np.int32)
+        lengths[validity] = ln
+        total = int(ln.sum())
+        cid = tree[ci][1][0] if ci in tree else ci + 1
+        cenc = encodings[cid][0] if cid < len(encodings) else E_DIRECT
+        evalid = (_bool_decode(dec(cid, S_PRESENT), total) if S_PRESENT in per_col.get(cid, {})
+                  else np.ones(total, bool))
+        cn = int(evalid.sum())
+        ek = et.kind
+        if ek == TypeKind.DECIMAL:
+            cvals = _rescale_decimals(_varint_stream_decode(dec(cid, S_DATA), cn),
+                                      int_decode(dec(cid, S_SECONDARY), cn, True, cenc), et.scale)
+        elif ek in (TypeKind.INT16, TypeKind.INT32, TypeKind.INT64, TypeKind.DATE32):
+            cvals = int_decode(dec(cid, S_DATA), cn, True, cenc)
+        elif ek in (TypeKind.FLOAT32, TypeKind.FLOAT64):
+            cvals = np.frombuffer(dec(cid, S_DATA), et.np_dtype, cn)
+        elif ek == TypeKind.TIMESTAMP:
+            cvals = _decode_ts_micros(int_decode(dec(cid, S_DATA), cn, True, cenc),
+                                      int_decode(dec(cid, S_SECONDARY), cn, False, cenc))
+        else:
+            raise NotImplementedError(f"ORC subset: list element {et!r}")
+        flat = np.zeros(total, et.np_dtype)
+        flat[evalid] = cvals.astype(et.np_dtype, copy=False)
+        within = np.arange(m)[None, :] < lengths[:, None]
+        edata = np.zeros((rows, m), et.np_dtype)
+        ev = np.zeros((rows, m), bool)
+        edata[within] = flat
+        ev[within] = evalid
+        return (None, validity, lengths, (edata, ev))
+
     rows = stripe.rows
     out = {}
     ids = meta.field_ids or list(range(1, len(meta.schema.fields) + 1))
@@ -1137,9 +1379,9 @@ def read_stripe(
     for ci, fld in zip(ids, meta.schema.fields):
         if wanted is not None and fld.name not in wanted:
             continue
-        if fld.dtype.is_nested:
-            raise NotImplementedError(
-                f"ORC field {fld.name!r} is nested ({fld.dtype.kind.name} {fld.dtype!r}): the port's batches have no nested columns")
+        if _is_compound(fld.dtype):
+            out[fld.name] = ("py", decode_nested(ci, fld.dtype, rows))
+            continue
         st = per_col.get(ci, {})
         enc = encodings[ci][0] if ci < len(encodings) else E_DIRECT
         dict_size = encodings[ci][1] if ci < len(encodings) else 0
@@ -1200,6 +1442,9 @@ def read_stripe(
             cut = np.minimum(ln, w)
             lengths[idxs] = cut
             _gather_strings(body, starts, cut, data, idxs)
+        elif k == TypeKind.ARRAY:
+            out[fld.name] = decode_list(ci, fld.name, fld.dtype, validity, enc)
+            continue
         else:
             raise NotImplementedError(f"ORC subset: {fld.dtype!r}")
         out[fld.name] = (data, validity, lengths)

@@ -8,6 +8,7 @@ from .debug import DebugExec
 from .empty import EmptyPartitionsExec
 from .expand import ExpandExec
 from .filter import FilterExec
+from .generate import GenerateExec, NativeGenerator
 from .limit import LimitExec
 from .memory_scan import MemoryScanExec
 from .object_agg import ObjectAggExec, Udaf
@@ -22,7 +23,7 @@ from .window import WindowExec, WindowFunction
 
 __all__ = [
     "AggExec", "AggFunction", "AggMode", "BloomFilterAggExec", "CoalesceBatchesExec", "DebugExec", "EmptyPartitionsExec", "ExecNode",
-    "ExpandExec", "FilterExec", "GroupingExpr", "LimitExec", "MemoryScanExec", "ObjectAggExec", "OrcScanExec", "ParquetScanExec",
+    "ExpandExec", "FilterExec", "GenerateExec", "GroupingExpr", "NativeGenerator", "LimitExec", "MemoryScanExec", "ObjectAggExec", "OrcScanExec", "ParquetScanExec",
     "ParquetSinkExec", "ProjectExec", "RenameColumnsExec", "SortExec", "SortField", "Udaf", "UnionExec", "WindowExec",
     "WindowFunction",
 ]

@@ -40,13 +40,14 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from .. import conf
 from ..batch import Column, RecordBatch, bucket_capacity, concat_batches, pad_rows
 from ..exprs import int128 as I
-from ..exprs.compile import infer_dtype, lower, null_column
+from ..exprs.compile import infer_dtype, lower, null_column, null_nested_column
 from ..exprs.ir import Expr
 from ..exprs.strings import packed_be
 from ..runtime.context import TaskContext
-from ..schema import DataType, Field, Schema, decimal_avg_agg_type, decimal_sum_agg_type
+from ..schema import DataType, Field, Schema, TypeKind, decimal_avg_agg_type, decimal_sum_agg_type
 from .base import BatchStream, ExecNode
 from .filter import predicate_mask
 
@@ -66,7 +67,8 @@ class GroupingExpr:
 @dataclass
 class AggFunction:
     """One aggregate call: ``fn`` in sum/count/count_star/avg/min/max/
-    first/first_ignores_null/stddev_samp/var_samp."""
+    first/first_ignores_null/stddev_samp/var_samp/collect_list/
+    collect_set (or a Brickhouse alias of a collect)."""
 
     fn: str
     expr: Optional[Expr]
@@ -78,6 +80,9 @@ class AggFunction:
 MINMAX = ("min", "max")
 FIRST = ("first", "first_ignores_null")
 VARIANCE = ("stddev_samp", "var_samp")
+COLLECT = ("collect_list", "collect_set")
+#: the reference's aliases of its Brickhouse UDAFs
+ALIASES = {"brickhouse_collect": "collect_list", "brickhouse_combine_unique": "collect_set"}
 
 
 def sum_result_type(t: DataType) -> DataType:
@@ -89,6 +94,12 @@ def sum_result_type(t: DataType) -> DataType:
 
 
 def agg_result_type(fn: str, in_t: Optional[DataType]) -> DataType:
+    if fn in COLLECT:
+        if fn == "collect_set" and in_t.is_nested and not collect_set_elem_supported(in_t):
+            raise NotImplementedError(
+                f"collect_set over {in_t!r} (Spark refuses MAP elements: \"collect_set() cannot have map "
+                "type data\"; or more than 128 sort words)")
+        return DataType.array(in_t, int(conf.COLLECT_MAX_ELEMS.get()))
     if fn in ("count", "count_star"):
         return DataType.int64()
     if fn == "sum":
@@ -114,6 +125,8 @@ def agg_state_fields(fn: str, in_t: Optional[DataType], name: str) -> List[Field
     inputs, ``#nonnull`` for sum and ``#count`` for avg."""
     if fn in ("count", "count_star"):
         return [Field(f"{name}#count", DataType.int64())]
+    if fn in COLLECT:
+        return [Field(f"{name}#list", agg_result_type(fn, in_t))]
     if fn in MINMAX or fn in FIRST:
         return [Field(f"{name}#value", in_t)]
     if fn in VARIANCE:
@@ -138,6 +151,8 @@ def _state_input_type(a: AggFunction, in_schema: Schema) -> Optional[DataType]:
     p; a variance state is float64)."""
     if a.fn in ("count", "count_star"):
         return None
+    if a.fn in COLLECT:
+        return in_schema.field(f"{a.name}#list").dtype.elem
     if a.fn in MINMAX or a.fn in FIRST:
         return in_schema.field(f"{a.name}#value").dtype
     if a.fn in VARIANCE:
@@ -169,6 +184,8 @@ def encode_key_words(cols: Sequence[Column]) -> List[torch.Tensor]:
     floats: -0.0- and NaN-canonical bits)."""
     words: List[torch.Tensor] = []
     for c in cols:
+        if c.dtype.is_nested:
+            raise NotImplementedError(f"group key of nested type {c.dtype!r}")
         words.append((~c.validity).to(torch.int64))
         if c.dtype.is_string:
             vals = [c.lengths.to(torch.int64)] + list(packed_be(c.data).unbind(1))
@@ -311,9 +328,169 @@ def seg_first(v: Column, pick: torch.Tensor, seg: Optional[Segments]) -> Column:
                                                                       device=v.device)), valid)
 
 
+# ------------------------------------------------ collect_list/set
+
+
+def _scatter_elems(c: Column, tgt: torch.Tensor, lead: int, g: int, m: int) -> Column:
+    """Every buffer of ``c`` (whose first ``lead`` axes index the source
+    entries) scattered to flat slot ``tgt`` of a ``(g, m)`` element
+    layout.  Dropped entries aim at slot ``g*m``, a dead row cut off
+    after the scatter; live targets never collide."""
+    flat_tgt = tgt.reshape(-1)
+
+    def sc(t):
+        src = t.reshape((-1,) + tuple(t.shape[lead:]))
+        out = torch.zeros((g * m + 1,) + tuple(src.shape[1:]), dtype=t.dtype, device=t.device)
+        return out.index_copy_(0, flat_tgt, src)[:g * m].reshape((g, m) + tuple(src.shape[1:]))
+
+    return c.map_buffers(sc)
+
+
+def collect_reduce(v: Column, arr_t: DataType, gid: torch.Tensor, starts: torch.Tensor, g: int,
+                   merging: bool) -> Column:
+    """Per group (``gid``: each row's group, rows in group order; a
+    group's rows in input order), its values as one array of
+    ``arr_t``'s padded layout (≙ the reference's ``_collect_reduce``):
+    null values skipped, values past ``max_elems`` dropped.  Merging,
+    ``v`` holds array states, whose elements append in row order."""
+    m = arr_t.max_elems
+    dev = v.device
+    if g == 0:
+        return null_nested_column(arr_t, (0,), dev)
+    slots = torch.arange(m, device=dev)
+    if not merging:
+        cnt = v.validity.to(torch.int64)
+        excl = torch.cumsum(cnt, 0) - cnt
+        pos = excl - excl[starts][gid]              # rank among the group's valid rows
+        tgt = torch.where(v.validity & (pos < m), gid * m + pos, g * m)
+        elem, lead = v, 1
+    else:
+        cnt = torch.where(v.validity, v.lengths, 0).to(torch.int64)
+        excl = torch.cumsum(cnt, 0) - cnt
+        pos = (excl - excl[starts][gid])[:, None] + torch.arange(v.dtype.max_elems, device=dev)[None, :]
+        live = torch.arange(v.dtype.max_elems, device=dev)[None, :] < cnt[:, None]
+        tgt = torch.where(live & (pos < m), gid[:, None] * m + pos, g * m)
+        elem, lead = v.children[0], 2
+    counts = torch.zeros(g, dtype=torch.int64, device=dev).index_add_(0, gid, cnt).clamp(max=m)
+    out = _scatter_elems(elem, tgt, lead, g, m)
+    ev = slots[None, :] < counts[:, None]
+    out = Column(out.dtype, out.data, ev, out.lengths, out.children)
+    return Column(arr_t, None, torch.ones(g, dtype=torch.bool, device=dev), counts.to(torch.int32), (out,))
+
+
+def canon_float_bits(data: torch.Tensor) -> torch.Tensor:
+    """Equality-canonical float bits as int64: -0.0 as 0.0, one NaN
+    (float32 bits sign-extended, as in the reference)."""
+    d = canonical_float(data)
+    return (d.view(torch.int32) if d.dtype == torch.float32 else d.view(torch.int64)).to(torch.int64)
+
+
+def value_words(dtype: DataType, col: Column, live: torch.Tensor) -> List[torch.Tensor]:
+    """Equality-preserving int64 words (unsigned bit patterns) of values
+    of any supported nesting, each shaped like ``live`` (≙ the
+    reference's ``_value_words``): an ARRAY level gives its length, its
+    element-validity flags (64 a word) and each child word once per
+    element slot; a STRUCT a null flag and the words of each field."""
+    zero = lambda w: torch.where(live, w, 0)
+    if dtype.kind == TypeKind.ARRAY:
+        m = dtype.max_elems
+        child = col.children[0]
+        words = [zero(col.lengths.to(torch.int64))]
+        inner = (torch.arange(m, device=live.device) < col.lengths[..., None]) & live[..., None]
+        lv = inner & child.validity
+        for base in range(0, m, 64):
+            flags = torch.zeros(live.shape, dtype=torch.int64, device=live.device)
+            for j in range(base, min(base + 64, m)):
+                flags = flags | (lv[..., j].to(torch.int64) << (j - base))
+            words.append(flags)
+        for w in value_words(dtype.elem, child, lv):
+            words.extend(w[..., j] for j in range(m))
+        return words
+    if dtype.kind == TypeKind.STRUCT:
+        words = []
+        for f, ch in zip(dtype.struct_fields, col.children):
+            lv = live & ch.validity
+            words.append(lv.to(torch.int64))
+            words.extend(value_words(f.dtype, ch, lv))
+        return words
+    if dtype.is_string:
+        d = col.data
+        packed = packed_be(d.reshape(-1, d.shape[-1])).reshape(live.shape + (-1,)) ^ I.SIGN
+        return [zero(col.lengths.to(torch.int64))] + [zero(packed[..., k]) for k in range(packed.shape[-1])]
+    bits = canon_float_bits(col.data) if dtype.is_float else col.data.to(torch.int64)
+    return [zero(bits)]
+
+
+def word_count(dtype: DataType) -> int:
+    """The words :func:`value_words` gives a value of ``dtype``."""
+    if dtype.kind == TypeKind.ARRAY:
+        return 1 + (dtype.max_elems + 63) // 64 + dtype.max_elems * word_count(dtype.elem)
+    if dtype.kind == TypeKind.STRUCT:
+        return sum(1 + word_count(f.dtype) for f in dtype.struct_fields)
+    if dtype.is_string:
+        return 1 + (dtype.string_width + 7) // 8
+    return 1
+
+
+def collect_set_elem_supported(dtype: DataType) -> bool:
+    """Element types the set dedup encodes: flat types and ARRAY/STRUCT
+    nestings of them, in at most 128 words.  MAP elements are refused,
+    as Spark's CollectSet refuses them."""
+    def ok(t: DataType) -> bool:
+        if t.kind == TypeKind.ARRAY:
+            return ok(t.elem)
+        if t.kind == TypeKind.STRUCT:
+            return all(ok(f.dtype) for f in t.struct_fields)
+        return t.kind not in (TypeKind.MAP, TypeKind.OPAQUE)
+
+    return ok(dtype) and word_count(dtype) <= 128
+
+
+def dedup_array_state(col: Column) -> Column:
+    """Each row's distinct elements (collect_set, array_union): the
+    elements sorted within the row by their words in unsigned order,
+    live slots first and null elements after the values, then the first
+    of each run of equal elements, compacted to the front (≙ the
+    reference's ``_dedup_array_state``; a null element stays one null
+    element)."""
+    elem = col.children[0]
+    m = col.dtype.max_elems
+    dev = col.device
+    within = torch.arange(m, device=dev)[None, :] < col.lengths[:, None]
+    live = within & elem.validity
+    words = [(~within).to(torch.int64), (within & ~elem.validity).to(torch.int64)]
+    words += [w ^ I.SIGN for w in value_words(elem.dtype, elem, live)]
+    order = torch.arange(m, device=dev).expand(col.capacity, m)
+    for w in reversed(words):
+        order = torch.gather(order, 1, torch.sort(torch.gather(w, 1, order), dim=1, stable=True).indices)
+    changed = torch.zeros_like(within)
+    changed[:, 0] = True
+    for w in words:
+        sw = torch.gather(w, 1, order)
+        changed[:, 1:] |= sw[:, 1:] != sw[:, :-1]
+    keep = torch.gather(within, 1, order) & changed
+    counts = keep.sum(1)
+    src = torch.gather(order, 1, torch.sort((~keep).to(torch.int8), dim=1, stable=True).indices)
+
+    def g(t):
+        ix = src.view(src.shape + (1,) * (t.dim() - 2)).expand(tuple(src.shape) + tuple(t.shape[2:]))
+        return torch.gather(t, 1, ix)
+
+    out = elem.map_buffers(g).mask_rows(torch.arange(m, device=dev)[None, :] < counts[:, None])
+    return Column(col.dtype, None, col.validity, counts.to(torch.int32), (out,))
+
+
 def _combine_limbs(hi: Column, lo: Column):
     """Wide-sum limbs (hi * 2^32 + lo) -> int128 (hi64, lo64)."""
     return I.add(hi.data >> 32, hi.data << 32, *I.from_i64(lo.data))
+
+
+def _empty_list(dtype: DataType, cap: int, device) -> Column:
+    """One empty (valid) array, padded to ``cap`` rows."""
+    c = null_nested_column(dtype, (cap,), device)
+    validity = c.validity.clone()
+    validity[0] = True
+    return Column(dtype, None, validity, c.lengths, c.children)
 
 
 # ---------------------------------------------------------------- AggExec
@@ -348,7 +525,7 @@ class AggExec(ExecNode):
         # always aggregates (the same result)
         self.supports_partial_skipping = supports_partial_skipping
         self.groupings = list(groupings)
-        self.aggs = list(aggs)
+        self.aggs = [AggFunction(ALIASES.get(a.fn, a.fn), a.expr, a.name) for a in aggs]
         in_schema = child.schema
         if mode == AggMode.PARTIAL:
             self._in_types = [None if a.expr is None else infer_dtype(a.expr, in_schema)
@@ -356,12 +533,16 @@ class AggExec(ExecNode):
         else:
             self._in_types = [_state_input_type(a, in_schema) for a in self.aggs]
         group_fields = [Field(g.name, infer_dtype(g.expr, in_schema)) for g in self.groupings]
-        state_fields = [f for a, t in zip(self.aggs, self._in_types)
-                        for f in agg_state_fields(a.fn, t, a.name)]
+        state_fields = [
+            # a merge keeps its input states' element budget (the conf
+            # may differ between stages)
+            in_schema.field(f"{a.name}#list") if a.fn in COLLECT and mode != AggMode.PARTIAL else f
+            for a, t in zip(self.aggs, self._in_types) for f in agg_state_fields(a.fn, t, a.name)]
         self._state_schema = Schema(group_fields + state_fields)
         if mode == AggMode.FINAL:
             self._schema = Schema(group_fields + [
-                Field(a.name, agg_result_type(a.fn, t)) for a, t in zip(self.aggs, self._in_types)
+                Field(a.name, self._state_schema.field(f"{a.name}#list").dtype if a.fn in COLLECT
+                      else agg_result_type(a.fn, t)) for a, t in zip(self.aggs, self._in_types)
             ])
         else:
             self._schema = self._state_schema
@@ -423,6 +604,22 @@ class AggExec(ExecNode):
                 continue
             if a.fn in VARIANCE:
                 out.extend(self._variance_state(a, fields, schema, env, n, keep, perm, seg, merging))
+                continue
+            if a.fn in COLLECT:
+                v = env[f"{a.name}#list"] if merging else lower(a.expr, schema, env, n)
+                if keep is not None:
+                    v = Column(v.dtype, v.data, v.validity & keep, v.lengths, v.children)
+                if seg is not None:
+                    v = v.take(seg.order)
+                    mark = torch.zeros(n, dtype=torch.int64, device=batch.device)
+                    mark[seg.starts] = 1
+                    gid, starts, g = torch.cumsum(mark, 0) - 1, seg.starts, seg.n_groups
+                else:
+                    gid = torch.zeros(n, dtype=torch.int64, device=batch.device)
+                    starts, g = gid[:1], 1
+                arr_t = self._state_schema.field(f"{a.name}#list").dtype
+                col = collect_reduce(v, arr_t, gid, starts, g, merging)
+                out.append(dedup_array_state(col) if a.fn == "collect_set" else col)
                 continue
             if merging:
                 # every state column sums; nulls never occur in states
@@ -504,6 +701,7 @@ class AggExec(ExecNode):
         cap = bucket_capacity(1)
         dev = self.device
         cols = [null_column(f.dtype, cap, dev) if f.name.endswith("#value") else
+                _empty_list(f.dtype, cap, dev) if f.name.endswith("#list") else
                 Column(f.dtype,
                        pad_rows(torch.zeros(1, dtype=torch.float64 if f.dtype.is_float else torch.int64,
                                             device=dev), cap),
@@ -522,6 +720,9 @@ class AggExec(ExecNode):
                 continue
             if a.fn in MINMAX or a.fn in FIRST:
                 out.append(env[f"{a.name}#value"])
+                continue
+            if a.fn in COLLECT:
+                out.append(env[f"{a.name}#list"])
                 continue
             if a.fn == "avg":
                 out.append(self._finalize_avg(env, a.name, t))

@@ -14,7 +14,7 @@ from typing import List, Sequence
 
 import torch
 
-from ..batch import Column, bucket_capacity
+from ..batch import Column, bucket_capacity, concat_columns
 from ..exprs.ir import Expr
 from ..runtime.context import TaskContext
 from ..schema import Schema
@@ -27,18 +27,9 @@ def _stack_rows(parts: Sequence[Column], src_part: torch.Tensor, src_row: torch.
                 live: torch.Tensor) -> Column:
     """Row ``i`` of the result is row ``src_row[i]`` of part
     ``src_part[i]``; rows where ``live`` is false are padding."""
-    dtype = parts[0].dtype
     cap = parts[0].capacity
-    flat = src_part * cap + src_row
-    if dtype.is_string:
-        w = max(p.data.shape[1] for p in parts)
-        data = torch.cat([torch.nn.functional.pad(p.data, (0, w - p.data.shape[1])) for p in parts])
-        lengths = torch.cat([p.lengths for p in parts]).index_select(0, flat)
-    else:
-        data, lengths = torch.cat([p.data for p in parts]), None
-    out = Column(dtype, data.index_select(0, flat),
-                 torch.cat([p.validity for p in parts]).index_select(0, flat), lengths)
-    return mask_padding(out, live)
+    stacked = concat_columns(parts, cap * len(parts))
+    return mask_padding(stacked.take(src_part * cap + src_row), live)
 
 
 class ExpandExec(ExecNode):

@@ -21,7 +21,9 @@ not gated, as in the reference.
    that pruning still sees the original operators): runs of unary
    operators exposing ``ExecNode.trace_fn`` with at least two that do
    device work become one :class:`FusedStageExec`, which reads the live
-   row count back once per batch instead of once per filter.  A chain
+   row count back once per batch instead of once per filter (a
+   ``GenerateExec`` joins a chain as an expanding operator: its
+   ``cap * M`` output rows are re-bucketed after the chain).  A chain
    stops below an operator whose transform needs its whole partition
    in one batch (``trace_requires_buffer``: the window), which becomes
    the chain's bottom over a :class:`BufferPartitionExec`.
@@ -43,8 +45,11 @@ from __future__ import annotations
 from typing import Dict, List
 
 from .. import conf
-from ..batch import RecordBatch, concat_batches
-from ..exprs.ir import Alias, BinOp, Case, Cast, Col, Expr, InList, IsNotNull, IsNull, Like, Not, ScalarFunc
+from ..batch import RecordBatch, bucket_capacity, concat_batches
+from ..exprs.ir import (
+    Alias, BinOp, Case, Cast, Col, Expr, GetIndexedField, GetMapValue, GetStructField, InList, IsNotNull, IsNull,
+    Like, NamedStruct, Not, ScalarFunc,
+)
 from .base import BatchStream, ExecNode
 
 
@@ -70,6 +75,14 @@ def substitute(e: Expr, mapping: Dict[str, Expr]) -> Expr:
         return Like(sub(e.child), e.pattern, e.negated)
     if isinstance(e, ScalarFunc):
         return ScalarFunc(e.name, [sub(a) for a in e.args])
+    if isinstance(e, GetIndexedField):
+        return GetIndexedField(sub(e.child), e.index)
+    if isinstance(e, GetMapValue):
+        return GetMapValue(sub(e.child), e.key)
+    if isinstance(e, GetStructField):
+        return GetStructField(sub(e.child), e.name)
+    if isinstance(e, NamedStruct):
+        return NamedStruct(list(e.names), [sub(x) for x in e.exprs])
     return e  # literals
 
 
@@ -309,6 +322,12 @@ class FusedStageExec(ExecNode):
                 if n == 0:
                     continue
                 out = RecordBatch(self._schema, list(cols), n)
+                cap = out.capacity
+                if cap != bucket_capacity(cap):
+                    # an expanding operator (generate: cap * M rows) left
+                    # a capacity off the buckets: cut it to n's bucket
+                    b = bucket_capacity(n)
+                    out = RecordBatch(self._schema, [c.head(min(b, cap)).pad(b) for c in out.columns], n)
                 self._record_batch(out)
                 yield out
 

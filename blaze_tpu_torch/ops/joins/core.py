@@ -80,7 +80,11 @@ def key_hash(cols: Sequence[Column]) -> torch.Tensor:
 def _key_cols(schema: Schema, keys: Sequence[Expr], batch: RecordBatch) -> List[Column]:
     n = batch.num_rows
     env = {f.name: c.head(n) for f, c in zip(schema.fields, batch.columns)}
-    return [lower(e, schema, env, n) for e in keys]
+    out = [lower(e, schema, env, n) for e in keys]
+    for c in out:
+        if c.dtype.is_nested:
+            raise NotImplementedError(f"join key of nested type {c.dtype!r}")
+    return out
 
 
 def build_join_map(batch: RecordBatch, keys: Sequence[Expr]) -> JoinMap:
@@ -128,11 +132,7 @@ def null_columns(schema: Schema, cap: int, device: torch.device) -> List[Column]
 def _gather_or_null(c: Column, idx: torch.Tensor, valid: torch.Tensor, cap: int) -> Column:
     """Rows ``idx`` of ``c``, null (and zeroed) where ``valid`` is
     False, padded to ``cap``."""
-    t = c.take(idx)
-    zero = torch.zeros((), dtype=t.data.dtype, device=t.data.device)
-    data = torch.where(valid.view((-1,) + (1,) * (t.data.dim() - 1)), t.data, zero)
-    lengths = None if t.lengths is None else torch.where(valid, t.lengths, 0)
-    return Column(t.dtype, data, t.validity & valid, lengths).pad(cap)
+    return c.take(idx).mask_rows(valid).pad(cap)
 
 
 class Joiner:

@@ -3,7 +3,7 @@ the partition; rows cut from a batch become padding."""
 
 from __future__ import annotations
 
-from ..batch import Column, RecordBatch, pad_rows
+from ..batch import RecordBatch
 from ..runtime.context import TaskContext
 from ..schema import Schema
 from .base import BatchStream, ExecNode
@@ -14,11 +14,7 @@ def truncate(batch: RecordBatch, n: int) -> RecordBatch:
     padding (invalid, zeroed)."""
     if n >= batch.num_rows:
         return batch
-    cols = []
-    for c in batch.columns:
-        cut = lambda t: None if t is None else pad_rows(t[:n], c.capacity)
-        cols.append(Column(c.dtype, cut(c.data), cut(c.validity), cut(c.lengths)))
-    return RecordBatch(batch.schema, cols, n)
+    return RecordBatch(batch.schema, [c.head(n).pad(c.capacity) for c in batch.columns], n)
 
 
 class LimitExec(ExecNode):

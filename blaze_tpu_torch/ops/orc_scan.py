@@ -6,8 +6,11 @@ pruned by the pushed-down predicate over the file's stripe statistics.
 Only the read schema's columns of a stripe are decoded; a stripe is
 emitted in slices of ``batch_rows``, each reaching the scan's device in
 one host-to-device copy, behind the same producer thread as the parquet
-scan.  A nested (LIST/MAP/STRUCT) field raises ``NotImplementedError``:
-the port's batches have no nested columns.
+scan.  Nested fields (≙ the reference's): a LIST of a fixed-width type
+from the reader's vectorized path, at the read schema's ``max_elems``
+(a longer list raises); a MAP, STRUCT or other LIST from python values
+through ``batch.column_from_pylist``; a missing nested field reads as
+nulls.
 
 Metrics: ``input_io_time`` (decode), ``bytes_read`` (the stripes read),
 ``pruned_stripes``, ``pruned_rows``, ``skipped_corrupt_files``.
@@ -24,7 +27,7 @@ from .. import conf
 from ..exprs.ir import Expr
 from ..io import orc
 from ..runtime.context import TaskContext
-from ..schema import DataType, Schema
+from ..schema import DataType, Field, Schema, TypeKind
 from .base import BatchStream, ExecNode
 from .parquet_scan import _compare, _prune_conjuncts, null_host_column, staged_slices
 
@@ -47,6 +50,28 @@ def _stripe_maybe_match(stats, dtype: DataType, op: str, lit_v) -> bool:
     return _compare(lo, hi, op, lit_v)
 
 
+def _nested_host(f: Field, raw):
+    """A nested field's host column from the reader's output, at the
+    read schema's type."""
+    from ..batch import column_from_pylist
+    from ..io.batch_serde import HostNested, host_column
+
+    if raw[0] == "py":
+        return host_column(column_from_pylist(f.dtype, raw[1], capacity=max(len(raw[1]), 1),
+                                              device="cpu").head(len(raw[1])))
+    _, validity, lengths, (edata, evalid) = raw
+    m = f.dtype.max_elems
+    if int(np.max(lengths, initial=0)) > m:
+        raise NotImplementedError(
+            f"ORC subset: list length {int(np.max(lengths))} exceeds max_elems {m} for {f.name!r}")
+    k = min(m, edata.shape[1])
+    ed = np.zeros((edata.shape[0], m), f.dtype.elem.np_dtype)
+    ev = np.zeros((edata.shape[0], m), np.bool_)
+    ed[:, :k] = edata[:, :k]
+    ev[:, :k] = evalid[:, :k]
+    return HostNested(validity, lengths, [(ed, ev, None)])
+
+
 class OrcScanExec(ExecNode):
     """Reads ``file_groups[p]`` for partition ``p``, staged on ``device``
     (the package default, the card, when None)."""
@@ -62,10 +87,6 @@ class OrcScanExec(ExecNode):
         from .. import resolve_device
 
         super().__init__([])
-        for f in schema.fields:
-            if f.dtype.is_nested:
-                raise NotImplementedError(
-                    f"ORC scan of nested field {f.name!r} ({f.dtype.kind.name} {f.dtype!r}): the port's batches have no nested columns")
         self.file_groups = [list(g) for g in file_groups]
         self._schema = schema
         self.predicate = predicate
@@ -98,11 +119,13 @@ class OrcScanExec(ExecNode):
 
         files = self.file_groups[partition] if partition < len(self.file_groups) else []
         width = max([f.dtype.string_width for f in self._schema.fields if f.dtype.is_string], default=64)
+        max_elems = max([f.dtype.max_elems for f in self._schema.fields if f.dtype.kind == TypeKind.ARRAY],
+                        default=16)
 
         def stream():
             for path in files:
                 try:
-                    meta = orc.read_metadata(path, string_width=width)
+                    meta = orc.read_metadata(path, list_elems=max_elems, string_width=width)
                 except Exception:
                     if not bool(conf.IGNORE_CORRUPT_FILES.get()):
                         raise
@@ -123,6 +146,9 @@ class OrcScanExec(ExecNode):
                     for f in self._schema.fields:
                         if f.name not in raw:
                             cols.append(null_host_column(f.dtype, stripe.rows))
+                            continue
+                        if f.dtype.is_nested:
+                            cols.append(_nested_host(f, raw[f.name]))
                             continue
                         data, validity, lengths = raw[f.name]
                         if f.dtype.is_string:

@@ -27,7 +27,7 @@ from .. import conf
 from ..exprs.compile import infer_lit_dtype
 from ..exprs.ir import BinOp, Col, Expr, Lit
 from ..io import parquet as pq
-from ..io.batch_serde import stage_columns
+from ..io.batch_serde import host_rows, stage_columns
 from ..runtime.context import TaskContext
 from ..schema import DataType, Schema, TypeKind
 from .base import BatchStream, ExecNode
@@ -120,6 +120,11 @@ def _maybe_match(chunk: pq.ChunkMeta, dtype: DataType, op: str, lit_v) -> bool:
 
 def null_host_column(dtype: DataType, n: int):
     """``n`` null rows as a host column (schema adaption)."""
+    if dtype.is_nested:
+        from ..exprs.compile import null_nested_column
+        from ..io.batch_serde import host_column
+
+        return host_column(null_nested_column(dtype, (n,), torch.device("cpu")))
     if dtype.is_string:
         return (np.zeros((n, dtype.string_width), np.uint8), np.zeros(n, np.bool_), np.zeros(n, np.int32))
     return (np.zeros(n, dtype.np_dtype), np.zeros(n, np.bool_), None)
@@ -133,7 +138,7 @@ def staged_slices(node: ExecNode, schema: Schema, host_cols, rows: int, batch_ro
     pinned = device.type == "cuda"
     for s in range(0, rows, batch_rows):
         e = min(s + batch_rows, rows)
-        part = [(d[s:e], v[s:e], None if ln is None else ln[s:e]) for d, v, ln in host_cols]
+        part = [host_rows(c, s, e) for c in host_cols]
         b = stage_columns(schema, [(e - s, part)], device, pinned)
         node._record_batch(b)
         yield b

@@ -28,10 +28,7 @@ def _expr_name(e: Expr, i: int) -> str:
 def mask_padding(c: Column, live: torch.Tensor) -> Column:
     """Enforce the padding invariant: invalid, zeroed rows past the
     live prefix (computed columns such as literals are valid there)."""
-    zero = torch.zeros((), dtype=c.data.dtype, device=c.data.device)
-    data = torch.where(live.view((-1,) + (1,) * (c.data.dim() - 1)), c.data, zero)
-    lengths = None if c.lengths is None else torch.where(live, c.lengths, 0)
-    return Column(c.dtype, data, c.validity & live, lengths)
+    return c.mask_rows(live)
 
 
 class ProjectExec(ExecNode):

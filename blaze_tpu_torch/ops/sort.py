@@ -34,6 +34,8 @@ class SortField:
 
 def order_words(c: Column, ascending: bool, nulls_first: bool) -> List[torch.Tensor]:
     """Order-preserving int64 words (signed order) for one key column."""
+    if c.dtype.is_nested:
+        raise NotImplementedError(f"sort key of nested type {c.dtype!r}")
     valid = c.validity.to(torch.int64)
     words = [valid if nulls_first else 1 - valid]
     if c.dtype.is_string:

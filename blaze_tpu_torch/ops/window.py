@@ -293,7 +293,7 @@ def window_columns(in_schema: Schema, functions_: Sequence[WindowFunction], part
             src = start + (f.offset - 1)
             g = c.take(src.clamp(0, cap - 1))
             in_frame = src <= (part_end if f.whole_partition else peer_end)
-            emit(Column(c.dtype, g.data, g.validity & in_frame, g.lengths))
+            emit(g.mask_rows(in_frame))
         elif f.kind in ("lead", "lag"):
             c = lower(f.expr, in_schema, env, cap)
             if f.ignore_nulls:
@@ -315,7 +315,7 @@ def window_columns(in_schema: Schema, functions_: Sequence[WindowFunction], part
                 src = pos + (f.offset if f.kind == "lead" else -f.offset)
                 in_part = (src >= start) & (src <= part_end)
             g = c.take(src.clamp(0, cap - 1))
-            emit(Column(c.dtype, g.data, g.validity & in_part, g.lengths))
+            emit(g.mask_rows(in_part))
         elif f.kind in ("first_value", "last_value"):
             c = lower(f.expr, in_schema, env, cap)
             if f.kind == "first_value":

@@ -50,8 +50,8 @@ from ..exprs.compile import lower
 from ..exprs.hash import murmur3_columns, pmod
 from ..exprs.ir import Expr
 from ..io.batch_serde import (
-    HostColumn, column_layout, column_tensors, decode_columns, serialize_columns, split_host_columns,
-    stage_columns,
+    HostColumn, column_layout, column_tensors, concat_host_columns, decode_columns, host_rows, serialize_columns,
+    split_host_columns, stage_columns,
 )
 from ..io.ipc_compression import IpcFrameWriter, iter_blob_frames, iter_stream_frames
 from ..kernels import cuda_ops
@@ -85,6 +85,9 @@ def hash_pids(schema: Schema, exprs: Sequence[Expr], cols: Sequence[Column], n: 
     """(n,) int32 partition ids of ``n`` rows of ``cols``."""
     env = {f.name: c for f, c in zip(schema.fields, cols)}
     key_cols = [lower(e, schema, env, n) for e in exprs]
+    for c in key_cols:
+        if c.dtype.is_nested:
+            raise NotImplementedError(f"hash partitioning by a key of nested type {c.dtype!r}")
     if not any(c.dtype.is_string for c in key_cols):
         planes, widths = zip(*(cuda_ops.column_word_planes(c) for c in key_cols))
         valids = [c.validity.contiguous() for c in key_cols]
@@ -132,23 +135,6 @@ class FetchFailedError(RuntimeError):
         super().__init__(f"fetch failed: {resource_id} partition {partition}: {detail}")
 
 
-def _concat_host(parts: Sequence[Tuple[int, Sequence[HostColumn]]]) -> List[HostColumn]:
-    """Row-concatenate host column slices; string widths merge to the
-    widest slice."""
-    if len(parts) == 1:
-        return list(parts[0][1])
-    out = []
-    for i in range(len(parts[0][1])):
-        datas = [cols[i][0] for _, cols in parts]
-        if datas[0].ndim == 2:
-            w = max(d.shape[1] for d in datas)
-            datas = [d if d.shape[1] == w else np.pad(d, ((0, 0), (0, w - d.shape[1])))
-                     for d in datas]
-        lengths = None if parts[0][1][i][2] is None else np.concatenate([cols[i][2] for _, cols in parts])
-        out.append((np.concatenate(datas), np.concatenate([cols[i][1] for _, cols in parts]), lengths))
-    return out
-
-
 class ShuffleRepartitioner:
     """Buffers a map task's host rows per output partition and commits
     them as one ``.data``/``.index`` pair (≙ the reference's
@@ -165,8 +151,7 @@ class ShuffleRepartitioner:
         for pid, k in enumerate(counts):
             k = int(k)
             if k:
-                self._buffers[pid].append(
-                    (k, [tuple(None if a is None else a[lo:lo + k] for a in c) for c in cols]))
+                self._buffers[pid].append((k, [host_rows(c, lo, lo + k) for c in cols]))
             lo += k
 
     def write_output(self, data_path: str, index_path: str) -> List[int]:
@@ -185,7 +170,8 @@ class ShuffleRepartitioner:
                 for parts in self._buffers:
                     start = w.bytes_written
                     if parts:
-                        w.write(serialize_columns(_concat_host(parts), sum(k for k, _ in parts)))
+                        w.write(serialize_columns(concat_host_columns([c for _, c in parts]),
+                                                  sum(k for k, _ in parts)))
                     lengths.append(w.bytes_written - start)
                     offsets.append(w.bytes_written)
             with open(tmp_index, "wb") as f:
@@ -214,7 +200,7 @@ def _insert_host(rep: ShuffleRepartitioner, host: Sequence[np.ndarray], layout: 
         counts = rest[0].tolist()
     if n is None:
         n = sum(counts)
-        cols = [tuple(None if a is None else a[:n] for a in c) for c in cols]
+        cols = [host_rows(c, 0, n) for c in cols]
     rep.insert_sorted(cols, counts)
 
 

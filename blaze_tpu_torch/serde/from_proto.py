@@ -12,7 +12,8 @@ from __future__ import annotations
 import pickle
 
 from ..exprs.ir import (
-    Alias, BinOp, Case, Cast, Col, Expr, InList, IsNotNull, IsNull, Like, Lit, Not, ScalarFunc,
+    Alias, BinOp, Case, Cast, Col, Expr, GetIndexedField, GetMapValue, GetStructField, InList, IsNotNull, IsNull,
+    Like, Lit, NamedStruct, Not, ScalarFunc,
 )
 from ..schema import DataType, Field, Schema, TypeKind
 from . import wire as pb
@@ -24,8 +25,12 @@ def dtype_from_proto(t: pb.DataTypeProto) -> DataType:
         return DataType.decimal(t.precision, t.scale)
     if kind in (TypeKind.STRING, TypeKind.BINARY):
         return DataType(kind, string_width=t.string_width or 64)
-    if kind in (TypeKind.ARRAY, TypeKind.MAP, TypeKind.STRUCT):
-        raise NotImplementedError(f"from_proto for type {kind.name}: nested columns are not ported")
+    if kind == TypeKind.ARRAY:
+        return DataType.array(dtype_from_proto(t.elem), t.max_elems)
+    if kind == TypeKind.MAP:
+        return DataType.map(dtype_from_proto(t.key), dtype_from_proto(t.value), t.max_elems)
+    if kind == TypeKind.STRUCT:
+        return DataType.struct([Field(f.name, dtype_from_proto(f.dtype), f.nullable) for f in t.struct_fields])
     return DataType(kind)
 
 
@@ -77,6 +82,14 @@ def expr_from_proto(n: pb.ExprNode) -> Expr:
         return InList(expr_from_proto(i.child), [expr_from_proto(v) for v in i.values], i.negated)
     if kind == "like":
         return Like(expr_from_proto(n.like.child), n.like.pattern, n.like.negated)
+    if kind == "get_indexed_field":
+        return GetIndexedField(expr_from_proto(n.get_indexed_field.child), n.get_indexed_field.index)
+    if kind == "get_map_value":
+        return GetMapValue(expr_from_proto(n.get_map_value.child), _lit_from_proto(n.get_map_value.key).value)
+    if kind == "get_struct_field":
+        return GetStructField(expr_from_proto(n.get_struct_field.child), n.get_struct_field.name)
+    if kind == "named_struct":
+        return NamedStruct(list(n.named_struct.names), [expr_from_proto(e) for e in n.named_struct.exprs])
     raise NotImplementedError(f"from_proto expr {kind}")
 
 
@@ -153,9 +166,10 @@ def plan_from_proto(n: pb.PhysicalPlanNode):
         return ProjectExec(plan_from_proto(p.input), [expr_from_proto(e) for e in p.exprs], list(p.names))
     if kind == "filter":
         f = n.filter
+        project = None
         if len(f.project_exprs):
-            raise NotImplementedError("from_proto filter with a fused projection")
-        return FilterExec(plan_from_proto(f.input), expr_from_proto(f.predicate))
+            project = ([expr_from_proto(e) for e in f.project_exprs], list(f.project_names))
+        return FilterExec(plan_from_proto(f.input), expr_from_proto(f.predicate), project)
     if kind == "agg":
         a = n.agg
         if a.mode not in (m.value for m in AggMode):
@@ -181,6 +195,21 @@ def plan_from_proto(n: pb.PhysicalPlanNode):
         e = n.expand
         return ExpandExec(plan_from_proto(e.input), [[expr_from_proto(x) for x in p.exprs] for p in e.projections],
                           list(e.names))
+    if kind == "generate":
+        from ..ops import GenerateExec, NativeGenerator
+
+        g = n.generate
+        if g.native_kind:
+            gen = NativeGenerator(g.native_kind, expr_from_proto(g.native_expr))
+        else:
+            from .. import conf
+
+            if not bool(conf.ALLOW_PICKLED_UDFS.get()):
+                raise PermissionError("pickled generator payload rejected: spark.blaze.udf.allowPickled is false")
+            gen = pickle.loads(g.generator_payload)
+        return GenerateExec(plan_from_proto(g.input), gen, [expr_from_proto(e) for e in g.input_exprs],
+                            [Field(f.name, dtype_from_proto(f.dtype), f.nullable) for f in g.gen_fields],
+                            g.outer, g.keep_input)
     if kind == "window":
         w = n.window
         return WindowExec(plan_from_proto(w.input), [_window_function(f) for f in w.functions],

@@ -3,12 +3,13 @@
 
 Covers the nodes and expressions the port has: memory, parquet and ORC
 scans, empty partitions, project, filter, agg, sort, limit, union,
-rename, expand, window, debug, coalesce, shuffle writer, IPC reader and
-writer, broadcast and shuffled hash joins, object and bloom-filter
-aggregates (the parquet sink has no node, as in the reference); columns,
-literals, aliases, binary operators, NOT, IS [NOT] NULL, casts, CASE,
-IN, LIKE and scalar functions.  Anything else raises
-``NotImplementedError`` naming it.
+rename, expand, window, generate, debug, coalesce, shuffle writer, IPC
+reader and writer, broadcast and shuffled hash joins, object and
+bloom-filter aggregates (the parquet sink has no node, as in the
+reference); nested types; columns, literals, aliases, binary operators,
+NOT, IS [NOT] NULL, casts, CASE, IN, LIKE, scalar functions and the
+nested accessors.  Anything else raises ``NotImplementedError`` naming
+it.
 """
 
 from __future__ import annotations
@@ -20,7 +21,8 @@ import pickle
 
 from ..exprs.compile import infer_lit_dtype, unscaled_decimal
 from ..exprs.ir import (
-    Alias, BinOp, Case, Cast, Col, Expr, InList, IsNotNull, IsNull, Like, Lit, Not, ScalarFunc,
+    Alias, BinOp, Case, Cast, Col, Expr, GetIndexedField, GetMapValue, GetStructField, InList, IsNotNull, IsNull,
+    Like, Lit, NamedStruct, Not, ScalarFunc,
 )
 from ..schema import DataType, Schema, TypeKind
 from . import wire as pb
@@ -34,10 +36,18 @@ STAGED_RIDS: contextvars.ContextVar = contextvars.ContextVar("blaze_torch_staged
 
 
 def dtype_to_proto(t: DataType) -> pb.DataTypeProto:
-    if t.is_nested:
-        raise NotImplementedError(f"to_proto for nested type {t!r}")
-    return pb.DataTypeProto(kind=t.kind.value, precision=t.precision, scale=t.scale,
-                            string_width=t.string_width, max_elems=t.max_elems)
+    out = pb.DataTypeProto(kind=t.kind.value, precision=t.precision, scale=t.scale,
+                           string_width=t.string_width, max_elems=t.max_elems)
+    if t.elem is not None:
+        out.elem = dtype_to_proto(t.elem)
+    if t.key is not None:
+        out.key = dtype_to_proto(t.key)
+    if t.value is not None:
+        out.value = dtype_to_proto(t.value)
+    if t.struct_fields is not None:
+        out.struct_fields = [pb.FieldProto(name=f.name, dtype=dtype_to_proto(f.dtype), nullable=f.nullable)
+                             for f in t.struct_fields]
+    return out
 
 
 def schema_to_proto(s: Schema) -> pb.SchemaProto:
@@ -105,6 +115,16 @@ def expr_to_proto(e: Expr) -> pb.ExprNode:
                                             negated=e.negated))
     if isinstance(e, ScalarFunc):
         return pb.ExprNode(scalar_func=pb.ScalarFuncExpr(name=e.name, args=[expr_to_proto(a) for a in e.args]))
+    if isinstance(e, GetIndexedField):
+        return pb.ExprNode(get_indexed_field=pb.GetIndexedFieldExpr(child=expr_to_proto(e.child), index=e.index))
+    if isinstance(e, GetMapValue):
+        return pb.ExprNode(get_map_value=pb.GetMapValueExpr(child=expr_to_proto(e.child),
+                                                            key=_lit_to_proto(Lit(e.key))))
+    if isinstance(e, GetStructField):
+        return pb.ExprNode(get_struct_field=pb.GetStructFieldExpr(child=expr_to_proto(e.child), name=e.name))
+    if isinstance(e, NamedStruct):
+        return pb.ExprNode(named_struct=pb.NamedStructExpr(names=list(e.names),
+                                                           exprs=[expr_to_proto(x) for x in e.exprs]))
     raise NotImplementedError(f"to_proto for {type(e).__name__}")
 
 
@@ -145,9 +165,9 @@ def plan_to_proto(node) -> pb.PhysicalPlanNode:
     one serialized task reads them once): a serialized plan that is
     never run strands its entry, so serialize only what runs."""
     from ..ops import (
-        AggExec, CoalesceBatchesExec, DebugExec, EmptyPartitionsExec, ExpandExec, FilterExec, LimitExec,
-        MemoryScanExec, OrcScanExec, ParquetScanExec, ProjectExec, RenameColumnsExec, SortExec, UnionExec,
-        WindowExec,
+        AggExec, CoalesceBatchesExec, DebugExec, EmptyPartitionsExec, ExpandExec, FilterExec, GenerateExec,
+        LimitExec, MemoryScanExec, NativeGenerator, OrcScanExec, ParquetScanExec, ProjectExec, RenameColumnsExec,
+        SortExec, UnionExec, WindowExec,
     )
     from ..ops.bloom_agg import BloomFilterAggExec
     from ..ops.joins import BroadcastJoinExec, HashJoinExec
@@ -191,6 +211,11 @@ def plan_to_proto(node) -> pb.PhysicalPlanNode:
     elif isinstance(node, FilterExec):
         out.filter = pb.FilterNode(input=plan_to_proto(node.children[0]),
                                    predicate=expr_to_proto(node.predicate))
+        if node.project is not None:
+            # the fused projection (tier 1), as the reference writes it
+            exprs, names = node.project
+            out.filter.project_exprs = [expr_to_proto(e) for e in exprs]
+            out.filter.project_names = list(names)
     elif isinstance(node, AggExec):
         agg = pb.AggNode(input=plan_to_proto(node.children[0]), mode=node.mode.value,
                          supports_partial_skipping=node.supports_partial_skipping)
@@ -220,6 +245,18 @@ def plan_to_proto(node) -> pb.PhysicalPlanNode:
             input=plan_to_proto(node.children[0]),
             projections=[pb.ExpandProjection(exprs=[expr_to_proto(e) for e in p]) for p in node.projections],
             names=node.schema.names)
+    elif isinstance(node, GenerateExec):
+        gen = pb.GenerateNode(input=plan_to_proto(node.children[0]),
+                              input_exprs=[expr_to_proto(e) for e in node.input_exprs],
+                              gen_fields=[pb.FieldProto(name=f.name, dtype=dtype_to_proto(f.dtype),
+                                                        nullable=f.nullable) for f in node.gen_fields],
+                              outer=node.outer, keep_input=node.keep_input)
+        if isinstance(node.generator, NativeGenerator):
+            gen.native_kind = node.generator.kind
+            gen.native_expr = expr_to_proto(node.generator.expr)
+        else:
+            gen.generator_payload = pickle.dumps(node.generator)
+        out.generate = gen
     elif isinstance(node, WindowExec):
         out.window = pb.WindowNode(input=plan_to_proto(node.children[0]),
                                    functions=[_window_function(f) for f in node.functions],

@@ -147,12 +147,32 @@ Needs one CUDA card and ``nvcc`` (``/usr/local/cuda``).  In order, it:
    numpy's; ``first``/``first_ignores_null`` by ``l_orderkey`` at SF 0.1
    against an exact oracle; and one projection per function family
    (date, math, device string, hash, decimal, casts over lineitem at SF
-   0.1; host string functions over customer and part at SF1; JSON paths
-   over ``concat`` of customer's columns at SF1), every column equal to
+   0.1; host string functions over customer and part at SF 0.1, cut
+   from SF1: python per row, as in the reference; JSON paths over
+   ``concat`` of customer's columns at SF 0.1), every column equal to
    the port's CPU evaluation of the same plan (floats within 2 ulps),
    the JSON round trip returning ``c_name``, ``c_custkey`` and
    ``c_acctbal`` exactly; one JSON record a run;
-10. the null-key phase: ``store_sales`` at ``--ds-scale`` with its -1
+10. the nested phase, each run on both paths with its walls, ``.data``
+   bytes, peak device memory above what the run held and launches,
+   equal on both paths: (1) order baskets at ``--scale``:
+   ``collect_list(l_partkey)`` and ``collect_set(l_suppkey)`` by
+   ``l_orderkey`` (PARTIAL, a hash exchange over 8 partitions, FINAL;
+   ``spark.blaze.collect.maxElems`` 8, no order cut), a shuffled hash
+   join with one year of orders, ``size`` and ``array_contains``,
+   ``pos_explode`` of the list and an agg by ``o_orderpriority``, equal
+   to numpy; ``murmur3_pids``, ``pid_histogram`` and ``sorted_lookup``
+   held to their plain versions on the largest inputs the run gave
+   them; (2) the same collect at SF 0.1 at the default budget, in
+   2^14-row batches so that groups merge partial states, every list and
+   set equal to numpy's; (3) word count over part's names at
+   ``--scale`` (``split``, ``explode``, group, sort) equal to numpy's
+   split; (4) one row per order at SF 0.1 (a LIST, a MAP and a STRUCT)
+   written to ORC by the port's writer and read back through
+   ``OrcScanExec``: the map exploded, a struct field and the list's
+   first element aggregated per line number, equal to numpy and to the
+   port's CPU evaluation; one JSON record a run;
+11. the null-key phase: ``store_sales`` at ``--ds-scale`` with its -1
    ``ss_customer_sk`` exposed as nulls (``with_null_fks``), through
    ``split_stages``/``run_stages``: an ``IS NULL`` count, a group by
    the key with one null group (its exchange through ``murmur3_pids``
@@ -162,7 +182,7 @@ Needs one CUDA card and ``nvcc`` (``/usr/local/cuda``).  In order, it:
    ``murmur3_pids`` on that key column, held to its plain version, its
    null rows in the seed's partition, and ``sorted_lookup`` on the
    largest table and probe the joins gave it;
-11. reads the CUPTI device time of every timed call in one
+12. reads the CUPTI device time of every timed call in one
    ``torch.profiler`` session, and counts every device operation one
    ``pid_histogram`` call issues on each path (one on paths (a) and
    (b), or it fails); then runs q01 and q03 in process under each A/B
@@ -172,11 +192,11 @@ Needs one CUDA card and ``nvcc`` (``/usr/local/cuda``).  In order, it:
    each run, its device operations, the kernels that take its time, and
    the hand-written kernels' device time at the shapes the query gives
    them;
-12. prints where each phase ended on the host clock, the ``kernels``
-   JSON line (launches summed over the 125 queries, the file phase's
-   and the functions phase's runs in process, and per query on each
-   path; the null-key phase's, the file phase's and the functions
-   phase's apart too), then
+13. prints where each phase ended on the host clock, the ``kernels``
+   JSON line (launches summed over the 125 queries, the file phase's,
+   the functions phase's and the nested phase's runs in process, and
+   per query on each path; the null-key phase's, the file phase's, the
+   functions phase's and the nested phase's apart too), then
    ``{"ok": true, ...}`` last.
 
 Any failure raises and exits nonzero before the last line; without a
@@ -2312,7 +2332,9 @@ FN_SCALE = 0.1
 # libraries may round transcendental functions apart, each within an ulp
 # of numpy (tests/test_torch_functions.py)
 FN_ULPS = 2
-FN_HOST_SCALE = 1.0
+# the host string and JSON families: python per row, so SF 0.1 runs the
+# same code as SF1 in a tenth of the time
+FN_HOST_SCALE = 0.1
 
 
 def batches_arrays(schema, batches) -> dict:
@@ -2766,6 +2788,379 @@ def functions_phase(torch, cuda_ops, card: str, data, scale: float, n_parts: int
     return launches_of
 
 
+# --------------------------------------------------------- nested columns
+
+# run 1's element budget: an order holds 1 to 7 lines, so no element is
+# dropped, and its states take 8 slots where the default 64 would take
+# eight times the bytes through every exchange and zlib
+BASKET_MAX_ELEMS = 8
+NESTED_SCALE = 0.1
+# run 1's orders: one year of o_orderdate; its array_contains constant
+BASKET_YEAR = 1995
+BASKET_SUPPKEY = 1
+# run 2's scan batches: small, so that orders span batches and their
+# groups merge two partial states or more
+MERGE_BATCH_ROWS = 1 << 14
+
+
+def sub_scan(table: dict, schema, names, n_parts: int, batch_rows: int, device: str):
+    """A memory scan of ``names`` of a host table."""
+    from blaze_tpu_torch.batch import table_to_batches
+    from blaze_tpu_torch.ops import MemoryScanExec
+    from blaze_tpu_torch.schema import Schema
+
+    s = Schema([schema.field(n) for n in names])
+    return MemoryScanExec(table_to_batches({n: table[n] for n in names}, s, n_parts, batch_rows, device), s,
+                          device=device)
+
+
+def nested_paths(torch, cuda_ops, label: str, build, launches_of: dict, canon=None) -> dict:
+    """``build()``'s plan in process (through the optimizer) and through
+    split_stages/run_stages, launch counts reset before each: the walls
+    from the build to the last batch on the card, the ``.data`` bytes,
+    each path's peak device memory above what the run held before it;
+    the rows (``canon`` applied to each path's) and the launches equal on
+    both paths.  Returns the record, the in-process rows under ``rows``."""
+    from blaze_tpu_torch.batch import batch_to_pydict
+    from blaze_tpu_torch.runtime.scheduler import RunStats, run_stages, split_stages
+
+    rec = {"run": label}
+    rows = {}
+    for path in ("inproc", "run_stages"):
+        cuda_ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        if path == "inproc":
+            plan = optimized(build())
+            batches, schema = plan_batches(plan), plan.schema
+        else:
+            stats = RunStats()
+            stages, manager = split_stages(build())
+            batches, schema = list(run_stages(stages, manager, stats)), stages[-1].plan.schema
+            rec["data_bytes"], rec["tasks"] = stats.data_bytes, stats.tasks
+        torch.cuda.synchronize()
+        rec[f"{path}_wall_s"] = time.perf_counter() - t0
+        rec[f"{path}_peak_mib"] = round((torch.cuda.max_memory_allocated() - base) / 2**20, 1)
+        launches_of[label if path == "inproc" else f"{label} (run_stages)"] = dict(cuda_ops.LAUNCHES)
+        out = {f.name: [] for f in schema.fields}
+        for b in batches:
+            for k, v in batch_to_pydict(b).items():
+                out[k].extend(v)
+        rows[path] = canon(out) if canon else out
+        del batches
+    if not same_rows(rows["inproc"], rows["run_stages"]):
+        raise AssertionError(f"{label} through run_stages differs from in process")
+    if launches_of[label] != launches_of[f"{label} (run_stages)"]:
+        raise AssertionError(f"{label}: launches {launches_of[label]} in process, "
+                             f"{launches_of[f'{label} (run_stages)']} through run_stages")
+    rec["launches"] = launches_of[label]
+    rec["rows"] = rows["inproc"]
+    return rec
+
+
+def basket_oracle(lineitem: dict, orders: dict):
+    """Run 1 in numpy: per o_orderpriority over the year's orders, the
+    exploded lines' count, sum of l_partkey and sum of positions, the
+    orders, their distinct suppliers summed, the orders holding the
+    constant supplier and the most lines of an order; and the most lines
+    of any order."""
+    import datetime
+
+    import numpy as np
+
+    okey, pkey, skey = (lineitem[c][0] for c in ("l_orderkey", "l_partkey", "l_suppkey"))
+    day = lambda y: (datetime.date(y, 1, 1) - datetime.date(1970, 1, 1)).days
+    odate = orders["o_orderdate"][0]
+    sel = (odate >= day(BASKET_YEAR)) & (odate < day(BASKET_YEAR + 1))
+    order_of = np.searchsorted(orders["o_orderkey"][0], okey)
+    keep = sel[order_of]
+    lines = np.bincount(order_of, minlength=odate.shape[0])
+    pairs = np.unique(order_of[keep].astype(np.int64) << 32 | skey[keep].astype(np.int64))
+    distinct = np.bincount(pairs >> 32, minlength=odate.shape[0])
+    has = np.zeros(odate.shape[0], bool)
+    has[order_of[keep & (skey == BASKET_SUPPKEY)]] = True
+    pdata, plen = orders["o_orderpriority"][0], orders["o_orderpriority"][1]
+    masked = np.ascontiguousarray(np.where(np.arange(pdata.shape[1])[None, :] < plen[:, None], pdata, 0))
+    names, code = np.unique(masked.view(np.dtype((np.void, masked.shape[1]))).reshape(-1), return_inverse=True)
+    code = code.reshape(-1)
+    out = {}
+    for c, row in enumerate(names):
+        o_idx = np.flatnonzero(sel & (code == c))
+        if not o_idx.size:
+            continue
+        n = lines[o_idx]
+        out[bytes(row).rstrip(b"\0").decode()] = {
+            "cnt": int(n.sum()), "s": int(pkey[keep & (code[order_of] == c)].sum()),
+            "spos": int((n * (n - 1) // 2).sum()), "norders": int(o_idx.shape[0]),
+            "nsup": int(distinct[o_idx].sum()), "nhas": int(has[o_idx].sum()), "maxn": int(n.max())}
+    return out, int(lines.max())
+
+
+def basket_plan(scans: dict, n_parts: int):
+    """Run 1: order baskets.  Per l_orderkey a PARTIAL collect_list of
+    l_partkey and collect_set of l_suppkey, a hash exchange, FINAL; a
+    shuffled hash join with the year's orders (the agg's output is
+    already partitioned by the key: only orders is exchanged); size and
+    array_contains; pos_explode of the list; per o_orderpriority the
+    exploded rows' count and sums."""
+    import datetime
+
+    from blaze_tpu_torch.exprs.ir import Case, col, func, lit
+    from blaze_tpu_torch.ops import AggFunction, FilterExec, GenerateExec, GroupingExpr, NativeGenerator, ProjectExec
+    from blaze_tpu_torch.ops.joins import HashJoinExec, JoinType
+    from blaze_tpu_torch.parallel.exchange import NativeShuffleExchangeExec
+    from blaze_tpu_torch.parallel.shuffle import HashPartitioning
+    from blaze_tpu_torch.tpch.queries import two_stage_agg
+
+    baskets = two_stage_agg(scans["lineitem"], [GroupingExpr(col("l_orderkey"), "k")],
+                            [AggFunction("collect_list", col("l_partkey"), "parts"),
+                             AggFunction("collect_set", col("l_suppkey"), "supps")], n_parts)
+    year = FilterExec(scans["orders"], (col("o_orderdate") >= lit(datetime.date(BASKET_YEAR, 1, 1)))
+                      & (col("o_orderdate") < lit(datetime.date(BASKET_YEAR + 1, 1, 1))))
+    orders = NativeShuffleExchangeExec(year, HashPartitioning([col("o_orderkey")], n_parts))
+    joined = HashJoinExec(orders, baskets, [col("o_orderkey")], [col("k")], JoinType.INNER, build_is_left=True)
+    proj = ProjectExec(joined, [col("o_orderpriority"), func("size", col("parts")).alias("n_parts"),
+                                func("size", col("supps")).alias("n_supps"),
+                                func("array_contains", col("supps"), lit(BASKET_SUPPKEY)).alias("has"),
+                                col("parts")])
+    exploded = GenerateExec(proj, NativeGenerator("pos_explode", col("parts")), [])
+    first = col("pos") == lit(0)
+    zero = lit(0)
+    aggs = [AggFunction("count_star", None, "cnt"), AggFunction("sum", col("col"), "s"),
+            AggFunction("sum", col("pos"), "spos"), AggFunction("sum", Case([(first, lit(1))], zero), "norders"),
+            AggFunction("sum", Case([(first, col("n_supps"))], zero), "nsup"),
+            AggFunction("sum", Case([(first & col("has"), lit(1))], zero), "nhas"),
+            AggFunction("max", col("n_parts"), "maxn")]
+    return two_stage_agg(exploded, [GroupingExpr(col("o_orderpriority"), "prio")], aggs, n_parts)
+
+
+def check_basket(got: dict, want: dict) -> None:
+    rows = {p: {k: got[k][i] for k in got if k != "prio"} for i, p in enumerate(got["prio"])}
+    if rows != want:
+        raise AssertionError(f"order baskets: {rows} != the oracle's {want}")
+
+
+def merge_oracle(lineitem: dict) -> dict:
+    """Run 2 in numpy: per order its sorted l_partkey list and sorted
+    distinct l_suppkey list."""
+    import numpy as np
+
+    okey, pkey, skey = (lineitem[c][0] for c in ("l_orderkey", "l_partkey", "l_suppkey"))
+    order = np.lexsort((pkey, okey))
+    keys, starts = np.unique(okey[order], return_index=True)
+    parts = np.split(pkey[order], starts[1:])
+    sorder = np.lexsort((skey, okey))
+    supps = np.split(skey[sorder], starts[1:])
+    return {int(k): (p.tolist(), sorted(set(s.tolist()))) for k, p, s in zip(keys, parts, supps)}
+
+
+def sorted_lists(rows: dict) -> dict:
+    """The collect columns' lists sorted: Spark gives no element order
+    across partitions, so the two paths compare as multisets."""
+    return {k: [sorted(v) if isinstance(v, list) else v for v in vals] for k, vals in rows.items()}
+
+
+def words_oracle(part: dict):
+    import numpy as np
+
+    data, lengths = part["p_name"][0], part["p_name"][1]
+    words = [w for i in range(data.shape[0]) for w in bytes(data[i, :lengths[i]]).decode().split(" ")]
+    uniq, counts = np.unique(np.array(words, dtype=object).astype(str), return_counts=True)
+    return [str(u) for u in uniq], [int(c) for c in counts]
+
+
+def write_nested_orc(lineitem: dict, orders: dict, path: str):
+    """Run 4's file: one row per order (o_orderkey; a LIST of l_partkey;
+    a MAP from l_linenumber to l_partkey; a STRUCT of o_orderdate and
+    o_totalprice), written by the port's own writer.  Returns its schema
+    and the numpy oracle: per l_linenumber the lines, the sum of
+    l_partkey and the sum of their orders' o_totalprice."""
+    import numpy as np
+
+    from blaze_tpu_torch.io import orc
+    from blaze_tpu_torch.schema import DataType as T, Field, Schema
+
+    okey, pkey, lnum = (lineitem[c][0] for c in ("l_orderkey", "l_partkey", "l_linenumber"))
+    o_key, o_date, o_price = (orders[c][0] for c in ("o_orderkey", "o_orderdate", "o_totalprice"))
+    row = np.searchsorted(o_key, okey)
+    first = np.searchsorted(row, np.arange(o_key.shape[0]))
+    pos = np.arange(okey.shape[0]) - first[row]
+    m = BASKET_MAX_ELEMS
+    lens = np.bincount(row, minlength=o_key.shape[0]).astype(np.int32)
+    edata = np.zeros((o_key.shape[0], m), np.int64)
+    evalid = np.zeros((o_key.shape[0], m), bool)
+    edata[row, pos] = pkey
+    evalid[row, pos] = True
+    maps = [dict(zip(lnum[first[i]:first[i] + lens[i]].tolist(), pkey[first[i]:first[i] + lens[i]].tolist()))
+            for i in range(o_key.shape[0])]
+    structs = [{"o_orderdate": int(d), "o_totalprice": int(p)} for d, p in zip(o_date.tolist(), o_price.tolist())]
+    schema = Schema([Field("o_orderkey", T.int64()), Field("parts", T.array(T.int64(), m)),
+                     Field("lines", T.map(T.int32(), T.int64(), m)),
+                     Field("head", T.struct([Field("o_orderdate", T.date32()), Field("o_totalprice", T.decimal(12, 2))]))])
+    orc.write_orc(path, schema, {"o_orderkey": (o_key, None, None), "parts": (None, None, lens, (edata, evalid)),
+                                 "lines": maps, "head": structs}, compression="zlib")
+    want = {}
+    for ln in np.unique(lnum):
+        sel = lnum == ln
+        want[int(ln)] = {"cnt": int(sel.sum()), "s": int(pkey[sel].sum()), "price": int(o_price[row[sel]].sum())}
+    return schema, want
+
+
+def orc_plan(scan, n_parts: int):
+    """Run 4: the map exploded, a struct field and the list's first
+    element beside it, per l_linenumber."""
+    from blaze_tpu_torch.exprs.ir import Case, GetIndexedField, GetStructField, col, lit
+    from blaze_tpu_torch.ops import AggFunction, GenerateExec, GroupingExpr, NativeGenerator, ProjectExec
+    from blaze_tpu_torch.tpch.queries import two_stage_agg
+
+    gen = GenerateExec(scan, NativeGenerator("explode", col("lines")), [])
+    proj = ProjectExec(gen, [col("key"), col("value"), GetStructField(col("head"), "o_totalprice").alias("price"),
+                             Case([(col("key") == lit(1), GetIndexedField(col("parts"), 0))]).alias("p0")])
+    return two_stage_agg(proj, [GroupingExpr(col("key"), "ln")],
+                         [AggFunction("count_star", None, "cnt"), AggFunction("sum", col("value"), "s"),
+                          AggFunction("sum", col("price"), "price"), AggFunction("sum", col("p0"), "s0")], n_parts)
+
+
+def nested_phase(torch, cuda_ops, flush, card: str, data, new_data, scale: float, n_parts: int, batch_rows: int,
+                 workdir: str) -> tuple:
+    """The nested columns (see the module docstring, step 10).  Returns
+    the launches of each run and the kernel checks on run 1's inputs."""
+    import numpy as np
+
+    from blaze_tpu_torch import conf
+    from blaze_tpu_torch.exprs.ir import col, func, lit
+    from blaze_tpu_torch.ops import GenerateExec, MemoryScanExec, NativeGenerator, OrcScanExec, ProjectExec, SortField
+    from blaze_tpu_torch.ops import AggFunction, GroupingExpr
+    from blaze_tpu_torch.tpch import TPCH_SCHEMAS, datagen
+    from blaze_tpu_torch.tpch.queries import single_sorted, two_stage_agg
+
+    t_phase = time.perf_counter()
+    launches_of: Dict[str, dict] = {}
+    records, checks = [], []
+    lineitem, orders = data["lineitem"], data["orders"]
+    # ---- run 1: order baskets at --scale, budget 8
+    li_cols, o_cols = ("l_orderkey", "l_partkey", "l_suppkey"), ("o_orderkey", "o_orderdate", "o_orderpriority")
+    scans = {"lineitem": sub_scan(lineitem, TPCH_SCHEMAS["lineitem"], li_cols, n_parts, batch_rows, "cuda"),
+             "orders": sub_scan(orders, TPCH_SCHEMAS["orders"], o_cols, n_parts, batch_rows, "cuda")}
+    n_orders = orders["o_orderkey"][0].shape[0]
+    state_mb = n_orders * 2 * BASKET_MAX_ELEMS * (8 + 1) / 1e6
+    log(f"nested: run 1's collect states ~{n_orders} orders x 2 arrays x {BASKET_MAX_ELEMS} elements x 9 B = "
+        f"{state_mb:.0f} MB (at the default 64: {state_mb * 8:.0f} MB)")
+    t0 = time.perf_counter()
+    want, most_lines = basket_oracle(lineitem, orders)
+    oracle_s = time.perf_counter() - t0
+    if most_lines > BASKET_MAX_ELEMS:
+        raise AssertionError(f"order baskets: an order of {most_lines} lines would be cut at {BASKET_MAX_ELEMS}")
+    conf.COLLECT_MAX_ELEMS.set(BASKET_MAX_ELEMS)
+    try:
+        with largest_inputs(cuda_ops) as seen:
+            rec = nested_paths(torch, cuda_ops, "nested: order baskets", lambda: basket_plan(scans, n_parts),
+                               launches_of)
+    finally:
+        conf.COLLECT_MAX_ELEMS.set(64)
+    check_basket(rec.pop("rows"), want)
+    require_launches("nested: order baskets", rec["launches"], ("murmur3_pids", "pid_histogram", "sorted_lookup"))
+    rec.update(scale=scale, max_elems=BASKET_MAX_ELEMS, most_lines_of_an_order=most_lines, oracle_s=oracle_s,
+               priorities=len(want), exploded_rows=sum(w["cnt"] for w in want.values()))
+    records.append(rec)
+    for key, (_, inputs) in sorted(seen.items()):
+        if key.startswith("murmur3_pids"):
+            planes, widths, valids, parts = inputs
+            checks.append(("murmur3_pids", check_murmur3(torch, cuda_ops, flush, planes, widths, valids,
+                                                         "(order baskets)", timed=False, n_parts=parts)))
+        elif key.startswith("pid_histogram"):
+            pids, parts = inputs
+            checks.append(("pid_histogram", check_pid_histogram(torch, cuda_ops, flush, pids, parts,
+                                                                "(order baskets)", timed=False)))
+        elif key == "sorted_lookup most probes":
+            checks.append(("sorted_lookup", check_sorted_lookup(torch, cuda_ops, flush, *inputs,
+                                                                "(order baskets)", timed=False)))
+    for name, r in checks:
+        log_check(name, r)
+    del scans, seen
+    # ---- run 2: the default budget, states merged, at NESTED_SCALE
+    small = datagen.generate_table("lineitem", NESTED_SCALE, columns=["l_orderkey", "l_partkey", "l_suppkey",
+                                                                       "l_linenumber"])
+    small_orders = datagen.generate_table("orders", NESTED_SCALE, columns=["o_orderkey", "o_orderdate",
+                                                                            "o_totalprice"])
+    okey = small["l_orderkey"][0]
+    per_part = [np.array_split(part, -(-part.shape[0] // MERGE_BATCH_ROWS))
+                for part in np.array_split(okey, n_parts)]
+    spanning = sum(int(a[-1] == b[0]) for batches in per_part for a, b in zip(batches, batches[1:]))
+    mscan = sub_scan(small, TPCH_SCHEMAS["lineitem"], li_cols, n_parts, MERGE_BATCH_ROWS, "cuda")
+    merge_build = lambda: two_stage_agg(mscan, [GroupingExpr(col("l_orderkey"), "k")],
+                                        [AggFunction("collect_list", col("l_partkey"), "parts"),
+                                         AggFunction("collect_set", col("l_suppkey"), "supps")], n_parts)
+    rec = nested_paths(torch, cuda_ops, "nested: collect at the default budget", merge_build, launches_of,
+                       canon=sorted_lists)
+    got = rec.pop("rows")
+    want2 = merge_oracle(small)
+    if len(got["k"]) != len(want2) or any(want2[k] != (p, s) for k, p, s in zip(got["k"], got["parts"],
+                                                                                  got["supps"])):
+        raise AssertionError("collect at the default budget: a group's list or set differs from numpy's")
+    rec.update(scale=NESTED_SCALE, max_elems=64, groups=len(got["k"]), batch_rows=MERGE_BATCH_ROWS,
+               orders_over_two_batches=spanning)
+    if not spanning:
+        raise AssertionError("collect at the default budget: no group merged two partial states")
+    records.append(rec)
+    # ---- run 3: word count over part's names at --scale
+    part = new_data["part"]
+    pscan = sub_scan(part, TPCH_SCHEMAS["part"], ("p_name",), n_parts, batch_rows, "cuda")
+
+    def words_build():
+        split = ProjectExec(pscan, [func("split", col("p_name"), lit(" ")).alias("words")])
+        words = GenerateExec(split, NativeGenerator("explode", col("words")), [], keep_input=False)
+        counted = two_stage_agg(words, [GroupingExpr(col("col"), "word")],
+                                [AggFunction("count_star", None, "n")], n_parts)
+        return single_sorted(counted, [SortField(col("word"), True, False)])
+
+    rec = nested_paths(torch, cuda_ops, "nested: word count", words_build, launches_of)
+    got = rec.pop("rows")
+    words, counts = words_oracle(part)
+    if got["word"] != words or got["n"] != counts:
+        raise AssertionError("word count differs from numpy's split")
+    rec.update(scale=scale, names=part["p_name"][0].shape[0], words=len(words), exploded_rows=sum(counts))
+    records.append(rec)
+    # ---- run 4: nested ORC at NESTED_SCALE, written by the port's writer
+    path = os.path.join(workdir, "nested_orders.orc")
+    t0 = time.perf_counter()
+    schema, want4 = write_nested_orc(small, small_orders, path)
+    write_s = time.perf_counter() - t0
+    orc_build = lambda dev: orc_plan(OrcScanExec([[path]], schema, device=dev), n_parts)
+    rec = nested_paths(torch, cuda_ops, "nested: ORC map explode", lambda: orc_build("cuda"), launches_of)
+    got = rec.pop("rows")
+    rows4 = {ln: {"cnt": c, "s": s, "price": p} for ln, c, s, p in zip(got["ln"], got["cnt"], got["s"], got["price"])}
+    s0 = {ln: v for ln, v in zip(got["ln"], got["s0"])}
+    if rows4 != want4 or s0 != {ln: (w["s"] if ln == 1 else None) for ln, w in want4.items()}:
+        raise AssertionError(f"nested ORC: {rows4} != numpy's {want4}")
+    t0 = time.perf_counter()
+    if not same_rows(cpu_rows(orc_build("cpu")), {k: v for k, v in got.items()}):
+        raise AssertionError("nested ORC: the card's rows differ from the CPU evaluation")
+    cpu_s = time.perf_counter() - t0
+    syncs, _ = count_syncs(torch, lambda: plan_batches(optimized(orc_build("cuda"))))
+    # the explode alone over the scan's batches on the card: one read
+    # of the emitted count a batch, none a column
+    staged = plan_batches(OrcScanExec([[path]], schema, device="cuda"))
+    explode = GenerateExec(MemoryScanExec([staged], schema, device="cuda"), NativeGenerator("explode", col("lines")), [])
+    explode_syncs, _ = count_syncs(torch, lambda: plan_batches(explode))
+    if explode_syncs > len(staged):
+        raise AssertionError(f"explode: {explode_syncs} syncs over {len(staged)} batches")
+    rec.update(scale=NESTED_SCALE, file_bytes=os.path.getsize(path), write_s=write_s, cpu_evaluation_s=cpu_s,
+               inproc_syncs=syncs, explode_syncs=explode_syncs, explode_batches=len(staged))
+    records.append(rec)
+    os.unlink(path)
+    for rec in records:
+        rec["card"] = card
+        log(f"{rec['run']}: = numpy on both paths; walls {rec['inproc_wall_s']:.4f} s in process, "
+            f"{rec['run_stages_wall_s']:.4f} s through run_stages, .data {rec['data_bytes']} bytes, peaks "
+            f"{rec['inproc_peak_mib']} / {rec['run_stages_peak_mib']} MiB on {card}; launches {rec['launches']}")
+        log("nested " + json.dumps(rec))
+    log(f"nested phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches_of, checks
+
+
 def end_phase(phases: list, name: str) -> None:
     """Notes, and prints, the seconds from the start of the script to the
     end of phase ``name``."""
@@ -3061,6 +3456,12 @@ def main() -> int:
     fn_launches = functions_phase(torch, cuda_ops, card, data, args.scale, n_parts, batch_rows, runs)
 
     end_phase(phases, "functions and object aggs")
+    # ---- nested columns: collects, explodes, nested functions and ORC fields
+    nested_launches, nested_checks = nested_phase(torch, cuda_ops, flush, card, data, new_data, args.scale,
+                                                  n_parts, batch_rows, workdir)
+    checks += nested_checks
+
+    end_phase(phases, "nested columns")
     # ---- real null foreign keys through run_stages, and the kernels on them
     null_runs, null_checks = null_key_phase(torch, cuda_ops, flush, card, ds_data, args.ds_scale, n_parts,
                                             batch_rows)
@@ -3161,12 +3562,14 @@ def main() -> int:
             "replaces": f"blaze_tpu/kernels/pallas_ops.py:{line}",
             "launches": sum(run[name] for run in runs.values())
             + sum(run[name] for label, run in file_launches.items() if not label.endswith("(run_stages)"))
-            + sum(run[name] for label, run in fn_launches.items() if not label.endswith("(run_stages)")),
+            + sum(run[name] for label, run in fn_launches.items() if not label.endswith("(run_stages)"))
+            + sum(run[name] for label, run in nested_launches.items() if not label.endswith("(run_stages)")),
             "launches_null_keys": {check: run[name] for check, run in null_runs.items()},
             "launches_by_query": {query_label(q): run[name] for q, run in runs.items()},
             "launches_run_stages": {query_label(q): run[name] for q, run in sched_runs.items()},
             "launches_files": {label: run[name] for label, run in file_launches.items()},
             "launches_functions": {label: run[name] for label, run in fn_launches.items()},
+            "launches_nested": {label: run[name] for label, run in nested_launches.items()},
             "shape": r["shape"], "max_abs_err": errs[name], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "device_ms": r.get("device_ms"),

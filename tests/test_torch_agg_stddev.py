@@ -175,6 +175,9 @@ def check_case(column, grouped, n):
 def test_an_unknown_state_raises_naming_the_function():
     schema = TSchema([TF("x#sum", TT.int64())])
     scan = MemoryScanExec([[]], schema, device=CPU)
-    # ``first`` is ported since; ``collect_list`` waits for nested columns
-    with pytest.raises(NotImplementedError, match="collect_list"):
+    # ``first`` and ``collect_list`` are ported since; a collect merge
+    # finds its input type in its ``#list`` state, which this schema lacks
+    with pytest.raises(NotImplementedError, match="no_such_agg"):
+        AggExec(scan, AggMode.FINAL, [], [AggFunction("no_such_agg", tcol("x"), "x")])
+    with pytest.raises(KeyError, match="x#list"):
         AggExec(scan, AggMode.FINAL, [], [AggFunction("collect_list", tcol("x"), "x")])

@@ -16,8 +16,9 @@ whose decimal -> double is an ulp off, reference defect 5).  The other float res
 65 and 101 ulps apart over this table; ``tanh(19.18)`` is
 0.9999999999999992 in XLA, 1.0 in numpy and the port).  The nested names (``make_array``, ``size``,
 ``cardinality``, ``map_keys``, ``map_values``, ``array_contains``,
-``array_union``, ``brickhouse_array_union``, ``split``) wait for nested
-columns; an unknown name raises.
+``array_union``, ``brickhouse_array_union``) take nested columns: their
+cases are in ``test_torch_nested.py`` (``split``'s in
+``test_torch_host_functions.py``); an unknown name raises.
 """
 
 import datetime
@@ -232,12 +233,11 @@ def test_function_equals_the_reference(results, fam, cid):
 def test_every_flat_reference_name_resolves_in_the_port():
     ref_names = set(JFN._REGISTRY) | set(JFN.HOST_IMPLS) | {"get_json_object", "get_parsed_json_object",
                                                                "parse_json"}
-    flat = ref_names - NESTED
     port = set(FN._REGISTRY) | set(FN.HOST_IMPLS) | set(FN.JSON_FUNCS)
-    assert flat <= port and not (port & NESTED)
+    assert ref_names <= port and NESTED <= port
     assert set(FN._TYPES) == port
     tested = {cid.split("-")[0] for _, cid in CASES}
-    device = set(FN._REGISTRY) - {"year", "month", "day", "substring", "concat", "might_contain"}
+    device = set(FN._REGISTRY) - {"year", "month", "day", "substring", "concat", "might_contain"} - NESTED
     assert device <= tested, device - tested
 
 
@@ -249,11 +249,15 @@ def test_an_unknown_name_raises_naming_it():
 
     schema = Schema([Field("a", TT.int32())])
     c = column_from_numpy(TT.int32(), np.arange(4, dtype=np.int32), device="cpu")
-    for name in ("no_such_fn", "size"):
-        with pytest.raises(KeyError, match=name):
-            infer_dtype(func(name, col("a")), schema)
-        with pytest.raises(KeyError, match=name):
-            lower(func(name, col("a")), schema, {"a": c}, 4)
+    with pytest.raises(KeyError, match="no_such_fn"):
+        infer_dtype(func("no_such_fn", col("a")), schema)
+    with pytest.raises(KeyError, match="no_such_fn"):
+        lower(func("no_such_fn", col("a")), schema, {"a": c}, 4)
+    # ``size`` resolves since nested columns came; over a flat column it
+    # raises naming the type
+    assert infer_dtype(func("size", col("a")), schema) == TT.int32()
+    with pytest.raises(TypeError, match="size over"):
+        lower(func("size", col("a")), schema, {"a": c}, 4)
 
 
 def test_cbrt_has_no_torch_counterpart_and_is_exact_on_cubes():

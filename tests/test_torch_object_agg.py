@@ -165,9 +165,16 @@ def test_opaque_decoding_is_gated_by_allow_pickled():
 
 
 def test_a_nested_frame_still_raises():
-    raw = b"\x01\x00\x00\x00\x02"
-    with pytest.raises(NotImplementedError, match="nested"):
+    """A nested frame (tag 2) where the schema's field is flat raises,
+    as in the reference (an assertion there, a ValueError here)."""
+    raw = b"\x01\x00\x00\x00\x02\x01"
+    with pytest.raises(ValueError, match="wire tag 2"):
         deserialize_batch(raw, TSchema([TF("a", TT.int64())]))
+    from blaze_tpu.io.batch_serde import deserialize_batch as jax_deserialize
+    from blaze_tpu.schema import DataType as JT, Field as JF, Schema as JS
+
+    with pytest.raises(AssertionError):
+        jax_deserialize(raw, JS([JF("a", JT.int64())]))
 
 
 # ------------------------------------------------------- object agg

@@ -6,7 +6,8 @@ every codec pyarrow and the port share).  The port's ``read_stripe``
 must give exactly the reference's arrays, its writer byte-identical
 files, its ``OrcScanExec`` the reference scan's rows and its stripe
 pruning the reference's counts.  ZSTD raises ``MissingCodecError`` in the
-port; a nested field raises ``NotImplementedError`` naming its type.
+port.  Nested fields beside flat ones read as the reference reads them
+(``test_torch_orc_nested.py`` has the rest of the nested cases).
 """
 
 import decimal
@@ -264,23 +265,25 @@ def test_string_stripe_pruning(tmp_path):
 
 def test_nested_fields_raise_naming_their_type(tmp_path):
     """A file with a list and a struct beside flat fields: the flat
-    fields read as the reference reads them, the nested ones raise."""
+    fields read as the reference reads them, and so do the nested ones
+    since the port has nested columns; a list longer than the read
+    schema's element budget raises naming the field, in both packages."""
     path = str(tmp_path / "nested.orc")
     t = pa.table({"a": pa.array([1, 2, None], pa.int64()), "l": pa.array([[1], [2, 3], None], pa.list_(pa.int32())),
                   "st": pa.array([{"x": 1}, None, {"x": 3}]), "s": pa.array(["p", None, "q"])})
     paorc.write_table(t, path)
     _same_stripes(path, ("a", "s"))
-    meta = porc.read_metadata(path)
-    with pytest.raises(NotImplementedError, match="ARRAY"):
-        porc.read_stripe(path, meta, meta.stripes[0], ["a", "l"])
-    with pytest.raises(NotImplementedError, match="STRUCT"):
-        porc.read_stripe(path, meta, meta.stripes[0], ["st"])
-    with pytest.raises(NotImplementedError, match="nested"):
-        porc.read_stripe(path, meta, meta.stripes[0])
-    with pytest.raises(NotImplementedError, match="ARRAY"):
-        OrcScanExec([[path]], PS.Schema([meta.schema.field("l")]), device="cpu")
-    with pytest.raises(NotImplementedError, match="nested"):
-        porc.write_orc(str(tmp_path / "w.orc"), PS.Schema([meta.schema.field("l")]), {"l": ([[1]], None, None)})
+    pmeta, rmeta = porc.read_metadata(path), rorc.read_metadata(path)
+    names = ("a", "l", "st", "s")
+    port = OrcScanExec([[path]], PS.Schema([pmeta.schema.field(n) for n in names]), device="cpu")
+    ref = JaxOrcScan([[path]], RS.Schema([rmeta.schema.field(n) for n in names]))
+    assert _port_rows(port) == _jax_rows(ref)
+    assert _port_rows(port)[0]["l"] == [[1], [2, 3], None]
+    narrow = lambda S: S.Schema([S.Field("l", S.DataType.array(S.DataType.int32(), 1))])
+    with pytest.raises(NotImplementedError, match="'l'"):
+        _port_rows(OrcScanExec([[path]], narrow(PS), device="cpu"))
+    with pytest.raises(NotImplementedError, match="'l'"):
+        _jax_rows(JaxOrcScan([[path]], narrow(RS)))
     scan = OrcScanExec([[path]], _schema(PS, ("s",)), device="cpu")
     assert [v for b in _port_rows(scan) for v in b["s"]] == ["p", None, "q"]
 

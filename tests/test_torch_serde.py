@@ -408,6 +408,45 @@ def test_unsupported_nodes_raise_naming_them():
         to_proto.plan_to_proto(TaskContext(0))
 
 
+def test_filter_with_a_fused_projection_travels_whole():
+    """A FilterExec's fused projection (the optimizer's tier 1) rides
+    the wire as ``project_exprs``/``project_names``, both ways, byte for
+    byte as the reference writes it."""
+    from blaze_tpu.exprs import ir as JI
+    from blaze_tpu.ops import FilterExec as JaxFilter
+    from blaze_tpu_torch.exprs import ir as TI
+    from blaze_tpu_torch.ops import FilterExec
+
+    data = {"a": [1, 2, 3], "b": [10, 20, 30]}
+    tschema = TSchema([TF("a", TT.int64()), TF("b", TT.int64())])
+    jschema = JSchema([JF("a", JT.int64()), JF("b", JT.int64())])
+    tb = TB.batch_from_pydict(data, tschema, device="cpu")
+    port = FilterExec(MemoryScanExec([[tb]], tschema), TI.col("a") > TI.lit(1),
+                      project=([(TI.col("a") + TI.col("b")).alias("s")], ["s"]))
+    ref = JaxFilter(JaxScan([[JB.batch_from_pydict(data, jschema)]], jschema), JI.col("a") > JI.lit(1),
+                    project=([(JI.col("a") + JI.col("b")).alias("s")], ["s"]))
+
+    def rows(plan):
+        prev = blaze_tpu_torch._default_device
+        blaze_tpu_torch.set_default_device("cpu")
+        try:
+            return [TB.batch_to_pydict(b) for b in plan.execute(0, TaskContext(0, 1))]
+        finally:
+            blaze_tpu_torch.set_default_device(prev)
+
+    msg = to_proto.plan_to_proto(port)
+    back = from_proto.plan_from_proto(wire.PhysicalPlanNode.decode(msg.encode()))  # takes the staged scan
+    assert back.schema.names == ["s"] and rows(back) == [{"s": [22, 33]}]
+    jmsg = jax_to_proto.plan_to_proto(ref)
+    JAX_RESOURCES.get(jmsg.filter.input.memory_scan.resource_id)  # the reference's staged scan, unread
+    for m in (msg.filter.input.memory_scan, jmsg.filter.input.memory_scan):
+        m.resource_id = "memscan_c1"
+    assert msg.encode() == jmsg.SerializeToString()
+    RESOURCES.put("memscan_c1", [[tb]])
+    from_ref = from_proto.plan_from_proto(wire.PhysicalPlanNode.decode(jmsg.SerializeToString()))
+    assert rows(from_ref) == [{"s": [22, 33]}]
+
+
 # ------------------------------------------------------- batches and frames
 
 
@@ -468,9 +507,20 @@ def test_serialize_batch_is_one_copy_each_way():
 
 
 def test_nested_wire_columns_raise():
-    raw = struct.pack("<IB", 1, 2)
-    with pytest.raises(NotImplementedError, match="nested"):
+    """A nested frame (tag 2) for a flat field raises in both packages
+    (the reference asserts); a nested field's frame decodes and
+    re-encodes as the reference's bytes."""
+    raw = struct.pack("<IBB", 1, 2, 1)
+    with pytest.raises(ValueError, match="wire tag 2"):
         BS.decode_columns(raw, TSchema([TF("a", TT.int64())]))
+    with pytest.raises(AssertionError):
+        JBS.deserialize_batch(raw, JSchema([JF("a", JT.int64())]))
+    data = {"a": [[1, 2], None, [], [None, 5, 6]]}
+    jb = JB.batch_from_pydict(data, JSchema([JF("a", JT.array(JT.int64(), 3))]))
+    ref = JBS.serialize_batch(jb)
+    tschema = TSchema([TF("a", TT.array(TT.int64(), 3))])
+    back = BS.deserialize_batch(ref, tschema, "cpu")
+    assert TB.batch_to_pydict(back) == data and BS.serialize_batch(back) == ref
 
 
 PAYLOAD = b"blaze " * 300 + bytes(range(256)) * 4
