@@ -42,6 +42,12 @@ def _bool(s: str) -> bool:
     return s.strip().lower() in ("1", "true", "yes", "on")
 
 
+# a PARTIAL agg with groupings stops aggregating once its groups pass
+# ratio of its input rows, checked from minRows input rows on; its
+# states then stream to the merge after the exchange
+ENABLE_PARTIAL_AGG_SKIPPING = ConfEntry("spark.blaze.partialAggSkipping.enable", True, _bool)
+PARTIAL_AGG_SKIPPING_RATIO = ConfEntry("spark.blaze.partialAggSkipping.ratio", 0.8, float)
+PARTIAL_AGG_SKIPPING_MIN_ROWS = ConfEntry("spark.blaze.partialAggSkipping.minRows", 20000, int)
 # smallest padded batch capacity (capacities are powers of two above it)
 MIN_CAPACITY = ConfEntry("spark.blaze.tpu.minBatchCapacity", 1024, int)
 # exchanges keep map output in device memory, in process; false sends

@@ -9,10 +9,13 @@ The global (no-grouping) path is a plain reduction.
 
 Each input batch reduces to a state batch; at the end the states
 concatenate and re-reduce (PARTIAL and FINAL states share one layout),
-and FINAL mode finalizes.  Wide decimal sums (result precision > 18)
-accumulate on two radix-2^32 int64 limbs, ``#sum_hi`` and
-``#sum_lo<p>``, summed independently and combined into int128 at
-finalize, like the reference.  Functions: sum, count, count_star, avg
+and FINAL mode finalizes.  A PARTIAL agg with groupings may stop
+aggregating partway and stream each batch's state instead
+(:class:`_PartialSkip`, ``spark.blaze.partialAggSkipping.*``).  Wide
+decimal sums (result precision > 18) accumulate on two radix-2^32 int64
+limbs, ``#sum_hi`` and ``#sum_lo<p>``, summed independently and
+combined into int128 at finalize, like the reference.  Functions: sum,
+count, count_star, avg
 (avg keeps a sum beside its ``#count`` and divides at finalize, with
 Spark's HALF_UP decimal rounding), min and max (one ``#value`` state
 column of the input's type, null where a group has no non-null input;
@@ -35,6 +38,7 @@ states for both, as the reference's does.
 from __future__ import annotations
 
 import enum
+import threading
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
 
@@ -493,6 +497,214 @@ def _empty_list(dtype: DataType, cap: int, device) -> Column:
     return Column(dtype, None, validity, c.lengths, c.children)
 
 
+# ------------------------------------------------------ partial skipping
+
+#: since the last :func:`reset_partial_totals`: PARTIAL aggs that
+#: stopped aggregating, the rows and batches PARTIAL aggs emitted, and
+#: the merges the skip's bookkeeping asked for (each one reduce)
+PARTIAL_TOTALS = {"partial_skipped": 0, "partial_rows": 0, "partial_batches": 0, "skip_merges": 0}
+_totals_lock = threading.Lock()
+
+
+def reset_partial_totals() -> None:
+    with _totals_lock:
+        for k in PARTIAL_TOTALS:
+            PARTIAL_TOTALS[k] = 0
+
+
+def _count_partial(key: str, v: int = 1) -> None:
+    with _totals_lock:
+        PARTIAL_TOTALS[key] += v
+
+
+class _PartialSkip:
+    """Partial aggregate skipping (``spark.blaze.partialAggSkipping.*``)
+    for one PARTIAL agg's stream: the held states and the decision to
+    stop aggregating, taken on the batch the reference takes it.
+
+    The reference folds each batch into one accumulator and stops once
+    ``acc_rows / in_rows > ratio`` with ``in_rows >= minRows``, where
+    ``in_rows`` counts the input rows before any ``pre_filter`` and
+    ``acc_rows`` is the accumulator's row count as its host knows it
+    then.  Under its defaults (``_FusedGroupedUpdate``) that count is
+    ``min(last proven count + the batch's rows, the accumulator's
+    capacity)``, the proven count one fold behind; a fold whose true
+    count passes the capacity is rebuilt (re-bucketed) one batch later;
+    and once the accumulator's capacity passes a batch's, that batch
+    takes the eager path, whose count adds the pending states' rows and
+    the batch's own, merging them in when they reach ``max(acc_rows,
+    4096)``.  The port keeps each batch's reduced state apart (the
+    accumulator's items, in fold order, and the eager path's pending
+    ones) and replays that bookkeeping on host integers; an exact
+    count of the accumulator's first items comes from merging them
+    (``merge``: one reduce, with its one read of the card), asked only
+    where the bounds the held row counts give cannot settle a
+    comparison.  The replay takes the batches' capacities as they come:
+    it decides as the reference does where its input batches have the
+    reference's capacities.
+
+    After the decision every batch's own state streams out (:meth:`add`
+    returns it); the accumulator so far, with the batch that decided it
+    when that batch was folded, comes last (:meth:`rest`).  The
+    reference's memory consumer and spill of the accumulator wait for
+    the port's memory manager."""
+
+    def __init__(self, merge, metrics):
+        self._merge = merge
+        self._metrics = metrics
+        self._ratio = float(conf.PARTIAL_AGG_SKIPPING_RATIO.get())
+        self._min_rows = int(conf.PARTIAL_AGG_SKIPPING_MIN_ROWS.get())
+        # batches before the first that can decide: (state, rows,
+        # capacity), replayed when it comes, so a stream that never
+        # reaches minRows merges nothing early
+        self._queue: list = []
+        self._queued_rows = 0
+        self._items: List[Optional[RecordBatch]] = []  # the accumulator's, in fold order
+        self._rows: List[int] = []                     # their row counts
+        self._merged: Optional[RecordBatch] = None     # items[:self._merged_n], merged
+        self._merged_n = 0
+        self._known = {0: 0}  # exact group counts of the first n items
+        self._eager: List[Optional[RecordBatch]] = []
+        self._eager_rows = 0
+        # the accumulator as the reference's host sees it: (lazy, its
+        # row count (lazy: the hint), its capacity, items folded)
+        self._state: Optional[Tuple[bool, int, int, int]] = None
+        self._good = 0          # items whose count was proven last
+        self._pending = None    # the fold whose check is deferred: (items, capacity)
+        self.in_rows = 0
+        self.skipping = False
+
+    # ---- exact counts and bounds
+    def _exact(self, n: int) -> int:
+        """Groups of the accumulator's first ``n`` items."""
+        if n not in self._known:
+            assert n >= self._merged_n, "counts are asked in fold order"
+            held = [b for b in [self._merged] + self._items[self._merged_n:n] if b is not None and b.num_rows]
+            if len(held) > 1:
+                self._metrics.add("partial_skip_merges")
+                _count_partial("skip_merges")
+            self._merged = self._merge(held) if len(held) > 1 else held[0] if held else None
+            self._merged_n = n
+            self._known[n] = 0 if self._merged is None else self._merged.num_rows
+        return self._known[n]
+
+    def _bounds(self, n: int) -> Tuple[int, int]:
+        base = max(m for m in self._known if m <= n)
+        rows = self._rows[base:n]
+        return max([self._known[base]] + rows), self._known[base] + sum(rows)
+
+    def _at_most(self, n: int, cap: int) -> bool:
+        """Whether the first ``n`` items hold at most ``cap`` groups;
+        exact counts, when the bounds cannot tell, of the last proven
+        items first (a rebuild needs them) and then of ``n``."""
+        lo, hi = self._bounds(n)
+        if hi <= cap or lo > cap:
+            return hi <= cap
+        self._exact(self._good)
+        return self._exact(n) <= cap
+
+    def _hint(self, n: int, rows: int, cap: int) -> int:
+        """``min(count of n items + rows, cap)``."""
+        return cap if self._bounds(n)[0] + rows >= cap else min(self._exact(n) + rows, cap)
+
+    # ---- the reference's accumulator
+    def _resolve(self, pending, following: bool) -> None:
+        """The deferred check of the fold of ``pending``; past its
+        capacity, the accumulator is rebuilt from the last proven one
+        and that fold (and the ``following`` fold after it)."""
+        n, cap = pending
+        if self._at_most(n, cap):
+            self._good = n
+            return
+        base = self._good
+        if following and self._pending is not None and self._pending[0] != n:
+            base, n = n, self._pending[0]
+        cap = bucket_capacity(self._exact(base) + self._rows[n - 1])
+        self._state = (False, self._exact(n), cap, n)
+        self._pending = None
+        self._good = n
+
+    def _resolve_state(self) -> None:
+        """The accumulator as a plain batch (its deferred check first)."""
+        if self._pending is not None:
+            pending, self._pending = self._pending, None
+            self._resolve(pending, following=False)
+        lazy, _, cap, n = self._state
+        if lazy:
+            self._state = (False, self._exact(n), cap, n)
+
+    def _check(self, acc_rows: int) -> None:
+        if self.in_rows >= self._min_rows and acc_rows / max(1, self.in_rows) > self._ratio:
+            self.skipping = True
+            self._metrics.add("partial_skipped", 1)
+            _count_partial("partial_skipped")
+
+    def add(self, part: Optional[RecordBatch], rows: int, cap: int) -> Optional[RecordBatch]:
+        """One input batch of ``rows`` live rows and capacity ``cap``,
+        reduced to ``part`` (None when it had no rows): returns the
+        state to emit now, else None."""
+        if self.skipping:
+            self.in_rows += rows
+            return part
+        self._queue.append((part, rows, cap))
+        self._queued_rows += rows
+        if self._queued_rows < self._min_rows:
+            return None
+        queue, self._queue = self._queue, []
+        out = None
+        for item in queue:  # only the last can decide
+            out = self._step(*item)
+        return out
+
+    def _step(self, part: Optional[RecordBatch], rows: int, cap: int) -> Optional[RecordBatch]:
+        self.in_rows += rows
+        p = 0 if part is None else part.num_rows
+        if self._state is None:
+            # the first batch seeds the accumulator, shrunk to its own bucket
+            self._items.append(part)
+            self._rows.append(p)
+            self._known[1] = p
+            self._state = (False, p, min(cap, bucket_capacity(max(p, 1))), 1)
+            self._good = 1
+            self._check(p + self._eager_rows)
+            return None
+        if self._state[2] <= cap:
+            # a fold: the count the host knows is a hint
+            lazy, st_rows, acc_cap, n = self._state
+            if not lazy:
+                self._good = n
+            self._items.append(part)
+            self._rows.append(p)
+            n = len(self._items)
+            self._state = (True, self._hint(self._good, rows, acc_cap), acc_cap, n)
+            prev, self._pending = self._pending, (n, acc_cap)
+            if prev is not None:
+                self._resolve(prev, following=True)
+            self._check(self._state[1] + self._eager_rows)
+            return None
+        # the eager path
+        self._resolve_state()
+        acc_rows = self._state[1]
+        self._check(acc_rows + self._eager_rows + p)
+        if self.skipping:
+            return part
+        self._eager.append(part)
+        self._eager_rows += p
+        if acc_rows == 0 or self._eager_rows >= max(acc_rows, 4096):
+            cap_m = bucket_capacity(acc_rows + self._eager_rows)
+            self._items.extend(self._eager)
+            self._rows.extend(0 if b is None else b.num_rows for b in self._eager)
+            self._eager, self._eager_rows = [], 0
+            n = len(self._items)
+            self._state = (False, self._exact(n), cap_m, n)
+        return None
+
+    def rest(self) -> List[RecordBatch]:
+        """The held states, to merge into the stream's last batch."""
+        held = [self._merged] + self._items[self._merged_n:] + self._eager + [b for b, _, _ in self._queue]
+        return [b for b in held if b is not None and b.num_rows]
+
+
 # ---------------------------------------------------------------- AggExec
 
 
@@ -520,9 +732,9 @@ class AggExec(ExecNode):
         self.pre_filter = pre_filter
         self.post_sort = list(post_sort) if post_sort else None
         self.post_fetch = post_fetch
-        # the plan contract's hint that a PARTIAL agg may pass rows
-        # through unaggregated; carried through serde, and the port
-        # always aggregates (the same result)
+        # a PARTIAL agg with groupings may stop aggregating once its
+        # groups pass spark.blaze.partialAggSkipping.ratio of its input
+        # rows (_PartialSkip); the merge after the exchange finishes it
         self.supports_partial_skipping = supports_partial_skipping
         self.groupings = list(groupings)
         self.aggs = [AggFunction(ALIASES.get(a.fn, a.fn), a.expr, a.name) for a in aggs]
@@ -778,21 +990,43 @@ class AggExec(ExecNode):
     def execute(self, partition: int, ctx: TaskContext) -> BatchStream:
         child_stream = self.children[0].execute(partition, ctx)
         merging = self.mode != AggMode.PARTIAL
+        partial = self.mode == AggMode.PARTIAL
+
+        def merge(states: List[RecordBatch]) -> RecordBatch:
+            return self._reduce(concat_batches(states), merging=True)
+
+        def emit(out: RecordBatch) -> RecordBatch:
+            self._record_batch(out)
+            if partial:
+                _count_partial("partial_rows", out.num_rows)
+                _count_partial("partial_batches")
+            return out
 
         def stream():
+            skip = None
+            if partial and self.groupings and self.supports_partial_skipping \
+                    and bool(conf.ENABLE_PARTIAL_AGG_SKIPPING.get()):
+                skip = _PartialSkip(merge, self.metrics)
             states: List[RecordBatch] = []
             for batch in child_stream:
                 if not ctx.is_task_running():
                     return
+                state = None
                 if batch.num_rows:
                     with self.metrics.timer("elapsed_compute"):
                         state = self._reduce(batch, merging)
-                    # a grouped batch whose rows the pre_filter all dropped
-                    if state.num_rows:
-                        states.append(state)
+                if skip is not None:
+                    state = skip.add(state, batch.num_rows, batch.capacity)
+                    if state is not None and state.num_rows:
+                        yield emit(state)
+                # a grouped batch whose rows the pre_filter all dropped
+                elif state is not None and state.num_rows:
+                    states.append(state)
+            if skip is not None:
+                states = skip.rest()
             with self.metrics.timer("elapsed_compute"):
                 if len(states) > 1:
-                    state = self._reduce(concat_batches(states), merging=True)
+                    state = merge(states)
                 elif states:
                     state = states[0]
                 elif not self.groupings:
@@ -804,7 +1038,6 @@ class AggExec(ExecNode):
                     from .sort import sort_batch
 
                     out = sort_batch(out, self.post_sort, self.post_fetch)
-            self._record_batch(out)
-            yield out
+            yield emit(out)
 
         return stream()

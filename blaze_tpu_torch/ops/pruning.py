@@ -88,7 +88,7 @@ def _prune(plan, required: Optional[Set[str]], prune_columns):
     """One node of :func:`prune_columns`; ``prune_columns`` prunes a
     child."""
     from ..parallel.exchange import NativeShuffleExchangeExec
-    from ..parallel.shuffle import HashPartitioning
+    from ..parallel.shuffle import HashPartitioning, RangePartitioning
     from .agg import AggExec, AggMode
     from .coalesce import CoalesceBatchesExec
     from .filter import FilterExec
@@ -147,6 +147,11 @@ def _prune(plan, required: Optional[Set[str]], prune_columns):
         if isinstance(plan.partitioning, HashPartitioning):
             for e in plan.partitioning.exprs:
                 child_req |= expr_columns(e)
+        elif isinstance(plan.partitioning, RangePartitioning):
+            # the range key's columns feed the pids, whatever the parent
+            # reads (the reference drops them: ROADMAP queue C, defect 18)
+            for f in plan.partitioning.fields:
+                child_req |= expr_columns(f.expr)
         child = prune_columns(plan.children[0], child_req)
         return NativeShuffleExchangeExec(_narrow(child, child_req), plan.partitioning,
                                          plan.parallel_map_tasks)

@@ -6,6 +6,8 @@ compared as signed integers: a null-rank word honouring nulls
 first/last, then the value words (ints as they are, floats through the
 sign-magnitude bit trick, strings as big-endian byte words), inverted
 for descending keys.  Rows sort stably by the words, last word first.
+A range partitioning key takes the reference's unsigned words instead
+(:func:`range_key_words`), so boundaries cross the wire bit for bit.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import torch
 
 from ..batch import Column, RecordBatch, concat_batches
 from ..exprs.compile import lower
+from ..exprs.int128 import SIGN
 from ..exprs.ir import Expr
 from ..exprs.strings import packed_be
 from ..runtime.context import TaskContext
@@ -53,6 +56,43 @@ def order_words(c: Column, ascending: bool, nulls_first: bool) -> List[torch.Ten
     # null rows: neutral value words so they cluster deterministically
     words.extend(torch.where(c.validity, v, 0) for v in vals)
     return words
+
+
+def range_key_words(schema: Schema, fields: Sequence[SortField], cols: Sequence[Column],
+                    num_rows) -> List[torch.Tensor]:
+    """The words of a range partitioning key (≙ the reference's
+    ``key_words`` in ``parallel/exchange.py``): each field's order
+    words as the reference's unsigned words, carried as int64 bit
+    patterns (unsigned order is the signed order of ``x ^ SIGN``), one
+    per row of ``cols``.  A string key is padded to its dtype's width
+    first, so every batch gives as many words, and a descending key's
+    padding inverts alike everywhere.  Rows at or past ``num_rows`` (an
+    int or a 0-d tensor) get all-ones words: they order after every
+    live row."""
+    cap = cols[0].capacity
+    env = {f.name: c for f, c in zip(schema.fields, cols)}
+    live = torch.arange(cap, device=cols[0].device) < num_rows
+    words: List[torch.Tensor] = []
+    for f in fields:
+        c = lower(f.expr, schema, env, cap)
+        if c.dtype.is_string:
+            w_phys, w_decl = c.data.shape[-1], c.dtype.string_width
+            if w_phys > w_decl:
+                raise ValueError(f"string key physical width {w_phys} exceeds its dtype's {w_decl}")
+            if w_phys < w_decl:
+                c = Column(c.dtype, torch.nn.functional.pad(c.data, (0, w_decl - w_phys)), c.validity, c.lengths)
+        rank, *vals = order_words(c, f.ascending, f.nulls_first)
+        # order_words' value words are the reference's with the sign bit
+        # flipped; null rows keep the reference's 0
+        words.append(torch.where(live, rank, -1))
+        words.extend(torch.where(live, torch.where(c.validity, v ^ SIGN, 0), -1) for v in vals)
+    return words
+
+
+def words_order(words: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Stable row order of unsigned ``words`` (int64 bit patterns),
+    first word first."""
+    return lexsort([w ^ SIGN for w in words])
 
 
 def sort_batch(batch: RecordBatch, fields: Sequence[SortField], fetch: Optional[int] = None) -> RecordBatch:

@@ -1,2 +1,12 @@
-"""Exchanges: hash and single-partition shuffles kept in process, and
-the broadcast exchange."""
+"""Exchanges: hash, round-robin, range and single-partition shuffles,
+in process or through files, and the broadcast exchange."""
+
+from .shuffle import (
+    HashPartitioning, IpcReaderExec, LocalShuffleManager, Partitioning, RangePartitioning, RoundRobinPartitioning,
+    ShuffleWriterExec, SinglePartitioning,
+)
+
+__all__ = [
+    "Partitioning", "HashPartitioning", "SinglePartitioning", "RangePartitioning", "RoundRobinPartitioning",
+    "ShuffleWriterExec", "IpcReaderExec", "LocalShuffleManager",
+]

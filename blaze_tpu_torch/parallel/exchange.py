@@ -9,9 +9,11 @@ in map order.
 - In process (``spark.blaze.exchange.inProcess``, the default): each
   batch's rows are sorted by partition id on the device, all pid counts
   come to the host in one copy, and each reduce partition's row ranges
-  are sliced out and concatenated into one device batch.  Output stays
-  on the device for the plan's lifetime, so a retried partition
-  re-reads it.
+  are sliced out and concatenated into one device batch.  Round robin
+  starts map task m at partition m; range partitioning first collects
+  every map batch's key words and takes exact order statistics of all
+  of them as its boundaries.  Output stays on the device for the plan's
+  lifetime, so a retried partition re-reads it.
 - Through files (the conf set false): each map task runs a
   ``ShuffleWriterExec`` into this exchange's ``LocalShuffleManager``
   (a temporary directory removed with the exchange), and each reduce
@@ -31,14 +33,17 @@ import weakref
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, List, Optional, TypeVar
 
+import torch
+
 from .. import conf
 from ..batch import RecordBatch, concat_batches
 from ..ops.base import BatchStream, ExecNode
+from ..ops.sort import range_key_words, words_order
 from ..runtime.context import TaskContext
 from ..schema import Schema
 from .shuffle import (
-    HashPartitioning, IpcReaderExec, LocalShuffleManager, Partitioning, hash_pids, sort_by_pid,
-    split_by_counts,
+    HashPartitioning, IpcReaderExec, LocalShuffleManager, Partitioning, RangePartitioning, RoundRobinPartitioning,
+    hash_pids, range_pids, round_robin_pids, sort_by_pid, split_by_counts,
 )
 
 _shuffle_ids = itertools.count()
@@ -78,24 +83,34 @@ class NativeShuffleExchangeExec(ExecNode):
 
     def _materialize(self, caller: TaskContext) -> Optional[List[List[RecordBatch]]]:
         child = self.children[0]
-        n_out = self.partitioning.num_partitions
+        part = self.partitioning
+        n_out = part.num_partitions
         n_maps = child.num_partitions()
-        is_hash = isinstance(self.partitioning, HashPartitioning) and n_out > 1
+        split = n_out > 1 and isinstance(part, (HashPartitioning, RoundRobinPartitioning))
+        is_range = n_out > 1 and isinstance(part, RangePartitioning)
 
         def run_map(m: int) -> Optional[list]:
-            """Map task ``m``'s batches (hashed: pid-sorted, with their
-            counts); None when cancelled."""
+            """Map task ``m``'s batches (hashed or round robin: pid-sorted,
+            with their counts; range: with their key words); None when
+            cancelled."""
             local = []
+            rr = m  # round robin: map task m starts at partition m, as in the reference
             for batch in child.execute(m, caller.child_context(m, n_maps)):
                 if not caller.is_task_running():
                     return None
-                if not is_hash:
+                if not (split or is_range):
                     local.append(batch)
                     continue
                 with self.metrics.timer("elapsed_compute"):
                     cols = [c.head(batch.num_rows) for c in batch.columns]
-                    pids = hash_pids(self.schema, self.partitioning.exprs, cols,
-                                     batch.num_rows, n_out)
+                    if is_range:
+                        local.append((batch, range_key_words(self.schema, part.fields, cols, batch.num_rows)))
+                        continue
+                    if isinstance(part, HashPartitioning):
+                        pids = hash_pids(self.schema, part.exprs, cols, batch.num_rows, n_out)
+                    else:
+                        pids = round_robin_pids(batch.num_rows, rr, n_out, batch.device)
+                        rr = (rr + batch.num_rows) % n_out
                     local.append(sort_by_pid(batch, pids, n_out))
             return local
 
@@ -103,12 +118,34 @@ class NativeShuffleExchangeExec(ExecNode):
         if any(local is None for local in per_map) or not caller.is_task_running():
             return None  # a cancelled materialization is never kept
         pending = [item for local in per_map for item in local]
-        if not is_hash:
+        if not (split or is_range):
             # every row to partition 0, coalesced into one batch
             return [[concat_batches(pending)] if pending else []] + [[] for _ in range(n_out - 1)]
         with self.metrics.timer("elapsed_compute"):
+            if is_range:
+                pending = self._range_split(pending)
             parts = split_by_counts(pending, n_out)
             return [[concat_batches(p)] if p else [] for p in parts]
+
+    def _range_split(self, keyed: list) -> list:
+        """Range partitioning in process (≙ the reference's
+        ``_materialize_range``): every map batch's key words sorted once,
+        the boundaries the exact order statistics at ``(total * (i + 1))
+        // n_out`` (a boundary row and every row equal to it go right),
+        then each batch's pids by comparison with them, sorted by pid and
+        counted as the hash path's."""
+        n_out = self.partitioning.num_partitions
+        total = sum(b.num_rows for b, _ in keyed)
+        if not total:
+            return []
+        n_words = len(keyed[0][1])
+        cat = [torch.cat([w[k] for _, w in keyed]) for k in range(n_words)]
+        positions = torch.tensor([min(total - 1, (total * (i + 1)) // n_out) for i in range(n_out - 1)],
+                                 device=cat[0].device)
+        at = words_order(cat)[positions]
+        bounds = [w[at] for w in cat]
+        del cat
+        return [sort_by_pid(b, range_pids(w, bounds), n_out) for b, w in keyed]
 
     def _write_map_outputs(self, caller: TaskContext) -> Optional[LocalShuffleManager]:
         """Every map task into a manager owned by this exchange; None

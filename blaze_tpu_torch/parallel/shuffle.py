@@ -2,13 +2,15 @@
 map-side writer of ``.data``/``.index`` files, the reduce-side reader
 and the local shuffle manager.
 
-Partition ids are Spark's murmur3(seed 42) pmod N, so a map stage
+Hash partition ids are Spark's murmur3(seed 42) pmod N, so a map stage
 places every row where vanilla Spark would.  Fixed-width keys always go
 through ``cuda_ops.murmur3_pids`` (the kernel on the card, its plain
 version on the CPU); string keys take the plain murmur3 path, as in the
 reference.  The choice is by key dtype alone, with no knob: a kernel
-that fails to build or launch raises.  Every batch's per-partition row
-counts come from the ``pid_histogram`` kernel.
+that fails to build or launch raises.  Round-robin ids are ``(i + r) %
+N``; range ids count the boundaries a row's order words are at or past
+(:func:`range_pids`).  Every batch's per-partition row counts come from
+the ``pid_histogram`` kernel, whatever the partitioning.
 
 The file shuffle: a map task (:class:`ShuffleWriterExec`) sorts each
 batch by partition id on the device and brings the sorted live rows and
@@ -19,9 +21,10 @@ last, each by atomic rename.  With ``spark.blaze.shuffle.asyncWrite``
 (the default) the host copies and slicing run on a second thread
 (:class:`_AsyncInserter`), in batch order, while the map task issues
 the next batch's device work.  The optimizer's tier 5 folds the
-traceable chain feeding a hash-partitioned writer into its per-batch
-work (:meth:`ShuffleWriterExec.absorb_traceable_chain`): the batch's
-live count then stays on the device until that copy.  A reduce task
+traceable chain feeding a hash, round-robin or range writer into its
+per-batch work (:meth:`ShuffleWriterExec.absorb_traceable_chain`): the
+batch's live count then stays on the device until that copy, and so
+does the round-robin offset it moves.  A reduce task
 (:class:`IpcReaderExec`) takes its blocks from the resources map,
 verifies every frame's checksum and stages the partition's rows on the
 device as one batch in one copy, as the in-process exchange hands a
@@ -48,6 +51,7 @@ from .. import conf
 from ..batch import Column, HostCopy, RecordBatch, slice_rows, tensors_to_host
 from ..exprs.compile import lower
 from ..exprs.hash import murmur3_columns, pmod
+from ..exprs.int128 import SIGN
 from ..exprs.ir import Expr
 from ..io.batch_serde import (
     HostColumn, column_layout, column_tensors, concat_host_columns, decode_columns, host_rows, serialize_columns,
@@ -81,6 +85,35 @@ class HashPartitioning(Partitioning):
     num_partitions: int
 
 
+@dataclass
+class RoundRobinPartitioning(Partitioning):
+    """Row ``i`` of a map task's stream to partition ``(i + r) % N``
+    (``df.repartition(N)``): ``r`` is 0 at a writer's first batch and
+    the map task's index in the in-process exchange, as in the
+    reference."""
+
+    num_partitions: int = 1
+
+
+@dataclass
+class RangePartitioning(Partitioning):
+    """Range partitioning on sort keys (Spark's global-sort exchange):
+    partition p holds the rows in ``[boundary_{p-1}, boundary_p)`` of
+    the key order, a row equal to a boundary going right, so sorting
+    each partition and reading them in order gives the total order.
+
+    ``boundaries``: one int64 array a key word (the reference's uint64
+    order words, bit for bit; ``ops.sort.range_key_words``), each of
+    ``num_partitions - 1`` words.  The in-process exchange computes
+    exact order statistics and leaves this None; the stage scheduler's
+    boundary pass fills it from a sample before the map stage runs (a
+    writer refuses to run without it)."""
+
+    fields: Sequence  # ops.sort.SortField
+    num_partitions: int
+    boundaries: Optional[tuple] = None
+
+
 def hash_pids(schema: Schema, exprs: Sequence[Expr], cols: Sequence[Column], n: int, n_out: int) -> torch.Tensor:
     """(n,) int32 partition ids of ``n`` rows of ``cols``."""
     env = {f.name: c for f, c in zip(schema.fields, cols)}
@@ -93,6 +126,33 @@ def hash_pids(schema: Schema, exprs: Sequence[Expr], cols: Sequence[Column], n: 
         valids = [c.validity.contiguous() for c in key_cols]
         return cuda_ops.murmur3_pids(list(planes), list(widths), valids, n_out)
     return pmod(murmur3_columns(key_cols), n_out)
+
+
+def range_pids(words: Sequence[torch.Tensor], boundaries: Sequence[torch.Tensor]) -> torch.Tensor:
+    """(rows,) int32 partition ids: how many boundaries each row's
+    unsigned ``words`` are at or past, compared lexicographically (≙
+    the reference's ``pids`` in ``_build_range_kernels``).  Boundaries
+    are compared a chunk at a time, so the (rows, chunk) masks stay
+    under 2^26 entries."""
+    rows, n_bounds = words[0].shape[0], boundaries[0].shape[0]
+    pid = torch.zeros(rows, dtype=torch.int32, device=words[0].device)
+    step = max(1, (1 << 26) // max(rows, 1))
+    signed = [w ^ SIGN for w in words]
+    for lo in range(0, n_bounds, step):
+        past = torch.zeros((rows, min(step, n_bounds - lo)), dtype=torch.bool, device=pid.device)
+        tied = torch.ones_like(past)
+        for w, b in zip(signed, boundaries):
+            bw = (b[lo:lo + step] ^ SIGN)[None, :]
+            past |= tied & (w[:, None] > bw)
+            tied &= w[:, None] == bw
+        pid += (past | tied).sum(1, dtype=torch.int32)
+    return pid
+
+
+def round_robin_pids(rows: int, offset, n_out: int, device) -> torch.Tensor:
+    """(rows,) int32 ``(i + offset) % n_out``; ``offset`` an int or a
+    0-d tensor."""
+    return ((torch.arange(rows, device=device) + offset) % n_out).to(torch.int32)
 
 
 def sort_by_pid(batch: RecordBatch, pids: torch.Tensor, n_out: int) -> Tuple[RecordBatch, torch.Tensor]:
@@ -265,11 +325,15 @@ class _AsyncInserter:
 class ShuffleWriterExec(ExecNode):
     """One map task: runs the child's partition and commits its rows,
     partitioned, to ``data_path``/``index_path``.  The output stream is
-    empty (the files are the output), as in the reference."""
+    empty (the files are the output), as in the reference.  A range
+    writer needs its partitioning's boundaries (the stage scheduler's
+    boundary pass); a round-robin writer starts each map task at
+    partition 0 and moves on by each batch's live rows."""
 
     def __init__(self, child: ExecNode, partitioning: Partitioning, data_path: str, index_path: str):
         super().__init__([child])
-        if not isinstance(partitioning, (HashPartitioning, SinglePartitioning)):
+        if not isinstance(partitioning, (HashPartitioning, SinglePartitioning, RoundRobinPartitioning,
+                                         RangePartitioning)):
             raise NotImplementedError(f"{type(partitioning).__name__} is not ported")
         self.partitioning = partitioning
         self.data_path = data_path
@@ -292,12 +356,14 @@ class ShuffleWriterExec(ExecNode):
         one FusedStageExec) into its per-batch work, which then runs the
         chain, the pids over the batch's whole capacity (padding's pid
         -1, sorted last and counted nowhere), the pid sort and the counts
-        with no host read: the batch's host copy is its one read.  Only
-        hash partitioning over more than one partition; idempotent."""
+        with no host read: the batch's host copy is its one read.  Hash,
+        round-robin and range partitioning over more than one partition;
+        idempotent."""
         from ..ops.fusion import BufferPartitionExec, compose, traceable_chain_from
 
         part = self.partitioning
-        if self.fused or not isinstance(part, HashPartitioning) or part.num_partitions <= 1:
+        if (self.fused or part.num_partitions <= 1
+                or not isinstance(part, (HashPartitioning, RoundRobinPartitioning, RangePartitioning))):
             return
         ops, bottom, buffered = traceable_chain_from(self.children[0])
         self._out_schema = self.children[0].schema
@@ -305,46 +371,69 @@ class ShuffleWriterExec(ExecNode):
             self._fused_chain = compose([op.trace_fn() for op in reversed(ops)])
             self.children[0] = BufferPartitionExec(bottom) if buffered else bottom
 
-    def _sorted_rows(self, batch: RecordBatch):
+    def _pids(self, cols: Sequence[Column], n, rr, bounds) -> Tuple[torch.Tensor, object]:
+        """(int32 partition ids of every row of ``cols``, the next
+        round-robin offset); ``n`` live rows lead."""
+        part, n_out, rows = self.partitioning, self.partitioning.num_partitions, cols[0].capacity
+        if isinstance(part, HashPartitioning):
+            return hash_pids(self.schema, part.exprs, cols, rows, n_out), rr
+        if isinstance(part, RoundRobinPartitioning):
+            return round_robin_pids(rows, rr, n_out, cols[0].device), (rr + n) % n_out
+        from ..ops.sort import range_key_words
+
+        return range_pids(range_key_words(self.schema, part.fields, cols, n), bounds), rr
+
+    def _sorted_rows(self, batch: RecordBatch, rr, bounds):
         """(the tensors of the batch's one host copy: its device rows
-        sorted by partition id, then, hashed, the counts; the columns'
-        ``column_layout``, with the opaque columns' sorted host rows;
-        the live row count, None when only the counts know it; the
-        counts when the host knows them already).  No host read, but
-        for one copy of the sort order when a column is opaque."""
+        sorted by partition id, then, partitioned, the counts; the
+        columns' ``column_layout``, with the opaque columns' sorted host
+        rows; the live row count, None when only the counts know it; the
+        counts when the host knows them already; the next round-robin
+        offset).  No host read, but for one copy of the sort order when
+        a column is opaque."""
         n_out = self.partitioning.num_partitions
         cols, n = batch.columns, batch.num_rows
         if self._fused_chain is not None:
             cols, n = self._fused_chain(cols, n)
-        if not (isinstance(self.partitioning, HashPartitioning) and n_out > 1):
-            return column_tensors(cols, n), column_layout(cols, n), n, [n] + [0] * (n_out - 1)
-        exprs = self.partitioning.exprs
+        if isinstance(self.partitioning, SinglePartitioning) or n_out <= 1:
+            return column_tensors(cols, n), column_layout(cols, n), n, [n] + [0] * (n_out - 1), rr
         if not self.fused:
-            head = [c.head(n) for c in cols]
-            pids = hash_pids(self.schema, exprs, head, n, n_out)
+            pids, rr = self._pids([c.head(n) for c in cols], n, rr, bounds)
             batch, counts = sort_by_pid(batch, pids, n_out)
             return (column_tensors(batch.columns, n) + [counts], column_layout(batch.columns, n),
-                    n, None)
+                    n, None, rr)
         cap = cols[0].capacity
         live = live_mask(cap, n, cols[0].device)
-        pids = torch.where(live, hash_pids(self.schema, exprs, cols, cap, n_out), -1)
+        pids, rr = self._pids(cols, n, rr, bounds)
+        pids = torch.where(live, pids, -1)
         counts = cuda_ops.pid_histogram(pids, n_out)
         order = torch.sort(torch.where(live, pids, n_out), stable=True).indices
         cols = [c.take(order) for c in cols]
-        return column_tensors(cols) + [counts], column_layout(cols), None, None
+        return column_tensors(cols) + [counts], column_layout(cols), None, None, rr
 
     def execute(self, partition: int, ctx: TaskContext) -> BatchStream:
+        part = self.partitioning
+        if isinstance(part, RangePartitioning) and part.boundaries is None and part.num_partitions > 1:
+            raise NotImplementedError("range partitioning needs global boundaries: run the stage "
+                                      "scheduler's boundary pass (or the in-process exchange)")
+
         def stream():
-            rep = ShuffleRepartitioner(self.partitioning.num_partitions, ctx.task_attempt_id)
+            rep = ShuffleRepartitioner(part.num_partitions, ctx.task_attempt_id)
             inserter = None
             if bool(conf.SHUFFLE_ASYNC_WRITE.get()):
                 inserter = _AsyncInserter(rep, int(conf.SHUFFLE_ASYNC_QUEUE_DEPTH.get()), self.metrics)
+            # the round-robin offset: a host int while the live counts
+            # are, a 0-d tensor after a fused chain's count (no read)
+            rr, bounds = 0, None
             try:
                 for batch in self.children[0].execute(partition, ctx):
                     if not ctx.is_task_running():
                         return
                     with self.metrics.timer("elapsed_compute"):
-                        tensors, layout, n, counts = self._sorted_rows(batch)
+                        if bounds is None and isinstance(part, RangePartitioning) and part.num_partitions > 1:
+                            bounds = [torch.as_tensor(np.asarray(b, np.int64), device=batch.device)
+                                      for b in part.boundaries]
+                        tensors, layout, n, counts, rr = self._sorted_rows(batch, rr, bounds)
                         if inserter is None:
                             _insert_host(rep, tensors_to_host(tensors), layout, n, counts)
                         else:

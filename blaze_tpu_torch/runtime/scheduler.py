@@ -20,10 +20,16 @@ its scans staged in ``RESOURCES``) and runs the bytes through
 The shuffle directory is removed when the result stream ends or is
 closed.
 
+Before a range-partitioned map stage whose partitioning has no
+boundaries, :meth:`StageRunner.run_stage` first runs the boundary
+pass (:func:`compute_range_boundaries`, ≙ Spark's RangePartitioner
+sample job): the stage's plan once more over a sample of each task's
+rows; its seconds count in the stage's.
+
 Not ported from the reference's scheduler: task retry and fetch-failure
-re-runs of map stages, speculation and wedge detection, worker host
-pools, the service lease, range partitioning's boundary pass, tracing
-and monitoring.  A failed task fails the query.
+re-runs of map stages (the boundary pass's retry with them),
+speculation and wedge detection, worker host pools, the service lease,
+tracing and monitoring.  A failed task fails the query.
 """
 
 from __future__ import annotations
@@ -35,12 +41,15 @@ import time
 from dataclasses import dataclass, field
 from typing import Dict, Iterator, List, Optional, Tuple
 
+import numpy as np
+import torch
+
 from .. import conf
 from ..batch import RecordBatch
 from ..ops.base import ExecNode
 from ..parallel.broadcast import BroadcastExchangeExec, IpcWriterExec
 from ..parallel.exchange import NativeShuffleExchangeExec, warm_then_map
-from ..parallel.shuffle import IpcReaderExec, LocalShuffleManager, Partitioning
+from ..parallel.shuffle import IpcReaderExec, LocalShuffleManager, Partitioning, RangePartitioning
 from .context import RESOURCES, ResourcesMap
 
 # process-unique: a broadcast's cached join map is named by its id
@@ -67,8 +76,9 @@ class Stage:
 class RunStats:
     """What :func:`run_stages` moved: tasks run, their TaskDefinition
     bytes, committed ``.data`` bytes, blocks registered for reduce
-    tasks, broadcast blob bytes; and each stage's seconds on the host
-    clock (the result stage's include its consumer's)."""
+    tasks, broadcast blob bytes, the rows read from each shuffle's
+    partitions; and each stage's seconds on the host clock (the result
+    stage's include its consumer's)."""
 
     tasks: int = 0
     task_def_bytes: int = 0
@@ -76,6 +86,8 @@ class RunStats:
     blocks: int = 0
     broadcast_bytes: int = 0
     stage_seconds: List[float] = field(default_factory=list)
+    # rows each reduce partition of each shuffle held, as its reader read them
+    read_rows: Dict[int, List[int]] = field(default_factory=dict)
 
 
 class _StageRoot(ExecNode):
@@ -156,6 +168,65 @@ def ipc_readers(plan: ExecNode, prefix: str) -> List[IpcReaderExec]:
     return out
 
 
+def compute_range_boundaries(stage: Stage, register, max_rows: int = 1 << 16) -> tuple:
+    """The boundary words of a range-partitioned map stage (≙ the
+    reference's ``_compute_range_boundaries``): the stage's plan runs
+    for each task, with ``register(t, resources, scope)`` staging its
+    inputs; every batch's key words are sampled at the current stride,
+    the pool halves (stride doubles) whenever it passes twice
+    ``max_rows``, and a task's stream is dropped once its quota of
+    ``max(1024, max_rows // tasks)`` rows is met.  The split points are
+    the sample's rows at ``(i * n) // n_out`` of its order.  Any
+    consistent split keeps the total order; the sample decides only the
+    balance.  Returns one int64 array a key word (the reference's
+    uint64 words, bit for bit)."""
+    from ..ops.sort import range_key_words, words_order
+    from .context import TaskContext
+
+    part = stage.partitioning
+    schema = stage.plan.schema
+    per_word: List[List[np.ndarray]] = []
+    pool_rows, stride = 0, 1
+    task_quota = max(1024, max_rows // max(1, stage.n_tasks))
+    for t in range(stage.n_tasks):
+        resources = ResourcesMap()
+        with contextlib.ExitStack() as scope:
+            register(t, resources, scope)
+            task_rows = 0
+            for b in stage.plan.execute(t, TaskContext(t, stage.n_tasks, resources)):
+                words = range_key_words(schema, part.fields, [c.head(b.num_rows) for c in b.columns], b.num_rows)
+                host = torch.stack([w[::stride] for w in words]).cpu().numpy() if words[0].shape[0] else \
+                    np.zeros((len(words), 0), np.int64)
+                for i, w in enumerate(host):
+                    if len(per_word) <= i:
+                        per_word.append([])
+                    per_word[i].append(w)
+                got = host.shape[1]
+                pool_rows += got
+                task_rows += got * stride
+                if pool_rows > 2 * max_rows:
+                    per_word = [[np.concatenate(chunks)[::2]] for chunks in per_word]
+                    pool_rows = len(per_word[0][0])
+                    stride *= 2
+                if task_rows >= task_quota:
+                    break
+    n_out = part.num_partitions
+    if not per_word:
+        # no batch: no row will reach a pid, any boundaries do
+        return (np.zeros(n_out - 1, np.int64),)
+    cat = [np.concatenate(chunks) for chunks in per_word]
+    n = cat[0].shape[0]
+    if n == 0:
+        return tuple(np.zeros(n_out - 1, np.int64) for _ in cat)
+    if n > max_rows:
+        s = (n + max_rows - 1) // max_rows
+        cat = [c[::s] for c in cat]
+        n = cat[0].shape[0]
+    order = words_order([torch.from_numpy(c) for c in cat]).numpy()
+    idx = order[[min(n - 1, (i * n) // n_out) for i in range(1, n_out)]]
+    return tuple(c[idx] for c in cat)
+
+
 def _discard(keys: List[str]) -> None:
     for key in keys:
         RESOURCES.discard(key)
@@ -208,7 +279,19 @@ class StageRunner:
             with self._lock:
                 self.stats.tasks += 1
                 self.stats.task_def_bytes += len(td)
-            yield from run_task(td, resources=resources)
+            plans = []
+            yield from run_task(td, resources=resources, on_plan=plans.append)
+            self._note_reads(plans[0], t)
+
+    def _note_reads(self, plan: ExecNode, t: int) -> None:
+        """Adds the rows task ``t``'s shuffle readers read to the stats."""
+        for node in ipc_readers(plan, "shuffle_"):
+            if t >= node.num_partitions():
+                continue  # a union's narrower child
+            sid = int(node.resource_id.split("_")[1])
+            with self._lock:
+                rows = self.stats.read_rows.setdefault(sid, [0] * node.num_partitions())
+                rows[t] += node.metrics.values.get("output_rows", 0)
 
     def _drain_task(self, stage: Stage, t: int) -> Optional[bytes]:
         """Run map or broadcast task ``t`` to its end; a broadcast task
@@ -222,7 +305,13 @@ class StageRunner:
 
     def run_stage(self, stage: Stage) -> Iterator[RecordBatch]:
         """Run every task of ``stage``; a result stage yields its
-        batches, the others yield nothing."""
+        batches, the others yield nothing.  A range map stage without
+        boundaries runs the boundary pass first."""
+        part = stage.partitioning
+        if stage.kind == "map" and isinstance(part, RangePartitioning) and part.boundaries is None \
+                and part.num_partitions > 1:
+            part.boundaries = compute_range_boundaries(
+                stage, lambda t, resources, scope: self._register(stage, t, resources, scope))
         if stage.kind == "result":
             for t in range(stage.n_tasks):
                 yield from self._run_task(stage, t, ResourcesMap())

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import pickle
 
+import numpy as np
+
 from ..exprs.ir import (
     Alias, BinOp, Case, Cast, Col, Expr, GetIndexedField, GetMapValue, GetStructField, InList, IsNotNull, IsNull,
     Like, Lit, NamedStruct, Not, ScalarFunc,
@@ -94,10 +96,21 @@ def expr_from_proto(n: pb.ExprNode) -> Expr:
 
 
 def _partitioning_from_proto(p: pb.PartitioningProto):
-    from ..parallel.shuffle import HashPartitioning, SinglePartitioning
+    from ..ops.sort import SortField
+    from ..parallel.shuffle import HashPartitioning, RangePartitioning, RoundRobinPartitioning, SinglePartitioning
 
     if p.kind == pb.PartitioningProto.HASH:
         return HashPartitioning([expr_from_proto(e) for e in p.exprs], p.num_partitions)
+    if p.kind == pb.PartitioningProto.ROUND_ROBIN:
+        return RoundRobinPartitioning(p.num_partitions)
+    if p.kind == pb.PartitioningProto.RANGE:
+        # uint64 words back to int64, bit for bit
+        flat = np.array(list(p.boundary_words), np.uint64).view(np.int64)
+        nw = int(p.num_boundary_words)
+        per = len(flat) // nw if nw else 0
+        fields = [SortField(expr_from_proto(f.expr), f.ascending, f.nulls_first) for f in p.sort_fields]
+        return RangePartitioning(fields, p.num_partitions,
+                                 boundaries=tuple(flat[i * per:(i + 1) * per] for i in range(nw)))
     if p.kind == pb.PartitioningProto.SINGLE:
         return SinglePartitioning(p.num_partitions)
     raise NotImplementedError(f"from_proto partitioning {pb.PartitioningProto.Kind(p.kind).name}")
@@ -254,18 +267,22 @@ def plan_from_proto(n: pb.PhysicalPlanNode):
     raise NotImplementedError(f"from_proto node {kind}")
 
 
-def run_task(task_def_bytes: bytes, task_attempt_id: int = 0, resources=None):
+def run_task(task_def_bytes: bytes, task_attempt_id: int = 0, resources=None, on_plan=None):
     """Decode a TaskDefinition, optimize its plan
     (``ops.fusion.optimize_plan``: fusion tiers 1-5 under
     ``spark.blaze.fusion.enabled``, and column pruning) and run it for
     its partition; returns the task's batch stream.  The task reads its
     reduce blocks and broadcast blobs from ``resources`` (default the
-    process-wide ``RESOURCES``, from which decoding takes the scans)."""
+    process-wide ``RESOURCES``, from which decoding takes the scans).
+    ``on_plan``, when given, is called with the optimized plan first
+    (its operators' metrics fill as the stream runs)."""
     from ..ops.fusion import optimize_plan
     from ..runtime.context import TaskContext
 
     td = pb.TaskDefinition.decode(task_def_bytes)
     plan = optimize_plan(plan_from_proto(td.plan))
+    if on_plan is not None:
+        on_plan(plan)
     ctx = TaskContext(td.partition, max(plan.num_partitions(), td.partition + 1), resources,
                       stage_id=td.stage_id, task_attempt_id=task_attempt_id)
     return plan.execute(td.partition, ctx)

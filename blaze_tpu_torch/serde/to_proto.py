@@ -19,6 +19,8 @@ import datetime
 import itertools
 import pickle
 
+import numpy as np
+
 from ..exprs.compile import infer_lit_dtype, unscaled_decimal
 from ..exprs.ir import (
     Alias, BinOp, Case, Cast, Col, Expr, GetIndexedField, GetMapValue, GetStructField, InList, IsNotNull, IsNull,
@@ -129,11 +131,23 @@ def expr_to_proto(e: Expr) -> pb.ExprNode:
 
 
 def _partitioning_to_proto(p) -> pb.PartitioningProto:
-    from ..parallel.shuffle import HashPartitioning, SinglePartitioning
+    from ..parallel.shuffle import HashPartitioning, RangePartitioning, RoundRobinPartitioning, SinglePartitioning
 
     if isinstance(p, HashPartitioning):
         return pb.PartitioningProto(kind=pb.PartitioningProto.HASH, num_partitions=p.num_partitions,
                                     exprs=[expr_to_proto(e) for e in p.exprs])
+    if isinstance(p, RoundRobinPartitioning):
+        return pb.PartitioningProto(kind=pb.PartitioningProto.ROUND_ROBIN, num_partitions=p.num_partitions)
+    if isinstance(p, RangePartitioning):
+        if p.boundaries is None:
+            # a map task cannot compute global boundaries alone
+            raise NotImplementedError("range partitioning crosses the serde boundary only with boundaries "
+                                      "(the stage scheduler's boundary pass)")
+        # the int64 words go out as uint64, bit for bit
+        words = [int(v) for b in p.boundaries for v in np.asarray(b, np.int64).view(np.uint64)]
+        return pb.PartitioningProto(kind=pb.PartitioningProto.RANGE, num_partitions=p.num_partitions,
+                                    sort_fields=[_sort_field(f) for f in p.fields], boundary_words=words,
+                                    num_boundary_words=len(p.boundaries))
     if isinstance(p, SinglePartitioning):
         return pb.PartitioningProto(kind=pb.PartitioningProto.SINGLE, num_partitions=p.num_partitions)
     raise NotImplementedError(f"to_proto for {type(p).__name__}")

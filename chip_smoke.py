@@ -1277,19 +1277,29 @@ def profile_queries(torch, runs) -> list:
     # building its function events (the host's among them) for the
     # runs' half a million device operations took most of the phase
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)
         for _, plan in runs:
             torch.cuda._sleep(1000)
             walls.append(run_plan(torch, plan)[1])
             torch.cuda._sleep(1000)
+        torch.cuda._sleep(1000)
         torch.cuda.synchronize()
     device = sorted((e for e in prof.profiler.kineto_results.events() if e.device_type() == DeviceType.CUDA),
                     key=lambda e: e.start_ns())
     spins = [i for i, e in enumerate(device) if "spin_kernel" in e.name()]
-    if len(spins) != 2 * len(runs):
-        raise AssertionError(f"the profiler saw {len(spins)} spin kernels, not {2 * len(runs)}")
+    # a run's work lies between two spins, and nothing lies between a
+    # run's closing spin and the next one's opening spin (nor between
+    # the first and last spins and their runs): the runs are the
+    # nonempty stretches between spins.  The session has come back
+    # short of one kernel event (25 spins of 26, twice); that still
+    # splits alike, as long as a run's own work is all there.
+    stretches = [(a, b) for a, b in zip(spins, spins[1:]) if b > a + 1]
+    if len(stretches) != len(runs):
+        raise AssertionError(f"the profiler saw {len(spins)} spin kernels (of {2 * len(runs) + 2}) and "
+                             f"{len(stretches)} runs' work between them, not {len(runs)}")
     out = []
     for i, ((label, _), wall) in enumerate(zip(runs, walls)):
-        events = device[spins[2 * i] + 1:spins[2 * i + 1]]
+        events = device[stretches[i][0] + 1:stretches[i][1]]
         by_name: Dict[str, list] = {}
         for e in events:
             t = by_name.setdefault(e.name(), [0.0, 0])
@@ -1335,6 +1345,11 @@ def timed_subqueries():
         queries.collect_columns = real
 
 
+#: the tasks of the plan :func:`timed_build` built last (:func:`plan_tasks`
+#: of it before the optimizer), so a caller need not build it again
+LAST_BUILD = {"tasks": 0}
+
+
 def timed_build(torch, query: str, scans, n_parts: int, map_tasks=None):
     """(the plan of ``query``, seconds to build it, seconds of the
     scalar subqueries it ran while it was built); optimized (see
@@ -1343,6 +1358,7 @@ def timed_build(torch, query: str, scans, n_parts: int, map_tasks=None):
     t0 = time.perf_counter()
     with timed_subqueries() as sub:
         plan = build_plan(query, scans, n_parts)
+        LAST_BUILD["tasks"] = plan_tasks(plan)
         if map_tasks is not None:
             plan = optimized(plan, map_tasks)
     return plan, time.perf_counter() - t0, sub[0]
@@ -1365,12 +1381,26 @@ def optimized(plan, map_tasks: int = 4):
     return optimize_plan(plan)
 
 
+#: each query's partial aggs on each path: {query: {"inproc": ...,
+#: "run_stages": ...}} of ``ops.agg.PARTIAL_TOTALS`` (skips, rows, batches)
+PARTIAL_BY_QUERY: Dict[str, dict] = {}
+
+
+def partial_totals() -> dict:
+    from blaze_tpu_torch.ops import agg as A
+
+    return dict(A.PARTIAL_TOTALS)
+
+
 def run_query(torch, cuda_ops, query: str, scans, n_parts: int, map_tasks: int = 4):
     """One query through its plan builder, the optimizer and
-    plan.execute, with every launch count reset just before it; the
-    wall includes building and optimizing the plan, and so a scalar
-    subquery the plan runs; returns (rows, wall, launches, the
-    subqueries' seconds)."""
+    plan.execute, with every launch count and the partial aggs' totals
+    (:func:`partial_totals`) reset just before it; the wall includes
+    building and optimizing the plan, and so a scalar subquery the plan
+    runs; returns (rows, wall, launches, the subqueries' seconds)."""
+    from blaze_tpu_torch.ops import agg as A
+
+    A.reset_partial_totals()
     cuda_ops.reset_launch_counts()
     plan, build_s, sub_s = timed_build(torch, query, scans, n_parts, map_tasks)
     got, wall = run_plan(torch, plan)
@@ -1596,8 +1626,11 @@ def run_scheduled(torch, cuda_ops, query: str, scans, n_parts: int):
     from blaze_tpu_torch.runtime.context import RESOURCES
     from blaze_tpu_torch.runtime.scheduler import RunStats, run_stages, split_stages
 
+    from blaze_tpu_torch.ops import agg as A
+
     # a scalar subquery runs in process while the plan is built: its
     # launches count, its seconds join the wall
+    A.reset_partial_totals()
     cuda_ops.reset_launch_counts()
     plan, build_s, sub_s = timed_build(torch, query, scans, n_parts)
     stages, manager = split_stages(plan)
@@ -1620,7 +1653,7 @@ def run_scheduled(torch, cuda_ops, query: str, scans, n_parts: int):
              "task_def_bytes": stats.task_def_bytes, "data_bytes": stats.data_bytes,
              "blocks_read": stats.blocks, "broadcast_bytes": stats.broadcast_bytes,
              "frames_verified": integrity.COUNTS["frames_verified"], **B.COPIES,
-             "stage_seconds": stats.stage_seconds, "subquery_s": sub_s}
+             "stage_seconds": stats.stage_seconds, "subquery_s": sub_s, "partial": partial_totals()}
     return out, wall, launches, moved
 
 
@@ -1628,7 +1661,9 @@ def run_scheduled(torch, cuda_ops, query: str, scans, n_parts: int):
 # (label, spark.blaze.fusion.enabled, spark.blaze.shuffle.asyncWrite,
 # map tasks at a time in an exchange, spark.blaze.stage.taskConcurrency);
 # column pruning runs under every setting, as in the reference
-AB_QUERIES = ("q1", "q3", "q5", "q21")
+# q01 in process and q21 through run_stages, where zlib takes most of
+# the wall: the two findings the A/B phase is kept for
+AB_QUERIES = ("q1", "q21")
 AB_SETTINGS = (("unfused, 1 task", False, False, 1, 1), ("defaults, 4 tasks", True, True, 4, 4),
                # the defaults one task at a time: what the map tasks' threads do apart
                ("defaults, 1 task", True, True, 1, 1))
@@ -1940,13 +1975,16 @@ def ds_phase(torch, cuda_ops, card: str, label: str, queries, data, scale: float
         scans = query_scans(data, query, n_parts, batch_rows)
         torch.cuda.reset_peak_memory_stats()
         got, wall, runs[query], sub_s = run_query(torch, cuda_ops, query, scans, n_parts)
+        ipartial = partial_totals()
         peak = torch.cuda.max_memory_allocated()
         said = check_oracle(data, query, got)
         require_launches(query_label(query), runs[query], *EXPECTED_LAUNCHES[query])
-        tasks = plan_tasks(build_plan(query, scans, n_parts))
+        tasks = LAST_BUILD["tasks"]  # of run_query's build: no second build, no second subquery
         torch.cuda.reset_peak_memory_stats()
         sgot, swall, sched_runs[query], moved = run_scheduled(torch, cuda_ops, query, scans, n_parts)
         speak = torch.cuda.max_memory_allocated()
+        key = query_label(query) if query_label(query) not in PARTIAL_BY_QUERY else f"{query_label(query)} SF{scale}"
+        PARTIAL_BY_QUERY[key] = {"inproc": ipartial, "run_stages": moved["partial"], "data_bytes": moved["data_bytes"]}
         check_oracle(data, query, sgot)
         if not same_rows(sgot, got, 1e-9 if query in FLOAT_SUM_QUERIES else 0.0):
             raise AssertionError(f"{query} through run_stages: {sgot} != in process {got}")
@@ -1961,14 +1999,16 @@ def ds_phase(torch, cuda_ops, card: str, label: str, queries, data, scale: float
             f"{peak / 2**20:.1f} MiB ({(peak - held) / 2**20:.1f} above the {held / 2**20:.1f} held before); "
             f"through run_stages = oracle and = in process, wall {swall:.4f} s, {moved['tasks']} tasks, .data bytes "
             f"{moved['data_bytes']}, peak device memory {speak / 2**20:.1f} MiB ({(speak - held) / 2**20:.1f} "
-            f"above); on {card}; launches {launches} on each path")
+            f"above); on {card}; launches {launches} on each path; partial aggs {ipartial} in process, "
+            f"{moved['partial']} through run_stages")
         exp = oracle(data, query)
         rec = {"query": query_label(query), "scale": scale, "rows": len(next(iter(got.values()))),
                "oracle_rows": len(exp) if isinstance(exp, (dict, list, set)) else None,
                "inproc_wall_s": wall, "inproc_tasks": tasks, "held_bytes": held, "inproc_peak_bytes": peak,
                "run_stages_wall_s": swall, "run_stages_tasks": moved["tasks"], "run_stages_peak_bytes": speak,
                "data_bytes": moved["data_bytes"], "stages": moved["kinds"], "launches": launches,
-               "subquery_s": sub_s, "oracle_s": oracle_s, "card": card}
+               "subquery_s": sub_s, "oracle_s": oracle_s, "inproc_partial": ipartial,
+               "run_stages_partial": moved["partial"], "card": card}
         log(f"{label} " + json.dumps(rec))
         out.append(rec)
         del scans
@@ -3161,6 +3201,305 @@ def nested_phase(torch, cuda_ops, flush, card: str, data, new_data, scale: float
     return launches_of, checks
 
 
+# the exchanges phase: Spark's global ORDER BY and repartition, and a
+# skipping partial agg, each on both paths
+EXCHANGE_PARTS = 8
+EXCHANGE_BUDGET_S = 45.0
+ORDERS_COLUMNS = ("o_orderkey", "o_orderpriority", "o_totalprice")
+
+
+def spark_q01_plan(scans, n_parts: int, n_out: int = EXCHANGE_PARTS):
+    """TPC-H q01 as Spark 3.5.1 plans it (``tests/fixtures/
+    spark351_q1_plan.json``): the FINAL agg, a range exchange on
+    (l_returnflag, l_linestatus) and a sort of each partition, the
+    partitions read in order."""
+    from blaze_tpu_torch.exprs.ir import col
+    from blaze_tpu_torch.ops import AggExec, SortExec, SortField
+    from blaze_tpu_torch.ops.agg import AggMode
+    from blaze_tpu_torch.parallel import RangePartitioning
+    from blaze_tpu_torch.parallel.exchange import NativeShuffleExchangeExec
+
+    agg = build_plan("q1", scans, n_parts)
+    while not (isinstance(agg, AggExec) and agg.mode == AggMode.FINAL):
+        agg = agg.children[0]
+    fields = [SortField(col("l_returnflag")), SortField(col("l_linestatus"))]
+    return SortExec(NativeShuffleExchangeExec(agg, RangePartitioning(fields, n_out)), fields)
+
+
+def orders_sort_fields():
+    """ORDER BY o_orderpriority, o_totalprice DESC, o_orderkey."""
+    from blaze_tpu_torch.exprs.ir import col
+    from blaze_tpu_torch.ops import SortField
+
+    return [SortField(col("o_orderpriority")), SortField(col("o_totalprice"), ascending=False),
+            SortField(col("o_orderkey"))]
+
+
+def orders_sort_plan(scan, n_out: int = EXCHANGE_PARTS):
+    """A global sort of orders: a range exchange, then a sort of each
+    partition."""
+    from blaze_tpu_torch.ops import SortExec
+    from blaze_tpu_torch.parallel import RangePartitioning
+    from blaze_tpu_torch.parallel.exchange import NativeShuffleExchangeExec
+
+    fields = orders_sort_fields()
+    return SortExec(NativeShuffleExchangeExec(scan, RangePartitioning(fields, n_out)), fields)
+
+
+def by_priority(child, n_out: int):
+    """count(*) and sum(o_totalprice) by o_orderpriority."""
+    from blaze_tpu_torch.exprs.ir import col
+    from blaze_tpu_torch.ops import AggFunction, GroupingExpr
+    from blaze_tpu_torch.tpch.queries import two_stage_agg
+
+    return two_stage_agg(child, [GroupingExpr(col("o_orderpriority"), "o_orderpriority")],
+                         [AggFunction("count_star", None, "n"), AggFunction("sum", col("o_totalprice"), "total")],
+                         n_out)
+
+
+def repartition_plan(scan, n_out: int = EXCHANGE_PARTS):
+    """``df.repartition(n_out)`` (a round-robin exchange), then the
+    count and sum by o_orderpriority."""
+    from blaze_tpu_torch.parallel import RoundRobinPartitioning
+    from blaze_tpu_torch.parallel.exchange import NativeShuffleExchangeExec
+
+    return by_priority(NativeShuffleExchangeExec(scan, RoundRobinPartitioning(n_out)), n_out)
+
+
+def skipping_plan(scan, n_out: int = EXCHANGE_PARTS):
+    """count(*) and sum(o_totalprice) by the unique o_orderkey over a
+    hash exchange: every partial agg's groups are its rows."""
+    from blaze_tpu_torch.exprs.ir import col
+    from blaze_tpu_torch.ops import AggFunction, GroupingExpr
+    from blaze_tpu_torch.tpch.queries import two_stage_agg
+
+    return two_stage_agg(scan, [GroupingExpr(col("o_orderkey"), "o_orderkey")],
+                         [AggFunction("count_star", None, "n"), AggFunction("sum", col("o_totalprice"), "total")],
+                         n_out)
+
+
+def round_robin_sizes(task_rows, n_out: int, staggered: bool) -> list:
+    """Rows each round-robin partition gets by the reference's formula:
+    row i of map task m to ``(i + start) % n_out``, ``start`` m in
+    process and 0 in a writer."""
+    import numpy as np
+
+    sizes = np.zeros(n_out, np.int64)
+    for m, rows in enumerate(task_rows):
+        start = m % n_out if staggered else 0
+        sizes += np.bincount((np.arange(rows) + start) % n_out, minlength=n_out)
+    return sizes.tolist()
+
+
+def task_rows_of(table: dict, n_parts: int) -> list:
+    """Rows of each map task of a table split by ``table_to_batches``."""
+    n = next(iter(table.values()))[0].shape[0]
+    return [(p + 1) * n // n_parts - p * n // n_parts for p in range(n_parts)]
+
+
+def priority_strings(orders: dict):
+    """o_orderpriority as a numpy bytes array."""
+    import numpy as np
+
+    data = np.ascontiguousarray(orders["o_orderpriority"][0])
+    return data.view(f"S{data.shape[1]}").ravel()
+
+
+def orders_sort_oracle(orders: dict) -> dict:
+    """The global sort's rows in order, by numpy's lexsort."""
+    import numpy as np
+
+    key, prio, price = orders["o_orderkey"][0], priority_strings(orders), orders["o_totalprice"][0]
+    order = np.lexsort((key, -price, prio))
+    return {"o_orderkey": key[order].tolist(), "o_orderpriority": [p.decode() for p in prio[order]],
+            "o_totalprice": price[order].tolist()}
+
+
+def priority_oracle(orders: dict) -> dict:
+    """count(*) and sum(o_totalprice) by o_orderpriority."""
+    import numpy as np
+
+    names, inv = np.unique(priority_strings(orders), return_inverse=True)
+    sums = np.zeros(len(names), np.int64)
+    np.add.at(sums, inv, orders["o_totalprice"][0])
+    return {n.decode(): (int(c), int(s)) for n, c, s in zip(names, np.bincount(inv), sums)}
+
+
+def exchange_node(plan, kinds):
+    """The plan's first exchange whose partitioning is one of ``kinds``."""
+    from blaze_tpu_torch.parallel.exchange import NativeShuffleExchangeExec
+
+    if isinstance(plan, NativeShuffleExchangeExec) and isinstance(plan.partitioning, kinds):
+        return plan
+    for c in plan.children:
+        found = exchange_node(c, kinds)
+        if found is not None:
+            return found
+    return None
+
+
+def exchange_paths(torch, cuda_ops, label: str, build, kinds, launches_of: dict) -> dict:
+    """``build()``'s plan in process (through the optimizer, each
+    partition read in turn) and through split_stages/run_stages, the
+    launch counts and ``PARTIAL_TOTALS`` reset before each: the walls,
+    the ``.data`` bytes, the rows of each partition of the exchange of
+    ``kinds``, the peaks above what the run held, the partial aggs'
+    skips, rows and batches, the launches, and each path's rows in the
+    order they came."""
+    from blaze_tpu_torch.batch import batch_to_pydict
+    from blaze_tpu_torch.ops import agg as A
+    from blaze_tpu_torch.runtime.context import TaskContext
+    from blaze_tpu_torch.runtime.scheduler import RunStats, run_stages, split_stages
+
+    rec = {"run": label}
+    for path in ("inproc", "run_stages"):
+        cuda_ops.reset_launch_counts()
+        A.reset_partial_totals()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        plan = optimized(build()) if path == "inproc" else build()
+        ex = exchange_node(plan, kinds)
+        if path == "inproc":
+            n = plan.num_partitions()
+            batches = [b for p in range(n) for b in plan.execute(p, TaskContext(p, n))]
+            schema = plan.schema
+        else:
+            stats = RunStats()
+            stages, manager = split_stages(plan)
+            batches, schema = list(run_stages(stages, manager, stats)), stages[-1].plan.schema
+        torch.cuda.synchronize()
+        rec[f"{path}_wall_s"] = time.perf_counter() - t0
+        rec[f"{path}_peak_mib"] = round((torch.cuda.max_memory_allocated() - base) / 2**20, 1)
+        if path == "inproc":
+            rec["inproc_partition_rows"] = [sum(b.num_rows for b in part) for part in ex._outputs]
+        else:
+            rec["data_bytes"], rec["tasks"] = stats.data_bytes, stats.tasks
+            rec["run_stages_partition_rows"] = stats.read_rows[ex.shuffle_id]
+            rec["stage_seconds"] = stats.stage_seconds
+        rec[f"{path}_partial"] = dict(A.PARTIAL_TOTALS)
+        launches_of[label if path == "inproc" else f"{label} (run_stages)"] = dict(cuda_ops.LAUNCHES)
+        out = {f.name: [] for f in schema.fields}
+        for b in batches:
+            for k, v in batch_to_pydict(b).items():
+                out[k].extend(v)
+        rec[f"{path}_rows"] = out
+        del batches
+    rec["launches"] = launches_of[label]
+    return rec
+
+
+def exchange_phase(torch, cuda_ops, flush, card: str, data, scale: float, n_parts: int, batch_rows: int) -> tuple:
+    """The exchanges (see the module docstring, step 11).  Returns the
+    launches of each run and the kernel checks on their inputs."""
+    import numpy as np
+
+    from blaze_tpu_torch import conf
+    from blaze_tpu_torch.parallel import RangePartitioning, RoundRobinPartitioning
+    from blaze_tpu_torch.parallel.shuffle import HashPartitioning
+    from blaze_tpu_torch.tpch import TPCH_SCHEMAS
+
+    t_phase = time.perf_counter()
+    launches_of: Dict[str, dict] = {}
+    records, checks = [], []
+    orders = data["orders"]
+    n_out = EXCHANGE_PARTS
+    oscan = sub_scan(orders, TPCH_SCHEMAS["orders"], ORDERS_COLUMNS, n_parts, batch_rows, "cuda")
+    # the skipping agg in 2^14-row batches: a map task folds its first
+    # batches before it skips, and streams the rest unmerged
+    kscan = sub_scan(orders, TPCH_SCHEMAS["orders"], ("o_orderkey", "o_totalprice"), n_parts, MERGE_BATCH_ROWS,
+                     "cuda")
+    n_orders = orders["o_orderkey"][0].shape[0]
+    with largest_inputs(cuda_ops) as seen:
+        # ---- q01 as Spark plans it: equal to q01's oracle row for row
+        q1_scans = query_scans(data, "q1", n_parts, batch_rows)
+        rec = exchange_paths(torch, cuda_ops, "exchanges: q01 as Spark plans it",
+                             lambda: spark_q01_plan(q1_scans, n_parts), RangePartitioning, launches_of)
+        for path in ("inproc", "run_stages"):
+            check_oracle(data, "q1", rec.pop(f"{path}_rows"))
+        # four groups over 8 partitions: the exact order statistics put
+        # them at 1, 3, 5 and 7
+        if rec["inproc_partition_rows"] != [0, 1, 0, 1, 0, 1, 0, 1]:
+            raise AssertionError(f"q01's range partitions in process: {rec['inproc_partition_rows']}")
+        records.append(rec)
+        del q1_scans
+        # ---- a global sort of orders
+        want = orders_sort_oracle(orders)
+        rec = exchange_paths(torch, cuda_ops, "exchanges: global sort of orders",
+                             lambda: orders_sort_plan(oscan), RangePartitioning, launches_of)
+        for path in ("inproc", "run_stages"):
+            got = rec.pop(f"{path}_rows")
+            if got != want:
+                raise AssertionError(f"global sort of orders, {path}: not numpy's lexsort order")
+            if sum(rec[f"{path}_partition_rows"]) != n_orders:
+                raise AssertionError(f"global sort of orders, {path}: partitions {rec[f'{path}_partition_rows']}")
+        # the key is a total order: exact order statistics cut even partitions
+        cuts = [0] + [min(n_orders - 1, n_orders * (i + 1) // n_out) for i in range(n_out - 1)] + [n_orders]
+        if rec["inproc_partition_rows"] != np.diff(cuts).tolist():
+            raise AssertionError(f"global sort in process: partitions {rec['inproc_partition_rows']}")
+        records.append(rec)
+        # ---- repartition(8), then a count and sum by priority
+        want = priority_oracle(orders)
+        task_rows = task_rows_of(orders, n_parts)
+        rec = exchange_paths(torch, cuda_ops, "exchanges: repartition(8) then by priority",
+                             lambda: repartition_plan(oscan), RoundRobinPartitioning, launches_of)
+        for path, staggered in (("inproc", True), ("run_stages", False)):
+            got = rec.pop(f"{path}_rows")
+            rows = {p: (n, s) for p, n, s in zip(got["o_orderpriority"], got["n"], got["total"])}
+            if rows != want:
+                raise AssertionError(f"repartition then by priority, {path}: {rows} != numpy's {want}")
+            if rec[f"{path}_partition_rows"] != round_robin_sizes(task_rows, n_out, staggered):
+                raise AssertionError(f"repartition, {path}: partitions {rec[f'{path}_partition_rows']} != "
+                                     f"{round_robin_sizes(task_rows, n_out, staggered)}")
+        records.append(rec)
+        # ---- a partial agg that skips, and the same with skipping off
+        keys, prices = orders["o_orderkey"][0], orders["o_totalprice"][0]
+        for enabled in (True, False):
+            conf.ENABLE_PARTIAL_AGG_SKIPPING.set(enabled)
+            try:
+                rec = exchange_paths(torch, cuda_ops, f"exchanges: by o_orderkey, skipping {'on' if enabled else 'off'}",
+                                     lambda: skipping_plan(kscan), HashPartitioning, launches_of)
+            finally:
+                conf.ENABLE_PARTIAL_AGG_SKIPPING.set(True)
+            for path in ("inproc", "run_stages"):
+                got = rec.pop(f"{path}_rows")
+                order = np.argsort(got["o_orderkey"])
+                if not (np.array_equal(np.asarray(got["o_orderkey"])[order], np.sort(keys))
+                        and set(got["n"]) == {1}
+                        and np.array_equal(np.asarray(got["total"])[order], prices[np.argsort(keys)])):
+                    raise AssertionError(f"by o_orderkey, skipping {enabled}, {path}: not numpy's rows")
+                skipped = rec[f"{path}_partial"]["partial_skipped"]
+                if skipped != (n_parts if enabled else 0):
+                    raise AssertionError(f"by o_orderkey, skipping {enabled}, {path}: {skipped} of {n_parts} "
+                                         f"map tasks skipped")
+            records.append(rec)
+    for key, (_, inputs) in sorted(seen.items()):
+        if key.startswith("murmur3_pids"):
+            planes, widths, valids, parts = inputs
+            checks.append(("murmur3_pids", check_murmur3(torch, cuda_ops, flush, planes, widths, valids,
+                                                         "(exchanges)", timed=False, n_parts=parts)))
+        elif key.startswith("pid_histogram"):
+            pids, parts = inputs
+            checks.append(("pid_histogram", check_pid_histogram(torch, cuda_ops, flush, pids, parts,
+                                                                "(exchanges)", timed=False)))
+    if {name for name, _ in checks} != {"murmur3_pids", "pid_histogram"}:
+        raise AssertionError(f"exchanges: kernels held {[name for name, _ in checks]}")
+    for name, r in checks:
+        log_check(name, r)
+    for rec in records:
+        rec["card"] = card
+        log(f"{rec['run']}: = numpy on both paths; walls {rec['inproc_wall_s']:.4f} s in process, "
+            f"{rec['run_stages_wall_s']:.4f} s through run_stages, .data {rec['data_bytes']} bytes, partitions "
+            f"{rec['inproc_partition_rows']} / {rec['run_stages_partition_rows']}, peaks {rec['inproc_peak_mib']} / "
+            f"{rec['run_stages_peak_mib']} MiB, partial aggs {rec['inproc_partial']} / {rec['run_stages_partial']} "
+            f"on {card}; launches {rec['launches']}")
+        log("exchanges " + json.dumps(rec))
+    seconds = time.perf_counter() - t_phase
+    log(f"exchanges phase: {seconds:.1f} s (budget {EXCHANGE_BUDGET_S:.0f} s)")
+    return launches_of, checks, seconds
+
+
 def end_phase(phases: list, name: str) -> None:
     """Notes, and prints, the seconds from the start of the script to the
     end of phase ``name``."""
@@ -3357,11 +3696,13 @@ def main() -> int:
         with largest_inputs(cuda_ops) as q_inputs[query]:
             got, wall, runs[query], sub_s = run_query(torch, cuda_ops, query, scans[query], n_parts)
         os.environ.pop("BLAZE_TPU_PALLAS_ENABLE", None)
+        PARTIAL_BY_QUERY[query_label(query)] = {"inproc": partial_totals()}
         inproc[query] = (got, wall)
         scale = args.ds_scale if query.startswith("ds_") else args.scale
         sub = f" (its scalar subquery {sub_s:.4f} s of it)" if query in SUBQUERY_QUERIES else ""
         log(f"{query_label(query)} SF{scale} (8 partitions, 2^20-row batches): {check_oracle(qdata, query, got)}; "
-            f"wall {wall:.4f} s{sub} on {card}; launches {runs[query]}")
+            f"wall {wall:.4f} s{sub} on {card}; launches {runs[query]}; partial aggs "
+            f"{PARTIAL_BY_QUERY[query_label(query)]['inproc']}")
         require_launches(query_label(query), runs[query], *EXPECTED_LAUNCHES[query])
     q1_inputs, q3_inputs = q_inputs["q1"], q_inputs["q3"]
 
@@ -3372,6 +3713,7 @@ def main() -> int:
     for query in TPCH_QUERIES + DS_QUERIES + NEW_QUERIES:
         qdata = ds_data if query.startswith("ds_") else new_data if query in NEW_QUERIES else data
         got, wall, sched_runs[query], moved = run_scheduled(torch, cuda_ops, query, scans[query], n_parts)
+        PARTIAL_BY_QUERY[query_label(query)].update(run_stages=moved["partial"], data_bytes=moved["data_bytes"])
         check_oracle(qdata, query, got)
         # rows that tie on a sort key (q11's equal values) may come in
         # another order; the oracle check above holds each order
@@ -3389,7 +3731,7 @@ def main() -> int:
             f"device-to-host {moved['device_to_host']} host-to-device {moved['host_to_device']}; "
             f"wall {wall:.4f} s (in process {inproc[query][1]:.4f} s)"
             + (f", its scalar subquery {moved['subquery_s']:.4f} s of it" if query in SUBQUERY_QUERIES else "")
-            + f" on {card}; launches {sched_runs[query]}")
+            + f" on {card}; launches {sched_runs[query]}; partial aggs {moved['partial']}")
         syncs = None
         if query in ("q6", "q1", "q3", "q5"):
             # q03's and q05's shuffles are the ones with bytes: where their host time goes
@@ -3407,8 +3749,10 @@ def main() -> int:
 
     end_phase(phases, "queries through run_stages")
     # ---- the A/B phase: the pipeline unfused and serial against the defaults
+    t_ab = time.perf_counter()
     ab_phase(torch, cuda_ops, card, scans, {q: new_data if q in NEW_QUERIES else data for q in AB_QUERIES},
              n_parts)
+    log(f"A/B phase ({', '.join(AB_QUERIES)}): {time.perf_counter() - t_ab:.1f} s")
 
     end_phase(phases, "A/B pipeline")
     # ---- the join code no TPC-H query runs, on the card
@@ -3447,6 +3791,9 @@ def main() -> int:
              sched_runs)
 
     end_phase(phases, "joined queries")
+    skipping = {q: r for q, r in PARTIAL_BY_QUERY.items()
+                if r["inproc"]["partial_skipped"] or r["run_stages"]["partial_skipped"]}
+    log(f"partial aggs that skipped, of {len(PARTIAL_BY_QUERY)} queries: " + json.dumps(skipping))
     # ---- TPC-H from Parquet and ORC files the port writes, on both paths
     workdir = tempfile.mkdtemp(prefix="blaze-files-")
     file_launches, sf1_files = file_phase(torch, cuda_ops, card, data, args.scale, n_parts, batch_rows, workdir)
@@ -3462,6 +3809,12 @@ def main() -> int:
     checks += nested_checks
 
     end_phase(phases, "nested columns")
+    # ---- Spark's global ORDER BY and repartition, and a skipping partial agg
+    exchange_launches, exchange_checks, exchange_s = exchange_phase(torch, cuda_ops, flush, card, data, args.scale,
+                                                                    n_parts, batch_rows)
+    checks += exchange_checks
+
+    end_phase(phases, "exchanges")
     # ---- real null foreign keys through run_stages, and the kernels on them
     null_runs, null_checks = null_key_phase(torch, cuda_ops, flush, card, ds_data, args.ds_scale, n_parts,
                                             batch_rows)
@@ -3563,13 +3916,15 @@ def main() -> int:
             "launches": sum(run[name] for run in runs.values())
             + sum(run[name] for label, run in file_launches.items() if not label.endswith("(run_stages)"))
             + sum(run[name] for label, run in fn_launches.items() if not label.endswith("(run_stages)"))
-            + sum(run[name] for label, run in nested_launches.items() if not label.endswith("(run_stages)")),
+            + sum(run[name] for label, run in nested_launches.items() if not label.endswith("(run_stages)"))
+            + sum(run[name] for label, run in exchange_launches.items() if not label.endswith("(run_stages)")),
             "launches_null_keys": {check: run[name] for check, run in null_runs.items()},
             "launches_by_query": {query_label(q): run[name] for q, run in runs.items()},
             "launches_run_stages": {query_label(q): run[name] for q, run in sched_runs.items()},
             "launches_files": {label: run[name] for label, run in file_launches.items()},
             "launches_functions": {label: run[name] for label, run in fn_launches.items()},
             "launches_nested": {label: run[name] for label, run in nested_launches.items()},
+            "launches_exchanges": {label: run[name] for label, run in exchange_launches.items()},
             "shape": r["shape"], "max_abs_err": errs[name], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "device_ms": r.get("device_ms"),
@@ -3581,6 +3936,7 @@ def main() -> int:
             kernels[-1].update(pr3_ms=r["pr3_ms"], pr3_device_ms=r["pr3_device_ms"], device_ops_per_call=hist_ops,
                                n_parts_200={k: h200[k] for k in ("ms", "device_ms", "pr3_ms", "pr3_device_ms",
                                                                  "bound_ms", "library_ms")})
+    log("launches_exchanges " + json.dumps(exchange_launches))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
