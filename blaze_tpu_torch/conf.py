@@ -78,3 +78,32 @@ ALLOW_PICKLED_UDFS = ConfEntry("spark.blaze.udf.allowPickled", True, _bool)
 # the element budget of a collect_list/collect_set result: the padded
 # layout holds at most this many elements a group, and drops the rest
 COLLECT_MAX_ELEMS = ConfEntry("spark.blaze.collect.maxElems", 64, int)
+
+# Fault-tolerant stage execution (runtime/retry.py and the scheduler's
+# attempt loop).  Total attempts a task, 1 fails fast (≙
+# spark.task.maxFailures)
+TASK_MAX_ATTEMPTS = ConfEntry("spark.blaze.task.maxAttempts", 4, int)
+# first retry delay in seconds, doubling each attempt with a
+# deterministic jitter (RetryPolicy.backoff); 0 sleeps never
+TASK_RETRY_BACKOFF = ConfEntry("spark.blaze.task.retryBackoff", 0.1, float)
+# seconds a task may run, checked between its output batches; 0: no limit
+TASK_TIMEOUT = ConfEntry("spark.blaze.task.timeout", 0.0, float)
+# a task whose heartbeat (an operator's output batch) is older than
+# this many ms is cancelled and retried as a timeout
+# (runtime/speculation.py); 0: off
+TASK_WEDGE_MS = ConfEntry("spark.blaze.task.wedgeMs", 0, int)
+# regenerations of a producing stage a fetching task may ask for
+STAGE_MAX_ATTEMPTS = ConfEntry("spark.blaze.stage.maxAttempts", 4, int)
+# speculative attempts (≙ spark.speculation): once quantile of a
+# stage's tasks are done, a task running longer than multiplier x their
+# median (and at least minRuntime seconds), or whose heartbeat is older
+# than wedgeMs ms (0: off), gets one backup attempt; the first commit wins
+SPECULATION_ENABLE = ConfEntry("spark.blaze.speculation.enabled", False, _bool)
+SPECULATION_MULTIPLIER = ConfEntry("spark.blaze.speculation.multiplier", 1.5, float)
+SPECULATION_QUANTILE = ConfEntry("spark.blaze.speculation.quantile", 0.75, float)
+SPECULATION_MIN_RUNTIME = ConfEntry("spark.blaze.speculation.minRuntime", 0.1, float)
+SPECULATION_WEDGE_MS = ConfEntry("spark.blaze.speculation.wedgeMs", 0, int)
+# the fault schedule (runtime/faults.py grammar, e.g.
+# "shuffle.fetch@2,task.compute@1@a0"); empty injects nothing.  The
+# environment's BLAZE_FAULTS_SPEC overrides it
+FAULTS_SPEC = ConfEntry("spark.blaze.faults.spec", "", str)

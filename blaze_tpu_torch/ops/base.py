@@ -11,7 +11,7 @@ from typing import Iterator, List, Sequence
 import torch
 
 from ..batch import RecordBatch
-from ..runtime.context import TaskContext
+from ..runtime.context import TaskContext, tick
 from ..runtime.metrics import MetricsSet
 from ..schema import Schema
 
@@ -98,3 +98,4 @@ class ExecNode:
     def _record_batch(self, b: RecordBatch) -> None:
         self.metrics.add("output_rows", b.num_rows)
         self.metrics.add("output_batches")
+        tick()  # the task's heartbeat (runtime/context.py)

@@ -5,7 +5,11 @@ collects every child partition once into ONE device batch, which every
 output partition replays.  Across stages (the scheduler),
 :class:`IpcWriterExec` drains one child partition into a checksummed
 IPC blob registered under ``<resource_id>.<partition>``, and the
-consumer reads the blobs back through ``IpcReaderExec``.
+consumer reads the blobs back through ``IpcReaderExec``, where a blob
+that fails its checksum raises ``FetchFailedError`` on
+``broadcast_<id>``: the scheduler then regenerates the broadcast stage.
+A broadcast task probes the ``broadcast.write`` fault site, and its
+``@corrupt`` where the blob is collected.
 """
 
 from __future__ import annotations
@@ -18,7 +22,7 @@ from ..batch import RecordBatch, concat_batches
 from ..io.batch_serde import serialize_batch
 from ..io.ipc_compression import block_trailer, compress_frame
 from ..ops.base import BatchStream, ExecNode
-from ..runtime import integrity
+from ..runtime import faults, integrity
 from ..runtime.context import TaskContext
 from ..schema import Schema
 
@@ -26,7 +30,8 @@ from ..schema import Schema
 def collect_blob(batches: Iterable[RecordBatch]) -> bytes:
     """A batch stream as ONE blob: a frame per batch, checksummed with
     ``integrity.FRAME_ALGO``, closed by a block trailer, so a consumer
-    detects a flipped byte and a missing whole frame."""
+    detects a flipped byte and a missing whole frame.  A firing
+    ``broadcast.write@corrupt`` flips a byte of the blob."""
     algo = integrity.FRAME_ALGO
     frames: List[bytes] = []
     xor = 0
@@ -35,7 +40,10 @@ def collect_blob(batches: Iterable[RecordBatch]) -> bytes:
         xor ^= struct.unpack("<BI", frame[-5:])[1]
         frames.append(frame)
     frames.append(block_trailer(len(frames), xor, algo))
-    return b"".join(frames)
+    blob = b"".join(frames)
+    if faults.corrupt("broadcast.write"):
+        blob = integrity.flip_byte(blob, 5 + max(0, (len(blob) - 16) // 2))
+    return blob
 
 
 class IpcWriterExec(ExecNode):
@@ -53,6 +61,8 @@ class IpcWriterExec(ExecNode):
 
     def execute(self, partition: int, ctx: TaskContext) -> BatchStream:
         def stream():
+            faults.hit("broadcast.write", attempt=ctx.task_attempt_id, detail=f"{self.resource_id}.{partition}",
+                       cancel=ctx.cancel_event)
             blob = collect_blob(self.children[0].execute(partition, ctx))
             if not ctx.is_task_running():
                 return  # a cancelled drain is partial: never published

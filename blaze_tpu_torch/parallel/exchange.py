@@ -19,7 +19,10 @@ in map order.
   (a temporary directory removed with the exchange), and each reduce
   partition reads its blocks back through an ``IpcReaderExec``; the
   manager's ``map_writer`` and ``reduce_registration`` are the steps
-  the stage scheduler takes too.
+  the stage scheduler takes too.  A fetch failure before a reduce
+  partition's first batch invalidates the map outputs and runs the map
+  tasks again, once (≙ the reference's one local recovery tier); a
+  later one raises to the task.
 
 ``shuffle_id`` is process-unique; ``runtime/scheduler.split_stages``
 names the stage's shuffle files by it.
@@ -40,6 +43,7 @@ from ..batch import RecordBatch, concat_batches
 from ..ops.base import BatchStream, ExecNode
 from ..ops.sort import range_key_words, words_order
 from ..runtime.context import TaskContext
+from ..runtime.retry import FetchFailedError
 from ..schema import Schema
 from .shuffle import (
     HashPartitioning, IpcReaderExec, LocalShuffleManager, Partitioning, RangePartitioning, RoundRobinPartitioning,
@@ -72,7 +76,11 @@ class NativeShuffleExchangeExec(ExecNode):
         self.shuffle_id = next(_shuffle_ids)
         self._lock = threading.Lock()
         self._outputs: Optional[List[List[RecordBatch]]] = None
+        # the file path: the manager, whether its map outputs stand, and
+        # how often they were written (a recovery re-runs them once)
         self._manager: Optional[LocalShuffleManager] = None
+        self._written = False
+        self._generation = 0
 
     @property
     def schema(self) -> Schema:
@@ -148,10 +156,12 @@ class NativeShuffleExchangeExec(ExecNode):
         return [sort_by_pid(b, range_pids(w, bounds), n_out) for b, w in keyed]
 
     def _write_map_outputs(self, caller: TaskContext) -> Optional[LocalShuffleManager]:
-        """Every map task into a manager owned by this exchange; None
-        when cancelled."""
-        manager = LocalShuffleManager()
-        weakref.finalize(self, manager.cleanup)
+        """Every map task into the manager this exchange owns (made at the
+        first call); None when cancelled."""
+        if self._manager is None:
+            self._manager = LocalShuffleManager()
+            weakref.finalize(self, self._manager.cleanup)
+        manager = self._manager
         child = self.children[0]
         n_maps = child.num_partitions()
 
@@ -165,18 +175,32 @@ class NativeShuffleExchangeExec(ExecNode):
         return manager if caller.is_task_running() else None
 
     def _file_stream(self, partition: int, ctx: TaskContext) -> BatchStream:
-        with self._lock:
-            if self._manager is None:
-                self._manager = self._write_map_outputs(ctx)
-            manager = self._manager
-        if manager is None:
-            return
-        reader = IpcReaderExec(self.schema, f"shuffle_{self.shuffle_id}", self.num_partitions(),
-                               self.device)
-        reader.metrics = self.metrics
-        with manager.reduce_registration(ctx.resources, self.shuffle_id,
-                                         self.children[0].num_partitions(), partition):
-            yield from reader.execute(partition, ctx)
+        for recovery in (False, True):
+            with self._lock:
+                if not self._written:
+                    self._written = self._write_map_outputs(ctx) is not None
+                written, generation = self._written, self._generation
+            if not written:
+                return
+            reader = IpcReaderExec(self.schema, f"shuffle_{self.shuffle_id}", self.num_partitions(),
+                                   self.device)
+            reader.metrics = self.metrics
+            yielded = False
+            try:
+                with self._manager.reduce_registration(ctx.resources, self.shuffle_id,
+                                                       self.children[0].num_partitions(), partition):
+                    for b in reader.execute(partition, ctx):
+                        yielded = True
+                        yield b
+                return
+            except FetchFailedError:
+                if yielded or recovery:
+                    raise
+                with self._lock:
+                    if self._generation == generation:  # no other partition re-ran them meanwhile
+                        self._manager.invalidate(self.shuffle_id)
+                        self._written = False
+                        self._generation += 1
 
     def execute(self, partition: int, ctx: TaskContext) -> BatchStream:
         if not bool(conf.EXCHANGE_IN_PROCESS.get()):

@@ -29,6 +29,17 @@ does the round-robin offset it moves.  A reduce task
 verifies every frame's checksum and stages the partition's rows on the
 device as one batch in one copy, as the in-process exchange hands a
 reduce partition one batch.  There is no spill yet.
+
+Recovery: a block that is missing, torn, fails its checksum or its
+decode raises ``FetchFailedError`` (``runtime/retry.py``) naming the
+map task that wrote it (:func:`block_map_id`), the
+``BlockCorruptionError`` or ``OSError`` as its cause, and the
+scheduler re-runs that map task; a file that fails twice is
+quarantined.  A commit probes the ``shuffle.write`` fault site, and is
+never made by a cancelled attempt (a speculative loser), however late
+it gets there; :meth:`LocalShuffleManager.invalidate` drops map outputs
+and :meth:`LocalShuffleManager.sweep_inprogress` an abandoned
+attempt's temporary files.
 """
 
 from __future__ import annotations
@@ -36,6 +47,7 @@ from __future__ import annotations
 import contextlib
 import os
 import queue
+import re
 import shutil
 import struct
 import tempfile
@@ -61,8 +73,10 @@ from ..io.ipc_compression import IpcFrameWriter, iter_blob_frames, iter_stream_f
 from ..kernels import cuda_ops
 from ..ops.base import BatchStream, ExecNode
 from ..ops.filter import live_mask
+from ..runtime import faults, integrity
 from ..runtime.context import ResourcesMap, TaskContext
 from ..runtime.integrity import BlockCorruptionError
+from ..runtime.retry import FetchFailedError
 from ..schema import Schema, TypeKind
 
 
@@ -184,17 +198,6 @@ def split_by_counts(pending: List[Tuple[RecordBatch, torch.Tensor]], n_out: int)
 # ------------------------------------------------------------ file shuffle
 
 
-class FetchFailedError(RuntimeError):
-    """A reduce task's block is missing: not registered, or its file or
-    index is gone or torn.  (A block whose checksum fails raises
-    :class:`BlockCorruptionError`.)"""
-
-    def __init__(self, resource_id: str, partition: int, detail: str):
-        self.resource_id = resource_id
-        self.partition = partition
-        super().__init__(f"fetch failed: {resource_id} partition {partition}: {detail}")
-
-
 class ShuffleRepartitioner:
     """Buffers a map task's host rows per output partition and commits
     them as one ``.data``/``.index`` pair (≙ the reference's
@@ -214,16 +217,24 @@ class ShuffleRepartitioner:
                 self._buffers[pid].append((k, [host_rows(c, lo, lo + k) for c in cols]))
             lo += k
 
-    def write_output(self, data_path: str, index_path: str) -> List[int]:
+    def write_output(self, data_path: str, index_path: str,
+                     cancel: Optional[threading.Event] = None) -> Optional[List[int]]:
         """Commit ``.data`` (one frame per non-empty partition) and
         ``.index`` (n_out + 1 u64 offsets): each is written under an
         attempt-qualified temporary name and renamed into place, data
         first and index last, so a reader that finds the index finds
-        whole data.  Returns the partitions' byte lengths."""
+        whole data.  Returns the partitions' byte lengths, or None, with
+        nothing committed, when ``cancel`` is set before the renames.
+        Probes ``shuffle.write`` first and its ``@corrupt`` after the
+        renames (the Nth block that committed)."""
+        faults.hit("shuffle.write", attempt=self.task_attempt_id, detail=data_path, cancel=cancel)
+        if cancel is not None and cancel.is_set():
+            return None
         suffix = f".inprogress.a{self.task_attempt_id}"
         tmp_data, tmp_index = data_path + suffix, index_path + suffix
         lengths: List[int] = []
         offsets = [0]
+        committed = False
         try:
             with open(tmp_data, "wb") as f:
                 w = IpcFrameWriter(f)
@@ -236,14 +247,20 @@ class ShuffleRepartitioner:
                     offsets.append(w.bytes_written)
             with open(tmp_index, "wb") as f:
                 f.write(struct.pack(f"<{len(offsets)}Q", *offsets))
-            os.replace(tmp_data, data_path)
-            os.replace(tmp_index, index_path)
-        except BaseException:
-            for p in (tmp_data, tmp_index):
-                if os.path.exists(p):
-                    os.unlink(p)
-            raise
+            if cancel is None or not cancel.is_set():  # a loser's output must not replace the winner's
+                os.replace(tmp_data, data_path)
+                os.replace(tmp_index, index_path)
+                committed = True
+        finally:
+            if not committed:
+                for p in (tmp_data, tmp_index):
+                    if os.path.exists(p):
+                        os.unlink(p)
+        if not committed:
+            return None
         self._buffers = [[] for _ in range(self.n_out)]
+        if faults.corrupt("shuffle.write", attempt=self.task_attempt_id):
+            integrity.flip_byte_in_file(data_path)
         return lengths
 
 
@@ -444,8 +461,9 @@ class ShuffleWriterExec(ExecNode):
                 if not ctx.is_task_running():
                     return  # a cancelled map task never commits a partial output
                 with self.metrics.timer("output_io_time"):
-                    lengths = rep.write_output(self.data_path, self.index_path)
-                self.metrics.add("data_size", sum(lengths))
+                    lengths = rep.write_output(self.data_path, self.index_path, ctx.cancel_event)
+                if lengths is not None:
+                    self.metrics.add("data_size", sum(lengths))
             finally:
                 if inserter is not None:
                     inserter.abort()
@@ -458,13 +476,27 @@ class ShuffleWriterExec(ExecNode):
 #: a shuffle block: in-memory frames, or (path, offset, length) of a file segment
 BlockObject = Union[bytes, Tuple[str, int, int]]
 
+_MAP_FILE_RE = re.compile(r"shuffle_\d+_(\d+)\.data$")
+
+
+def block_map_id(block: BlockObject) -> Optional[int]:
+    """The map task that wrote a file block (from the manager's
+    ``shuffle_<sid>_<map>.data`` names), or None for in-memory frames:
+    what lets a fetch failure re-run only that map task."""
+    if isinstance(block, bytes):
+        return None
+    m = _MAP_FILE_RE.search(os.path.basename(block[0]))
+    return int(m.group(1)) if m else None
+
 
 class IpcReaderExec(ExecNode):
     """The reduce side: reads partition ``p``'s blocks, registered in
     the task's resources under ``<resource_id>.<p>``, verifies every
     frame and yields the partition's rows as one batch on ``device``
     (the package default when None).  A broadcast reads the same way
-    from checksummed blobs."""
+    from checksummed blobs.  Every failure to read a block raises
+    ``FetchFailedError``; the metrics count ``corruption_detected`` and
+    ``blocks_quarantined``."""
 
     def __init__(self, schema: Schema, resource_id: str, num_partitions: int = 1,
                  device: Union[None, str, torch.device] = None):
@@ -487,16 +519,32 @@ class IpcReaderExec(ExecNode):
     def num_partitions(self) -> int:
         return self._num_partitions
 
-    def _payloads(self, block: BlockObject, partition: int) -> List[bytes]:
-        if isinstance(block, bytes):
-            return list(iter_blob_frames(block, site=self.resource_id))
-        path, offset, length = block
+    def _fetch_failed(self, block: BlockObject, partition: int, e: BaseException) -> FetchFailedError:
+        """Bad producer bytes as a fetch failure naming the map task that
+        wrote them; a corruption is counted, and a file that has now
+        failed twice quarantined, so that its map task re-runs in full."""
+        path = None if isinstance(block, bytes) else block[0]
+        if isinstance(e, BlockCorruptionError):
+            self.metrics.add("corruption_detected")
+            if path is not None and integrity.note_corruption(path) >= 2 and integrity.quarantine(path):
+                self.metrics.add("blocks_quarantined")
+        mid = block_map_id(block)
+        return FetchFailedError(self.resource_id, partition, f"{type(e).__name__}: {e}",
+                                map_ids=None if mid is None else [mid])
+
+    def _decoded(self, block: BlockObject, partition: int) -> list:
+        """The block's (rows, host columns) frames, verified."""
         try:
-            with open(path, "rb") as f:
-                f.seek(offset)
-                return list(iter_stream_frames(f, length, site=self.resource_id, path=path))
-        except OSError as e:
-            raise FetchFailedError(self.resource_id, partition, f"{path}: {e}") from e
+            if isinstance(block, bytes):
+                payloads = list(iter_blob_frames(block, site=self.resource_id))
+            else:
+                path, offset, length = block
+                with open(path, "rb") as f:
+                    f.seek(offset)
+                    payloads = list(iter_stream_frames(f, length, site=self.resource_id, path=path))
+            return [decode_columns(p, self._schema) for p in payloads]
+        except (OSError, struct.error, zlib.error, ValueError, EOFError) as e:
+            raise self._fetch_failed(block, partition, e) from e
 
     def execute(self, partition: int, ctx: TaskContext) -> BatchStream:
         def stream():
@@ -508,16 +556,9 @@ class IpcReaderExec(ExecNode):
             parts = []
             with self.metrics.timer("shuffle_read_total_time"):
                 for block in blocks:
-                    for payload in self._payloads(block, partition):
-                        try:
-                            n, cols = decode_columns(payload, self._schema)
-                        except (struct.error, zlib.error, ValueError) as e:
-                            if isinstance(e, BlockCorruptionError):
-                                raise
-                            raise FetchFailedError(self.resource_id, partition,
-                                                   f"undecodable frame: {e}") from e
-                        if n:
-                            parts.append((n, cols))
+                    faults.hit("shuffle.fetch", attempt=ctx.task_attempt_id, detail=self.resource_id,
+                               cancel=ctx.cancel_event)
+                    parts += [(n, cols) for n, cols in self._decoded(block, partition) if n]
                     self.metrics.add("blocks_read")
                 if not parts:
                     return
@@ -571,7 +612,7 @@ class LocalShuffleManager:
     def reduce_blocks(self, shuffle_id: int, num_maps: int, reduce_id: int) -> List[BlockObject]:
         """Reduce partition ``reduce_id``'s non-empty segment of every
         map output; a map output without an index raises
-        :class:`FetchFailedError` (the reference skips it)."""
+        ``FetchFailedError`` naming that map (the reference skips it)."""
         blocks: List[BlockObject] = []
         for m in range(num_maps):
             data, index = self.map_output_paths(shuffle_id, m)
@@ -579,15 +620,52 @@ class LocalShuffleManager:
                 with open(index, "rb") as f:
                     raw = f.read()
             except OSError as e:
-                raise FetchFailedError(f"shuffle_{shuffle_id}", reduce_id, f"map {m}: {e}") from e
+                raise FetchFailedError(f"shuffle_{shuffle_id}", reduce_id, f"map {m}: {e}", map_ids=[m]) from e
             offsets = struct.unpack(f"<{len(raw) // 8}Q", raw)
             if reduce_id + 1 >= len(offsets):
                 raise FetchFailedError(f"shuffle_{shuffle_id}", reduce_id,
-                                       f"map {m}: index of {len(offsets)} offsets")
+                                       f"map {m}: index of {len(offsets)} offsets", map_ids=[m])
             lo, hi = offsets[reduce_id], offsets[reduce_id + 1]
             if hi > lo:
                 blocks.append((data, lo, hi - lo))
         return blocks
+
+    def _remove(self, keep) -> int:
+        """Unlink the files under the root whose names ``keep`` rejects;
+        returns how many went."""
+        removed = 0
+        for fn in os.listdir(self.root) if os.path.isdir(self.root) else ():
+            if not keep(fn):
+                try:
+                    os.unlink(os.path.join(self.root, fn))
+                    removed += 1
+                except OSError:
+                    pass
+        return removed
+
+    def invalidate(self, shuffle_id: int, map_ids: Optional[Sequence[int]] = None) -> int:
+        """Drop a shuffle's map outputs (and temporary files), those of
+        ``map_ids`` only when given, before their map tasks re-run; a
+        quarantined ``.corrupt`` file stays.  Returns the files removed."""
+        prefixes = tuple(f"shuffle_{shuffle_id}_{m}." for m in map_ids) if map_ids is not None \
+            else (f"shuffle_{shuffle_id}_",)
+        return self._remove(lambda fn: not fn.startswith(prefixes) or fn.endswith(".corrupt"))
+
+    def sweep_inprogress(self, shuffle_id: Optional[int] = None, map_id: Optional[int] = None,
+                         attempt: Optional[int] = None) -> int:
+        """Remove the ``.inprogress`` temporary files of a shuffle, of one
+        of its map tasks, of one attempt of it (what an abandoned or
+        cancelled attempt may leave).  Returns the files removed."""
+        prefix = "shuffle_" if shuffle_id is None else f"shuffle_{shuffle_id}_" if map_id is None \
+            else f"shuffle_{shuffle_id}_{map_id}."
+        suffix = f".inprogress.a{attempt}" if attempt is not None else ".inprogress"
+
+        def keep(fn: str) -> bool:
+            if not fn.startswith(prefix) or ".inprogress" not in fn or fn.endswith(".corrupt"):
+                return True
+            return attempt is not None and not fn.endswith(suffix)
+
+        return self._remove(keep)
 
     def data_bytes(self, shuffle_id: int, num_maps: int) -> int:
         """Bytes of the committed ``.data`` files of a shuffle."""

@@ -1,11 +1,16 @@
 """Task context and the process-wide resources map (≙
-``blaze_tpu/runtime/context.py`` ``ResourcesMap``/``RESOURCES`` and
-``TaskContext``, without the memory manager for now)."""
+``blaze_tpu/runtime/context.py`` ``ResourcesMap``/``RESOURCES``,
+``TaskCancelled`` and ``TaskContext``, without the memory manager, the
+service layer's ``CancelScope`` and ``ScopedResources``, which no port
+caller needs: every attempt gets a map of its own), and
+the task heartbeat the wedge detector reads (:func:`beating`,
+:func:`tick`)."""
 
 from __future__ import annotations
 
+import contextvars
 import threading
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 
 class ResourcesMap:
@@ -45,6 +50,11 @@ class ResourcesMap:
 RESOURCES = ResourcesMap()
 
 
+class TaskCancelled(Exception):
+    """Raised where a cancelled task may not stop quietly, because what
+    it leaves would be kept half done.  Never retried."""
+
+
 class TaskContext:
     """One executing task = one partition of one stage."""
 
@@ -71,8 +81,46 @@ class TaskContext:
         return TaskContext(partition, num_partitions, self.resources, self._cancelled,
                            self.stage_id, self.task_attempt_id)
 
+    @property
+    def cancel_event(self) -> threading.Event:
+        return self._cancelled
+
     def is_task_running(self) -> bool:
         return not self._cancelled.is_set()
 
     def cancel(self) -> None:
         self._cancelled.set()
+
+
+_BEAT: contextvars.ContextVar = contextvars.ContextVar("task_beat", default=None)
+
+
+def tick() -> None:
+    """Progress on this thread: beats the task being driven here.  Every
+    operator's output batch ticks (``ExecNode._record_batch``)."""
+    on_beat = _BEAT.get()
+    if on_beat is not None:
+        on_beat()
+
+
+def beating(stream, on_beat: Callable[[], None]):
+    """``stream`` with ``on_beat`` armed while each of its steps runs on
+    the consumer's thread (never across a yield): the clock of the
+    wedge detector, which a map task that yields nothing still moves.
+    A beat is one timestamp store, so it fires at every tick, with no
+    period of its own to throttle it."""
+    it = iter(stream)
+    try:
+        while True:
+            token = _BEAT.set(on_beat)
+            try:
+                tick()
+                b = next(it)
+            except StopIteration:
+                return
+            finally:
+                _BEAT.reset(token)
+            yield b
+    finally:
+        if hasattr(it, "close"):
+            it.close()

@@ -7,14 +7,19 @@ byte marks it.  Readers verify every marked frame and raise
 :data:`FRAME_ALGO` (crc32, the reference's default); readers also
 verify ``crc32c`` and ``xxh32`` (the LZ4 frame hash) frames.  The
 algorithm ids are wire format, shared with the reference.
+
+A committed file that fails verification twice is quarantined
+(:func:`note_corruption`, :func:`quarantine`): renamed ``.corrupt`` and
+its ``.index`` dropped, so that recovery regenerates it in full.
 """
 
 from __future__ import annotations
 
 import os
 import struct
+import threading
 import zlib
-from typing import Optional
+from typing import Dict, Optional
 
 ALGO_CRC32 = 1
 ALGO_CRC32C = 2
@@ -131,3 +136,53 @@ def flip_byte_in_file(path: str, offset: Optional[int] = None) -> int:
         f.seek(offset)
         f.write(bytes([b[0] ^ 0x01]))
     return offset
+
+
+def flip_byte(buf: bytes, offset: int) -> bytes:
+    """``buf`` with one bit of ``buf[offset]`` flipped (the ``@corrupt``
+    fault on an in-memory blob)."""
+    if not buf:
+        return buf
+    offset = min(max(offset, 0), len(buf) - 1)
+    return buf[:offset] + bytes([buf[offset] ^ 0x01]) + buf[offset + 1:]
+
+
+_LOCK = threading.Lock()
+_CORRUPT_COUNTS: Dict[str, int] = {}
+
+
+def note_corruption(path: str) -> int:
+    """Count one verification failure of the committed file ``path``;
+    returns the count so far.  The reader quarantines at 2: a block
+    that was regenerated once and failed again will not heal on a
+    third read."""
+    with _LOCK:
+        n = _CORRUPT_COUNTS.get(path, 0) + 1
+        _CORRUPT_COUNTS[path] = n
+        return n
+
+
+def reset() -> None:
+    """Forget every file's failure count."""
+    with _LOCK:
+        _CORRUPT_COUNTS.clear()
+
+
+def quarantine(path: str) -> Optional[str]:
+    """Rename a twice-corrupt committed file to ``<path>.corrupt`` (kept;
+    an invalidation skips it) and drop its ``.index``, so that no reduce
+    task is offered the block again.  Returns the new path, or None when
+    the file is already gone."""
+    qpath = path + ".corrupt"
+    try:
+        os.replace(path, qpath)
+    except OSError:
+        return None
+    if path.endswith(".data"):
+        try:
+            os.unlink(path[: -len(".data")] + ".index")
+        except OSError:
+            pass
+    with _LOCK:
+        _CORRUPT_COUNTS.pop(path, None)
+    return qpath

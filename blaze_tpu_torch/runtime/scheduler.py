@@ -7,13 +7,14 @@ an ``IpcReaderExec`` over its shuffle and emits a map stage for the
 exchange's child, and every ``BroadcastExchangeExec`` with an
 ``IpcReaderExec`` over its blobs and a broadcast stage that drains the
 child through an ``IpcWriterExec``.  :func:`run_stages` runs the stages
-in order.  A map or broadcast stage runs its tasks
-``spark.blaze.stage.taskConcurrency`` at a time (default 1, serial;
-above 1 task 0 runs first, alone); the result stage runs them one by
-one.  Before each task it registers the task's reduce blocks and
-broadcast blobs in a resources map of the task's own (tasks of one
-stage read one broadcast under one key), serializes the task to
-TaskDefinition bytes (a map task's plan wrapped in a
+in order.  A map or broadcast stage runs its tasks one by one on the
+driver's thread, or, with ``spark.blaze.stage.taskConcurrency`` above
+1, speculation or wedge detection armed, its first task alone and the
+rest under ``runtime/speculation.StageTaskRunner``; the result stage
+runs them one by one.  Each attempt of a task registers the task's
+reduce blocks and broadcast blobs in a resources map of the attempt's
+own (tasks of one stage read one broadcast under one key), serializes
+the task to TaskDefinition bytes (a map task's plan wrapped in a
 ``ShuffleWriterExec`` with this task's ``.data``/``.index`` paths,
 its scans staged in ``RESOURCES``) and runs the bytes through
 ``serde.from_proto.run_task``; it yields the result stage's batches.
@@ -26,10 +27,23 @@ pass (:func:`compute_range_boundaries`, ≙ Spark's RangePartitioner
 sample job): the stage's plan once more over a sample of each task's
 rows; its seconds count in the stage's.
 
-Not ported from the reference's scheduler: task retry and fetch-failure
-re-runs of map stages (the boundary pass's retry with them),
-speculation and wedge detection, worker host pools, the service lease,
-tracing and monitoring.  A failed task fails the query.
+Recovery (≙ the reference's, ``runtime/retry.py`` and
+``runtime/speculation.py``): a failed attempt discards what it staged
+and its temporary files, and :meth:`StageRunner.handle_failure` asks
+``retry.classify`` what it calls for.  A retryable failure runs a fresh
+attempt (``_a<attempt>`` in its task id) after a deterministic backoff,
+``spark.blaze.task.maxAttempts`` in all.  A ``FetchFailedError``
+regenerates its producer first, without costing an attempt: the map
+tasks it names, the whole map stage when it names none, or the
+broadcast stage, ``spark.blaze.stage.maxAttempts`` times a task at
+most.  The boundary pass recovers the same way, as task -1.  A result
+task is retried only before its first batch.  ``spark.blaze.task.timeout``
+is checked between a task's batches.  A budget used up raises
+``TaskRetriesExhausted``; a fatal error (a cancellation, an engine
+bug, an unported path) propagates at once.
+
+Not ported from the reference's scheduler: worker host pools, the
+service lease and query cancel scope, tracing and monitoring.
 """
 
 from __future__ import annotations
@@ -44,13 +58,14 @@ from typing import Dict, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
-from .. import conf
 from ..batch import RecordBatch
 from ..ops.base import ExecNode
 from ..parallel.broadcast import BroadcastExchangeExec, IpcWriterExec
-from ..parallel.exchange import NativeShuffleExchangeExec, warm_then_map
+from ..parallel.exchange import NativeShuffleExchangeExec
 from ..parallel.shuffle import IpcReaderExec, LocalShuffleManager, Partitioning, RangePartitioning
 from .context import RESOURCES, ResourcesMap
+from .retry import FETCH_FAILED, RETRY, RetryPolicy, TaskRetriesExhausted, TaskTimeoutError, classify
+from .speculation import SpeculationPolicy, StageTaskRunner
 
 # process-unique: a broadcast's cached join map is named by its id
 _broadcast_ids = itertools.count()
@@ -74,11 +89,17 @@ class Stage:
 
 @dataclass
 class RunStats:
-    """What :func:`run_stages` moved: tasks run, their TaskDefinition
-    bytes, committed ``.data`` bytes, blocks registered for reduce
-    tasks, broadcast blob bytes, the rows read from each shuffle's
-    partitions; and each stage's seconds on the host clock (the result
-    stage's include its consumer's)."""
+    """What :func:`run_stages` moved: tasks run to their end (a
+    regenerated task counts once, under ``map_tasks_rerun`` or
+    ``broadcast_stage_reruns``), the TaskDefinition bytes of every
+    attempt, committed ``.data`` bytes, blocks registered for reduce
+    tasks, broadcast blob bytes, the rows the finished tasks read from
+    each shuffle's partitions, a regeneration's reads not again; each stage's
+    seconds on the host clock (the result stage's include its
+    consumer's); and the recovery counters (the reference's):
+    attempts, retries, timeouts (wedges among them), fetch failures,
+    map stage re-runs and the map tasks they ran, broadcast stage
+    re-runs, speculative attempts, won and lost."""
 
     tasks: int = 0
     task_def_bytes: int = 0
@@ -88,6 +109,16 @@ class RunStats:
     stage_seconds: List[float] = field(default_factory=list)
     # rows each reduce partition of each shuffle held, as its reader read them
     read_rows: Dict[int, List[int]] = field(default_factory=dict)
+    task_attempts: int = 0
+    task_retries: int = 0
+    task_timeouts: int = 0
+    fetch_failures: int = 0
+    map_stage_reruns: int = 0
+    map_tasks_rerun: int = 0
+    broadcast_stage_reruns: int = 0
+    speculative_attempts: int = 0
+    speculative_won: int = 0
+    speculative_lost: int = 0
 
 
 class _StageRoot(ExecNode):
@@ -140,17 +171,19 @@ def split_stages(root: ExecNode, manager: Optional[LocalShuffleManager] = None
     return stages, manager
 
 
-def build_task(stage: Stage, manager: LocalShuffleManager, t: int) -> Tuple[ExecNode, bytes]:
-    """Task ``t``'s plan and TaskDefinition bytes; a map task's plan is
-    the stage's wrapped in a ShuffleWriterExec writing this task's
-    output files.  Serializing stages the scans' partitions in
-    ``RESOURCES``: run every task built."""
+def build_task(stage: Stage, manager: LocalShuffleManager, t: int, attempt: int = 0) -> Tuple[ExecNode, bytes]:
+    """Task ``t``'s plan and TaskDefinition bytes (its id
+    ``task_<stage>_<t>``, ``_a<attempt>`` after a first attempt); a map
+    task's plan is the stage's wrapped in a ShuffleWriterExec writing
+    this task's output files.  Serializing stages the scans' partitions
+    in ``RESOURCES``: run every task built."""
     from ..serde.to_proto import task_definition
 
     plan = stage.plan
     if stage.kind == "map":
         plan = manager.map_writer(plan, stage.partitioning, stage.shuffle_id, t)
-    return plan, task_definition(plan, f"task_{stage.stage_id}_{t}", stage.stage_id, t)
+    suffix = f"_a{attempt}" if attempt else ""
+    return plan, task_definition(plan, f"task_{stage.stage_id}_{t}{suffix}", stage.stage_id, t)
 
 
 def ipc_readers(plan: ExecNode, prefix: str) -> List[IpcReaderExec]:
@@ -232,16 +265,39 @@ def _discard(keys: List[str]) -> None:
         RESOURCES.discard(key)
 
 
-class StageRunner:
-    """Runs stages of one split, in order: keeps each shuffle's map
-    count and each broadcast's blobs for the stages that read them."""
+def _drop_frames(exc: BaseException) -> None:
+    """Drop the tracebacks of a handled failure and of its causes: their
+    frames hold the failed attempt's tensors, which a retry would
+    otherwise keep on the card beside its own."""
+    seen = set()
+    while exc is not None and id(exc) not in seen:
+        seen.add(id(exc))
+        exc.__traceback__ = None
+        exc = exc.__cause__ or exc.__context__
 
-    def __init__(self, manager: LocalShuffleManager, stats: Optional[RunStats] = None):
+
+class StageRunner:
+    """Runs the stages of one split, in order, and recovers their
+    failures: keeps each shuffle's map count and each broadcast's blobs
+    for the stages that read them, and the stage that produced each, to
+    regenerate it."""
+
+    def __init__(self, stages: List[Stage], manager: LocalShuffleManager, stats: Optional[RunStats] = None,
+                 max_task_attempts: Optional[int] = None):
         self.manager = manager
         self.stats = stats if stats is not None else RunStats()
+        self.policy = RetryPolicy.from_conf()
+        if max_task_attempts is not None:
+            self.policy = self.policy.with_max_attempts(max_task_attempts)
+        self.map_stages = {s.shuffle_id: s for s in stages if s.kind == "map"}
+        self.broadcast_stages = {s.broadcast_id: s for s in stages if s.kind == "broadcast"}
         self.n_maps: Dict[int, int] = {}
         self.blobs: Dict[int, List[bytes]] = {}
         self._lock = threading.Lock()  # the stats, from concurrent tasks
+
+    def _count(self, name: str, n: int = 1) -> None:
+        with self._lock:
+            setattr(self.stats, name, getattr(self.stats, name) + n)
 
     def _register(self, stage: Stage, t: int, resources: ResourcesMap,
                   scope: contextlib.ExitStack) -> None:
@@ -257,13 +313,17 @@ class StageRunner:
         for node in ipc_readers(stage.plan, "broadcast_"):
             bid = int(node.resource_id.split("_")[1])
             resources.put(f"{node.resource_id}.0", list(self.blobs[bid]))
-        with self._lock:
-            self.stats.blocks += blocks
+        self._count("blocks", blocks)
 
-    def _run_task(self, stage: Stage, t: int, resources: ResourcesMap) -> Iterator[RecordBatch]:
-        from ..serde.from_proto import run_task
+    def _run_task(self, stage: Stage, t: int, attempt: int, resources: ResourcesMap, plans: list,
+                  cancel_event=None, on_beat=None) -> Iterator[RecordBatch]:
+        """One attempt of task ``t``: its batches, each pulled within
+        ``spark.blaze.task.timeout``; its optimized plan goes to
+        ``plans``."""
+        from ..serde import from_proto
         from ..serde.to_proto import STAGED_RIDS
 
+        self._count("task_attempts")
         # a scan the task did not consume (a failed task stops early)
         # must not outlive it; what it did not read of ``resources``
         # goes with the map
@@ -273,15 +333,17 @@ class StageRunner:
             scope.callback(_discard, staged)
             token = STAGED_RIDS.set(staged)
             try:
-                _, td = build_task(stage, self.manager, t)
+                _, td = build_task(stage, self.manager, t, attempt)
             finally:
                 STAGED_RIDS.reset(token)
-            with self._lock:
-                self.stats.tasks += 1
-                self.stats.task_def_bytes += len(td)
-            plans = []
-            yield from run_task(td, resources=resources, on_plan=plans.append)
-            self._note_reads(plans[0], t)
+            self._count("task_def_bytes", len(td))
+            deadline = self.policy.deadline()
+            for b in from_proto.run_task(td, task_attempt_id=attempt, resources=resources, on_plan=plans.append,
+                                         cancel_event=cancel_event, on_beat=on_beat):
+                if deadline is not None and time.monotonic() > deadline:
+                    raise TaskTimeoutError(f"task {t} of stage {stage.stage_id} exceeded "
+                                           f"{self.policy.task_timeout}s")
+                yield b
 
     def _note_reads(self, plan: ExecNode, t: int) -> None:
         """Adds the rows task ``t``'s shuffle readers read to the stats."""
@@ -293,48 +355,184 @@ class StageRunner:
                 rows = self.stats.read_rows.setdefault(sid, [0] * node.num_partitions())
                 rows[t] += node.metrics.values.get("output_rows", 0)
 
-    def _drain_task(self, stage: Stage, t: int) -> Optional[bytes]:
-        """Run map or broadcast task ``t`` to its end; a broadcast task
-        returns its blob."""
-        resources = ResourcesMap()
-        for _ in self._run_task(stage, t, resources):
-            pass
-        if stage.kind == "broadcast":
-            return resources.get(f"broadcast_{stage.broadcast_id}.{t}")
-        return None
+    def _attempt(self, stage: Stage, t: int, attempt: int, outs: dict, cancel_event=None, on_beat=None) -> None:
+        """One attempt of map or broadcast task ``t`` to its end.  The
+        first attempt of the task to finish uncancelled puts (its blob,
+        its plan) in ``outs[t]``; a failed or cancelled map attempt's
+        temporary files go."""
+        resources, plans = ResourcesMap(), []
+        try:
+            for _ in self._run_task(stage, t, attempt, resources, plans, cancel_event, on_beat):
+                pass
+        except BaseException:
+            if stage.kind == "map":
+                self.manager.sweep_inprogress(stage.shuffle_id, t, attempt)
+            raise
+        if cancel_event is not None and cancel_event.is_set():
+            # a loser: its drain may have stopped early, and nothing of it is kept
+            if stage.kind == "map":
+                self.manager.sweep_inprogress(stage.shuffle_id, t, attempt)
+            return
+        blob = resources.get(f"broadcast_{stage.broadcast_id}.{t}") if stage.kind == "broadcast" else None
+        with self._lock:
+            outs.setdefault(t, (blob, plans[0]))
+
+    def handle_failure(self, stage: Stage, t: int, exc: BaseException, attempt: int, regens: int,
+                       sleep: bool = True) -> Tuple[int, int, float]:
+        """Recover from a failed attempt of task ``t`` (-1: the boundary
+        pass): regenerate the producer of a fetch failure, or count a
+        retry; returns (the next attempt, the regenerations so far, the
+        backoff still to wait: 0 when ``sleep`` slept it).  Raises
+        ``TaskRetriesExhausted`` when a budget is used up, and a fatal
+        error as it is."""
+        action = classify(exc)
+        if action == FETCH_FAILED:
+            self._count("fetch_failures")
+            mstage = self.map_stages.get(exc.shuffle_id)
+            bstage = self.broadcast_stages.get(exc.broadcast_id)
+            if mstage is not None or bstage is not None:
+                regens += 1
+                if regens > self.policy.max_stage_regens:
+                    raise TaskRetriesExhausted(stage.stage_id, t, attempt + 1, exc) from exc
+                _drop_frames(exc)
+                if mstage is not None:
+                    self.regenerate_map_stage(mstage, exc.map_ids)
+                else:
+                    self.regenerate_broadcast_stage(bstage)
+                return attempt, regens, 0.0
+            action = RETRY  # no stage of this run produced it: a plain retry may still read it
+        if action != RETRY:
+            raise exc
+        attempt += 1
+        if attempt >= self.policy.max_attempts:
+            raise TaskRetriesExhausted(stage.stage_id, t, attempt, exc) from exc
+        _drop_frames(exc)
+        self._count("task_retries")
+        if isinstance(exc, TaskTimeoutError):
+            self._count("task_timeouts")
+        delay = self.policy.backoff(stage.stage_id, t, attempt - 1)
+        if sleep and delay > 0:
+            time.sleep(delay)
+            delay = 0.0
+        return attempt, regens, delay
+
+    def regenerate_map_stage(self, stage: Stage, map_ids: Optional[List[int]] = None) -> None:
+        """A fetch failure's recovery: drop the shuffle's bad map outputs
+        and run their map tasks again, only those of ``map_ids`` when
+        they are known (a partial re-run), all of them when not."""
+        tasks = sorted(m for m in set(map_ids or ()) if 0 <= m < stage.n_tasks) or None
+        if tasks is not None and len(tasks) >= stage.n_tasks:
+            tasks = None
+        self._count("map_stage_reruns")
+        self._count("map_tasks_rerun", stage.n_tasks if tasks is None else len(tasks))
+        self.manager.invalidate(stage.shuffle_id, map_ids=tasks)
+        self._run_tasks(stage, tasks, regenerated=True)
+        self.n_maps[stage.shuffle_id] = stage.n_tasks
+
+    def regenerate_broadcast_stage(self, stage: Stage) -> None:
+        """A corrupt blob's recovery: run the broadcast stage again and
+        keep its new blobs (the kept ones are the corrupt bytes)."""
+        self._count("broadcast_stage_reruns")
+        outs = self._run_tasks(stage, regenerated=True)
+        self.blobs[stage.broadcast_id] = [outs[t][0] for t in range(stage.n_tasks)]
+
+    def run_task_attempts(self, stage: Stage, t: int, outs: dict) -> None:
+        """Map or broadcast task ``t`` under the retry policy, on this
+        thread."""
+        attempt = regens = 0
+        while True:
+            try:
+                return self._attempt(stage, t, attempt, outs)
+            except BaseException as exc:
+                attempt, regens, _ = self.handle_failure(stage, t, exc, attempt, regens)
+
+    def _run_tasks(self, stage: Stage, tasks: Optional[List[int]] = None, regenerated: bool = False) -> dict:
+        """Run the tasks of a map or broadcast stage (all, or ``tasks``
+        of a partial re-run); returns each task's (blob, plan).  The
+        tasks and their reads count in the stats unless ``regenerated``
+        (they counted when they first finished)."""
+        tasks = list(range(stage.n_tasks)) if tasks is None else list(tasks)
+        outs: dict = {}
+        policy = SpeculationPolicy.from_conf()
+        if not policy.runner_needed() or len(tasks) <= 1:
+            for t in tasks:
+                self.run_task_attempts(stage, t, outs)
+        else:
+            # the first task alone: it builds the kernel library and
+            # materializes what the stage reads, which no backup may
+            # race and no wedge detector may take for a wedge
+            t0 = time.monotonic()
+            self.run_task_attempts(stage, tasks[0], outs)
+            StageTaskRunner(stage.stage_id, tasks[1:], policy,
+                            attempt_fn=lambda t, a, cancel, beat: self._attempt(stage, t, a, outs, cancel, beat),
+                            on_failure=lambda t, exc, a, r: self.handle_failure(stage, t, exc, a, r, sleep=False),
+                            count=self._count, durations=[time.monotonic() - t0]).run()
+        if not regenerated:
+            self._count("tasks", len(outs))
+            for t, (_, plan) in outs.items():
+                self._note_reads(plan, t)
+        return outs
+
+    def run_result_task(self, stage: Stage, t: int) -> Iterator[RecordBatch]:
+        """Result task ``t``'s batches, streamed; a failure before the
+        first batch is recovered, a later one is terminal (its batches
+        are the caller's already)."""
+        attempt = regens = 0
+        while True:
+            plans: list = []
+            yielded = False
+            try:
+                with contextlib.closing(self._run_task(stage, t, attempt, ResourcesMap(), plans)) as stream:
+                    for b in stream:
+                        yielded = True
+                        yield b
+            except BaseException as exc:
+                if yielded:
+                    raise
+                attempt, regens, _ = self.handle_failure(stage, t, exc, attempt, regens)
+                continue
+            self._count("tasks")
+            self._note_reads(plans[0], t)
+            return
 
     def run_stage(self, stage: Stage) -> Iterator[RecordBatch]:
         """Run every task of ``stage``; a result stage yields its
         batches, the others yield nothing.  A range map stage without
-        boundaries runs the boundary pass first."""
+        boundaries runs the boundary pass first, recovered as task -1."""
         part = stage.partitioning
         if stage.kind == "map" and isinstance(part, RangePartitioning) and part.boundaries is None \
                 and part.num_partitions > 1:
-            part.boundaries = compute_range_boundaries(
-                stage, lambda t, resources, scope: self._register(stage, t, resources, scope))
+            attempt = regens = 0
+            while part.boundaries is None:
+                try:
+                    part.boundaries = compute_range_boundaries(
+                        stage, lambda t, resources, scope: self._register(stage, t, resources, scope))
+                except BaseException as exc:
+                    attempt, regens, _ = self.handle_failure(stage, -1, exc, attempt, regens)
         if stage.kind == "result":
             for t in range(stage.n_tasks):
-                yield from self._run_task(stage, t, ResourcesMap())
+                yield from self.run_result_task(stage, t)
             return
-        outs = warm_then_map(lambda t: self._drain_task(stage, t), stage.n_tasks,
-                             int(conf.STAGE_TASK_CONCURRENCY.get()))
+        outs = self._run_tasks(stage)
         if stage.kind == "map":
             self.n_maps[stage.shuffle_id] = stage.n_tasks
             self.stats.data_bytes += self.manager.data_bytes(stage.shuffle_id, stage.n_tasks)
         else:
-            self.blobs[stage.broadcast_id] = outs
-            self.stats.broadcast_bytes += sum(len(b) for b in outs)
+            self.blobs[stage.broadcast_id] = [outs[t][0] for t in range(stage.n_tasks)]
+            self.stats.broadcast_bytes += sum(len(b) for b in self.blobs[stage.broadcast_id])
 
 
-def run_stages(stages: List[Stage], manager: LocalShuffleManager,
-               stats: Optional[RunStats] = None) -> Iterator[RecordBatch]:
+def run_stages(stages: List[Stage], manager: LocalShuffleManager, stats: Optional[RunStats] = None,
+               max_task_attempts: Optional[int] = None) -> Iterator[RecordBatch]:
     """Run ``stages`` (from :func:`split_stages`) and yield the result
-    stage's batches; ``stats``, when given, accumulates what moved.
-    The manager's directory and the split's cached join maps are
-    dropped when the stream ends or is closed."""
+    stage's batches; ``stats``, when given, accumulates what moved and
+    the recovery counters; ``max_task_attempts`` overrides
+    ``spark.blaze.task.maxAttempts``.  The manager's directory and the
+    split's cached join maps are dropped when the stream ends or is
+    closed."""
     from ..ops.joins.broadcast import clear_join_map_cache
 
-    runner = StageRunner(manager, stats)
+    runner = StageRunner(stages, manager, stats, max_task_attempts)
     try:
         for stage in stages:
             t0 = time.perf_counter()

@@ -267,7 +267,8 @@ def plan_from_proto(n: pb.PhysicalPlanNode):
     raise NotImplementedError(f"from_proto node {kind}")
 
 
-def run_task(task_def_bytes: bytes, task_attempt_id: int = 0, resources=None, on_plan=None):
+def run_task(task_def_bytes: bytes, task_attempt_id: int = 0, resources=None, on_plan=None, cancel_event=None,
+             on_beat=None):
     """Decode a TaskDefinition, optimize its plan
     (``ops.fusion.optimize_plan``: fusion tiers 1-5 under
     ``spark.blaze.fusion.enabled``, and column pruning) and run it for
@@ -275,14 +276,25 @@ def run_task(task_def_bytes: bytes, task_attempt_id: int = 0, resources=None, on
     reduce blocks and broadcast blobs from ``resources`` (default the
     process-wide ``RESOURCES``, from which decoding takes the scans).
     ``on_plan``, when given, is called with the optimized plan first
-    (its operators' metrics fill as the stream runs)."""
+    (its operators' metrics fill as the stream runs).
+
+    The ``task.compute`` fault site is probed before the plan is built.
+    ``cancel_event`` cancels the task cooperatively (a speculative
+    loser, a wedged attempt); ``on_beat`` is the task's heartbeat, the
+    wedge detector's clock, called at each operator's output batch
+    while the stream runs (``runtime/context.py`` ``beating``)."""
     from ..ops.fusion import optimize_plan
-    from ..runtime.context import TaskContext
+    from ..runtime import faults
+    from ..runtime.context import TaskContext, beating
 
     td = pb.TaskDefinition.decode(task_def_bytes)
+    faults.hit("task.compute", attempt=task_attempt_id, detail=td.task_id, cancel=cancel_event)
     plan = optimize_plan(plan_from_proto(td.plan))
     if on_plan is not None:
         on_plan(plan)
-    ctx = TaskContext(td.partition, max(plan.num_partitions(), td.partition + 1), resources,
+    ctx = TaskContext(td.partition, max(plan.num_partitions(), td.partition + 1), resources, cancel_event,
                       stage_id=td.stage_id, task_attempt_id=task_attempt_id)
-    return plan.execute(td.partition, ctx)
+    stream = plan.execute(td.partition, ctx)
+    if on_beat is None:
+        return stream
+    return beating(stream, on_beat)

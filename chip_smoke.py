@@ -3,7 +3,14 @@
 
     python3 chip_smoke.py [--scale 1.0] [--ds-scale 1.0]
 
-Needs one CUDA card and ``nvcc`` (``/usr/local/cuda``).  In order, it:
+Needs one CUDA card and ``nvcc`` (``/usr/local/cuda``).  From its
+start, five worker processes (spawned, the card hidden from them) build
+the same host tables from the same seeds and compute the host
+references the checks below hold the card to: the numpy oracles of
+TPC-H and TPC-DS at their scales and of the file phase, and the port's
+CPU evaluations of the functions phase.  The main process waits for one
+only where it is not done yet; the workers stop before the script
+exits.  In order, it:
 
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds the hand-written kernels from ``blaze_tpu_torch/csrc`` and,
@@ -56,9 +63,7 @@ Needs one CUDA card and ``nvcc`` (``/usr/local/cuda``).  In order, it:
    in process (launch counts reset just before each query); prints its
    stages and tasks, TaskDefinition bytes, ``.data`` bytes, blocks read,
    checksum-verified frames, the file path's host/device copies and its
-   wall beside the in-process wall; then flips one byte of one committed
-   q06 ``.data`` file and requires the reduce task to raise
-   ``BlockCorruptionError``; one more untimed run of q06, q01, q03 and
+   wall beside the in-process wall; one more untimed run of q06, q01, q03 and
    q05 through ``run_stages`` counts its syncs with the card (CUDA sync
    debug mode), q03's and q05's under cProfile; then runs the join
    code no TPC-H query runs (shuffled FULL, RIGHT_SEMI, RIGHT_ANTI and
@@ -98,18 +103,29 @@ Needs one CUDA card and ``nvcc`` (``/usr/local/cuda``).  In order, it:
    the same way, q17's, q39a's and q39b's doubles within 1e-9 relative
    between the paths, and q87 again at SF 0.01 (from SF 0.1 on it
    selects nothing: the generator's customers carry 8 distinct names);
+   of these three groups, the queries of ``SCHEDULED_CUT`` run in
+   process only (q20, q98, q63, q57, q56, q60, q29 and q39b repeat the
+   template of a query that keeps its ``run_stages`` path; q23a, q23b
+   and q87 select nothing at SF1 and take both paths at their smaller
+   scales): that cut and the reference workers keep the smoke within
+   its time;
    then the single-fact reports (q42, q52, q55, q19, q43, q96, q26, q6,
    q41, q13, q48, q15, q45, q8, q91, q34, q73, q46, q68, q79, q9, q28,
    q88, q90, q61, q62, q99, q21, q32, q92 and q65: broadcast joins into
    one fact table, CASE pivots, and scalar subqueries (q45: an IN
    subquery) run in process while the plan is built, their seconds
-   printed) the same way, with each oracle's host seconds; then the 26
+   printed), in process only (their ``run_stages`` path, whose star
+   joins the TPC-H queries through ``run_stages`` have, was cut to make
+   room for the faults phase), with each oracle's host seconds; then the 26
    multi-fact, shuffled and self joins (q1, q30, q81, q94, q95, q16,
    q74, q11, q4, q37, q82, q40, q50, q93, q24a, q24b, q14b, q58, q31,
    q59, q83, q85, q78, q97, q64 and q72: shuffled joins on composite
    and string keys, a FULL shuffled join, LEFT_SEMI/LEFT_ANTI joins on
-   aggregates, q72's shuffle of all of ``inventory``) the same way,
-   each record with its oracle's row count;
+   aggregates, q72's shuffle of all of ``inventory``), each record with
+   its oracle's row count; only q93, q78, q97 (the FULL shuffled join)
+   and q72 (all of ``inventory`` through zlib files) also run through
+   ``run_stages`` (the rest of that path was cut with the reports' for
+   the faults phase; ``--uncut`` restores both, to time the cut);
 8. the file phase: writes, with the port's own writers, into a
    temporary directory, one file a partition (8) and row groups of the
    2^20-row batches, so the scans yield the memory scans' batches:
@@ -171,7 +187,25 @@ Needs one CUDA card and ``nvcc`` (``/usr/local/cuda``).  In order, it:
    written to ORC by the port's writer and read back through
    ``OrcScanExec``: the map exploded, a struct field and the list's
    first element aggregated per line number, equal to numpy and to the
-   port's CPU evaluation; one JSON record a run;
+   port's CPU evaluation; one JSON record a run; then the exchanges
+   phase (q01 as Spark plans it, a global sort and ``repartition(8)`` of
+   orders, a skipping partial agg, each on both paths); then the faults
+   phase, every run through ``run_stages`` with
+   ``spark.blaze.task.retryBackoff`` 0 but one: q03 at ``--scale``
+   fault-free, then under each fault of ``FAULT_MATRIX`` (a crashed
+   task, a failed commit, an injected fetch failure, a committed map
+   output with a flipped byte, a corrupt broadcast blob), each equal to
+   the fault-free rows and q03's oracle with its recovery counters as
+   listed and launching at least as often; the retry budget used up
+   (``TaskRetriesExhausted`` naming the stage, the task, 3 attempts and
+   the site, nothing left behind); one retry with the default backoff;
+   a 2 s straggler at a map commit raced by a speculative backup (4
+   tasks at a time, the backup must win, the wall within 2 s of the
+   fault-free one) and retried as a wedge (``spark.blaze.task.wedgeMs``
+   500); q01 as Spark plans it with its boundary pass's first fetch
+   failing; then ``murmur3_pids``, ``pid_histogram`` and
+   ``sorted_lookup`` held to their plain versions on the largest inputs
+   the phase gave them; one JSON record a run;
 11. the null-key phase: ``store_sales`` at ``--ds-scale`` with its -1
    ``ss_customer_sk`` exposed as nulls (``with_null_fks``), through
    ``split_stages``/``run_stages``: an ``IS NULL`` count, a group by
@@ -193,10 +227,10 @@ Needs one CUDA card and ``nvcc`` (``/usr/local/cuda``).  In order, it:
    the hand-written kernels' device time at the shapes the query gives
    them;
 13. prints where each phase ended on the host clock, the ``kernels``
-   JSON line (launches summed over the 125 queries, the file phase's,
-   the functions phase's and the nested phase's runs in process, and
-   per query on each path; the null-key phase's, the file phase's, the
-   functions phase's and the nested phase's apart too), then
+   JSON line (launches summed over the 125 queries, the file,
+   functions, nested and exchanges phases' runs in process and the
+   faults phase's runs, and per query on each path; the null-key, file,
+   functions, nested, exchanges and faults phases' apart too), then
    ``{"ok": true, ...}`` last.
 
 Any failure raises and exits nonzero before the last line; without a
@@ -1120,10 +1154,23 @@ EXISTS_STDDEV_QUERIES = tuple(f"ds_{q}" for q in ("q10", "q35", "q69", "q38", "q
 REPORT_QUERIES = tuple(f"ds_{q}" for q in ("q42", "q52", "q55", "q19", "q43", "q96", "q26", "q6", "q41", "q13", "q48",
                                            "q15", "q45", "q8", "q91", "q34", "q73", "q46", "q68", "q79", "q9", "q28",
                                            "q88", "q90", "q61", "q62", "q99", "q21", "q32", "q92", "q65"))
+# of those, the ones that also run through run_stages: the whole fact
+# tables q93, q78 and q72 shuffle through zlib files, and q97's FULL
+# shuffled join; the others' shapes run through run_stages elsewhere
+JOINED_SCHEDULED = ("ds_q93", "ds_q78", "ds_q97", "ds_q72")
 # TPC-DS's multi-fact, shuffled and self joins, the heaviest (q72) last
 JOINED_QUERIES = tuple(f"ds_{q}" for q in ("q1", "q30", "q81", "q94", "q95", "q16", "q74", "q11", "q4", "q37", "q82",
                                            "q40", "q50", "q93", "q24a", "q24b", "q14b", "q58", "q31", "q59", "q83",
                                            "q85", "q78", "q97", "q64", "q72"))
+# the window, rollup/union and exists/stddev queries whose run_stages
+# path is cut: each repeats the template of a query that keeps it with
+# other columns or constants (q20 and q98 q12's, q63 q53's, q57 q47's,
+# q56 and q60 q33's, q29 q25's, q39b q39a's), or selects nothing at SF1
+# (q23a, q23b and q87, whose two paths run at the smaller scales below)
+SCHEDULED_CUT = ("ds_q20", "ds_q98", "ds_q63", "ds_q57", "ds_q56", "ds_q60", "ds_q23a", "ds_q23b", "ds_q87",
+                 "ds_q29", "ds_q39b")
+ALL_DS_QUERIES = (DS_QUERIES + WINDOW_QUERIES + ROLLUP_UNION_QUERIES + EXISTS_STDDEV_QUERIES + REPORT_QUERIES
+                  + JOINED_QUERIES)
 # q23a and q23b are empty from SF 0.01 on (the generator's -1 customer
 # spends the most): they run again at this scale, where they are not
 Q23_QUERIES, Q23_SCALE = ("ds_q23a", "ds_q23b"), 0.002
@@ -1457,19 +1504,146 @@ _ORACLES: Dict[tuple, object] = {}
 ORACLE_SECONDS: Dict[tuple, float] = {}
 
 
-def oracle(data, query: str):
-    """The query's numpy oracle on ``data``, computed once a run (q01's
-    takes seconds at SF1, and both paths are held to it)."""
+def oracle_fn(query: str):
     from blaze_tpu_torch.tpcds import oracle as DO
     from blaze_tpu_torch.tpch import oracle as O
 
+    return getattr(DO, f"oracle_{query[3:]}") if query.startswith("ds_") else getattr(O, f"oracle_{query}")
+
+
+def oracle(data, query: str):
+    """The query's numpy oracle on ``data``, computed once a run (q01's
+    takes seconds at SF1, and both paths are held to it): taken from a
+    reference worker where ``data`` was registered with one
+    (:func:`register_tables`), else computed here."""
     key = (id(data), query)
     if key not in _ORACLES:
-        fn = getattr(DO, f"oracle_{query[3:]}") if query.startswith("ds_") else getattr(O, f"oracle_{query}")
-        t0 = time.perf_counter()
-        _ORACLES[key] = fn(data)
-        ORACLE_SECONDS[key] = time.perf_counter() - t0
+        made = REFERENCES.take(("oracle", *TABLE_RECIPES[id(data)][1:], query)) if id(data) in TABLE_RECIPES else None
+        if made is None:
+            t0 = time.perf_counter()
+            made = oracle_fn(query)(data), time.perf_counter() - t0
+        _ORACLES[key], ORACLE_SECONDS[key] = made
     return _ORACLES[key]
+
+
+# ------------------------------------------ host references in worker processes
+#
+# The numpy oracles and the port's CPU evaluations are host work that
+# needs no card: at SF1 they took about a sixth of the smoke's seconds
+# on the host thread that drives the card.  Worker processes (spawned,
+# the card hidden from them, one torch thread each) build the same host
+# tables from the same seeds and compute them from the start of the
+# run, in the order the phases need them; the main process waits only
+# where one is not done yet.  Every check still holds the card's rows
+# to the same reference.
+
+#: the main process's host tables that a worker builds too: id -> (the
+#: tables, kept alive so that no other object takes their id; recipe;
+#: variant)
+TABLE_RECIPES: Dict[int, tuple] = {}
+
+
+def register_tables(data: dict, recipe: tuple, variant: str) -> None:
+    TABLE_RECIPES[id(data)] = (data, recipe, variant)
+
+
+def recipe_tables(recipe: tuple) -> dict:
+    """The host tables of ``recipe``, by variant, built as the main
+    process builds them: ("tpch", scale), ("tpcds", scale), ("files",
+    scale) or ("functions", scale, host scale)."""
+    from blaze_tpu_torch.tpch import datagen
+
+    kind, scale = recipe[:2]
+    if kind == "tpch":
+        plain = query_data(TPCH_QUERIES + NEW_QUERIES, scale, ds=False)
+        return {"plain": plain, "spec": spec_data(plain, scale)}
+    if kind == "tpcds":
+        return {"plain": query_data(ALL_DS_QUERIES, scale, ds=True)}
+    if kind == "files":
+        plain = datagen.generate_all(scale)
+        return {"plain": plain, "spec": datagen.with_spec_columns(plain, scale)}
+    return {"lineitem": datagen.generate_table("lineitem", scale), "part": datagen.generate_table("part", scale),
+            "host": {name: datagen.generate_table(name, recipe[2]) for name in ("customer", "part")}}
+
+
+_WORKER_TABLES: Dict[tuple, dict] = {}
+
+
+def reference_worker_init(repo: str) -> None:
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    sys.path.insert(0, repo)
+    import torch
+
+    torch.set_num_threads(1)
+
+
+def reference_job(job: tuple) -> tuple:
+    """One host reference, in a worker: (its result, its seconds).  Jobs:
+    ("oracle", recipe, variant, query), ("family", recipe, family, table,
+    n_parts, batch_rows), ("object agg", recipe, label, n_parts,
+    batch_rows)."""
+    kind, recipe, *rest = job
+    if recipe not in _WORKER_TABLES:
+        _WORKER_TABLES[recipe] = recipe_tables(recipe)
+    tables = _WORKER_TABLES[recipe]
+    t0 = time.perf_counter()
+    if kind == "oracle":
+        variant, query = rest
+        out = oracle_fn(query)(tables[variant])
+    elif kind == "family":
+        out = family_cpu_arrays({"lineitem": tables["lineitem"], **tables["host"]}, *rest)
+    else:
+        out = object_agg_cpu_rows({"lineitem": tables["lineitem"], "part": tables["part"]}, *rest)
+    return out, time.perf_counter() - t0
+
+
+class References:
+    """Host references computed by worker processes: :meth:`start`
+    submits jobs to a pool of its own, :meth:`take` waits for one's
+    result (None for a job never submitted), :meth:`close` stops every
+    worker."""
+
+    def __init__(self):
+        self.pools, self.futures = [], {}
+
+    def start(self, workers: int, jobs) -> None:
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+
+        pool = ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn"),
+                                   initializer=reference_worker_init, initargs=(str(REPO),))
+        self.pools.append(pool)
+        for job in jobs:
+            self.futures[job] = pool.submit(reference_job, job)
+
+    def take(self, job: tuple):
+        future = self.futures.pop(job, None)
+        return None if future is None else future.result()
+
+    def close(self) -> None:
+        for pool in self.pools:
+            pool.shutdown(wait=True, cancel_futures=True)
+        self.pools, self.futures = [], {}
+
+
+REFERENCES = References()
+
+
+def start_references(scale: float, ds_scale: float, n_parts: int, batch_rows: int) -> None:
+    """Starts the reference workers, each pool's jobs in the order the
+    phases ask for them: three workers for the TPC-H oracles at
+    ``scale`` (the first phases'), two for the TPC-DS oracles at
+    ``ds_scale``, then the file phase's oracles and the functions
+    phase's CPU evaluations."""
+    tpch = ("tpch", scale)
+    REFERENCES.start(3, [("oracle", tpch, "plain", q) for q in TPCH_QUERIES]
+                     + [("oracle", tpch, "spec", q) for q in NEW_QUERIES])
+    files, fns = ("files", FILE_SCALE), ("functions", FN_SCALE, FN_HOST_SCALE)
+    REFERENCES.start(2, [("oracle", ("tpcds", ds_scale), "plain", q) for q in ALL_DS_QUERIES]
+                     + [("oracle", files, "plain", q) for q in TPCH_QUERIES]
+                     + [("oracle", files, "spec", q) for q in NEW_QUERIES]
+                     + [("object agg", fns, label, n_parts, batch_rows) for label, *_ in OBJECT_AGG_RUNS]
+                     + [("family", fns, family, table, n_parts, batch_rows) for family, table, *_ in function_families()])
 
 
 def check_oracle(data, query: str, got: dict) -> str:
@@ -1624,7 +1798,7 @@ def run_scheduled(torch, cuda_ops, query: str, scans, n_parts: int):
     from blaze_tpu_torch import batch as B
     from blaze_tpu_torch.runtime import integrity
     from blaze_tpu_torch.runtime.context import RESOURCES
-    from blaze_tpu_torch.runtime.scheduler import RunStats, run_stages, split_stages
+    from blaze_tpu_torch.runtime.scheduler import RunStats, split_stages
 
     from blaze_tpu_torch.ops import agg as A
 
@@ -1639,7 +1813,7 @@ def run_scheduled(torch, cuda_ops, query: str, scans, n_parts: int):
     integrity.COUNTS["frames_verified"] = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    batches = list(run_stages(stages, manager, stats))
+    batches = run_clean(query, stages, manager, stats)
     torch.cuda.synchronize()
     wall = build_s + time.perf_counter() - t0
     launches = dict(cuda_ops.LAUNCHES)
@@ -1877,37 +2051,6 @@ def count_syncs(torch, fn, host_profile: bool = False):
     return syncs, "\n".join(line for line in text.getvalue().splitlines() if line.strip())
 
 
-def corrupt_block_check(scans, n_parts: int) -> str:
-    """q06's map stage through the scheduler, one byte of one committed
-    .data file flipped, then its reduce task: it must raise
-    BlockCorruptionError (only that class is caught)."""
-    from blaze_tpu_torch.runtime import integrity
-    from blaze_tpu_torch.runtime.context import RESOURCES
-    from blaze_tpu_torch.runtime.scheduler import StageRunner, split_stages
-    from blaze_tpu_torch.tpch import build_query
-
-    stages, manager = split_stages(build_query("q6", scans, n_parts))
-    try:
-        runner = StageRunner(manager)
-        for stage in stages[:-1]:
-            for _ in runner.run_stage(stage):
-                pass
-        path = manager.map_output_paths(stages[0].shuffle_id, 0)[0]
-        offset = integrity.flip_byte_in_file(path)
-        try:
-            for _ in runner.run_stage(stages[-1]):
-                pass
-        except integrity.BlockCorruptionError as e:
-            caught = f"byte {offset} of {os.path.basename(path)} flipped: {e}"
-        else:
-            raise AssertionError("q06's reduce task read a corrupted block without BlockCorruptionError")
-    finally:
-        manager.cleanup()
-    if len(RESOURCES):
-        raise AssertionError(f"the failed reduce task left resources {RESOURCES.keys()}")
-    return caught
-
-
 def require_launches(query: str, launches: dict, launched, not_launched=()) -> None:
     for name in launched:
         if launches[name] <= 0:
@@ -1957,7 +2100,7 @@ def same_rows(a: dict, b: dict, rel: float = 0.0) -> bool:
 
 
 def ds_phase(torch, cuda_ops, card: str, label: str, queries, data, scale: float, n_parts: int, batch_rows: int,
-             runs: dict, sched_runs: dict) -> list:
+             runs: dict, sched_runs: dict, scheduled=None) -> list:
     """TPC-DS ``queries`` on both paths, one query at a time (its scans
     staged before it and dropped after): in process through the
     optimizer, then through split_stages/run_stages, each equal to its
@@ -1965,6 +2108,9 @@ def ds_phase(torch, cuda_ops, card: str, label: str, queries, data, scale: float
     multisets: rows that tie on every sort key may come in another
     order; q18's doubles within 1e-9 relative) and their launches
     equal; ``runs`` and ``sched_runs`` get each query's launch counts.
+    Only the queries in ``scheduled`` (None: all) take the second path;
+    the others run in process alone (their records' ``run_stages_*``
+    fields None).
     Prints each query's walls, tasks, ``.data`` bytes, launches and the
     card's peak memory on each path, and how far each peak rose above
     what the run held before the query's scans were staged.  Returns
@@ -1980,27 +2126,33 @@ def ds_phase(torch, cuda_ops, card: str, label: str, queries, data, scale: float
         said = check_oracle(data, query, got)
         require_launches(query_label(query), runs[query], *EXPECTED_LAUNCHES[query])
         tasks = LAST_BUILD["tasks"]  # of run_query's build: no second build, no second subquery
-        torch.cuda.reset_peak_memory_stats()
-        sgot, swall, sched_runs[query], moved = run_scheduled(torch, cuda_ops, query, scans, n_parts)
-        speak = torch.cuda.max_memory_allocated()
         key = query_label(query) if query_label(query) not in PARTIAL_BY_QUERY else f"{query_label(query)} SF{scale}"
-        PARTIAL_BY_QUERY[key] = {"inproc": ipartial, "run_stages": moved["partial"], "data_bytes": moved["data_bytes"]}
-        check_oracle(data, query, sgot)
-        if not same_rows(sgot, got, 1e-9 if query in FLOAT_SUM_QUERIES else 0.0):
-            raise AssertionError(f"{query} through run_stages: {sgot} != in process {got}")
-        if sched_runs[query] != runs[query]:
-            raise AssertionError(f"{query} through run_stages launched {sched_runs[query]}, in process {runs[query]}")
         launches = {k: runs[query][k] for k in ("murmur3_pids", "pid_histogram", "sorted_lookup")}
         sub = f" (its scalar subquery {sub_s:.4f} s of it)" if query in SUBQUERY_QUERIES else ""
         oracle_s = ORACLE_SECONDS[(id(data), query)]
-        log(f"{query_label(query)} SF{scale} (8 partitions, 2^20-row batches): {said} (oracle {oracle_s:.2f} s on "
-            f"the host); in process wall "
-            f"{wall:.4f} s{sub}, {tasks} tasks, .data bytes 0 (exchanges kept on the card), peak device memory "
-            f"{peak / 2**20:.1f} MiB ({(peak - held) / 2**20:.1f} above the {held / 2**20:.1f} held before); "
-            f"through run_stages = oracle and = in process, wall {swall:.4f} s, {moved['tasks']} tasks, .data bytes "
-            f"{moved['data_bytes']}, peak device memory {speak / 2**20:.1f} MiB ({(speak - held) / 2**20:.1f} "
-            f"above); on {card}; launches {launches} on each path; partial aggs {ipartial} in process, "
-            f"{moved['partial']} through run_stages")
+        said = (f"{query_label(query)} SF{scale} (8 partitions, 2^20-row batches): {said} (oracle {oracle_s:.2f} s "
+                f"on the host); in process wall {wall:.4f} s{sub}, {tasks} tasks, .data bytes 0 (exchanges kept on "
+                f"the card), peak device memory {peak / 2**20:.1f} MiB ({(peak - held) / 2**20:.1f} above the "
+                f"{held / 2**20:.1f} held before)")
+        swall = speak = None
+        moved = {"tasks": None, "data_bytes": None, "kinds": None, "partial": None}
+        both = scheduled is None or query in scheduled
+        if both:
+            torch.cuda.reset_peak_memory_stats()
+            sgot, swall, sched_runs[query], moved = run_scheduled(torch, cuda_ops, query, scans, n_parts)
+            speak = torch.cuda.max_memory_allocated()
+            check_oracle(data, query, sgot)
+            if not same_rows(sgot, got, 1e-9 if query in FLOAT_SUM_QUERIES else 0.0):
+                raise AssertionError(f"{query} through run_stages: {sgot} != in process {got}")
+            if sched_runs[query] != runs[query]:
+                raise AssertionError(f"{query} through run_stages launched {sched_runs[query]}, in process "
+                                     f"{runs[query]}")
+            said += (f"; through run_stages = oracle and = in process, wall {swall:.4f} s, {moved['tasks']} tasks, "
+                     f".data bytes {moved['data_bytes']}, peak device memory {speak / 2**20:.1f} MiB "
+                     f"({(speak - held) / 2**20:.1f} above)")
+        PARTIAL_BY_QUERY[key] = {"inproc": ipartial, "run_stages": moved["partial"], "data_bytes": moved["data_bytes"]}
+        log(f"{said}; on {card}; launches {launches}{' on each path' if both else ''}; partial aggs "
+            f"{ipartial} in process" + (f", {moved['partial']} through run_stages" if both else ""))
         exp = oracle(data, query)
         rec = {"query": query_label(query), "scale": scale, "rows": len(next(iter(got.values()))),
                "oracle_rows": len(exp) if isinstance(exp, (dict, list, set)) else None,
@@ -2053,7 +2205,7 @@ def null_key_phase(torch, cuda_ops, flush, card: str, data, scale: float, n_part
     from blaze_tpu_torch.batch import batch_to_pydict, table_to_batches
     from blaze_tpu_torch.ops import MemoryScanExec
     from blaze_tpu_torch.runtime.context import RESOURCES
-    from blaze_tpu_torch.runtime.scheduler import run_stages, split_stages
+    from blaze_tpu_torch.runtime.scheduler import split_stages
     from blaze_tpu_torch.schema import Schema
     from blaze_tpu_torch.tpcds import TPCDS_SCHEMAS
     from blaze_tpu_torch.tpcds.datagen import with_null_fks
@@ -2080,7 +2232,7 @@ def null_key_phase(torch, cuda_ops, flush, card: str, data, scale: float, n_part
             stages, manager = split_stages(plan)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            batches = list(run_stages(stages, manager))
+            batches = run_clean(f"null key {check}", stages, manager)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             runs[check] = dict(cuda_ops.LAUNCHES)
@@ -2291,6 +2443,8 @@ def file_phase(torch, cuda_ops, card: str, data, scale: float, n_parts: int, bat
         t0 = time.perf_counter()
         plain = datagen.generate_all(FILE_SCALE)
         spec = datagen.with_spec_columns(plain, FILE_SCALE)
+        register_tables(plain, ("files", FILE_SCALE), "plain")
+        register_tables(spec, ("files", FILE_SCALE), "spec")
         gen_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         written = write_tables(plain, list(plain), os.path.join(workdir, "plain"), n_parts, batch_rows)
@@ -2464,7 +2618,7 @@ def both_paths(torch, cuda_ops, label: str, build, launches_of: dict, arrays: bo
     ``arrays`` as host arrays in order (``same_arrays``, exactly).
     Returns (in-process rows or arrays, wall, run_stages wall)."""
     from blaze_tpu_torch.batch import batch_to_pydict
-    from blaze_tpu_torch.runtime.scheduler import run_stages, split_stages
+    from blaze_tpu_torch.runtime.scheduler import split_stages
 
     cuda_ops.reset_launch_counts()
     torch.cuda.synchronize()
@@ -2478,7 +2632,7 @@ def both_paths(torch, cuda_ops, label: str, build, launches_of: dict, arrays: bo
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     stages, manager = split_stages(build())
-    sbatches = list(run_stages(stages, manager))
+    sbatches = run_clean(label, stages, manager)
     torch.cuda.synchronize()
     swall = time.perf_counter() - t0
     launches_of[f"{label} (run_stages)"] = dict(cuda_ops.LAUNCHES)
@@ -2568,37 +2722,49 @@ def runtime_filter_run(torch, cuda_ops, card: str, data, scale: float, n_parts: 
     return rec
 
 
-def object_agg_runs(torch, cuda_ops, card: str, lineitem, part, n_parts: int, batch_rows: int,
-                    launches_of: dict) -> list:
-    """approx_count_distinct and approx_percentile (see the module
-    docstring, step 9): grouped over lineitem, global over part."""
-    import numpy as np
+#: (label, table, group key, distinct column, percentile column) of the
+#: object agg runs: grouped over lineitem, global over part
+OBJECT_AGG_RUNS = (("object agg by l_suppkey", "lineitem", "l_suppkey", "l_orderkey", "l_extendedprice"),
+                   ("object agg, global", "part", None, "p_size", "p_retailprice"))
 
+
+def object_agg_plan(scans, n_parts: int, table: str, key, ndv_col: str, p50_col: str):
     from blaze_tpu_torch.exprs.ir import col
     from blaze_tpu_torch.ops import AggMode, GroupingExpr, ObjectAggExec
     from blaze_tpu_torch.ops import udafs as U
     from blaze_tpu_torch.parallel.exchange import NativeShuffleExchangeExec
     from blaze_tpu_torch.parallel.shuffle import HashPartitioning, SinglePartitioning
 
-    # (label, table, group key, distinct column, percentile column)
-    runs = [("object agg by l_suppkey", "lineitem", "l_suppkey", "l_orderkey", "l_extendedprice"),
-            ("object agg, global", "part", None, "p_size", "p_retailprice")]
+    udafs = [U.approx_count_distinct(col(ndv_col), "ndv"), U.approx_percentile(col(p50_col), 0.5, "p50")]
+    g = [GroupingExpr(col(key), key)] if key else []
+    partial = ObjectAggExec(scans[table], AggMode.PARTIAL, g, udafs)
+    part_by = HashPartitioning([col(key)], n_parts) if key else SinglePartitioning()
+    return ObjectAggExec(NativeShuffleExchangeExec(partial, part_by), AggMode.FINAL, g, udafs)
 
-    def plan(scans, table, key, ndv_col, p50_col):
-        udafs = [U.approx_count_distinct(col(ndv_col), "ndv"), U.approx_percentile(col(p50_col), 0.5, "p50")]
-        g = [GroupingExpr(col(key), key)] if key else []
-        partial = ObjectAggExec(scans[table], AggMode.PARTIAL, g, udafs)
-        part_by = HashPartitioning([col(key)], n_parts) if key else SinglePartitioning()
-        return ObjectAggExec(NativeShuffleExchangeExec(partial, part_by), AggMode.FINAL, g, udafs)
 
+def object_agg_cpu_rows(tables: dict, label: str, n_parts: int, batch_rows: int) -> dict:
+    """The object agg run ``label``'s rows on CPU scans of ``tables``."""
+    args = next(run[1:] for run in OBJECT_AGG_RUNS if run[0] == label)
+    return cpu_rows(object_agg_plan(table_scans(tables, list(tables), n_parts, batch_rows, "cpu"), n_parts, *args))
+
+
+def object_agg_runs(torch, cuda_ops, card: str, lineitem, part, n_parts: int, batch_rows: int,
+                    launches_of: dict) -> list:
+    """approx_count_distinct and approx_percentile (see the module
+    docstring, step 9): grouped over lineitem, global over part, each
+    held to the same plan on CPU scans (a reference worker's)."""
+    import numpy as np
+
+    recipe = ("functions", FN_SCALE, FN_HOST_SCALE)
     tables = {"lineitem": lineitem, "part": part}
     card_scans = table_scans(tables, list(tables), n_parts, batch_rows, "cuda")
-    cpu_scans = table_scans(tables, list(tables), n_parts, batch_rows, "cpu")
     out = []
-    for label, table, key, ndv_col, p50_col in runs:
+    for label, table, key, ndv_col, p50_col in OBJECT_AGG_RUNS:
         args = (table, key, ndv_col, p50_col)
-        got, wall, swall = both_paths(torch, cuda_ops, label, lambda: plan(card_scans, *args), launches_of)
-        cpu = cpu_rows(plan(cpu_scans, *args))
+        got, wall, swall = both_paths(torch, cuda_ops, label,
+                                      lambda args=args: object_agg_plan(card_scans, n_parts, *args), launches_of)
+        made = REFERENCES.take(("object agg", recipe, label, n_parts, batch_rows))
+        cpu = made[0] if made else object_agg_cpu_rows(tables, label, n_parts, batch_rows)
         keyed = lambda rows: {k: (n, p) for k, n, p in zip(rows.get(key, [None] * len(rows["ndv"])),
                                                            rows["ndv"], rows["p50"])}
         g, c = keyed(got), keyed(cpu)
@@ -2746,35 +2912,50 @@ def function_families():
     ]
 
 
+def family_plan(scans, table: str, cases, pre=()):
+    """One function family's projection of ``scans[table]``."""
+    from blaze_tpu_torch.ops import ProjectExec
+
+    src = scans[table]
+    if pre:
+        src = ProjectExec(src, [e for _, e in pre[0]], [n for n, _ in pre[0]])
+    return ProjectExec(src, [e for _, e in cases], [n for n, _ in cases])
+
+
+def family_cpu_arrays(tables: dict, family: str, table: str, n_parts: int, batch_rows: int) -> dict:
+    """The function family ``family``'s columns over ``table`` on CPU
+    scans of ``tables``: the port's CPU evaluation."""
+    cases, *pre = next(f[2:] for f in function_families() if f[:2] == (family, table))
+    plan = family_plan(table_scans(tables, list(tables), n_parts, batch_rows, "cpu"), table, cases, pre)
+    return batches_arrays(plan.schema, plan_batches(plan))
+
+
 def family_runs(torch, cuda_ops, card: str, lineitem, host_tables, n_parts: int, batch_rows: int,
                 launches_of: dict) -> list:
     """One plan per function family on both paths, each column equal to
-    the port's CPU evaluation of the same plan (see the module
-    docstring, step 9)."""
+    the port's CPU evaluation of the same plan (a reference worker's;
+    see the module docstring, step 9)."""
     from decimal import Decimal
 
     from blaze_tpu_torch.ops import ProjectExec
 
     tables = {"lineitem": lineitem, **host_tables}
     card_scans = table_scans(tables, list(tables), n_parts, batch_rows, "cuda")
-    cpu_scans = table_scans(tables, list(tables), n_parts, batch_rows, "cpu")
+    recipe = ("functions", FN_SCALE, FN_HOST_SCALE)
     out = []
     for family, table, cases, *pre in function_families():
         label = f"functions: {family} over {table}"
         names = [n for n, _ in cases]
-
-        def build(scans, table=table, cases=cases, pre=pre):
-            src = scans[table]
-            if pre:
-                src = ProjectExec(src, [e for _, e in pre[0]], [n for n, _ in pre[0]])
-            return ProjectExec(src, [e for _, e in cases], [n for n, _ in cases])
-
-        got, wall, swall = both_paths(torch, cuda_ops, label, lambda: build(card_scans), launches_of, arrays=True)
-        cpu_plan = build(cpu_scans)
-        t0 = time.perf_counter()
-        same_arrays(got, batches_arrays(cpu_plan.schema, plan_batches(cpu_plan)), f"{label} against the CPU",
-                    FN_ULPS)
-        cpu_s = time.perf_counter() - t0
+        got, wall, swall = both_paths(torch, cuda_ops, label,
+                                      lambda table=table, cases=cases, pre=pre: family_plan(card_scans, table, cases,
+                                                                                           pre),
+                                      launches_of, arrays=True)
+        made = REFERENCES.take(("family", recipe, family, table, n_parts, batch_rows))
+        if made is None:
+            t0 = time.perf_counter()
+            made = family_cpu_arrays(tables, family, table, n_parts, batch_rows), time.perf_counter() - t0
+        want, cpu_s = made
+        same_arrays(got, want, f"{label} against the CPU", FN_ULPS)
         nulls = {n: int((~got[n][1]).sum()) for n in names}
         out.append({"run": label, "scale": FN_SCALE if table == "lineitem" else FN_HOST_SCALE,
                     "rows": int(got[names[0]][1].shape[0]), "functions": names, "nulls": nulls, "inproc_wall_s": wall,
@@ -2783,8 +2964,8 @@ def family_runs(torch, cuda_ops, card: str, lineitem, host_tables, n_parts: int,
         if family == "JSON":
             from blaze_tpu_torch.exprs.ir import col
 
-            src = cpu_rows(ProjectExec(cpu_scans[table], [col("c_custkey"), col("c_name"), col("c_acctbal")],
-                                       ["k", "n", "b"]))
+            cpu_scan = table_scans(tables, [table], n_parts, batch_rows, "cpu")[table]
+            src = cpu_rows(ProjectExec(cpu_scan, [col("c_custkey"), col("c_name"), col("c_acctbal")], ["k", "n", "b"]))
             text = {n: [bytes(d[:ln]).decode() for d, ln in zip(got[n][0], got[n][2])]
                     for n in ("name", "key", "bal")}
             bad = sum(1 for k, n, b, gk, gn, gb in zip(src["k"], src["n"], src["b"], text["key"], text["name"],
@@ -2862,7 +3043,7 @@ def nested_paths(torch, cuda_ops, label: str, build, launches_of: dict, canon=No
     the rows (``canon`` applied to each path's) and the launches equal on
     both paths.  Returns the record, the in-process rows under ``rows``."""
     from blaze_tpu_torch.batch import batch_to_pydict
-    from blaze_tpu_torch.runtime.scheduler import RunStats, run_stages, split_stages
+    from blaze_tpu_torch.runtime.scheduler import RunStats, split_stages
 
     rec = {"run": label}
     rows = {}
@@ -2878,7 +3059,7 @@ def nested_paths(torch, cuda_ops, label: str, build, launches_of: dict, canon=No
         else:
             stats = RunStats()
             stages, manager = split_stages(build())
-            batches, schema = list(run_stages(stages, manager, stats)), stages[-1].plan.schema
+            batches, schema = run_clean(label, stages, manager, stats), stages[-1].plan.schema
             rec["data_bytes"], rec["tasks"] = stats.data_bytes, stats.tasks
         torch.cuda.synchronize()
         rec[f"{path}_wall_s"] = time.perf_counter() - t0
@@ -3349,7 +3530,7 @@ def exchange_paths(torch, cuda_ops, label: str, build, kinds, launches_of: dict)
     from blaze_tpu_torch.batch import batch_to_pydict
     from blaze_tpu_torch.ops import agg as A
     from blaze_tpu_torch.runtime.context import TaskContext
-    from blaze_tpu_torch.runtime.scheduler import RunStats, run_stages, split_stages
+    from blaze_tpu_torch.runtime.scheduler import RunStats, split_stages
 
     rec = {"run": label}
     for path in ("inproc", "run_stages"):
@@ -3368,7 +3549,7 @@ def exchange_paths(torch, cuda_ops, label: str, build, kinds, launches_of: dict)
         else:
             stats = RunStats()
             stages, manager = split_stages(plan)
-            batches, schema = list(run_stages(stages, manager, stats)), stages[-1].plan.schema
+            batches, schema = run_clean(label, stages, manager, stats), stages[-1].plan.schema
         torch.cuda.synchronize()
         rec[f"{path}_wall_s"] = time.perf_counter() - t0
         rec[f"{path}_peak_mib"] = round((torch.cuda.max_memory_allocated() - base) / 2**20, 1)
@@ -3500,6 +3681,266 @@ def exchange_phase(torch, cuda_ops, flush, card: str, data, scale: float, n_part
     return launches_of, checks, seconds
 
 
+# ---- the faults phase: recovery under injected faults, through run_stages
+FAULTS_BUDGET_S = 40.0
+# the recovery counters of RunStats; a run's expectation names those
+# that move, and every other must stay 0
+RECOVERY_COUNTERS = ("task_retries", "task_timeouts", "fetch_failures", "map_stage_reruns", "map_tasks_rerun",
+                     "broadcast_stage_reruns", "speculative_attempts", "speculative_won", "speculative_lost")
+# q03 at --scale in 8 partitions: its stages are a broadcast stage of 8
+# tasks (run_task calls 1-8, broadcast.write hits 1-8), then four map
+# stages of 8 tasks each (the first map stage's commits are
+# shuffle.write hits 1-8), then the result
+FAULT_MATRIX = (
+    ("task.compute@2@a0", "a task body crashes (broadcast task 1)", {"task_retries": 1}),
+    ("shuffle.write@1", "a map commit fails (the first map stage's task 0), no .inprogress file left",
+     {"task_retries": 1}),
+    # fetches 1-8 are the broadcast's 8 blobs (read by the consumer's task
+    # 0; its other tasks hit the join-map cache): 9 is the first shuffle block
+    ("shuffle.fetch@9@a0", "an injected fetch failure (no map ids) on the first shuffle block re-runs the whole "
+     "map stage", {"fetch_failures": 1, "map_stage_reruns": 1, "map_tasks_rerun": 8}),
+    ("shuffle.write@3@corrupt", "the third committed map output gets a flipped byte, the checksum catches it, "
+     "only the map task that wrote it re-runs", {"fetch_failures": 1, "map_stage_reruns": 1, "map_tasks_rerun": 1}),
+    ("broadcast.write@1@corrupt", "a corrupt broadcast blob regenerates the broadcast stage",
+     {"fetch_failures": 1, "broadcast_stage_reruns": 1}),
+)
+EXHAUSTED_SPEC = "task.compute@1@a0,task.compute@2@a1,task.compute@3@a2"
+# the first map stage's third commit: one of its tasks 1-4 (4 at a time,
+# after task 0 alone), which of them the log says
+STRAGGLER_SPEC = "shuffle.write@3@slow2000"
+
+
+@contextlib.contextmanager
+def slow_hits():
+    """Records (site, attempt, detail, seconds) of every fault-site
+    probe made inside the block that took over 50 ms: which task an
+    ``@slow`` rule held, and for how long (until its cancellation woke
+    it, or its whole sleep)."""
+    from blaze_tpu_torch.runtime import faults
+
+    seen, real = [], faults.hit
+
+    def hit(site, attempt=0, detail="", cancel=None):
+        t0 = time.perf_counter()
+        try:
+            real(site, attempt, detail, cancel)
+        finally:
+            if time.perf_counter() - t0 > 0.05:
+                seen.append((site, attempt, os.path.basename(detail), round(time.perf_counter() - t0, 4)))
+
+    faults.hit = hit
+    try:
+        yield seen
+    finally:
+        faults.hit = real
+
+
+def fault_run(torch, cuda_ops, build, spec: str, max_task_attempts=None, backoff: float = 0.0, knobs=()) -> dict:
+    """``build()``'s plan through split_stages/run_stages under the
+    fault schedule ``spec``, ``spark.blaze.task.retryBackoff`` ``backoff``
+    and the conf ``knobs`` ((entry, value) pairs), all restored after;
+    the launch counts reset just before.  Returns the rows, the wall
+    (from the split to the last batch, synchronized), the run's
+    RunStats, the launches, the peak device memory above what the run
+    held, and what the shuffle directory held at the last batch.
+    RESOURCES must be empty and the directory gone after it."""
+    from blaze_tpu_torch import conf
+    from blaze_tpu_torch.batch import batch_to_pydict
+    from blaze_tpu_torch.runtime import faults
+    from blaze_tpu_torch.runtime.context import RESOURCES
+    from blaze_tpu_torch.runtime.scheduler import RunStats, run_stages, split_stages
+
+    entries = [(conf.FAULTS_SPEC, spec), (conf.TASK_RETRY_BACKOFF, backoff), *knobs]
+    saved = [(e, e.get()) for e, _ in entries]
+    for e, v in entries:
+        e.set(v)
+    faults.reset()
+    stats, manager, batches, left = RunStats(), None, [], []
+    try:
+        cuda_ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        stages, manager = split_stages(build())
+        for b in run_stages(stages, manager, stats, max_task_attempts):
+            batches.append(b)
+            left = os.listdir(manager.root)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - held
+    finally:
+        for e, v in saved:
+            e.set(v)
+        faults.reset()
+        if len(RESOURCES) or (manager is not None and os.path.exists(manager.root)):
+            raise AssertionError(f"{spec}: run_stages left resources {RESOURCES.keys()} or its directory")
+    rows = {f.name: [] for f in stages[-1].plan.schema.fields}
+    for b in batches:
+        for k, v in batch_to_pydict(b).items():
+            rows[k].extend(v)
+    return {"spec": spec, "rows": rows, "wall_s": wall, "stats": stats, "launches": dict(cuda_ops.LAUNCHES),
+            "peak_above_held_mib": round(peak / 2**20, 1), "left": left}
+
+
+def counters_of(stats) -> dict:
+    return {"task_attempts": stats.task_attempts, "tasks": stats.tasks,
+            **{c: getattr(stats, c) for c in RECOVERY_COUNTERS}}
+
+
+def require_counters(label: str, stats, want: dict) -> None:
+    got = {c: getattr(stats, c) for c in RECOVERY_COUNTERS}
+    if got != {c: want.get(c, 0) for c in RECOVERY_COUNTERS}:
+        raise AssertionError(f"{label}: recovery counters {got}, not {want}")
+
+
+def run_clean(label: str, stages, manager, stats=None) -> list:
+    """run_stages's batches where nothing may be recovered: every run
+    outside the faults phase.  run_stages retries a failed task (a CUDA
+    launch error among them) and re-runs a lost map output, so a fault
+    that goes away on a second try would pass unseen; here any retry,
+    timeout, fetch failure, re-run or speculative attempt fails the
+    smoke."""
+    from blaze_tpu_torch.runtime.scheduler import RunStats, run_stages
+
+    stats = RunStats() if stats is None else stats
+    batches = list(run_stages(stages, manager, stats))
+    require_counters(f"{label} (outside the faults phase)", stats, {})
+    return batches
+
+
+def faults_phase(torch, cuda_ops, flush, card: str, data, scale: float, n_parts: int, batch_rows: int) -> tuple:
+    """TPC-H q03 at ``--scale`` through run_stages, fault-free, then
+    under each fault of FAULT_MATRIX, each equal to the fault-free rows
+    bit for bit and to q03's oracle, its recovery counters as expected;
+    the retry budget used up (TaskRetriesExhausted); one retry with the
+    default backoff; a straggler raced by a speculative backup, and the
+    same straggler as a wedge retried; q01 as Spark plans it with its
+    boundary pass's fetch failing.  Then ``murmur3_pids``,
+    ``pid_histogram`` and ``sorted_lookup`` against their plain versions
+    on the largest inputs the phase gave them.  Returns the launches of
+    each run, the kernel checks and the phase's seconds."""
+    from blaze_tpu_torch import conf
+    from blaze_tpu_torch.runtime.context import RESOURCES
+    from blaze_tpu_torch.runtime.retry import RetryPolicy, TaskRetriesExhausted
+
+    t_phase = time.perf_counter()
+    launches_of: Dict[str, dict] = {}
+    records, checks = [], []
+    scans = query_scans(data, "q3", n_parts, batch_rows)
+    q3 = lambda: build_plan("q3", scans, n_parts)  # noqa: E731
+
+    def record(label: str, r: dict, base: dict = None) -> dict:
+        launches = {k: r["launches"][k] for k in LAUNCH_KEYS}
+        rec = {"run": label, "spec": r["spec"], "equal_to": "the fault-free rows and the oracle" if base is not None
+               else "the oracle", "wall_s": r["wall_s"], **counters_of(r["stats"]),
+               "launches": launches, "peak_above_held_mib": r["peak_above_held_mib"], "card": card}
+        if base is not None:
+            rec["excess_launches"] = {k: launches[k] - base["launches"][k] for k in LAUNCH_KEYS}
+            if any(v < 0 for v in rec["excess_launches"].values()):
+                raise AssertionError(f"faults {label}: launched {launches}, fewer than fault-free {base['launches']}")
+        launches_of[f"faults: {label}"] = r["launches"]
+        records.append(rec)
+        return rec
+
+    with largest_inputs(cuda_ops) as seen:
+        free = fault_run(torch, cuda_ops, q3, "")
+        check_oracle(data, "q3", free["rows"])
+        require_counters("faults q03 fault-free", free["stats"], {})
+        base = record("q03 fault-free", free)
+        # ---- the matrix, backoff 0
+        for spec, shows, want in FAULT_MATRIX:
+            r = fault_run(torch, cuda_ops, q3, spec)
+            if r["rows"] != free["rows"]:
+                raise AssertionError(f"faults q03 {spec}: rows {r['rows']} != fault-free {free['rows']}")
+            check_oracle(data, "q3", r["rows"])
+            require_counters(f"faults q03 {spec}", r["stats"], want)
+            if any(".inprogress" in f for f in r["left"]):
+                raise AssertionError(f"faults q03 {spec}: left {r['left']}")
+            record(f"q03 {spec} ({shows})", r, base)
+        # ---- the budget used up: the broadcast stage's task 0 fails 3 times of 3
+        try:
+            fault_run(torch, cuda_ops, q3, EXHAUSTED_SPEC, max_task_attempts=3)
+        except TaskRetriesExhausted as e:
+            said = str(e)
+            if not all(w in said for w in ("stage 0", "task 0", "3 attempt", "task.compute")) or len(RESOURCES):
+                raise AssertionError(f"faults q03 {EXHAUSTED_SPEC}: {said}; resources {RESOURCES.keys()}")
+        else:
+            raise AssertionError(f"faults q03 {EXHAUSTED_SPEC} with 3 attempts: no TaskRetriesExhausted")
+        log(f"faults q03 {EXHAUSTED_SPEC} with max_task_attempts 3: TaskRetriesExhausted ({said}); "
+            f"RESOURCES empty, the shuffle directory gone")
+        # ---- one retry with the default backoff: its seconds
+        r = fault_run(torch, cuda_ops, q3, FAULT_MATRIX[0][0], backoff=float(conf.TASK_RETRY_BACKOFF.default))
+        if r["rows"] != free["rows"]:
+            raise AssertionError("faults q03 with the default backoff: rows differ")
+        rec = record(f"q03 {FAULT_MATRIX[0][0]}, backoff {conf.TASK_RETRY_BACKOFF.default} s", r, base)
+        rec["backoff_s"] = RetryPolicy(backoff_base=float(conf.TASK_RETRY_BACKOFF.default)).backoff(0, 1, 0)
+        # ---- a straggler: speculation wins it, or wedge detection retries it
+        for label, knobs, want in (
+                # a backup for a task past 3 x the median and 0.5 s alone:
+                # a healthy task that a neighbour's GIL slowed gets none
+                ("speculation on (multiplier 3, minRuntime 0.5 s), 4 tasks at a time",
+                 ((conf.STAGE_TASK_CONCURRENCY, 4), (conf.SPECULATION_ENABLE, True),
+                  (conf.SPECULATION_MULTIPLIER, 3.0), (conf.SPECULATION_MIN_RUNTIME, 0.5)),
+                 {"speculative_attempts": 1, "speculative_won": 1}),
+                ("speculation off, task.wedgeMs 500, 4 tasks at a time",
+                 ((conf.STAGE_TASK_CONCURRENCY, 4), (conf.TASK_WEDGE_MS, 500)),
+                 {"task_retries": 1, "task_timeouts": 1})):
+            with slow_hits() as held_by:
+                r = fault_run(torch, cuda_ops, q3, STRAGGLER_SPEC, knobs=knobs)
+            if r["rows"] != free["rows"]:
+                raise AssertionError(f"faults q03 {STRAGGLER_SPEC}, {label}: rows differ")
+            require_counters(f"faults q03 {STRAGGLER_SPEC}, {label}", r["stats"], want)
+            if want.get("speculative_won") and r["wall_s"] >= free["wall_s"] + 2.0:
+                raise AssertionError(f"faults q03 {STRAGGLER_SPEC}, {label}: wall {r['wall_s']:.4f} s, the "
+                                     f"fault-free {free['wall_s']:.4f} s + 2 s or more")
+            rec = record(f"q03 {STRAGGLER_SPEC}, {label}", r, base)
+            rec["held"] = held_by  # (site, attempt, the map output's file, seconds slept)
+        # ---- q01 as Spark plans it: the boundary pass's fetch fails
+        q1_scans = query_scans(data, "q1", n_parts, batch_rows)
+        r = fault_run(torch, cuda_ops, lambda: spark_q01_plan(q1_scans, n_parts), "shuffle.fetch@1@a0")
+        check_oracle(data, "q1", r["rows"])
+        st = r["stats"]
+        if st.fetch_failures < 1 or st.map_stage_reruns < 1:
+            raise AssertionError(f"faults q01's boundary pass: {counters_of(st)}")
+        record("q01 as Spark plans it, shuffle.fetch@1@a0 (the boundary pass's first fetch)", r)
+        del q1_scans
+    probed = set()
+    for key, (_, inputs) in sorted(seen.items()):
+        if key.startswith("murmur3_pids"):
+            planes, widths, valids, parts = inputs
+            checks.append(("murmur3_pids", check_murmur3(torch, cuda_ops, flush, planes, widths, valids,
+                                                         "(faults)", timed=False, n_parts=parts)))
+        elif key.startswith("pid_histogram"):
+            pids, parts = inputs
+            checks.append(("pid_histogram", check_pid_histogram(torch, cuda_ops, flush, pids, parts, "(faults)",
+                                                                timed=False)))
+        elif id(inputs[1]) not in probed:  # one call can have both the most probes and the longest table
+            probed.add(id(inputs[1]))
+            checks.append(("sorted_lookup", check_sorted_lookup(torch, cuda_ops, flush, *inputs,
+                                                                f"(faults, {key[14:]})", timed=False)))
+    if {name for name, _ in checks} != set(LAUNCH_KEYS):
+        raise AssertionError(f"faults: kernels held {[name for name, _ in checks]}")
+    for name, r in checks:
+        log_check(name, r)
+    for rec in records:
+        log(f"faults {rec['run']}: = {rec['equal_to']}; wall {rec['wall_s']:.4f} s, attempts "
+            f"{rec['task_attempts']}, retries {rec['task_retries']}, fetch failures {rec['fetch_failures']}, map "
+            f"stage re-runs {rec['map_stage_reruns']} ({rec['map_tasks_rerun']} tasks), broadcast re-runs "
+            f"{rec['broadcast_stage_reruns']}, speculative {rec['speculative_attempts']} / won "
+            f"{rec['speculative_won']}, peak {rec['peak_above_held_mib']} MiB above what the run held, on {card}; "
+            f"launches {rec['launches']}, excess {rec.get('excess_launches')}")
+        log("faults " + json.dumps(rec))
+    seconds = time.perf_counter() - t_phase
+    log(f"faults phase: {seconds:.1f} s (budget {FAULTS_BUDGET_S:.0f} s)")
+    return launches_of, checks, seconds
+
+
+def kept_scheduled(queries) -> tuple:
+    """Those of ``queries`` that keep their run_stages path."""
+    return tuple(q for q in queries if q not in SCHEDULED_CUT)
+
+
 def end_phase(phases: list, name: str) -> None:
     """Notes, and prints, the seconds from the start of the script to the
     end of phase ``name``."""
@@ -3549,6 +3990,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale", type=float, default=1.0, help="TPC-H scale factor (default 1.0)")
     ap.add_argument("--ds-scale", type=float, default=1.0, help="TPC-DS scale factor (default 1.0)")
+    ap.add_argument("--uncut", action="store_true",
+                    help="run every TPC-DS query through run_stages too: the depth before the cuts that keep the "
+                         "smoke within its time, to time them")
     args = ap.parse_args()
 
     import torch
@@ -3558,6 +4002,11 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(REPO))
     from blaze_tpu_torch.kernels import build, cuda_ops, sweep
+
+    # 8 partitions and 2^20-row batches throughout; the host references
+    # start now, beside the build
+    n_parts, batch_rows = 8, 1 << 20
+    start_references(args.scale, args.ds_scale, n_parts, batch_rows)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)
@@ -3591,8 +4040,10 @@ def main() -> int:
     t0 = time.perf_counter()
     data = query_data(TPCH_QUERIES + NEW_QUERIES, args.scale, ds=False)
     new_data = spec_data(data, args.scale)
-    ds_data = query_data(DS_QUERIES + WINDOW_QUERIES + ROLLUP_UNION_QUERIES + EXISTS_STDDEV_QUERIES + REPORT_QUERIES
-                         + JOINED_QUERIES, args.ds_scale, ds=True)
+    ds_data = query_data(ALL_DS_QUERIES, args.ds_scale, ds=True)
+    register_tables(data, ("tpch", args.scale), "plain")
+    register_tables(new_data, ("tpch", args.scale), "spec")
+    register_tables(ds_data, ("tpcds", args.ds_scale), "plain")
     log(f"data at TPC-H SF{args.scale}, TPC-DS SF{args.ds_scale}: " + ", ".join(
         f"{k} {next(iter(v.values()))[0].shape[0]} rows" for k, v in (*data.items(), *ds_data.items()))
         + f" ({time.perf_counter() - t0:.1f} s)")
@@ -3684,7 +4135,6 @@ def main() -> int:
 
     end_phase(phases, "decimal check")
     # ---- the main path: every query, each with the counts reset just before it
-    n_parts, batch_rows = 8, 1 << 20
     runs, inproc, scans, q_inputs = {}, {}, {}, {}
     for query in TPCH_QUERIES + DS_QUERIES + NEW_QUERIES:
         qdata = ds_data if query.startswith("ds_") else new_data if query in NEW_QUERIES else data
@@ -3745,7 +4195,6 @@ def main() -> int:
         log("scheduler " + json.dumps({"query": query, "wall_s": wall, "inproc_wall_s": inproc[query][1],
                                        "launches": sched_runs[query], "syncs": syncs, **moved}))
     require_launches("q06 (run_stages)", sched_runs["q6"], (), tuple(runs["q6"]))
-    log("corrupted block: " + corrupt_block_check(scans["q6"], n_parts))
 
     end_phase(phases, "queries through run_stages")
     # ---- the A/B phase: the pipeline unfused and serial against the defaults
@@ -3762,12 +4211,12 @@ def main() -> int:
     end_phase(phases, "build-preserving joins")
     # ---- TPC-DS's window queries on both paths
     ds_phase(torch, cuda_ops, card, "window", WINDOW_QUERIES, ds_data, args.ds_scale, n_parts, batch_rows, runs,
-             sched_runs)
+             sched_runs, scheduled=None if args.uncut else kept_scheduled(WINDOW_QUERIES))
 
     end_phase(phases, "window queries")
     # ---- TPC-DS's rollup and union queries on both paths
     ds_phase(torch, cuda_ops, card, "rollup/union", ROLLUP_UNION_QUERIES, ds_data, args.ds_scale, n_parts,
-             batch_rows, runs, sched_runs)
+             batch_rows, runs, sched_runs, scheduled=None if args.uncut else kept_scheduled(ROLLUP_UNION_QUERIES))
     # q23a and q23b select nothing from SF 0.01 on (ROADMAP queue C,
     # reference defect 14): their plans also run where they select rows
     ds_phase(torch, cuda_ops, card, "rollup/union", Q23_QUERIES, query_data(Q23_QUERIES, Q23_SCALE, ds=True),
@@ -3776,23 +4225,26 @@ def main() -> int:
     end_phase(phases, "rollup and union queries")
     # ---- TPC-DS's EXISTS, INTERSECT/EXCEPT, stddev and concat queries on both paths
     ds_phase(torch, cuda_ops, card, "exists/stddev", EXISTS_STDDEV_QUERIES, ds_data, args.ds_scale, n_parts,
-             batch_rows, runs, sched_runs)
+             batch_rows, runs, sched_runs, scheduled=None if args.uncut else kept_scheduled(EXISTS_STDDEV_QUERIES))
     ds_phase(torch, cuda_ops, card, "exists/stddev", Q87_QUERIES, query_data(Q87_QUERIES, Q87_SCALE, ds=True),
              Q87_SCALE, n_parts, batch_rows, {}, {})
 
     end_phase(phases, "exists and stddev queries")
-    # ---- TPC-DS's single-fact reports on both paths
+    # ---- TPC-DS's single-fact reports, in process only: their run_stages
+    # path, with most of the joined queries', gives the faults phase its
+    # time within the smoke's budget
     ds_phase(torch, cuda_ops, card, "report", REPORT_QUERIES, ds_data, args.ds_scale, n_parts, batch_rows, runs,
-             sched_runs)
+             sched_runs, scheduled=None if args.uncut else ())
 
     end_phase(phases, "report queries")
-    # ---- TPC-DS's multi-fact, shuffled and self joins on both paths
+    # ---- TPC-DS's multi-fact, shuffled and self joins in process, and
+    # those of JOINED_SCHEDULED through run_stages too
     ds_phase(torch, cuda_ops, card, "joined", JOINED_QUERIES, ds_data, args.ds_scale, n_parts, batch_rows, runs,
-             sched_runs)
+             sched_runs, scheduled=None if args.uncut else JOINED_SCHEDULED)
 
     end_phase(phases, "joined queries")
     skipping = {q: r for q, r in PARTIAL_BY_QUERY.items()
-                if r["inproc"]["partial_skipped"] or r["run_stages"]["partial_skipped"]}
+                if r["inproc"]["partial_skipped"] or (r["run_stages"] or {}).get("partial_skipped")}
     log(f"partial aggs that skipped, of {len(PARTIAL_BY_QUERY)} queries: " + json.dumps(skipping))
     # ---- TPC-H from Parquet and ORC files the port writes, on both paths
     workdir = tempfile.mkdtemp(prefix="blaze-files-")
@@ -3815,6 +4267,12 @@ def main() -> int:
     checks += exchange_checks
 
     end_phase(phases, "exchanges")
+    # ---- recovery from injected faults through run_stages
+    fault_launches, fault_checks, faults_s = faults_phase(torch, cuda_ops, flush, card, data, args.scale, n_parts,
+                                                          batch_rows)
+    checks += fault_checks
+
+    end_phase(phases, "faults")
     # ---- real null foreign keys through run_stages, and the kernels on them
     null_runs, null_checks = null_key_phase(torch, cuda_ops, flush, card, ds_data, args.ds_scale, n_parts,
                                             batch_rows)
@@ -3917,7 +4375,8 @@ def main() -> int:
             + sum(run[name] for label, run in file_launches.items() if not label.endswith("(run_stages)"))
             + sum(run[name] for label, run in fn_launches.items() if not label.endswith("(run_stages)"))
             + sum(run[name] for label, run in nested_launches.items() if not label.endswith("(run_stages)"))
-            + sum(run[name] for label, run in exchange_launches.items() if not label.endswith("(run_stages)")),
+            + sum(run[name] for label, run in exchange_launches.items() if not label.endswith("(run_stages)"))
+            + sum(run[name] for run in fault_launches.values()),
             "launches_null_keys": {check: run[name] for check, run in null_runs.items()},
             "launches_by_query": {query_label(q): run[name] for q, run in runs.items()},
             "launches_run_stages": {query_label(q): run[name] for q, run in sched_runs.items()},
@@ -3925,6 +4384,7 @@ def main() -> int:
             "launches_functions": {label: run[name] for label, run in fn_launches.items()},
             "launches_nested": {label: run[name] for label, run in nested_launches.items()},
             "launches_exchanges": {label: run[name] for label, run in exchange_launches.items()},
+            "launches_faults": {label: run[name] for label, run in fault_launches.items()},
             "shape": r["shape"], "max_abs_err": errs[name], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "device_ms": r.get("device_ms"),
@@ -3937,6 +4397,7 @@ def main() -> int:
                                n_parts_200={k: h200[k] for k in ("ms", "device_ms", "pr3_ms", "pr3_device_ms",
                                                                  "bound_ms", "library_ms")})
     log("launches_exchanges " + json.dumps(exchange_launches))
+    log("launches_faults " + json.dumps(fault_launches))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
@@ -3944,4 +4405,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    finally:
+        REFERENCES.close()
+    sys.exit(code)

@@ -196,17 +196,45 @@ def test_closing_the_result_stream_early_cleans_up(data):
     assert len(RESOURCES) == 0 and not os.path.exists(manager.root)
 
 
-def test_a_corrupted_block_fails_its_reduce_task_and_leaves_nothing(data):
-    stages, manager = S.split_stages(build_query("q6", _scans(data), N_PARTS))
+@pytest.mark.parametrize("stage_attempts", [4, 1])
+def test_a_corrupted_block_fails_its_reduce_task_and_leaves_nothing(data, stage_attempts):
+    """A flipped byte in map 1's committed output fails q06's reduce
+    task, whose reader names map 1: that map task alone re-runs, and the
+    retried reduce task gives the fault-free rows.  With
+    ``spark.blaze.stage.maxAttempts`` 1 the re-run map output is
+    corrupt again, and the second regeneration the task asks for is one
+    too many: ``TaskRetriesExhausted``, the ``BlockCorruptionError`` in
+    its cause chain.  Nothing is left registered either way."""
+    from blaze_tpu_torch import conf
+    from blaze_tpu_torch.runtime import faults
+    from blaze_tpu_torch.runtime.retry import FetchFailedError, TaskRetriesExhausted
+
+    _, want = run_port(data, "q6")
+    conf.TASK_RETRY_BACKOFF.set(0.0)
+    conf.STAGE_MAX_ATTEMPTS.set(stage_attempts)
+    # q06's map stage commits maps 0 and 1: hits 1 and 2; the re-run of map 1 hit 3
+    conf.FAULTS_SPEC.set("shuffle.write@2@corrupt" + (",shuffle.write@3@corrupt" if stage_attempts == 1 else ""))
+    faults.reset()
+    stats = S.RunStats()
     try:
-        runner = S.StageRunner(manager)
-        for _ in runner.run_stage(stages[0]):
-            pass
-        integrity.flip_byte_in_file(manager.map_output_paths(stages[0].shuffle_id, 1)[0])
-        with pytest.raises(integrity.BlockCorruptionError):
-            list(runner.run_stage(stages[1]))
+        if stage_attempts == 1:
+            stages, manager = S.split_stages(build_query("q6", _scans(data), N_PARTS))
+            with pytest.raises(TaskRetriesExhausted) as e:
+                list(S.run_stages(stages, manager, stats))
+            chain = [e.value.__cause__, e.value.__cause__.__cause__]
+            assert isinstance(chain[0], FetchFailedError) and chain[0].map_ids == [1]
+            assert isinstance(chain[1], integrity.BlockCorruptionError)
+            assert stats.map_tasks_rerun == 1 and stats.fetch_failures == 2
+        else:
+            assert run_port(data, "q6", stats)[1] == want
+            assert (stats.fetch_failures, stats.map_stage_reruns, stats.map_tasks_rerun) == (1, 1, 1)
+            assert stats.task_retries == 0 and stats.task_attempts == 5  # 2 maps, map 1 again, 2 reduce attempts
     finally:
-        manager.cleanup()
+        conf.FAULTS_SPEC.set("")
+        conf.STAGE_MAX_ATTEMPTS.set(4)
+        conf.TASK_RETRY_BACKOFF.set(0.1)
+        faults.reset()
+        integrity.reset()
     assert len(RESOURCES) == 0
 
 

@@ -5,8 +5,9 @@ with nulls) goes through each package's ``ShuffleWriterExec`` into
 ``.data``/``.index`` files, 2 map tasks hash-partitioned 8 ways on the
 int64 key.  Each package's ``IpcReaderExec`` reads the other's files,
 and every reduce partition holds the same rows, in the same order.  A
-flipped byte in a committed block raises the port's typed
-``BlockCorruptionError``; a missing block raises ``FetchFailedError``.
+flipped byte or a torn segment in a committed block raises
+``FetchFailedError`` naming the map task that wrote it, the port's
+typed ``BlockCorruptionError`` its cause; so does a missing block.
 The in-process entry (``plan.execute``) with
 ``spark.blaze.exchange.inProcess=false`` gives the default's rows.
 """
@@ -190,9 +191,11 @@ def test_flipped_byte_raises_block_corruption(tmp_path):
     blocks = mgr.reduce_blocks(7, N_MAPS, 0)
     assert any(b[0] == path and b[1] == 0 for b in blocks)
     RESOURCES.put("shuffle_7.0", blocks)
-    with pytest.raises(integrity.BlockCorruptionError, match="crc32 mismatch") as e:
+    with pytest.raises(FetchFailedError, match="crc32 mismatch") as e:
         list(IpcReaderExec(TSCHEMA, "shuffle_7", N_OUT, "cpu").execute(0, TaskContext(0, N_OUT)))
-    assert e.value.path == path
+    assert e.value.map_ids == [1] and e.value.shuffle_id == 7
+    assert isinstance(e.value.__cause__, integrity.BlockCorruptionError)
+    assert e.value.__cause__.path == path
     assert len(RESOURCES) == 0
 
 
@@ -214,8 +217,11 @@ def test_torn_segment_raises(tmp_path):
     mgr = _write_port(str(tmp_path), 9)
     data, lo, ln = mgr.reduce_blocks(9, N_MAPS, 2)[0]
     RESOURCES.put("shuffle_9.2", [(data, lo, ln - 3)])
-    with pytest.raises(integrity.BlockCorruptionError, match="torn"):
+    with pytest.raises(FetchFailedError, match="torn") as e:
         list(IpcReaderExec(TSCHEMA, "shuffle_9", N_OUT, "cpu").execute(2, TaskContext(2, N_OUT)))
+    assert e.value.map_ids == [int(os.path.basename(data).split("_")[2].split(".")[0])]
+    assert isinstance(e.value.__cause__, integrity.BlockCorruptionError)
+    assert e.value.__cause__.path == data
 
 
 def test_reduce_registration_is_consumed_or_discarded(tmp_path):
