@@ -62,6 +62,9 @@ SHUFFLE_ASYNC_WRITE = ConfEntry("spark.blaze.shuffle.asyncWrite", True, _bool)
 SHUFFLE_ASYNC_QUEUE_DEPTH = ConfEntry("spark.blaze.shuffle.asyncWrite.queueDepth", 2, int)
 # map and broadcast stages of run_stages run this many tasks at a time
 STAGE_TASK_CONCURRENCY = ConfEntry("spark.blaze.stage.taskConcurrency", 1, int)
+# the codec of shuffle files and broadcast blobs (io/ipc_compression.py):
+# zlib, zstd, lz4 or raw; another name means zlib, as in the reference
+IO_COMPRESSION_CODEC = ConfEntry("spark.io.compression.codec", "zlib", str)
 # rows per batch a file scan emits, and the target of CoalesceBatchesExec
 BATCH_SIZE = ConfEntry("spark.blaze.batchSize", 8192, int)
 # a file scan skips (and counts) a file whose metadata it cannot read

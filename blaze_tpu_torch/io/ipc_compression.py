@@ -4,16 +4,19 @@
     checksummed: [u32 len][u8 codec|0x80][stored][u8 algo][u32 sum]
 
 ``len`` is the stored-byte length either way.  Codecs: ``raw``,
-``zlib`` (level 1, :data:`DEFAULT_CODEC`, the reference's default) and
-``lz4`` (a self-contained LZ4
-Frame codec: the writer emits greedy-compressed independent blocks,
-the reader takes compressed, stored, linked and independent blocks).
-A frame is stored raw when compression does not make it smaller.
-``zstd`` is not ported: the port has no zstd decoder (the card's
-machine has no ``zstandard``), so writing or reading a zstd frame
-raises.  A stream written as one unit (a broadcast blob) may end with
-a block-trailer frame (codec ``0x7E``) carrying the frame count and
-the XOR of the frame checksums, so a missing whole frame is detected.
+``zlib`` (level 1, the reference's default), ``zstd`` (``io/zstd.py``,
+the port's own RFC 8878 codec: frames from any zstd writer decode,
+frames of the port's writer decode with ``zstandard``; ``ZSTD_LEVEL``
+is accepted and ignored) and ``lz4`` (a self-contained LZ4 Frame
+codec: the writer emits greedy-compressed independent blocks, the
+reader takes compressed, stored, linked and independent blocks).  The
+writers' codec is ``spark.io.compression.codec`` (``conf.py``, default
+zlib; a name the port does not know means zlib, as in the reference);
+a codec named in a call must be known.  A frame is stored raw when
+compression does not make it smaller.  A stream written as one unit
+(a broadcast blob) may end with a block-trailer frame (codec ``0x7E``)
+carrying the frame count and the XOR of the frame checksums, so a
+missing whole frame is detected.
 """
 
 from __future__ import annotations
@@ -22,9 +25,12 @@ import struct
 import zlib
 from typing import BinaryIO, Dict, Iterator, Optional, Tuple
 
+from .. import conf
 from ..runtime.integrity import (
     CHECKSUM_FLAG, FRAME_ALGO, TRAILER_LEN, BlockCorruptionError, frame_trailer, verify_bytes,
 )
+from .zstd import compress as zstd_compress
+from .zstd import decompress as zstd_decompress
 
 CODEC_RAW = 0
 CODEC_ZLIB = 1
@@ -32,21 +38,19 @@ CODEC_ZSTD = 2
 CODEC_LZ4 = 3
 #: codec byte of a block-trailer frame: payload [u32 count][u8 algo][u32 xor]
 CODEC_BLOCK_TRAILER = 0x7E
-#: the codec the port's writers use
-DEFAULT_CODEC = "zlib"
+#: the reference's zstd level; the port's encoder has one setting and ignores it
+ZSTD_LEVEL = 1
 _CODEC_IDS: Dict[str, int] = {"zlib": CODEC_ZLIB, "zstd": CODEC_ZSTD, "lz4": CODEC_LZ4,
                               "raw": CODEC_RAW, "none": CODEC_RAW}
 
 _LZ4_MAGIC = 0x184D2204
 
 
-class MissingCodecError(NotImplementedError):
-    """A frame needs a codec the port does not have."""
-
-
-def _no_zstd() -> MissingCodecError:
-    return MissingCodecError("zstd frames need a zstd decoder, which the port does not have "
-                             "(no zstandard package on the card's machine); use zlib, lz4 or raw")
+def writer_codec() -> str:
+    """The writers' codec: ``spark.io.compression.codec``, a name the
+    port does not know read as zlib (the reference's ``_codec_id``)."""
+    name = str(conf.IO_COMPRESSION_CODEC.get())
+    return name if name in _CODEC_IDS else "zlib"
 
 
 # ------------------------------------------------------------------- lz4
@@ -264,18 +268,22 @@ def lz4_frame_decompress(src: bytes) -> bytes:
 # ----------------------------------------------------------------- frames
 
 
-def compress_frame(payload: bytes, codec: str = DEFAULT_CODEC,
+def compress_frame(payload: bytes, codec: Optional[str] = None,
                    checksum_algo: Optional[int] = None) -> bytes:
-    """One frame of ``payload``; with ``checksum_algo`` (an
-    ``integrity`` algorithm id) the checksum flag and trailer.  An
-    unknown codec name raises."""
+    """One frame of ``payload`` under ``codec`` (None:
+    :func:`writer_codec`); with ``checksum_algo`` (an ``integrity``
+    algorithm id) the checksum flag and trailer.  An unknown codec name
+    raises."""
+    codec = writer_codec() if codec is None else codec
     if codec not in _CODEC_IDS:
         raise ValueError(f"unknown codec {codec!r} (known: {', '.join(_CODEC_IDS)})")
     cid = _CODEC_IDS[codec]
     stored, out_cid = payload, CODEC_RAW
     if cid == CODEC_ZSTD:
-        raise _no_zstd()
-    if cid == CODEC_LZ4:
+        comp = zstd_compress(payload, ZSTD_LEVEL)
+        if len(comp) < len(payload):
+            stored, out_cid = comp, CODEC_ZSTD
+    elif cid == CODEC_LZ4:
         comp = lz4_frame_compress(payload)
         if len(comp) < len(payload):
             stored, out_cid = comp, CODEC_LZ4
@@ -311,7 +319,8 @@ def _decode(cid: int, stored: bytes) -> bytes:
     if cid == CODEC_ZLIB:
         return zlib.decompress(stored)
     if cid == CODEC_ZSTD:
-        raise _no_zstd()
+        # frames with and without a content size alike
+        return zstd_decompress(stored)
     if cid == CODEC_LZ4:
         return lz4_frame_decompress(stored)
     if cid != CODEC_RAW:
@@ -383,15 +392,17 @@ def iter_blob_frames(blob: bytes, site: str = "block", path: Optional[str] = Non
 
 
 class IpcFrameWriter:
-    """Writes payloads as frames to a binary stream, zlib-compressed
-    and checksummed with :data:`FRAME_ALGO`."""
+    """Writes payloads as frames to a binary stream, compressed with
+    :func:`writer_codec` (read once) and checksummed with
+    :data:`FRAME_ALGO`."""
 
     def __init__(self, f: BinaryIO):
         self._f = f
+        self._codec = writer_codec()
         self.bytes_written = 0
 
     def write(self, payload: bytes) -> int:
-        frame = compress_frame(payload, checksum_algo=FRAME_ALGO)
+        frame = compress_frame(payload, self._codec, checksum_algo=FRAME_ALGO)
         self._f.write(frame)
         self.bytes_written += len(frame)
         return len(frame)

@@ -27,8 +27,8 @@
   ``(None, validity, lengths, (elem_data, elem_validity))``, the
   others as python values per row (``batch_to_pydict``'s shape:
   decimals unscaled ints, dates days), through a recursive encoder.
-- ZSTD raises :class:`MissingCodecError` both ways (no zstd codec in
-  the port).
+- ZSTD chunks go through the port's own zstd codec (``io/zstd.py``)
+  both ways.
 
 The reference's per-value loops over RLEv1 groups, decimal varints
 and strings are numpy here, with byte-for-byte the same files and
@@ -46,8 +46,10 @@ import numpy as np
 
 from ..schema import DataType, Field, Schema, TypeKind
 from .ipc_compression import lz4_block_compress
+from .zstd import compress as zstd_compress
+from .zstd import decompress as zstd_decompress
 from .parquet import (
-    _gather_strings, _lz4_block_decompress, _no_zstd, _snappy_compress, _snappy_decompress, _string_min_max,
+    _gather_strings, _lz4_block_decompress, _snappy_compress, _snappy_decompress, _string_min_max,
 )
 
 MAGIC = b"ORC"
@@ -102,7 +104,7 @@ def orc_decompress(buf: bytes, kind: int) -> bytes:
         elif kind == C_LZ4:
             out += _lz4_block_decompress(chunk)
         elif kind == C_ZSTD:
-            raise _no_zstd("a ZSTD-compressed ORC stream")
+            out += zstd_decompress(chunk)
         else:
             raise NotImplementedError(f"ORC compression kind {kind}")
     return bytes(out)
@@ -118,12 +120,12 @@ def orc_compress(data: bytes, kind: int, block: int = 65536) -> bytes:
         return data
     if kind not in (C_ZLIB, C_ZSTD, C_SNAPPY, C_LZ4):
         raise NotImplementedError(f"ORC writer compression kind {kind}")
-    if kind == C_ZSTD:
-        raise _no_zstd("writing ZSTD-compressed ORC")
     out = bytearray()
     for pos in range(0, len(data), block):
         chunk = data[pos : pos + block]
-        if kind == C_SNAPPY:
+        if kind == C_ZSTD:
+            comp = zstd_compress(chunk)
+        elif kind == C_SNAPPY:
             comp = _snappy_compress(chunk)
         elif kind == C_LZ4:
             comp = lz4_block_compress(chunk)

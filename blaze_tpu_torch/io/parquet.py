@@ -4,15 +4,16 @@
 - written files: PAR1 magic, one DATA_PAGE v1 per column chunk per row
   group, PLAIN encoding, RLE definition levels (every column is written
   OPTIONAL), UNCOMPRESSED / GZIP / SNAPPY (Spark's default, pure-python
-  LZ77) / LZ4_RAW pages, thrift-compact FileMetaData with min/max
+  LZ77) / ZSTD (``io/zstd.py``) / LZ4_RAW pages, thrift-compact FileMetaData with min/max
   statistics per chunk.
 - reader: dictionary pages, v1 and v2 data pages, PLAIN and dictionary
   encodings, REQUIRED and OPTIONAL columns, FLBA decimals, INT96
   timestamps; pages in any of the writer's codecs and in Hadoop-framed
   LZ4.  Row groups are pruned with the pushed-down predicate over chunk
   statistics (``ops/parquet_scan.py``).
-- ZSTD pages raise :class:`MissingCodecError` both ways: the port has
-  no zstd codec (the card's machine has no ``zstandard``).
+- ZSTD pages go through the port's own zstd codec both ways (the
+  card's machine has no ``zstandard``): a page from any zstd writer
+  reads, a page the port writes reads with ``zstandard``.
 
 The reference's per-value loops over strings, definition levels,
 FLBA and INT96 values are numpy here, with byte-for-byte the same
@@ -34,7 +35,9 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from ..schema import DataType, Schema, TypeKind
-from .ipc_compression import MissingCodecError, lz4_block_compress, lz4_block_decompress
+from .ipc_compression import lz4_block_compress, lz4_block_decompress
+from .zstd import compress as zstd_compress
+from .zstd import decompress as zstd_decompress
 from .thrift_compact import (
     CT_BINARY, CT_I32, CT_I64, CT_STRUCT, CompactReader, CompactWriter,
 )
@@ -190,11 +193,6 @@ def _lz4_block_decompress(src: bytes) -> bytes:
     return bytes(lz4_block_decompress(src))
 
 
-def _no_zstd(what: str) -> MissingCodecError:
-    return MissingCodecError(f"{what} needs a zstd codec, which the port does not have "
-                             "(no zstandard package on the card's machine)")
-
-
 def _decompress(payload: bytes, codec: int, uncompressed_size: int) -> bytes:
     if codec == CODEC_UNCOMPRESSED:
         return payload
@@ -203,7 +201,7 @@ def _decompress(payload: bytes, codec: int, uncompressed_size: int) -> bytes:
     if codec == CODEC_SNAPPY:
         return _snappy_decompress(payload)
     if codec == CODEC_ZSTD:
-        raise _no_zstd("a ZSTD parquet page")
+        return zstd_decompress(payload)
     if codec == CODEC_LZ4_RAW:
         return _lz4_block_decompress(payload)
     if codec == CODEC_LZ4:
@@ -579,7 +577,7 @@ def write_parquet(
             elif codec == CODEC_SNAPPY:  # Spark's parquet default codec
                 comp = _snappy_compress(payload)
             elif codec == CODEC_ZSTD:
-                raise _no_zstd("writing ZSTD parquet pages")
+                comp = zstd_compress(payload)
             elif codec == CODEC_LZ4_RAW:
                 comp = lz4_block_compress(payload)
             elif codec == CODEC_UNCOMPRESSED:

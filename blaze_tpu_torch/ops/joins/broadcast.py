@@ -15,20 +15,40 @@ which no single partition's task sees: over more than one probe
 partition it raises at construction (the reference runs it and emits
 the last partition's view alone, ROADMAP queue C, reference defect 8).
 Over one probe partition it runs, and the build side's rows follow the
-probe's."""
+probe's.
+
+Map mode (≙ the reference's ``BroadcastJoinBuildHashMapExec``, Spark's
+``BroadcastJoinBuildHashMapNode``): the broadcast carries the built
+join map, serialized (``JoinMap.serialize``, the reference's bytes),
+as a binary column; the join detects it from its build side's schema
+and rebuilds the map by copying buffers, with no hash and no sort.
+The map cache then holds the deserialized map, keyed by the build
+id and the data schema."""
 
 from __future__ import annotations
 
 import threading
 from collections import OrderedDict
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
-from ...batch import concat_batches
+import numpy as np
+import torch
+
+from ... import conf
+from ...batch import Column, RecordBatch, batch_from_pydict, concat_batches
 from ...exprs.ir import Expr
-from ...runtime.context import TaskContext
-from ...schema import Schema
+from ...runtime.context import TaskCancelled, TaskContext
+from ...schema import DataType, Field, Schema
 from ..base import BatchStream, ExecNode
-from .core import Joiner, JoinerState, JoinMap, JoinType
+from .core import Joiner, JoinerState, JoinMap, JoinType, build_join_map
+
+#: the one column of a serialized join map
+MAP_COL = "join_map#bytes"
+
+
+def is_map_schema(schema: Schema) -> bool:
+    """Whether ``schema`` is a serialized join map's."""
+    return len(schema.fields) == 1 and schema.fields[0].name == MAP_COL
 
 _MAP_CACHE: "OrderedDict[str, Optional[JoinMap]]" = OrderedDict()
 _MAP_CACHE_LOCK = threading.Lock()
@@ -60,21 +80,118 @@ def clear_join_map_cache(prefix: str = "") -> None:
             del _MAP_CACHE[key]
 
 
+def _drain(child: ExecNode, ctx: TaskContext) -> Optional[RecordBatch]:
+    """Every partition of ``child`` as one batch (None without rows).
+    A cancelled drain raises: a map of part of the input would be
+    cached and broadcast as if whole."""
+    n = child.num_partitions()
+    batches = []
+    for p in range(n):
+        for b in child.execute(p, ctx.child_context(p, n)):
+            if not ctx.is_task_running():
+                raise TaskCancelled("broadcast build drain cancelled")
+            if b.num_rows:
+                batches.append(b)
+    return concat_batches(batches) if batches else None
+
+
+class BroadcastJoinBuildHashMapExec(ExecNode):
+    """Drains its child (a broadcast's build side) once, builds the join
+    map over ``keys`` and emits it serialized: the bytes cut into
+    ``spark.blaze.tpu.minBatchCapacity`` rows of a binary column, each
+    ``max(8, ceil(len / rows))`` bytes wide, so what the broadcast
+    carries is the map, not the rows (≙ the reference's
+    ``ops/joins/broadcast.py``).  Its schema is a nominal
+    ``binary(8)``: the batch and the wire carry the true width."""
+
+    def __init__(self, child: ExecNode, keys: Sequence[Expr]):
+        super().__init__([child])
+        self.keys = list(keys)
+        self._payload: Optional[bytes] = None
+        self._lock = threading.Lock()
+
+    @property
+    def data_schema(self) -> Schema:
+        return self.children[0].schema
+
+    @property
+    def schema(self) -> Schema:
+        return Schema([Field(MAP_COL, DataType.binary(8))])
+
+    def num_partitions(self) -> int:
+        return 1
+
+    def payload(self, ctx: TaskContext) -> bytes:
+        """The serialized map, built on the first call (under the lock:
+        concurrent first callers drain the child once)."""
+        with self._lock:
+            if self._payload is None:
+                data = _drain(self.children[0], ctx)
+                with self.metrics.timer("build_hash_map_time"):
+                    if data is None:
+                        data = batch_from_pydict({f.name: [] for f in self.data_schema.fields}, self.data_schema)
+                    self._payload = build_join_map(data, self.keys).serialize()
+                self.metrics.add("payload_bytes", len(self._payload))
+            return self._payload
+
+    def execute(self, partition: int, ctx: TaskContext) -> BatchStream:
+        def stream():
+            from ... import resolve_device
+
+            payload = self.payload(ctx)
+            rows = int(conf.MIN_CAPACITY.get())
+            w = max(8, -(-len(payload) // rows))
+            data = np.zeros(rows * w, dtype=np.uint8)
+            data[:len(payload)] = np.frombuffer(payload, dtype=np.uint8)
+            lengths = np.clip(len(payload) - np.arange(rows) * w, 0, w).astype(np.int32)
+            dev = resolve_device()
+            col = Column(DataType.binary(w), torch.from_numpy(data.reshape(rows, w)).to(dev),
+                         torch.ones(rows, dtype=torch.bool, device=dev), torch.from_numpy(lengths).to(dev))
+            out = RecordBatch(self.schema, [col], rows)
+            self._record_batch(out)
+            yield out
+
+        return stream()
+
+
+def map_payload(batches) -> bytes:
+    """The serialized map a map-mode build side's batches carry, in one
+    device-to-host copy of each batch's column."""
+    from ...io.batch_serde import host_columns
+
+    parts: List[bytes] = []
+    for b in batches:
+        (data, _, lengths), = host_columns(b)[0]
+        parts.append(data[np.arange(data.shape[1]) < lengths[:, None]].tobytes())
+    if not parts:
+        raise ValueError("a map-mode build side sent no join-map payload")
+    return b"".join(parts)
+
+
 class BroadcastJoinExec(ExecNode):
     def __init__(self, build: ExecNode, probe: ExecNode, build_keys: Sequence[Expr],
                  probe_keys: Sequence[Expr], join_type: JoinType, build_is_left: bool,
                  build_data_schema: Optional[Schema] = None,
                  cached_build_id: Optional[str] = None):
         super().__init__([build, probe])
-        if build_data_schema is not None and build_data_schema != build.schema:
-            raise NotImplementedError("a serialized join-map build side (map mode) is not ported")
+        self.map_mode = is_map_schema(build.schema)
+        if self.map_mode and build_data_schema is None:
+            # the data schema of a BuildHashMap node in the build subtree
+            node = build
+            while node is not None and not isinstance(node, BroadcastJoinBuildHashMapExec):
+                node = node.children[0] if node.children else None
+            if node is None:
+                raise ValueError("a map-mode build side needs build_data_schema")
+            build_data_schema = node.data_schema
+        if not self.map_mode and build_data_schema is not None and build_data_schema != build.schema:
+            raise ValueError("build_data_schema differs from the build side's schema outside map mode")
         self.build_keys = list(build_keys)
         self.probe_keys = list(probe_keys)
         self.join_type = join_type
         self.build_is_left = build_is_left
-        self.build_data_schema = build.schema
+        self.build_data_schema = build_data_schema or build.schema
         self.cached_build_id = cached_build_id
-        self._joiner = Joiner(probe.schema, build.schema, probe_keys, build_keys,
+        self._joiner = Joiner(probe.schema, self.build_data_schema, probe_keys, build_keys,
                               join_type, probe_is_left=not build_is_left)
         if self._joiner.build_preserved and probe.num_partitions() > 1:
             raise NotImplementedError(
@@ -101,9 +218,16 @@ class BroadcastJoinExec(ExecNode):
             if hit:
                 self.metrics.add("hashmap_cache_hit")
                 return m
-        with self.metrics.timer("build_hash_map_time"):
-            batches = [b for b in self.children[0].execute(0, ctx.child_context(0, 1)) if b.num_rows]
-            m = self._joiner.build_map(concat_batches(batches)) if batches else None
+        build = self.children[0].execute(0, ctx.child_context(0, 1))
+        if self.map_mode:
+            # the build side drains first: the timer holds the rebuild alone
+            payload = map_payload(build)
+            with self.metrics.timer("build_hash_map_time"):
+                m = JoinMap.deserialize(payload, self.build_data_schema, self.build_keys)
+        else:
+            with self.metrics.timer("build_hash_map_time"):
+                batches = [b for b in build if b.num_rows]
+                m = self._joiner.build_map(concat_batches(batches)) if batches else None
         if key is not None:
             _cache_put(key, m)
         return m

@@ -11,14 +11,21 @@ RIGHT, FULL), LEFT_SEMI/LEFT_ANTI and EXISTENCE per probe batch, and
 RIGHT_SEMI/RIGHT_ANTI and the build side of an outer join from the
 build rows no probe row matched, once the probe side is exhausted
 (``Joiner.finish``).
+
+A map serializes in the reference's wire layout (``JoinMap.serialize``),
+so a broadcast can carry the built map instead of its rows
+(``broadcast.BroadcastJoinBuildHashMapExec``): a probe task rebuilds
+it by copying buffers, with no hash and no sort.
 """
 
 from __future__ import annotations
 
 import enum
+import struct
 from dataclasses import dataclass
-from typing import List, Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from ...batch import Column, RecordBatch, bucket_capacity
@@ -58,6 +65,47 @@ class JoinMap:
     sorted_rows: torch.Tensor  # int64 (n,)
     batch: RecordBatch
     key_cols: List[Column]
+
+    def serialize(self) -> bytes:
+        """The reference's bytes for the same build batch (one
+        device-to-host copy)::
+
+            <II num_rows, cap ; cap x uint64 sorted keys ;
+            cap x int32 rows ; serialize_batch(batch)
+
+        ``cap`` is the reference's capacity for the batch; its table
+        holds ``cap`` entries, the dead rows ``num_rows..cap-1`` keyed
+        by the all-ones sentinel after every live row (its sort is
+        stable), which is the padding here."""
+        from ...io.batch_serde import host_columns, serialize_columns
+
+        n = self.batch.num_rows
+        cap = bucket_capacity(n)
+        cols, (keys, rows) = host_columns(self.batch, [self.sorted_keys, self.sorted_rows])
+        pad_keys = np.full(cap, SENTINEL, dtype=np.int64)
+        pad_keys[:n] = keys
+        pad_rows = np.arange(cap, dtype=np.int32)
+        pad_rows[:n] = rows
+        return struct.pack("<II", n, cap) + pad_keys.tobytes() + pad_rows.tobytes() + serialize_columns(cols, n)
+
+    @staticmethod
+    def deserialize(data: Union[bytes, memoryview], schema: Schema, keys: Sequence[Expr]) -> Optional["JoinMap"]:
+        """The map of :meth:`serialize`'s bytes (either package's) on the
+        package's device: the live entries and the batch copied in, the
+        key columns a projection of the batch; None for a build side
+        with no rows."""
+        from ... import resolve_device
+        from ...io.batch_serde import decode_columns, stage_columns
+
+        n, cap = struct.unpack_from("<II", data, 0)
+        if n == 0:
+            return None
+        dev = resolve_device()
+        keys_np = np.frombuffer(data, np.int64, n, 8)
+        rows_np = np.frombuffer(data, np.int32, n, 8 + 8 * cap).astype(np.int64)
+        batch = stage_columns(schema, [decode_columns(memoryview(data)[8 + 12 * cap:], schema)], dev)
+        table = torch.from_numpy(np.stack([keys_np, rows_np])).to(dev)
+        return JoinMap(table[0], table[1], batch, _key_cols(schema, keys, batch))
 
 
 class JoinerState:

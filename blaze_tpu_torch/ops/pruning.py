@@ -168,6 +168,11 @@ def _prune(plan, required: Optional[Set[str]], prune_columns):
         extra = {}
         if isinstance(plan, BroadcastJoinExec):
             extra["cached_build_id"] = plan.cached_build_id
+            if plan.map_mode:
+                # the serialized map's side is left as it is (its schema
+                # names none of the columns): the map decodes to the data
+                # schema the join declares
+                extra["build_data_schema"] = plan.build_data_schema
         return type(plan)(new_sides[0], new_sides[1], plan.build_keys, plan.probe_keys,
                           plan.join_type, plan.build_is_left, **extra)
 

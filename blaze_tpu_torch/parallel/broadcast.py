@@ -10,6 +10,9 @@ that fails its checksum raises ``FetchFailedError`` on
 ``broadcast_<id>``: the scheduler then regenerates the broadcast stage.
 A broadcast task probes the ``broadcast.write`` fault site, and its
 ``@corrupt`` where the blob is collected.
+:meth:`BroadcastExchangeExec.collect_ipc` is Spark's ``collectNative``
+surface: the same blobs, one per child partition, for a driver that
+ships the broadcast itself.
 """
 
 from __future__ import annotations
@@ -79,6 +82,7 @@ class BroadcastExchangeExec(ExecNode):
         self._lock = threading.Lock()
         self._collected: Optional[RecordBatch] = None
         self._done = False
+        self._blobs: Optional[List[bytes]] = None
 
     @property
     def schema(self) -> Schema:
@@ -99,6 +103,17 @@ class BroadcastExchangeExec(ExecNode):
                 self._collected = concat_batches(batches) if batches else None
                 self._done = True
             return self._collected
+
+    def collect_ipc(self) -> List[bytes]:
+        """One blob per child partition (:func:`collect_blob`: the
+        reference's ``collect_ipc`` bytes under the same codec), drained
+        once and kept."""
+        with self._lock:
+            if self._blobs is None:
+                child = self.children[0]
+                n = child.num_partitions()
+                self._blobs = [collect_blob(child.execute(p, TaskContext(p, n))) for p in range(n)]
+            return self._blobs
 
     def execute(self, partition: int, ctx: TaskContext) -> BatchStream:
         def stream():

@@ -121,7 +121,7 @@ def classify(exc: BaseException) -> str:
     ``exc`` in the port's table decides; past the table, the
     reference's rules: interpreter control flow and ``MemoryError``,
     ``AssertionError`` and ``NotImplementedError`` (an engine bug, an
-    unported path or the port's ``MissingCodecError`` fails alike every
+    unported path, a zstd frame that needs a dictionary, fails alike every
     time) are fatal, the rest retried."""
     global _TABLE
     if _TABLE is None:

@@ -148,7 +148,7 @@ def plan_from_proto(n: pb.PhysicalPlanNode):
         GroupingExpr, LimitExec, MemoryScanExec, OrcScanExec, ParquetScanExec, ProjectExec, RenameColumnsExec,
         SortExec, SortField, UnionExec, WindowExec,
     )
-    from ..ops.joins import BroadcastJoinExec, HashJoinExec
+    from ..ops.joins import BroadcastJoinBuildHashMapExec, BroadcastJoinExec, HashJoinExec
     from ..parallel.broadcast import IpcWriterExec
     from ..parallel.shuffle import IpcReaderExec, ShuffleWriterExec
     from ..runtime.context import RESOURCES
@@ -248,6 +248,9 @@ def plan_from_proto(n: pb.PhysicalPlanNode):
             *args,
             build_data_schema=schema_from_proto(j.build_data_schema) if len(j.build_data_schema.fields) else None,
             cached_build_id=j.cached_build_id or None)
+    if kind == "broadcast_join_build_hash_map":
+        b = n.broadcast_join_build_hash_map
+        return BroadcastJoinBuildHashMapExec(plan_from_proto(b.input), [expr_from_proto(e) for e in b.keys])
     if kind == "object_agg":
         from .. import conf
         from ..ops.object_agg import ObjectAggExec

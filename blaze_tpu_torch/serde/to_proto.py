@@ -4,7 +4,8 @@
 Covers the nodes and expressions the port has: memory, parquet and ORC
 scans, empty partitions, project, filter, agg, sort, limit, union,
 rename, expand, window, generate, debug, coalesce, shuffle writer, IPC
-reader and writer, broadcast and shuffled hash joins, object and
+reader and writer, broadcast and shuffled hash joins, the broadcast
+join's serialized map (``BroadcastJoinBuildHashMapNode``), object and
 bloom-filter aggregates (the parquet sink has no node, as in the
 reference); nested types; columns, literals, aliases, binary operators,
 NOT, IS [NOT] NULL, casts, CASE, IN, LIKE, scalar functions and the
@@ -184,7 +185,7 @@ def plan_to_proto(node) -> pb.PhysicalPlanNode:
         SortExec, UnionExec, WindowExec,
     )
     from ..ops.bloom_agg import BloomFilterAggExec
-    from ..ops.joins import BroadcastJoinExec, HashJoinExec
+    from ..ops.joins import BroadcastJoinBuildHashMapExec, BroadcastJoinExec, HashJoinExec
     from ..ops.object_agg import ObjectAggExec
     from ..parallel.broadcast import IpcWriterExec
     from ..parallel.shuffle import IpcReaderExec, ShuffleWriterExec
@@ -301,6 +302,9 @@ def plan_to_proto(node) -> pb.PhysicalPlanNode:
             out.broadcast_join = msg
         else:
             out.hash_join = msg
+    elif isinstance(node, BroadcastJoinBuildHashMapExec):
+        out.broadcast_join_build_hash_map = pb.BroadcastJoinBuildHashMapNode(
+            input=plan_to_proto(node.children[0]), keys=[expr_to_proto(e) for e in node.keys])
     elif isinstance(node, ObjectAggExec):
         # the UDAFs travel pickled: a TaskDefinition names the module of
         # the package that wrote it, so each package reads only its own

@@ -8,7 +8,8 @@ start, five worker processes (spawned, the card hidden from them) build
 the same host tables from the same seeds and compute the host
 references the checks below hold the card to: the numpy oracles of
 TPC-H and TPC-DS at their scales and of the file phase, and the port's
-CPU evaluations of the functions phase.  The main process waits for one
+CPU evaluations of the functions phase; two more write the map/zstd
+phase's zstd files.  The main process waits for one
 only where it is not done yet; the workers stop before the script
 exits.  In order, it:
 
@@ -104,8 +105,9 @@ exits.  In order, it:
    between the paths, and q87 again at SF 0.01 (from SF 0.1 on it
    selects nothing: the generator's customers carry 8 distinct names);
    of these three groups, the queries of ``SCHEDULED_CUT`` run in
-   process only (q20, q98, q63, q57, q56, q60, q29 and q39b repeat the
-   template of a query that keeps its ``run_stages`` path; q23a, q23b
+   process only (q20, q98, q63, q57, q86, q56, q60, q77, q80, q29, q35,
+   q69 and q39b repeat the template of a query that keeps its
+   ``run_stages`` path; q23a, q23b
    and q87 select nothing at SF1 and take both paths at their smaller
    scales): that cut and the reference workers keep the smoke within
    its time;
@@ -205,7 +207,21 @@ exits.  In order, it:
    500); q01 as Spark plans it with its boundary pass's first fetch
    failing; then ``murmur3_pids``, ``pid_histogram`` and
    ``sorted_lookup`` held to their plain versions on the largest inputs
-   the phase gave them; one JSON record a run;
+   the phase gave them; one JSON record a run; then the map/zstd phase:
+   q03 at ``--scale`` with its broadcast carrying the serialized join
+   map (``BroadcastJoinBuildHashMapExec``, :func:`map_mode`) in process
+   and through ``run_stages``, equal to the oracle and to raw mode's
+   rows and launches on each path, with its payload bytes, the seconds
+   building and rebuilding the map and the cache hits; the same through
+   ``run_stages`` with ``broadcast.write@1@corrupt``, recovered by one
+   broadcast re-run; ``sorted_lookup`` held to its plain version on the
+   deserialized table; under ``spark.io.compression.codec=zstd`` at SF
+   0.1, q03 through ``run_stages`` against the same run under zlib
+   (rows, launches, ``.data`` bytes), q06 from zstd parquet and q01 from
+   zstd ORC (written by the port's writer in two more worker processes
+   from the start of the run), each equal to its oracle, with compress
+   and decompress MB/s; and the committed ``zstandard`` fixture frames
+   (``tests/data/zstd``) decoded to their SHA-256; one JSON record a run;
 11. the null-key phase: ``store_sales`` at ``--ds-scale`` with its -1
    ``ss_customer_sk`` exposed as nulls (``with_null_fks``), through
    ``split_stages``/``run_stages``: an ``IS NULL`` count, a group by
@@ -229,9 +245,9 @@ exits.  In order, it:
 13. prints where each phase ended on the host clock, the ``kernels``
    JSON line (launches summed over the 125 queries, the file,
    functions, nested and exchanges phases' runs in process and the
-   faults phase's runs, and per query on each path; the null-key, file,
-   functions, nested, exchanges and faults phases' apart too), then
-   ``{"ok": true, ...}`` last.
+   faults and map/zstd phases' runs, and per query on each path; the
+   null-key, file, functions, nested, exchanges, faults and map/zstd
+   phases' apart too), then ``{"ok": true, ...}`` last.
 
 Any failure raises and exits nonzero before the last line; without a
 CUDA card it exits 2.  Nothing here imports JAX or ``blaze_tpu``.
@@ -298,9 +314,10 @@ def time_ms(torch, fn, iters: int, flush) -> float:
     return times[len(times) // 2]
 
 
-def device_times(torch, cuda_ops, jobs, iters: int, flush, count_jobs=()):
+def device_times(torch, cuda_ops, jobs, iters: int, flush, count_jobs=(), then=None):
     """(device time per call of each job, device operations per call of
-    each count job).  A job is ``(fn, kernel)`` or ``(fn, kernel,
+    each count job, what ``then`` returned, the device events after the
+    count jobs).  A job is ``(fn, kernel)`` or ``(fn, kernel,
     launches)``: the time of ``fn``'s launches of kernels named
     ``kernel``, from torch.profiler's CUPTI trace, L2 flushed before
     every call; the launches per call are ``launches`` or what
@@ -308,9 +325,11 @@ def device_times(torch, cuda_ops, jobs, iters: int, flush, count_jobs=()):
     start event to the launch that ``time_ms`` encloses.  A count job
     ``(fn, calls)`` runs ``fn`` that many times, unflushed, between two
     spin kernels; every device operation between them counts (kernels
-    of any name, fills, memsets, copies).  All jobs share one profiler
-    session (more sessions in one process have come back without kernel
-    events), told apart by their order."""
+    of any name, fills, memsets, copies).  ``then`` (the profiled
+    queries, :func:`run_profiled`) runs after them in the same session:
+    it is the process's only one, since a later session has lost spin
+    kernels and more sessions have come back without kernel events
+    (``profiler_drops.py``).  Everything is told apart by its order."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -332,20 +351,27 @@ def device_times(torch, cuda_ops, jobs, iters: int, flush, count_jobs=()):
             for _ in range(calls):
                 fn()
             torch.cuda._sleep(1000)
+        later = then() if then is not None else None
         torch.cuda.synchronize()
-    device = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA), key=lambda e: e.time_range.start)
+    # the card's activity alone, read from the profiler's raw events:
+    # building its function events (the host's among them) for the
+    # profiled runs' half a million device operations took minutes
+    device = sorted((e for e in prof.profiler.kineto_results.events() if e.device_type() == DeviceType.CUDA),
+                    key=lambda e: e.start_ns())
     names = {job[1] for job in jobs}
-    spins = [i for i, e in enumerate(device) if "spin_kernel" in e.name]
-    events = [e for e in device[:spins[0] if spins else len(device)] if any(k in e.name for k in names)]
-    if len(events) != iters * sum(launches) or len(spins) != 2 * len(count_jobs):
+    spins = [i for i, e in enumerate(device) if "spin_kernel" in e.name()]
+    marks = 2 * len(count_jobs)
+    first = spins[0] if spins else len(device)
+    events = [e for e in device[:first] if any(k in e.name() for k in names)]
+    if len(events) != iters * sum(launches) or len(spins) < marks:
         raise AssertionError(f"the profiler saw {len(events)} kernel launches, not {iters * sum(launches)}, "
-                             f"and {len(spins)} spin kernels, not {2 * len(count_jobs)}")
+                             f"and {len(spins)} spin kernels, fewer than {marks}")
     out, pos = [], 0
     for k in launches:
-        out.append(sum(e.time_range.elapsed_us() for e in events[pos:pos + iters * k]) / iters / 1e3)
+        out.append(sum(e.duration_ns() for e in events[pos:pos + iters * k]) / iters / 1e6)
         pos += iters * k
     ops = [(spins[2 * i + 1] - spins[2 * i] - 1) / calls for i, (_, calls) in enumerate(count_jobs)]
-    return out, ops
+    return out, ops, later, device[spins[marks - 1] + 1 if marks else first:]
 
 
 # ----------------------------------------------------------- kernel checks
@@ -1165,10 +1191,11 @@ JOINED_QUERIES = tuple(f"ds_{q}" for q in ("q1", "q30", "q81", "q94", "q95", "q1
 # the window, rollup/union and exists/stddev queries whose run_stages
 # path is cut: each repeats the template of a query that keeps it with
 # other columns or constants (q20 and q98 q12's, q63 q53's, q57 q47's,
-# q56 and q60 q33's, q29 q25's, q39b q39a's), or selects nothing at SF1
+# q86 q36's, q56 and q60 q33's, q77 and q80 q5's channel report, q29
+# q25's, q35 and q69 q10's, q39b q39a's), or selects nothing at SF1
 # (q23a, q23b and q87, whose two paths run at the smaller scales below)
 SCHEDULED_CUT = ("ds_q20", "ds_q98", "ds_q63", "ds_q57", "ds_q56", "ds_q60", "ds_q23a", "ds_q23b", "ds_q87",
-                 "ds_q29", "ds_q39b")
+                 "ds_q29", "ds_q39b", "ds_q86", "ds_q77", "ds_q80", "ds_q35", "ds_q69")
 ALL_DS_QUERIES = (DS_QUERIES + WINDOW_QUERIES + ROLLUP_UNION_QUERIES + EXISTS_STDDEV_QUERIES + REPORT_QUERIES
                   + JOINED_QUERIES)
 # q23a and q23b are empty from SF 0.01 on (the generator's -1 customer
@@ -1306,44 +1333,44 @@ def run_plan(torch, plan):
 
 
 HAND_WRITTEN = ("murmur3_pids_kernel", "pid_histogram_kernel", "group_sums", "sorted_lookup_kernel")
+#: the launch counter of each hand-written kernel
+HAND_WRITTEN_KEYS = dict(zip(HAND_WRITTEN, ("murmur3_pids", "pid_histogram", "fused_group_sums", "sorted_lookup")))
 
 
-def profile_queries(torch, runs) -> list:
-    """Each ``(label, plan)`` of ``runs`` once, all in ONE torch.profiler
-    session (a fifth session in one process has come back short of
-    kernel events), a spin kernel before and after each run to tell
-    them apart: the device's busy share of each run's wall, its device
-    operations, the kernels that take the most device time and the
-    hand-written kernels' time at the shapes the query gives them.
-    Returns one dict a run."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    walls = []
-    # the card's activity alone, read from the profiler's raw events:
-    # building its function events (the host's among them) for the
-    # runs' half a million device operations took most of the phase
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+def run_profiled(torch, cuda_ops, runs) -> tuple:
+    """Each ``(label, plan)`` of ``runs`` once inside the caller's
+    profiler session (:func:`device_times`' ``then``), a spin kernel
+    before and after each run to tell them apart.  Returns each run's
+    wall and the launches its wrappers counted."""
+    walls, counted = [], []
+    torch.cuda._sleep(1000)
+    for _, plan in runs:
         torch.cuda._sleep(1000)
-        for _, plan in runs:
-            torch.cuda._sleep(1000)
-            walls.append(run_plan(torch, plan)[1])
-            torch.cuda._sleep(1000)
+        before = dict(cuda_ops.LAUNCHES)
+        walls.append(run_plan(torch, plan)[1])
+        counted.append({k: cuda_ops.LAUNCHES[k] - before[k] for k in before})
         torch.cuda._sleep(1000)
-        torch.cuda.synchronize()
-    device = sorted((e for e in prof.profiler.kineto_results.events() if e.device_type() == DeviceType.CUDA),
-                    key=lambda e: e.start_ns())
+    torch.cuda._sleep(1000)
+    return walls, counted
+
+
+def read_profiles(runs, walls, counted, device) -> list:
+    """The device events of :func:`run_profiled`'s runs, split: the
+    device's busy share of each run's wall, its device operations, the
+    kernels that take the most device time and the hand-written kernels'
+    time at the shapes the query gives them.  Fails when the session
+    lost a record it can count: a spin kernel, or a hand-written kernel
+    launch that its wrapper counted.  Returns one dict a run."""
     spins = [i for i, e in enumerate(device) if "spin_kernel" in e.name()]
     # a run's work lies between two spins, and nothing lies between a
     # run's closing spin and the next one's opening spin (nor between
     # the first and last spins and their runs): the runs are the
-    # nonempty stretches between spins.  The session has come back
-    # short of one kernel event (25 spins of 26, twice); that still
-    # splits alike, as long as a run's own work is all there.
+    # nonempty stretches between spins
     stretches = [(a, b) for a, b in zip(spins, spins[1:]) if b > a + 1]
-    if len(stretches) != len(runs):
-        raise AssertionError(f"the profiler saw {len(spins)} spin kernels (of {2 * len(runs) + 2}) and "
-                             f"{len(stretches)} runs' work between them, not {len(runs)}")
+    if len(spins) != 2 * len(runs) + 2 or len(stretches) != len(runs):
+        raise AssertionError(f"the profiler lost records: {len(spins)} spin kernels of {2 * len(runs) + 2}, "
+                             f"{len(stretches)} runs' work between them of {len(runs)}, "
+                             f"{len(device)} device operations in all")
     out = []
     for i, ((label, _), wall) in enumerate(zip(runs, walls)):
         events = device[stretches[i][0] + 1:stretches[i][1]]
@@ -1362,6 +1389,9 @@ def profile_queries(torch, runs) -> list:
             total, count = sum(t for t, _ in ours), sum(k for _, k in ours)
             log(f"{label} profile: {name} {count} launches, {total / 1e3:.4f} ms in all, "
                 f"{total / 1e3 / max(count, 1):.4f} ms each")
+            if count != counted[i][HAND_WRITTEN_KEYS[name]]:
+                raise AssertionError(f"{label}: the profiler saw {count} {name} launches, its wrapper counted "
+                                     f"{counted[i][HAND_WRITTEN_KEYS[name]]}: records were lost")
         out.append({"run": label, "profiled_wall_s": wall, "busy_s": busy, "busy_share": busy / wall,
                     "device_ops": len(events)})
     return out
@@ -1397,14 +1427,17 @@ def timed_subqueries():
 LAST_BUILD = {"tasks": 0}
 
 
-def timed_build(torch, query: str, scans, n_parts: int, map_tasks=None):
+def timed_build(torch, query: str, scans, n_parts: int, map_tasks=None, rewrite=None):
     """(the plan of ``query``, seconds to build it, seconds of the
-    scalar subqueries it ran while it was built); optimized (see
+    scalar subqueries it ran while it was built); rewritten by
+    ``rewrite`` when given (:func:`map_mode`); optimized (see
     :func:`optimized`) unless ``map_tasks`` is None."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with timed_subqueries() as sub:
         plan = build_plan(query, scans, n_parts)
+        if rewrite is not None:
+            plan = rewrite(plan)
         LAST_BUILD["tasks"] = plan_tasks(plan)
         if map_tasks is not None:
             plan = optimized(plan, map_tasks)
@@ -1439,7 +1472,7 @@ def partial_totals() -> dict:
     return dict(A.PARTIAL_TOTALS)
 
 
-def run_query(torch, cuda_ops, query: str, scans, n_parts: int, map_tasks: int = 4):
+def run_query(torch, cuda_ops, query: str, scans, n_parts: int, map_tasks: int = 4, rewrite=None):
     """One query through its plan builder, the optimizer and
     plan.execute, with every launch count and the partial aggs' totals
     (:func:`partial_totals`) reset just before it; the wall includes
@@ -1449,7 +1482,7 @@ def run_query(torch, cuda_ops, query: str, scans, n_parts: int, map_tasks: int =
 
     A.reset_partial_totals()
     cuda_ops.reset_launch_counts()
-    plan, build_s, sub_s = timed_build(torch, query, scans, n_parts, map_tasks)
+    plan, build_s, sub_s = timed_build(torch, query, scans, n_parts, map_tasks, rewrite)
     got, wall = run_plan(torch, plan)
     return got, build_s + wall, dict(cuda_ops.LAUNCHES), sub_s
 
@@ -1581,6 +1614,7 @@ def reference_job(job: tuple) -> tuple:
     """One host reference, in a worker: (its result, its seconds).  Jobs:
     ("oracle", recipe, variant, query), ("family", recipe, family, table,
     n_parts, batch_rows), ("object agg", recipe, label, n_parts,
+    batch_rows), ("zstd files", recipe, fmt, directory, n_parts,
     batch_rows)."""
     kind, recipe, *rest = job
     if recipe not in _WORKER_TABLES:
@@ -1592,6 +1626,8 @@ def reference_job(job: tuple) -> tuple:
         out = oracle_fn(query)(tables[variant])
     elif kind == "family":
         out = family_cpu_arrays({"lineitem": tables["lineitem"], **tables["host"]}, *rest)
+    elif kind == "zstd files":
+        out = write_zstd_files(tables["plain"], *rest)
     else:
         out = object_agg_cpu_rows({"lineitem": tables["lineitem"], "part": tables["part"]}, *rest)
     return out, time.perf_counter() - t0
@@ -1629,12 +1665,14 @@ class References:
 REFERENCES = References()
 
 
-def start_references(scale: float, ds_scale: float, n_parts: int, batch_rows: int) -> None:
+def start_references(scale: float, ds_scale: float, n_parts: int, batch_rows: int, zstd_dir: str) -> None:
     """Starts the reference workers, each pool's jobs in the order the
     phases ask for them: three workers for the TPC-H oracles at
     ``scale`` (the first phases'), two for the TPC-DS oracles at
     ``ds_scale``, then the file phase's oracles and the functions
-    phase's CPU evaluations."""
+    phase's CPU evaluations; two more write the map/zstd phase's zstd
+    parquet and ORC files under ``zstd_dir`` (host work: the port's
+    zstd encoder is python)."""
     tpch = ("tpch", scale)
     REFERENCES.start(3, [("oracle", tpch, "plain", q) for q in TPCH_QUERIES]
                      + [("oracle", tpch, "spec", q) for q in NEW_QUERIES])
@@ -1644,6 +1682,7 @@ def start_references(scale: float, ds_scale: float, n_parts: int, batch_rows: in
                      + [("oracle", files, "spec", q) for q in NEW_QUERIES]
                      + [("object agg", fns, label, n_parts, batch_rows) for label, *_ in OBJECT_AGG_RUNS]
                      + [("family", fns, family, table, n_parts, batch_rows) for family, table, *_ in function_families()])
+    REFERENCES.start(2, [zstd_files_job(fmt, zstd_dir, n_parts, batch_rows) for fmt in ("parquet", "orc")])
 
 
 def check_oracle(data, query: str, got: dict) -> str:
@@ -1791,7 +1830,7 @@ def check_new_query(query: str, got: dict, exp, need) -> str:
     return f"{len(exp)} country codes = oracle"
 
 
-def run_scheduled(torch, cuda_ops, query: str, scans, n_parts: int):
+def run_scheduled(torch, cuda_ops, query: str, scans, n_parts: int, rewrite=None):
     """One query through split_stages + run_stages, every task from its
     TaskDefinition bytes, with the launch, copy and verified-frame counts
     reset just before it; returns (rows, wall, launches, what moved)."""
@@ -1806,7 +1845,7 @@ def run_scheduled(torch, cuda_ops, query: str, scans, n_parts: int):
     # launches count, its seconds join the wall
     A.reset_partial_totals()
     cuda_ops.reset_launch_counts()
-    plan, build_s, sub_s = timed_build(torch, query, scans, n_parts)
+    plan, build_s, sub_s = timed_build(torch, query, scans, n_parts, rewrite=rewrite)
     stages, manager = split_stages(plan)
     stats = RunStats()
     B.reset_copy_counts()
@@ -2430,7 +2469,8 @@ def sink_round_trip(torch, query_rows: dict, scans, n_parts: int, directory: str
 def file_phase(torch, cuda_ops, card: str, data, scale: float, n_parts: int, batch_rows: int, workdir: str) -> tuple:
     """TPC-H from files the port writes under ``workdir``, on both paths
     (see the module docstring, step 8).  Returns (the launches of each
-    run, the SF1 files for the profiled runs)."""
+    run, the SF1 files for the profiled runs, the SF ``FILE_SCALE``
+    tables)."""
     from blaze_tpu_torch import conf
     from blaze_tpu_torch.io import parquet as pq
     from blaze_tpu_torch.tpch import datagen
@@ -2513,7 +2553,7 @@ def file_phase(torch, cuda_ops, card: str, data, scale: float, n_parts: int, bat
                 conf.PIPELINE_DEPTH.set(2)
     finally:
         conf.BATCH_SIZE.set(8192)
-    return launches_of, sf1_written
+    return launches_of, sf1_written, plain
 
 
 # ------------------------------------------------ functions and object aggs
@@ -3936,6 +3976,285 @@ def faults_phase(torch, cuda_ops, flush, card: str, data, scale: float, n_parts:
     return launches_of, checks, seconds
 
 
+# ------------------------------------------------ map-mode joins and zstd
+
+MAP_ZSTD_BUDGET_S = 60.0
+# the zstd runs' scale: the file phase's, whose tables and oracles they share
+ZSTD_SCALE = FILE_SCALE
+# the columns of the zstd files: what q06 (parquet) and q01 (ORC) read
+ZSTD_FILES = {"parquet": ("q6", ("l_quantity", "l_extendedprice", "l_discount", "l_shipdate")),
+              "orc": ("q1", ("l_returnflag", "l_linestatus", "l_quantity", "l_extendedprice", "l_discount", "l_tax",
+                             "l_shipdate"))}
+ZSTD_FIXTURES = REPO / "tests" / "data" / "zstd"
+
+
+def map_mode(plan, join=None, exchange=None, build_map=None):
+    """``plan`` with each broadcast join's build side
+    ``BroadcastExchangeExec(child)`` rewritten into
+    ``BroadcastExchangeExec(BroadcastJoinBuildHashMapExec(child, build
+    keys))``: the broadcast carries the serialized join map, as Spark
+    plans a map-mode broadcast.  The classes are the port's unless
+    given (``tests/test_torch_broadcast_map.py`` copies this helper and
+    passes the reference's)."""
+    if join is None:
+        from blaze_tpu_torch.ops.joins import BroadcastJoinBuildHashMapExec as build_map, BroadcastJoinExec as join
+        from blaze_tpu_torch.parallel.broadcast import BroadcastExchangeExec as exchange
+    for i, c in enumerate(list(plan.children)):
+        plan.children[i] = map_mode(c, join, exchange, build_map)
+    if isinstance(plan, join) and isinstance(plan.children[0], exchange):
+        child = plan.children[0].children[0]
+        return join(exchange(build_map(child, plan.build_keys)), plan.children[1], plan.build_keys, plan.probe_keys,
+                    plan.join_type, plan.build_is_left, build_data_schema=child.schema,
+                    cached_build_id=plan.cached_build_id)
+    return plan
+
+
+def zstd_files_job(fmt: str, directory: str, n_parts: int, batch_rows: int) -> tuple:
+    return ("zstd files", ("files", FILE_SCALE), fmt, directory, n_parts, batch_rows)
+
+
+def write_zstd_files(tables: dict, fmt: str, directory: str, n_parts: int, batch_rows: int) -> dict:
+    """lineitem's ``ZSTD_FILES[fmt]`` columns as zstd parquet or ORC,
+    one file a partition, by the port's writer (in a reference worker);
+    returns the written groups and schema, and the bytes of the columns."""
+    from blaze_tpu_torch.io import parquet as pq
+
+    _, cols = ZSTD_FILES[fmt]
+    lineitem = {c: tables["lineitem"][c] for c in cols}
+    written = write_tables({"lineitem": lineitem}, ("lineitem",), directory, n_parts, batch_rows, fmt,
+                           pq.CODEC_ZSTD if fmt == "parquet" else "zstd")
+    return {"written": written, "column_bytes": sum(v[0].nbytes for v in lineitem.values())}
+
+
+@contextlib.contextmanager
+def joins_seen():
+    """Collects every broadcast join and join-map node that runs inside
+    the block, on either path (a decoded task's too), for their
+    metrics."""
+    from blaze_tpu_torch.ops.joins import BroadcastJoinBuildHashMapExec, BroadcastJoinExec
+
+    seen: Dict[int, object] = {}
+    lock = threading.Lock()
+    reals = {cls: cls.execute for cls in (BroadcastJoinExec, BroadcastJoinBuildHashMapExec)}
+
+    def wrap(real):
+        def execute(self, partition, ctx):
+            with lock:
+                seen.setdefault(id(self), self)
+            return real(self, partition, ctx)
+        return execute
+
+    for cls, real in reals.items():
+        cls.execute = wrap(real)
+    try:
+        yield seen
+    finally:
+        for cls, real in reals.items():
+            cls.execute = real
+
+
+def join_metrics(seen) -> dict:
+    """Map-mode metrics of the nodes :func:`joins_seen` collected:
+    payload bytes, seconds building the map (the map node) and rebuilding
+    it from its bytes (the joins; the build side's drain is outside that
+    timer), cache hits."""
+    from blaze_tpu_torch.ops.joins import BroadcastJoinBuildHashMapExec
+
+    out = {"payload_bytes": 0, "build_hash_map_s": 0.0, "deserialize_s": 0.0, "hashmap_cache_hit": 0,
+           "map_mode_joins": 0}
+    for node in seen.values():
+        v = node.metrics.values
+        if isinstance(node, BroadcastJoinBuildHashMapExec):
+            out["payload_bytes"] += v.get("payload_bytes", 0)
+            out["build_hash_map_s"] += v.get("build_hash_map_time", 0) / 1e9
+        elif node.map_mode:
+            out["map_mode_joins"] += 1
+            out["deserialize_s"] += v.get("build_hash_map_time", 0) / 1e9
+            out["hashmap_cache_hit"] += v.get("hashmap_cache_hit", 0)
+    return out
+
+
+@contextlib.contextmanager
+def zstd_timing():
+    """Bytes and seconds of every zstd compress and decompress made
+    inside the block (frames, parquet pages, ORC chunks), on any
+    thread."""
+    from blaze_tpu_torch.io import ipc_compression as IC, orc, parquet
+
+    acc = {"compressed_in": 0, "compress_s": 0.0, "decompressed_out": 0, "decompress_s": 0.0}
+    lock = threading.Lock()
+    mods = (IC, parquet, orc)
+    reals = [(m, m.zstd_compress, m.zstd_decompress) for m in mods]
+    real_c, real_d = IC.zstd_compress, IC.zstd_decompress
+
+    def compress(data, *a, **k):
+        t0 = time.perf_counter()
+        out = real_c(data, *a, **k)
+        with lock:
+            acc["compressed_in"] += len(data)
+            acc["compress_s"] += time.perf_counter() - t0
+        return out
+
+    def decompress(data):
+        t0 = time.perf_counter()
+        out = real_d(data)
+        with lock:
+            acc["decompressed_out"] += len(out)
+            acc["decompress_s"] += time.perf_counter() - t0
+        return out
+
+    for m in mods:
+        m.zstd_compress, m.zstd_decompress = compress, decompress
+    try:
+        yield acc
+    finally:
+        for m, c, d in reals:
+            m.zstd_compress, m.zstd_decompress = c, d
+
+
+def mb_per_s(nbytes: int, seconds: float):
+    return round(nbytes / seconds / 1e6, 3) if seconds else None
+
+
+def map_zstd_phase(torch, cuda_ops, flush, card: str, data, file_tables, zstd_dir: str, scale: float, n_parts: int,
+                   batch_rows: int, runs: dict, sched_runs: dict, inproc: dict) -> tuple:
+    """Map-mode broadcast joins and the zstd codec.  (1) TPC-H q03 at
+    ``--scale`` with its broadcast carrying the serialized join map
+    (:func:`map_mode`) in process and through ``run_stages``: rows equal
+    to the oracle and to the raw-mode run of the queries phase, launches
+    equal to raw mode's on each path (``runs``, ``sched_runs``); then
+    ``broadcast.write@1@corrupt`` in map mode, recovered by one broadcast
+    re-run; ``sorted_lookup`` held to its plain version on the largest
+    deserialized table and probes.  (2) Under
+    ``spark.io.compression.codec=zstd`` at SF ``ZSTD_SCALE``: q03
+    through ``run_stages`` against the same run under zlib (rows,
+    launches, ``.data`` bytes), q06 from zstd parquet and q01 from zstd
+    ORC written by the port's writer under ``zstd_dir`` (in a reference worker), in
+    process, each equal to its oracle; the committed ``zstandard``
+    fixtures decoded to their SHA-256.  Prints one ``map_zstd`` record a
+    run with walls, compress and decompress MB/s and the card's name and
+    power limit.  Returns the launches of each run, the kernel checks
+    and the phase's seconds."""
+    import hashlib
+
+    from blaze_tpu_torch import conf
+    from blaze_tpu_torch.io import zstd as Z
+
+    t_phase = time.perf_counter()
+    launches_of: Dict[str, dict] = {}
+    records, checks = [], []
+
+    def record(label: str, launches: dict, **fields) -> dict:
+        rec = {"run": label, **fields, "launches": {k: launches[k] for k in LAUNCH_KEYS}, "card": card}
+        launches_of[f"map/zstd: {label}"] = launches
+        records.append(rec)
+        return rec
+
+    # ---- (1) map mode at --scale, both paths
+    scans = query_scans(data, "q3", n_parts, batch_rows)
+    with largest_inputs(cuda_ops) as seen:
+        for path in ("in process", "run_stages"):
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            with joins_seen() as nodes:
+                if path == "in process":
+                    got, wall, launches, _ = run_query(torch, cuda_ops, "q3", scans, n_parts, rewrite=map_mode)
+                    raw = runs["q3"]
+                else:
+                    got, wall, launches, moved = run_scheduled(torch, cuda_ops, "q3", scans, n_parts,
+                                                               rewrite=map_mode)
+                    raw = sched_runs["q3"]
+            peak = torch.cuda.max_memory_allocated() - held
+            said = check_oracle(data, "q3", got)
+            metrics = join_metrics(nodes)
+            if got != inproc["q3"][0]:
+                raise AssertionError(f"q03 in map mode ({path}): {got} != raw mode {inproc['q3'][0]}")
+            if launches != raw or not launches["sorted_lookup"]:
+                raise AssertionError(f"q03 in map mode ({path}) launched {launches}, raw mode {raw}")
+            if not metrics["map_mode_joins"] or not metrics["payload_bytes"]:
+                raise AssertionError(f"q03 in map mode ({path}): no map-mode join ran: {metrics}")
+            rec = record(f"q03 SF{scale} in map mode, {path}", launches, equal_to="the oracle and raw mode",
+                         said=said, wall_s=wall, raw_wall_s=inproc["q3"][1] if path == "in process" else None,
+                         peak_above_held_mib=round(peak / 2**20, 1), **metrics)
+            if path == "run_stages":
+                rec.update(broadcast_bytes=moved["broadcast_bytes"], data_bytes=moved["data_bytes"],
+                           tasks=moved["tasks"], kinds=moved["kinds"])
+        r = fault_run(torch, cuda_ops, lambda: map_mode(build_plan("q3", scans, n_parts)),
+                      "broadcast.write@1@corrupt")
+        if r["rows"] != inproc["q3"][0]:
+            raise AssertionError("q03 in map mode, broadcast.write@1@corrupt: rows differ")
+        require_counters("q03 in map mode, broadcast.write@1@corrupt", r["stats"],
+                         {"fetch_failures": 1, "broadcast_stage_reruns": 1})
+        record("q03 in map mode, broadcast.write@1@corrupt (a corrupt map blob regenerates its stage)",
+               r["launches"], equal_to="the oracle", wall_s=r["wall_s"], **counters_of(r["stats"]),
+               peak_above_held_mib=r["peak_above_held_mib"])
+    probed = set()
+    for key, (_, inputs) in sorted(seen.items()):
+        if key.startswith("sorted_lookup") and id(inputs[1]) not in probed:
+            probed.add(id(inputs[1]))
+            checks.append(("sorted_lookup", check_sorted_lookup(torch, cuda_ops, flush, *inputs,
+                                                                f"(map mode, {key[14:]})", timed=False)))
+    # ---- (2) zstd at ZSTD_SCALE
+    zscans = query_scans(file_tables, "q3", n_parts, batch_rows)
+    by_codec = {}
+    for codec in ("zstd", "zlib"):
+        conf.IO_COMPRESSION_CODEC.set(codec)
+        try:
+            with zstd_timing() as z:
+                got, wall, launches, moved = run_scheduled(torch, cuda_ops, "q3", zscans, n_parts)
+        finally:
+            conf.IO_COMPRESSION_CODEC.set(conf.IO_COMPRESSION_CODEC.default)
+        check_oracle(file_tables, "q3", got)
+        by_codec[codec] = (got, launches, moved)
+        record(f"q03 SF{ZSTD_SCALE} through run_stages, spark.io.compression.codec={codec}", launches,
+               equal_to="the oracle", wall_s=wall, data_bytes=moved["data_bytes"],
+               broadcast_bytes=moved["broadcast_bytes"], compress_mb_s=mb_per_s(z["compressed_in"], z["compress_s"]),
+               decompress_mb_s=mb_per_s(z["decompressed_out"], z["decompress_s"]), **z)
+        if codec == "zstd" and not (z["compressed_in"] and z["decompressed_out"]):
+            raise AssertionError(f"q03 under spark.io.compression.codec=zstd wrote or read no zstd frame: {z}")
+        if codec == "zlib" and (z["compressed_in"] or z["decompressed_out"]):
+            raise AssertionError(f"q03 under spark.io.compression.codec=zlib went through zstd: {z}")
+    if by_codec["zstd"][0] != by_codec["zlib"][0] or by_codec["zstd"][1] != by_codec["zlib"][1]:
+        raise AssertionError(f"q03 under zstd: rows or launches differ from zlib's ({by_codec['zstd'][1]}, "
+                             f"{by_codec['zlib'][1]})")
+    if by_codec["zstd"][2]["data_bytes"] == by_codec["zlib"][2]["data_bytes"]:
+        raise AssertionError("q03 under zstd: its .data bytes equal zlib's, so the codec did not change them")
+    for fmt, (query, _) in ZSTD_FILES.items():
+        made, write_s = REFERENCES.take(zstd_files_job(fmt, zstd_dir, n_parts, batch_rows))
+        fscans = file_scans(made["written"], fmt, batch_rows)
+        with zstd_timing() as z, scans_seen() as sseen:
+            got, wall, launches, _ = run_query(torch, cuda_ops, query, fscans, n_parts)
+        said = check_oracle(file_tables, query, got)
+        require_launches(f"{query_label(query)} zstd {fmt}", launches, *EXPECTED_LAUNCHES[query])
+        record(f"{query_label(query)} SF{ZSTD_SCALE} from zstd {fmt}, in process", launches, equal_to="the oracle",
+               said=said, wall_s=wall, **scan_totals(sseen), decompress_mb_s=mb_per_s(z["decompressed_out"],
+                                                                                   z["decompress_s"]),
+               **z, written_by="the port's writer in a reference worker", write_s=write_s,
+               write_mb_s=mb_per_s(made["column_bytes"], write_s))
+    fixtures = json.loads((ZSTD_FIXTURES / "manifest.json").read_text())
+    t0 = time.perf_counter()
+    decoded = 0
+    for name, want in sorted(fixtures.items()):
+        if not isinstance(want, dict):
+            continue
+        out = Z.decompress((ZSTD_FIXTURES / f"{name}.zst").read_bytes())
+        if hashlib.sha256(out).hexdigest() != want["sha256"]:
+            raise AssertionError(f"zstd fixture {name}: decoded bytes differ from zstandard's")
+        decoded += len(out)
+    fix_s = time.perf_counter() - t0
+    log(f"map/zstd: {sum(isinstance(v, dict) for v in fixtures.values())} zstandard fixture frames "
+        f"({fixtures['zstandard_version']}) decoded to their SHA-256, {decoded} bytes in {fix_s:.4f} s "
+        f"({mb_per_s(decoded, fix_s)} MB/s)")
+    for name, r in checks:
+        log_check(name, r)
+    for rec in records:
+        log("map_zstd " + json.dumps(rec))
+    seconds = time.perf_counter() - t_phase
+    log(f"map/zstd phase: {seconds:.1f} s (budget {MAP_ZSTD_BUDGET_S:.0f} s)")
+    return launches_of, checks, seconds
+
+
 def kept_scheduled(queries) -> tuple:
     """Those of ``queries`` that keep their run_stages path."""
     return tuple(q for q in queries if q not in SCHEDULED_CUT)
@@ -4006,7 +4325,8 @@ def main() -> int:
     # 8 partitions and 2^20-row batches throughout; the host references
     # start now, beside the build
     n_parts, batch_rows = 8, 1 << 20
-    start_references(args.scale, args.ds_scale, n_parts, batch_rows)
+    zstd_dir = tempfile.mkdtemp(prefix="blaze-zstd-")
+    start_references(args.scale, args.ds_scale, n_parts, batch_rows, zstd_dir)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)
@@ -4248,7 +4568,8 @@ def main() -> int:
     log(f"partial aggs that skipped, of {len(PARTIAL_BY_QUERY)} queries: " + json.dumps(skipping))
     # ---- TPC-H from Parquet and ORC files the port writes, on both paths
     workdir = tempfile.mkdtemp(prefix="blaze-files-")
-    file_launches, sf1_files = file_phase(torch, cuda_ops, card, data, args.scale, n_parts, batch_rows, workdir)
+    file_launches, sf1_files, file_tables = file_phase(torch, cuda_ops, card, data, args.scale, n_parts, batch_rows,
+                                                       workdir)
 
     end_phase(phases, "file scans")
     # ---- the functions and aggregates no TPC query uses
@@ -4273,6 +4594,13 @@ def main() -> int:
     checks += fault_checks
 
     end_phase(phases, "faults")
+    # ---- map-mode broadcast joins and the zstd codec
+    map_zstd_launches, map_zstd_checks, _ = map_zstd_phase(torch, cuda_ops, flush, card, data, file_tables, zstd_dir,
+                                                           args.scale, n_parts, batch_rows, runs, sched_runs, inproc)
+    checks += map_zstd_checks
+    shutil.rmtree(zstd_dir)
+
+    end_phase(phases, "map mode and zstd")
     # ---- real null foreign keys through run_stages, and the kernels on them
     null_runs, null_checks = null_key_phase(torch, cuda_ops, flush, card, ds_data, args.ds_scale, n_parts,
                                             batch_rows)
@@ -4317,7 +4645,26 @@ def main() -> int:
     for label, rows, parts in count_cases:
         pids = hist_pids(torch, rows, parts, seed=50 + parts)
         count_jobs.append((lambda pids=pids, parts=parts: cuda_ops.pid_histogram(pids, parts), 10))
-    times, ops = device_times(torch, cuda_ops, jobs, 20, flush, count_jobs)
+    # and, in the same profiler session, the profiled queries: q01 and
+    # q03 in process under each A/B setting, q10 under the defaults
+    profiled = []
+    for query in ("q1", "q3"):
+        for label, fusion, async_write, map_tasks, tasks in AB_SETTINGS:
+            with pipeline_conf(fusion, async_write, tasks):
+                profiled.append((f"{query_label(query)} ({label})",
+                                 optimized(build_plan(query, scans[query], n_parts), map_tasks)))
+    profiled.append((query_label("q10"), optimized(build_plan("q10", scans["q10"], n_parts))))
+    # two window queries: q47's stacked windows, q67's nine-way expand;
+    # two rollup queries: q5's unions of sales and returns, q22's
+    # inventory; q72's shuffled join of catalog lines to all of inventory
+    for query in ("ds_q47", "ds_q67", "ds_q5", "ds_q22", "ds_q72"):
+        profiled.append((query_label(query), optimized(build_plan(
+            query, query_scans(ds_data, query, n_parts, batch_rows), n_parts))))
+    # q03 from the SF1 parquet files: the card's busy share beside the host's decoding
+    profiled.append((f"q03 from parquet SF{args.scale}",
+                     optimized(build_plan("q3", file_scans(sf1_files, "parquet", batch_rows), n_parts))))
+    times, ops, (walls, counted), rest = device_times(torch, cuda_ops, jobs, 20, flush, count_jobs,
+                                                      then=lambda: run_profiled(torch, cuda_ops, profiled))
     for (name, r), ms in zip(timed_calls, times):
         r["device_ms"] = ms
         log(f"{name} [{r['shape']}]: device time {ms:.4f} ms (CUPTI), bound {r['bound_ms']:.4f} ms "
@@ -4333,28 +4680,11 @@ def main() -> int:
         if label != "global atomics" and k != 1:
             raise AssertionError(f"pid_histogram [{label}]: {k:g} device operations a call, not 1")
 
-    end_phase(phases, "device times")
-    # q01 and q03 in process under each A/B setting, q10 under the defaults
-    profiled = []
-    for query in ("q1", "q3"):
-        for label, fusion, async_write, map_tasks, tasks in AB_SETTINGS:
-            with pipeline_conf(fusion, async_write, tasks):
-                profiled.append((f"{query_label(query)} ({label})",
-                             optimized(build_plan(query, scans[query], n_parts), map_tasks)))
-    profiled.append((query_label("q10"), optimized(build_plan("q10", scans["q10"], n_parts))))
-    # two window queries: q47's stacked windows, q67's nine-way expand;
-    # two rollup queries: q5's unions of sales and returns, q22's
-    # inventory; q72's shuffled join of catalog lines to all of inventory
-    for query in ("ds_q47", "ds_q67", "ds_q5", "ds_q22", "ds_q72"):
-        profiled.append((query_label(query), optimized(build_plan(
-            query, query_scans(ds_data, query, n_parts, batch_rows), n_parts))))
-    # q03 from the SF1 parquet files: the card's busy share beside the host's decoding
-    profiled.append((f"q03 from parquet SF{args.scale}", optimized(build_plan("q3", file_scans(sf1_files, "parquet", batch_rows),
-                                                                  n_parts))))
-    for r in profile_queries(torch, profiled):
+    profiles = read_profiles(profiled, walls, counted, rest)
+    for r in profiles:
         log("profile " + json.dumps({**r, "card": card}))
     shutil.rmtree(workdir)
-    end_phase(phases, "profiled queries")
+    end_phase(phases, "device times and profiled queries")
     log("phase ends, seconds from the start of the script: "
         + ", ".join(f"{name} {t:.1f}" for name, t in phases))
 
@@ -4376,7 +4706,8 @@ def main() -> int:
             + sum(run[name] for label, run in fn_launches.items() if not label.endswith("(run_stages)"))
             + sum(run[name] for label, run in nested_launches.items() if not label.endswith("(run_stages)"))
             + sum(run[name] for label, run in exchange_launches.items() if not label.endswith("(run_stages)"))
-            + sum(run[name] for run in fault_launches.values()),
+            + sum(run[name] for run in fault_launches.values())
+            + sum(run[name] for run in map_zstd_launches.values()),
             "launches_null_keys": {check: run[name] for check, run in null_runs.items()},
             "launches_by_query": {query_label(q): run[name] for q, run in runs.items()},
             "launches_run_stages": {query_label(q): run[name] for q, run in sched_runs.items()},
@@ -4385,6 +4716,7 @@ def main() -> int:
             "launches_nested": {label: run[name] for label, run in nested_launches.items()},
             "launches_exchanges": {label: run[name] for label, run in exchange_launches.items()},
             "launches_faults": {label: run[name] for label, run in fault_launches.items()},
+            "launches_map_zstd": {label: run[name] for label, run in map_zstd_launches.items()},
             "shape": r["shape"], "max_abs_err": errs[name], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "device_ms": r.get("device_ms"),
@@ -4398,6 +4730,7 @@ def main() -> int:
                                                                  "bound_ms", "library_ms")})
     log("launches_exchanges " + json.dumps(exchange_launches))
     log("launches_faults " + json.dumps(fault_launches))
+    log("launches_map_zstd " + json.dumps(map_zstd_launches))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -1,9 +1,9 @@
 """The port stands alone: no module of ``blaze_tpu_torch`` and no line of
 ``chip_smoke.py`` or ``ab_walls.py`` imports JAX or the JAX package, nor ``google.protobuf``,
 ``zstandard`` or ``pyarrow``, which the machine with the card does not have (the
-port speaks the protobuf wire format itself, has no zstd codec and reads
-and writes Parquet and ORC itself; pyarrow is an oracle of the CPU tests
-only)."""
+port speaks the protobuf wire format itself, has its own zstd codec and
+reads and writes Parquet and ORC itself; pyarrow is an oracle of the CPU
+tests only)."""
 
 import ast
 import os

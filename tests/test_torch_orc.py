@@ -5,8 +5,9 @@ pyarrow's (RLEv2 integers, dictionary and direct strings, timestamps,
 every codec pyarrow and the port share).  The port's ``read_stripe``
 must give exactly the reference's arrays, its writer byte-identical
 files, its ``OrcScanExec`` the reference scan's rows and its stripe
-pruning the reference's counts.  ZSTD raises ``MissingCodecError`` in the
-port.  Nested fields beside flat ones read as the reference reads them
+pruning the reference's counts.  ZSTD chunks go through the port's own
+zstd codec, the reference's through ``zstandard``: each reads the
+other's files.  Nested fields beside flat ones read as the reference reads them
 (``test_torch_orc_nested.py`` has the rest of the nested cases).
 """
 
@@ -32,7 +33,6 @@ from blaze_tpu_torch import schema as PS
 from blaze_tpu_torch.batch import batch_to_pydict
 from blaze_tpu_torch.exprs import ir
 from blaze_tpu_torch.io import orc as porc
-from blaze_tpu_torch.io.ipc_compression import MissingCodecError
 from blaze_tpu_torch.ops import OrcScanExec
 from blaze_tpu_torch.runtime.context import TaskContext
 
@@ -94,13 +94,15 @@ def test_writer_bytes_equal_the_reference(tmp_path, host, compression):
     _same_stripes(str(b), COLUMNS)
 
 
-def test_zstd_raises_missing_codec(tmp_path, host):
-    with pytest.raises(MissingCodecError, match="zstd"):
-        porc.write_orc(str(tmp_path / "z.orc"), _schema(PS), host, compression="zstd")
+def test_zstd_streams_read_both_ways(tmp_path, host):
+    # the port's zstd chunks: the reference (zstandard) reads them; the
+    # reference's: the port reads them, each array the reference's own
+    port = str(tmp_path / "port.orc")
+    porc.write_orc(port, _schema(PS), host, stripe_rows=1100, compression="zstd")
+    _same_stripes(port, COLUMNS)
     path = str(tmp_path / "ref.orc")
-    rorc.write_orc(path, _schema(RS), host, compression="zstd")
-    with pytest.raises(MissingCodecError, match="zstd"):
-        porc.read_metadata(path)
+    rorc.write_orc(path, _schema(RS), host, stripe_rows=1100, compression="zstd")
+    _same_stripes(path, COLUMNS)
 
 
 def _arrow_table(host, names=COLUMNS):

@@ -6,8 +6,8 @@ columns, FLBA decimals, INT96 timestamps, every codec).  The port's
 ``read_column_chunk`` must give exactly the reference's arrays for each,
 its writer byte-identical files, its ``ParquetScanExec`` the reference
 scan's rows and its row-group pruning the reference's counts.  ZSTD
-raises ``MissingCodecError`` in the port, where the reference decodes it
-with ``zstandard``.  gzip stamps the current second into each page; both
+pages go through the port's own zstd codec, the reference's through
+``zstandard``: each reads the other's files.  gzip stamps the current second into each page; both
 writers run with gzip's clock frozen, as they would within one second.
 """
 
@@ -35,7 +35,6 @@ from blaze_tpu_torch import schema as PS
 from blaze_tpu_torch.batch import batch_to_pydict
 from blaze_tpu_torch.exprs import ir
 from blaze_tpu_torch.io import parquet as ppq
-from blaze_tpu_torch.io.ipc_compression import MissingCodecError
 from blaze_tpu_torch.ops import ParquetScanExec
 from blaze_tpu_torch.runtime.context import TaskContext
 
@@ -118,14 +117,17 @@ def test_writer_bytes_equal_the_reference(tmp_path, host, frozen_gzip, codec):
     _chunks_equal(str(b))
 
 
-def test_zstd_raises_missing_codec(tmp_path, host):
-    with pytest.raises(MissingCodecError, match="zstd"):
-        ppq.write_parquet(str(tmp_path / "z.parquet"), _schema(PS), host, codec=ppq.CODEC_ZSTD)
+def test_zstd_pages_read_both_ways(tmp_path, host):
+    # the port's zstd pages: the reference (zstandard) reads them; the
+    # reference's: the port reads them, each array the reference's own
+    port = str(tmp_path / "port_zstd.parquet")
+    ppq.write_parquet(port, _schema(PS), host, row_group_rows=1100, codec=ppq.CODEC_ZSTD)
+    _chunks_equal(port)
+    for rg in rpq.read_metadata(port).row_groups:
+        assert all(c.codec == rpq.CODEC_ZSTD for c in rg.chunks.values())
     path = str(tmp_path / "ref_zstd.parquet")
-    rpq.write_parquet(path, _schema(RS), host, codec=rpq.CODEC_ZSTD)
-    meta = ppq.read_metadata(path)
-    with pytest.raises(MissingCodecError, match="zstd"):
-        ppq.read_column_chunk(path, meta.row_groups[0].chunks["i64"], _dtype(PS, "i64"))
+    rpq.write_parquet(path, _schema(RS), host, row_group_rows=1100, codec=rpq.CODEC_ZSTD)
+    _chunks_equal(path)
 
 
 def _arrow_table(host, names=COLUMNS):
@@ -187,14 +189,14 @@ def test_pyarrow_required_columns_and_values(tmp_path, host):
         np.testing.assert_array_equal(data[valid], host[name][0][valid])
 
 
-def test_pyarrow_zstd_raises_where_the_reference_decodes(tmp_path, host):
+def test_pyarrow_zstd_decodes_as_the_reference(tmp_path, host):
     path = str(tmp_path / "zstd.parquet")
     papq.write_table(_arrow_table(host, ["i64"]), path, compression="zstd")
     rm, pm = rpq.read_metadata(path), ppq.read_metadata(path)
     data, _, _ = rpq.read_column_chunk(path, rm.row_groups[0].chunks["i64"], _dtype(RS, "i64"))
     np.testing.assert_array_equal(data, host["i64"][0])
-    with pytest.raises(MissingCodecError):
-        ppq.read_column_chunk(path, pm.row_groups[0].chunks["i64"], _dtype(PS, "i64"))
+    _same_arrays(rpq.read_column_chunk(path, rm.row_groups[0].chunks["i64"], _dtype(RS, "i64")),
+                 ppq.read_column_chunk(path, pm.row_groups[0].chunks["i64"], _dtype(PS, "i64")))
 
 
 # ------------------------------------------- the loops that are numpy here

@@ -553,11 +553,12 @@ def test_lz4_checksum_mismatch_raises():
         IC.lz4_frame_decompress(bytes(frame))
 
 
-def test_zstd_names_the_missing_decoder():
-    with pytest.raises(IC.MissingCodecError, match="zstd"):
-        IC.compress_frame(PAYLOAD, "zstd")
-    with pytest.raises(IC.MissingCodecError, match="zstd decoder"):
-        IC.decompress_frame(JIC.compress_frame(PAYLOAD, "zstd"))
+def test_zstd_frames_decode_both_ways():
+    for algo in (None, integrity.ALGO_CRC32):
+        frame = IC.compress_frame(PAYLOAD, "zstd", algo)
+        assert IC.frame_span(frame, 0)[0] & ~integrity.CHECKSUM_FLAG == IC.CODEC_ZSTD
+        assert JIC.decompress_frame(frame) == PAYLOAD == IC.decompress_frame(frame)
+        assert IC.decompress_frame(JIC.compress_frame(PAYLOAD, "zstd", algo)) == PAYLOAD
 
 
 def test_compress_frame_rejects_an_unknown_codec():
@@ -566,8 +567,9 @@ def test_compress_frame_rejects_an_unknown_codec():
 
 
 def test_writers_stamp_crc32_and_readers_verify_whatever_the_environment(monkeypatch):
-    # the reference's knobs for the codec and the checksum (off disarms
-    # its readers) have no counterpart in the port
+    # the reference's checksum knob (off disarms its readers) has no
+    # counterpart in the port; its codec knob does (the writers follow
+    # spark.io.compression.codec, here raw)
     monkeypatch.setenv("BLAZE_IO_CHECKSUM", "off")
     monkeypatch.setenv("BLAZE_SPARK_IO_COMPRESSION_CODEC", "raw")
     buf = io.BytesIO()
@@ -575,7 +577,7 @@ def test_writers_stamp_crc32_and_readers_verify_whatever_the_environment(monkeyp
     tb, _ = _both_batches(40, seed=3)
     for stream in (buf.getvalue(), collect_blob([tb])):
         cid, start, ln, nxt = IC.frame_span(stream, 0)
-        assert cid == IC.CODEC_ZLIB | integrity.CHECKSUM_FLAG
+        assert cid == IC.CODEC_RAW | integrity.CHECKSUM_FLAG
         assert stream[start + ln] == integrity.ALGO_CRC32 == integrity.FRAME_ALGO
         flipped = bytearray(stream)
         flipped[start + 2] ^= 1
