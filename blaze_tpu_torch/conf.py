@@ -110,3 +110,19 @@ SPECULATION_WEDGE_MS = ConfEntry("spark.blaze.speculation.wedgeMs", 0, int)
 # "shuffle.fetch@2,task.compute@1@a0"); empty injects nothing.  The
 # environment's BLAZE_FAULTS_SPEC overrides it
 FAULTS_SPEC = ConfEntry("spark.blaze.faults.spec", "", str)
+
+# The worker host pool (runtime/hostpool.py): persistent
+# ``worker.py --serve`` processes the scheduler binds map tasks to.
+# Workers a pool starts when its caller names no count; 0: no pool
+POOL_WORKERS = ConfEntry("spark.blaze.pool.workers", 0, int)
+# ms between a pooled worker's heartbeat frames on its stdout
+POOL_HEARTBEAT_MS = ConfEntry("spark.blaze.pool.heartbeatMs", 50, int)
+# heartbeat silence (ms) past which a ready worker is declared lost;
+# well above heartbeatMs
+POOL_LIVENESS_TIMEOUT_MS = ConfEntry("spark.blaze.pool.livenessTimeoutMs", 10000, int)
+# a slot lost this many times within decaySec seconds is blacklisted
+# (not respawned) until its count decays below it (≙ spark.blacklist.*)
+HOST_BLACKLIST_MAX_FAILURES = ConfEntry("spark.blaze.host.blacklist.maxFailures", 2, int)
+HOST_BLACKLIST_DECAY_SEC = ConfEntry("spark.blaze.host.blacklist.decaySec", 60.0, float)
+# ms a query may run from its cancel scope's opening; 0: no deadline
+QUERY_TIMEOUT_MS = ConfEntry("spark.blaze.query.timeoutMs", 0, int)

@@ -408,22 +408,38 @@ class IpcFrameWriter:
         return len(frame)
 
 
-def iter_stream_frames(f: BinaryIO, limit: int, site: str = "frame",
+def _read_exact(f: BinaryIO, n: int) -> bytes:
+    """``n`` bytes of ``f``, fewer only at its end (a pipe may return
+    short reads)."""
+    out = f.read(n) if n else b""
+    while out and len(out) < n:
+        more = f.read(n - len(out))
+        if not more:
+            break
+        out += more
+    return out or b""
+
+
+def iter_stream_frames(f: BinaryIO, limit: Optional[int] = None, site: str = "frame",
                        path: Optional[str] = None) -> Iterator[bytes]:
     """The payload of every frame in the next ``limit`` bytes of ``f``,
-    verified; a segment that ends inside a frame is torn."""
+    or, with no limit, to its end (a pipe, a whole file), which may come
+    between frames only; verified: a frame cut short is torn."""
     walk = _FrameWalk(site, path)
     remaining = limit
-    while remaining > 0:
-        hdr = f.read(5)
-        if len(hdr) < 5 or remaining < 5:
+    while remaining is None or remaining > 0:
+        hdr = _read_exact(f, 5)
+        if not hdr and remaining is None:
+            return
+        if len(hdr) < 5 or (remaining is not None and remaining < 5):
             raise BlockCorruptionError(site, "torn frame header", path=path)
         ln, cid = struct.unpack("<IB", hdr)
         tail = TRAILER_LEN if cid & CHECKSUM_FLAG else 0
-        remaining -= 5 + ln + tail
-        stored = f.read(ln)
-        trailer = f.read(tail)
-        if remaining < 0 or len(stored) < ln or len(trailer) < tail:
+        stored = _read_exact(f, ln)
+        trailer = _read_exact(f, tail)
+        if remaining is not None:
+            remaining -= 5 + ln + tail
+        if (remaining is not None and remaining < 0) or len(stored) < ln or len(trailer) < tail:
             raise BlockCorruptionError(site, "torn frame", path=path)
         payload = walk.payload(cid, stored, trailer)
         if payload is not None:

@@ -1,10 +1,10 @@
 """Deterministic fault injection (≙ ``blaze_tpu/runtime/faults.py``).
 
 The recovery paths of the scheduler (``runtime/retry.py``,
-``runtime/speculation.py`` and the attempt loop in
-``runtime/scheduler.py``) are tested by failures injected at named
-sites through :func:`hit`, on the task's own thread, so that the hit
-numbers are the same run after run:
+``runtime/speculation.py``, the attempt loop in ``runtime/scheduler.py``
+and the worker pool, ``runtime/hostpool.py``) are tested by failures
+injected at named sites through :func:`hit`, on the task's own thread,
+so that the hit numbers are the same run after run:
 
 ==================  ====================================================
 site                probed where
@@ -16,15 +16,17 @@ site                probed where
                     ``FetchFailedError``)
 ``broadcast.write`` ``IpcWriterExec`` (its ``@corrupt`` where the blob
                     is collected)
+``worker.task``     ``runtime/worker.py``, at a job's start and at each
+                    of its output batches, inside the worker process
+``worker.result``   ``runtime/worker.py``, its ``@corrupt`` after a
+                    result file is written
 ==================  ====================================================
 
 :data:`SITES` keeps the reference's nine names, so that every spec it
-parses parses here.  The other five fire nowhere yet: ``spill.write``
+parses parses here.  The other three fire nowhere yet: ``spill.write``
 waits for the memory manager (ROADMAP A.9), ``kernel.dispatch`` for the
 launch counters and the OOM ladder (A.7, A.9), ``rss.push`` for the
-remote shuffle (A.11), ``worker.task`` and ``worker.result`` for the
-worker processes (A.8 step 4), and with them ``@kill``, which
-:class:`FaultInjector` refuses.
+remote shuffle (A.11).
 
 A spec maps each site to the 1-based hit numbers that fire, optionally
 only for one task attempt id::
@@ -37,8 +39,11 @@ only for one task attempt id::
 A plain entry raises :class:`InjectedFault` (``FetchFailedError`` at
 ``shuffle.fetch``); ``@oom`` raises :class:`InjectedOom` and
 ``@enospc`` :class:`InjectedDiskFull` (both retried here: the port has
-no OOM or disk ladder yet); ``@slow<ms>`` sleeps that long and returns,
-a straggler for speculation and wedge detection.  A straggler whose
+no OOM or disk ladder yet); ``@kill`` SIGKILLs the process, the hard
+death the pool must recover from, armed only in a worker process
+(:func:`mark_worker_process`) through its environment
+(``BLAZE_FAULTS_SPEC``): a driver refuses it; ``@slow<ms>`` sleeps that
+long and returns, a straggler for speculation and wedge detection.  A straggler whose
 task is cancelled wakes at once (the probe is handed the task's cancel
 event), where the reference sleeps it out.  ``@corrupt`` counts on its
 own counter, the Nth committed block at the site, through
@@ -54,7 +59,9 @@ no spec :func:`hit` is one bool check.
 from __future__ import annotations
 
 import errno
+import os
 import random
+import signal
 import threading
 import time
 from typing import Dict, List, Optional, Set, Tuple
@@ -207,13 +214,13 @@ class FaultInjector:
     the ``@corrupt`` probe count apart: a corrupt rule's hit number is
     the Nth committed block at its site."""
 
-    def __init__(self, rules: List[Rule]):
+    def __init__(self, rules: List[Rule], allow_kill: bool = False):
         self._by_site: Dict[str, List[Tuple[int, Optional[int], Optional[int], object]]] = {}
         self._corrupt_by_site: Dict[str, List[Tuple[int, Optional[int]]]] = {}
         for site, hit, attempt, slow_ms, kind in rules:
-            if kind == "kill":
-                raise NotImplementedError(f"fault {site}@{hit}@kill: the port has no worker processes "
-                                          "to kill yet (ROADMAP A.8 step 4)")
+            if kind == "kill" and not allow_kill:
+                raise ValueError(f"fault {site}@{hit}@kill: @kill is armed only in a worker process, "
+                                 "through its BLAZE_FAULTS_SPEC")
             if kind == "corrupt":
                 self._corrupt_by_site.setdefault(site, []).append((hit, attempt))
             else:
@@ -246,6 +253,8 @@ class FaultInjector:
                 raise InjectedOom(site, n, detail)
             if kind == "enospc":
                 raise InjectedDiskFull(site, n, detail)
+            if kind == "kill":
+                os.kill(os.getpid(), signal.SIGKILL)
             if site == "shuffle.fetch":
                 from .retry import FetchFailedError
 
@@ -266,14 +275,23 @@ _NOOP = FaultInjector([])
 _active: FaultInjector = _NOOP
 _armed = False
 _loaded = False
+_in_worker = False
 _state_lock = threading.Lock()
+
+
+def mark_worker_process() -> None:
+    """This process is a worker (``runtime/worker.py``): ``@kill`` rules
+    of its schedule fire here."""
+    global _in_worker, _loaded
+    _in_worker = True
+    _loaded = False
 
 
 def _load_from_conf() -> None:
     global _active, _armed, _loaded
     spec = str(conf.FAULTS_SPEC.get() or "")
     with _state_lock:
-        _active = FaultInjector(parse_spec(spec)) if spec else _NOOP
+        _active = FaultInjector(parse_spec(spec), allow_kill=_in_worker) if spec else _NOOP
         _armed = bool(spec)
         _loaded = True
 

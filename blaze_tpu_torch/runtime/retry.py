@@ -101,15 +101,16 @@ FATAL = "fatal"  # propagate, no retry
 def _dispositions() -> dict:
     """The classes the port has, by disposition (the reference's
     registry entries for them)."""
-    from .context import TaskCancelled
+    from .context import QueryCancelledError, TaskCancelled
     from .faults import InjectedDiskFull, InjectedFault, InjectedOom
+    from .hostpool import WorkerLostError, WorkerTaskError, WorkerTaskFatalError
     from .integrity import BlockCorruptionError
 
     return {
         FetchFailedError: FETCH_FAILED,
         TaskTimeoutError: RETRY, TaskWedgedError: RETRY, BlockCorruptionError: RETRY, InjectedFault: RETRY,
-        InjectedOom: RETRY, InjectedDiskFull: RETRY,
-        TaskRetriesExhausted: FATAL, TaskCancelled: FATAL,
+        InjectedOom: RETRY, InjectedDiskFull: RETRY, WorkerLostError: RETRY, WorkerTaskError: RETRY,
+        TaskRetriesExhausted: FATAL, TaskCancelled: FATAL, QueryCancelledError: FATAL, WorkerTaskFatalError: FATAL,
     }
 
 

@@ -42,8 +42,26 @@ is checked between a task's batches.  A budget used up raises
 ``TaskRetriesExhausted``; a fatal error (a cancellation, an engine
 bug, an unported path) propagates at once.
 
-Not ported from the reference's scheduler: worker host pools, the
-service lease and query cancel scope, tracing and monitoring.
+Worker pool (``pool``, a ``runtime/hostpool.HostPool``): a map stage
+whose plan reads no broadcast blob (:meth:`StageRunner.pool_eligible`)
+binds its tasks to the pool's worker processes round robin, one at a
+time on the driver's thread, as the reference does; under the
+concurrent runner nothing is pooled.  A task whose TaskDefinition
+stages driver resources (a memory scan) cannot ship and runs in
+process under the same attempt id, and so does every task once the
+pool is degraded.  A lost worker's ``WorkerLostError`` first re-runs
+the committed map outputs it owned (each re-run counting against
+``spark.blaze.stage.maxAttempts``), then retries the task.
+
+Query cancellation (``scope``, a ``runtime/context.CancelScope``, by
+default the ambient one of ``context.cancel_scope``): checked before
+each stage, task attempt and pulled batch; serial attempts take its
+event as their cancel event, concurrent ones are attached to it; a
+cancelled run sweeps its temporary files and raises
+``QueryCancelledError``.
+
+Not ported from the reference's scheduler: the service lease, tracing
+and monitoring.
 """
 
 from __future__ import annotations
@@ -63,7 +81,7 @@ from ..ops.base import ExecNode
 from ..parallel.broadcast import BroadcastExchangeExec, IpcWriterExec
 from ..parallel.exchange import NativeShuffleExchangeExec
 from ..parallel.shuffle import IpcReaderExec, LocalShuffleManager, Partitioning, RangePartitioning
-from .context import RESOURCES, ResourcesMap
+from .context import RESOURCES, QueryCancelledError, ResourcesMap, current_cancel_scope
 from .retry import FETCH_FAILED, RETRY, RetryPolicy, TaskRetriesExhausted, TaskTimeoutError, classify
 from .speculation import SpeculationPolicy, StageTaskRunner
 
@@ -99,7 +117,8 @@ class RunStats:
     consumer's); and the recovery counters (the reference's):
     attempts, retries, timeouts (wedges among them), fetch failures,
     map stage re-runs and the map tasks they ran, broadcast stage
-    re-runs, speculative attempts, won and lost."""
+    re-runs, speculative attempts, won and lost, and pooled workers
+    lost."""
 
     tasks: int = 0
     task_def_bytes: int = 0
@@ -119,6 +138,7 @@ class RunStats:
     speculative_attempts: int = 0
     speculative_won: int = 0
     speculative_lost: int = 0
+    worker_lost: int = 0
 
 
 class _StageRoot(ExecNode):
@@ -201,6 +221,35 @@ def ipc_readers(plan: ExecNode, prefix: str) -> List[IpcReaderExec]:
     return out
 
 
+def plan_reads(plan: ExecNode, t: int) -> Dict[int, Tuple[int, int]]:
+    """Shuffle id -> (rows its reader read in task ``t``, its reduce
+    partitions), from a run plan's reader metrics."""
+    out: Dict[int, Tuple[int, int]] = {}
+    for node in ipc_readers(plan, "shuffle_"):
+        if t >= node.num_partitions():
+            continue  # a union's narrower child: no partition t to read
+        sid = int(node.resource_id.split("_")[1])
+        rows = out.get(sid, (0, 0))[0] + node.metrics.values.get("output_rows", 0)
+        out[sid] = (rows, node.num_partitions())
+    return out
+
+
+def worker_task_spec(stage: Stage, manager: LocalShuffleManager, t: int, attempt: int = 0,
+                     n_maps: Optional[Dict[int, int]] = None, output: Optional[str] = None) -> Dict[str, object]:
+    """The ``runtime/worker.py`` job spec of task ``t``: its
+    TaskDefinition bytes, the shared shuffle root, a reader for each
+    upstream shuffle of ``n_maps`` (shuffle id -> committed map outputs)
+    and, for a result task, the path of its result frames."""
+    import base64
+
+    _, td = build_task(stage, manager, t, attempt)
+    return {"task_def": base64.b64encode(td).decode(), "partition": t, "attempt": attempt,
+            "shuffle_root": manager.root,
+            "readers": [{"resource_id": f"shuffle_{sid}", "shuffle_id": sid, "n_maps": nm}
+                        for sid, nm in sorted((n_maps or {}).items())],
+            "output": output}
+
+
 def compute_range_boundaries(stage: Stage, register, max_rows: int = 1 << 16) -> tuple:
     """The boundary words of a range-partitioned map stage (≙ the
     reference's ``_compute_range_boundaries``): the stage's plan runs
@@ -280,11 +329,14 @@ class StageRunner:
     """Runs the stages of one split, in order, and recovers their
     failures: keeps each shuffle's map count and each broadcast's blobs
     for the stages that read them, and the stage that produced each, to
-    regenerate it."""
+    regenerate it.  ``pool`` hosts the eligible map tasks; ``scope``
+    cancels the run."""
 
     def __init__(self, stages: List[Stage], manager: LocalShuffleManager, stats: Optional[RunStats] = None,
-                 max_task_attempts: Optional[int] = None):
+                 max_task_attempts: Optional[int] = None, pool=None, scope=None):
         self.manager = manager
+        self.pool = pool
+        self.scope = scope
         self.stats = stats if stats is not None else RunStats()
         self.policy = RetryPolicy.from_conf()
         if max_task_attempts is not None:
@@ -298,6 +350,11 @@ class StageRunner:
     def _count(self, name: str, n: int = 1) -> None:
         with self._lock:
             setattr(self.stats, name, getattr(self.stats, name) + n)
+
+    def _checkpoint(self, stage: Stage, t: Optional[int] = None) -> None:
+        """Raise ``QueryCancelledError`` once the run's scope is cancelled."""
+        if self.scope is not None:
+            self.scope.check(stage.stage_id, t)
 
     def _register(self, stage: Stage, t: int, resources: ResourcesMap,
                   scope: contextlib.ExitStack) -> None:
@@ -340,34 +397,42 @@ class StageRunner:
             deadline = self.policy.deadline()
             for b in from_proto.run_task(td, task_attempt_id=attempt, resources=resources, on_plan=plans.append,
                                          cancel_event=cancel_event, on_beat=on_beat):
+                self._checkpoint(stage, t)
                 if deadline is not None and time.monotonic() > deadline:
                     raise TaskTimeoutError(f"task {t} of stage {stage.stage_id} exceeded "
                                            f"{self.policy.task_timeout}s")
                 yield b
 
-    def _note_reads(self, plan: ExecNode, t: int) -> None:
-        """Adds the rows task ``t``'s shuffle readers read to the stats."""
-        for node in ipc_readers(plan, "shuffle_"):
-            if t >= node.num_partitions():
-                continue  # a union's narrower child
-            sid = int(node.resource_id.split("_")[1])
-            with self._lock:
-                rows = self.stats.read_rows.setdefault(sid, [0] * node.num_partitions())
-                rows[t] += node.metrics.values.get("output_rows", 0)
+    def _note_reads(self, reads: Dict[int, Tuple[int, int]], t: int) -> None:
+        """Adds the rows task ``t``'s shuffle readers read (``plan_reads``)
+        to the stats."""
+        with self._lock:
+            for sid, (rows, n_parts) in reads.items():
+                self.stats.read_rows.setdefault(sid, [0] * n_parts)[t] += rows
 
     def _attempt(self, stage: Stage, t: int, attempt: int, outs: dict, cancel_event=None, on_beat=None) -> None:
         """One attempt of map or broadcast task ``t`` to its end.  The
         first attempt of the task to finish uncancelled puts (its blob,
-        its plan) in ``outs[t]``; a failed or cancelled map attempt's
-        temporary files go."""
+        its reads) in ``outs[t]``; a failed or cancelled map attempt's
+        temporary files go.  A serial attempt takes the scope's event as
+        its cancel event, a concurrent one is attached to the scope."""
         resources, plans = ResourcesMap(), []
+        attached = cancel_event is not None and self.scope is not None
+        if attached:
+            self.scope.attach(cancel_event)
+        elif self.scope is not None:
+            cancel_event = self.scope.event
         try:
             for _ in self._run_task(stage, t, attempt, resources, plans, cancel_event, on_beat):
                 pass
+            self._checkpoint(stage, t)  # a cancelled drain may have stopped early
         except BaseException:
             if stage.kind == "map":
                 self.manager.sweep_inprogress(stage.shuffle_id, t, attempt)
             raise
+        finally:
+            if attached:
+                self.scope.detach(cancel_event)
         if cancel_event is not None and cancel_event.is_set():
             # a loser: its drain may have stopped early, and nothing of it is kept
             if stage.kind == "map":
@@ -375,7 +440,50 @@ class StageRunner:
             return
         blob = resources.get(f"broadcast_{stage.broadcast_id}.{t}") if stage.kind == "broadcast" else None
         with self._lock:
-            outs.setdefault(t, (blob, plans[0]))
+            outs.setdefault(t, (blob, plan_reads(plans[0], t)))
+
+    def pool_eligible(self, stage: Stage) -> bool:
+        """A map stage the pool may host: its plan reads no broadcast
+        blob, which lives in the driver's memory."""
+        return self.pool is not None and stage.kind == "map" and not ipc_readers(stage.plan, "broadcast_")
+
+    def _pooled_attempt(self, stage: Stage, t: int, attempt: int, worker: str, outs: dict) -> bool:
+        """One attempt of map task ``t`` on the pooled ``worker``, which
+        commits its output into the shared root; the pool then owns it.
+        False, with nothing run, when the TaskDefinition cannot ship: it
+        staged driver resources (a memory scan) no other process can
+        read.  A failed attempt's temporary files go."""
+        import base64
+
+        from ..serde.to_proto import STAGED_RIDS
+
+        n_maps = {}
+        for node in ipc_readers(stage.plan, "shuffle_"):
+            if t < node.num_partitions():
+                sid = int(node.resource_id.split("_")[1])
+                n_maps[sid] = self.n_maps[sid]
+        staged: List[str] = []
+        token = STAGED_RIDS.set(staged)
+        try:
+            spec = worker_task_spec(stage, self.manager, t, attempt, n_maps)
+        finally:
+            STAGED_RIDS.reset(token)
+        if staged:
+            _discard(staged)
+            return False
+        self._count("task_attempts")
+        self._count("task_def_bytes", len(base64.b64decode(spec["task_def"])))
+        try:
+            reply = self.pool.run_task(spec, worker, scope=self.scope)
+        except BaseException:
+            self.manager.sweep_inprogress(stage.shuffle_id, t, attempt)
+            raise
+        self.pool.note_map_output(worker, stage.shuffle_id, t)
+        self._count("blocks", int(reply.get("blocks", 0)))
+        reads = {int(sid): (int(r), int(n)) for sid, (r, n) in (reply.get("read_rows") or {}).items()}
+        with self._lock:
+            outs.setdefault(t, (None, reads))
+        return True
 
     def handle_failure(self, stage: Stage, t: int, exc: BaseException, attempt: int, regens: int,
                        sleep: bool = True) -> Tuple[int, int, float]:
@@ -384,7 +492,22 @@ class StageRunner:
         retry; returns (the next attempt, the regenerations so far, the
         backoff still to wait: 0 when ``sleep`` slept it).  Raises
         ``TaskRetriesExhausted`` when a budget is used up, and a fatal
-        error as it is."""
+        error as it is.  A lost pooled worker's committed map outputs
+        re-run first, each re-run a regeneration; the task then retries."""
+        from .hostpool import WorkerLostError
+
+        if isinstance(exc, WorkerLostError):
+            # now, not at a later fetch: the pool no longer vouches for
+            # what the dead worker committed
+            self._count("worker_lost")
+            for sid in sorted(exc.lost_outputs):
+                mstage = self.map_stages.get(sid)
+                if mstage is None:
+                    continue
+                regens += 1
+                if regens > self.policy.max_stage_regens:
+                    raise TaskRetriesExhausted(stage.stage_id, t, attempt + 1, exc) from exc
+                self.regenerate_map_stage(mstage, exc.lost_outputs[sid])
         action = classify(exc)
         if action == FETCH_FAILED:
             self._count("fetch_failures")
@@ -436,12 +559,22 @@ class StageRunner:
         outs = self._run_tasks(stage, regenerated=True)
         self.blobs[stage.broadcast_id] = [outs[t][0] for t in range(stage.n_tasks)]
 
-    def run_task_attempts(self, stage: Stage, t: int, outs: dict) -> None:
+    def run_task_attempts(self, stage: Stage, t: int, outs: dict, pooled: bool = False) -> None:
         """Map or broadcast task ``t`` under the retry policy, on this
-        thread."""
+        thread; ``pooled``: on a worker the pool places it on, in
+        process once the pool is degraded or when the task cannot ship
+        (the same attempt id: nothing ran)."""
         attempt = regens = 0
         while True:
+            self._checkpoint(stage, t)
             try:
+                if pooled:
+                    worker = self.pool.placement(stage.stage_id, t)
+                    if worker is not None:
+                        if self._pooled_attempt(stage, t, attempt, worker, outs):
+                            return
+                        pooled = False
+                        continue
                 return self._attempt(stage, t, attempt, outs)
             except BaseException as exc:
                 attempt, regens, _ = self.handle_failure(stage, t, exc, attempt, regens)
@@ -455,8 +588,10 @@ class StageRunner:
         outs: dict = {}
         policy = SpeculationPolicy.from_conf()
         if not policy.runner_needed() or len(tasks) <= 1:
+            # the pool hosts serial stages only, as in the reference
+            pooled = self.pool_eligible(stage) and not policy.runner_needed()
             for t in tasks:
-                self.run_task_attempts(stage, t, outs)
+                self.run_task_attempts(stage, t, outs, pooled)
         else:
             # the first task alone: it builds the kernel library and
             # materializes what the stage reads, which no backup may
@@ -469,8 +604,8 @@ class StageRunner:
                             count=self._count, durations=[time.monotonic() - t0]).run()
         if not regenerated:
             self._count("tasks", len(outs))
-            for t, (_, plan) in outs.items():
-                self._note_reads(plan, t)
+            for t, (_, reads) in outs.items():
+                self._note_reads(reads, t)
         return outs
 
     def run_result_task(self, stage: Stage, t: int) -> Iterator[RecordBatch]:
@@ -479,26 +614,31 @@ class StageRunner:
         are the caller's already)."""
         attempt = regens = 0
         while True:
+            self._checkpoint(stage, t)
             plans: list = []
             yielded = False
             try:
-                with contextlib.closing(self._run_task(stage, t, attempt, ResourcesMap(), plans)) as stream:
+                cancel = self.scope.event if self.scope is not None else None
+                with contextlib.closing(self._run_task(stage, t, attempt, ResourcesMap(), plans, cancel)) as stream:
                     for b in stream:
                         yielded = True
                         yield b
+                # a cancelled operator stops quietly: no truncated result passes as whole
+                self._checkpoint(stage, t)
             except BaseException as exc:
                 if yielded:
                     raise
                 attempt, regens, _ = self.handle_failure(stage, t, exc, attempt, regens)
                 continue
             self._count("tasks")
-            self._note_reads(plans[0], t)
+            self._note_reads(plan_reads(plans[0], t), t)
             return
 
     def run_stage(self, stage: Stage) -> Iterator[RecordBatch]:
         """Run every task of ``stage``; a result stage yields its
         batches, the others yield nothing.  A range map stage without
         boundaries runs the boundary pass first, recovered as task -1."""
+        self._checkpoint(stage)
         part = stage.partitioning
         if stage.kind == "map" and isinstance(part, RangePartitioning) and part.boundaries is None \
                 and part.num_partitions > 1:
@@ -523,21 +663,28 @@ class StageRunner:
 
 
 def run_stages(stages: List[Stage], manager: LocalShuffleManager, stats: Optional[RunStats] = None,
-               max_task_attempts: Optional[int] = None) -> Iterator[RecordBatch]:
+               max_task_attempts: Optional[int] = None, pool=None, scope=None) -> Iterator[RecordBatch]:
     """Run ``stages`` (from :func:`split_stages`) and yield the result
     stage's batches; ``stats``, when given, accumulates what moved and
     the recovery counters; ``max_task_attempts`` overrides
-    ``spark.blaze.task.maxAttempts``.  The manager's directory and the
+    ``spark.blaze.task.maxAttempts``; ``pool`` (a ``HostPool``) hosts
+    the eligible map tasks; ``scope`` (default: the ambient
+    ``CancelScope``) cancels the run.  The manager's directory and the
     split's cached join maps are dropped when the stream ends or is
     closed."""
     from ..ops.joins.broadcast import clear_join_map_cache
 
-    runner = StageRunner(stages, manager, stats, max_task_attempts)
+    runner = StageRunner(stages, manager, stats, max_task_attempts, pool=pool,
+                         scope=scope if scope is not None else current_cancel_scope())
     try:
         for stage in stages:
             t0 = time.perf_counter()
             yield from runner.run_stage(stage)
             runner.stats.stage_seconds.append(time.perf_counter() - t0)
+    except QueryCancelledError:
+        # what no attempt's own rollback reached: abandoned temporary files
+        manager.sweep_inprogress()
+        raise
     finally:
         manager.cleanup()
         clear_join_map_cache(f"sched_bcast_{id(manager)}_")

@@ -105,9 +105,9 @@ exits.  In order, it:
    between the paths, and q87 again at SF 0.01 (from SF 0.1 on it
    selects nothing: the generator's customers carry 8 distinct names);
    of these three groups, the queries of ``SCHEDULED_CUT`` run in
-   process only (q20, q98, q63, q57, q86, q56, q60, q77, q80, q29, q35,
-   q69 and q39b repeat the template of a query that keeps its
-   ``run_stages`` path; q23a, q23b
+   process only (q20, q98, q63, q89, q57, q86, q70, q56, q60, q77, q80,
+   q25, q29, q35, q69 and q39b repeat the template of a query that keeps
+   its ``run_stages`` path; q23a, q23b
    and q87 select nothing at SF1 and take both paths at their smaller
    scales): that cut and the reference workers keep the smoke within
    its time;
@@ -222,6 +222,21 @@ exits.  In order, it:
    from the start of the run), each equal to its oracle, with compress
    and decompress MB/s; and the committed ``zstandard`` fixture frames
    (``tests/data/zstd``) decoded to their SHA-256; one JSON record a run;
+   then the pool phase: q03 at ``--scale`` from the file phase's SF1
+   parquet files through ``run_stages`` unpooled and with a
+   ``HostPool`` of two ``worker.py --serve`` processes on the card (the
+   map stages that read no broadcast run in the workers, each with its
+   own CUDA context), equal to the oracle and to each other, every
+   eligible map output owned by a worker, the driver's launches plus the
+   workers' equal to the unpooled run's and ``murmur3_pids`` and
+   ``pid_histogram`` launched in the workers; each worker's pid,
+   spawn-to-ready seconds, context memory, launches and jobs; q03 with
+   ``worker.task@2@kill`` and ``maxFailures=1`` (each worker killed as
+   its second job starts: 2 workers lost, 2 partial re-runs of one task,
+   both slots blacklisted, the rest in process) equal to the oracle; a
+   cancel 1 s after a job stalled in a worker, which kills it; after
+   every pool's ``close()`` no worker pid in ``nvidia-smi
+   --query-compute-apps``; one JSON record a run;
 11. the null-key phase: ``store_sales`` at ``--ds-scale`` with its -1
    ``ss_customer_sk`` exposed as nulls (``with_null_fks``), through
    ``split_stages``/``run_stages``: an ``IS NULL`` count, a group by
@@ -244,10 +259,11 @@ exits.  In order, it:
    them;
 13. prints where each phase ended on the host clock, the ``kernels``
    JSON line (launches summed over the 125 queries, the file,
-   functions, nested and exchanges phases' runs in process and the
-   faults and map/zstd phases' runs, and per query on each path; the
-   null-key, file, functions, nested, exchanges, faults and map/zstd
-   phases' apart too), then ``{"ok": true, ...}`` last.
+   functions, nested and exchanges phases' runs in process, the faults
+   and map/zstd phases' runs and the pool phase's pooled and killed runs,
+   the driver's and the workers', and per query on each path; the
+   null-key, file, functions, nested, exchanges, faults, map/zstd and
+   pool phases' apart too), then ``{"ok": true, ...}`` last.
 
 Any failure raises and exits nonzero before the last line; without a
 CUDA card it exits 2.  Nothing here imports JAX or ``blaze_tpu``.
@@ -1190,12 +1206,15 @@ JOINED_QUERIES = tuple(f"ds_{q}" for q in ("q1", "q30", "q81", "q94", "q95", "q1
                                            "q85", "q78", "q97", "q64", "q72"))
 # the window, rollup/union and exists/stddev queries whose run_stages
 # path is cut: each repeats the template of a query that keeps it with
-# other columns or constants (q20 and q98 q12's, q63 q53's, q57 q47's,
-# q86 q36's, q56 and q60 q33's, q77 and q80 q5's channel report, q29
-# q25's, q35 and q69 q10's, q39b q39a's), or selects nothing at SF1
-# (q23a, q23b and q87, whose two paths run at the smaller scales below)
+# other columns or constants (q20 and q98 q12's, q63 and q89 q53's
+# window average against the month, q57 q47's, q86 and q70 q36's
+# rollup ranked within its parent level, q56 and q60 q33's, q77 and q80
+# q5's channel report, q25 and q29 q17's store-sales, returns and
+# catalog chain, q35 and q69 q10's, q39b q39a's), or selects nothing at
+# SF1 (q23a, q23b and q87, whose two paths run at the smaller scales
+# below)
 SCHEDULED_CUT = ("ds_q20", "ds_q98", "ds_q63", "ds_q57", "ds_q56", "ds_q60", "ds_q23a", "ds_q23b", "ds_q87",
-                 "ds_q29", "ds_q39b", "ds_q86", "ds_q77", "ds_q80", "ds_q35", "ds_q69")
+                 "ds_q29", "ds_q39b", "ds_q86", "ds_q77", "ds_q80", "ds_q35", "ds_q69", "ds_q89", "ds_q25", "ds_q70")
 ALL_DS_QUERIES = (DS_QUERIES + WINDOW_QUERIES + ROLLUP_UNION_QUERIES + EXISTS_STDDEV_QUERIES + REPORT_QUERIES
                   + JOINED_QUERIES)
 # q23a and q23b are empty from SF 0.01 on (the generator's -1 customer
@@ -3726,7 +3745,8 @@ FAULTS_BUDGET_S = 40.0
 # the recovery counters of RunStats; a run's expectation names those
 # that move, and every other must stay 0
 RECOVERY_COUNTERS = ("task_retries", "task_timeouts", "fetch_failures", "map_stage_reruns", "map_tasks_rerun",
-                     "broadcast_stage_reruns", "speculative_attempts", "speculative_won", "speculative_lost")
+                     "broadcast_stage_reruns", "speculative_attempts", "speculative_won", "speculative_lost",
+                     "worker_lost")
 # q03 at --scale in 8 partitions: its stages are a broadcast stage of 8
 # tasks (run_task calls 1-8, broadcast.write hits 1-8), then four map
 # stages of 8 tasks each (the first map stage's commits are
@@ -3834,17 +3854,17 @@ def require_counters(label: str, stats, want: dict) -> None:
         raise AssertionError(f"{label}: recovery counters {got}, not {want}")
 
 
-def run_clean(label: str, stages, manager, stats=None) -> list:
+def run_clean(label: str, stages, manager, stats=None, pool=None) -> list:
     """run_stages's batches where nothing may be recovered: every run
-    outside the faults phase.  run_stages retries a failed task (a CUDA
-    launch error among them) and re-runs a lost map output, so a fault
-    that goes away on a second try would pass unseen; here any retry,
-    timeout, fetch failure, re-run or speculative attempt fails the
-    smoke."""
+    outside the faults phase and the pool phase's injected runs.
+    run_stages retries a failed task (a CUDA launch error among them)
+    and re-runs a lost map output, so a fault that goes away on a second
+    try would pass unseen; here any retry, timeout, fetch failure,
+    re-run, speculative attempt or lost worker fails the smoke."""
     from blaze_tpu_torch.runtime.scheduler import RunStats, run_stages
 
     stats = RunStats() if stats is None else stats
-    batches = list(run_stages(stages, manager, stats))
+    batches = list(run_stages(stages, manager, stats, pool=pool))
     require_counters(f"{label} (outside the faults phase)", stats, {})
     return batches
 
@@ -4255,6 +4275,242 @@ def map_zstd_phase(torch, cuda_ops, flush, card: str, data, file_tables, zstd_di
     return launches_of, checks, seconds
 
 
+# ------------------------------------------------ the worker pool
+
+POOL_BUDGET_S = 60.0
+POOL_WORKERS = 2
+# each worker dies as its second job starts, owning one committed map output
+POOL_KILL_SPEC = "worker.task@2@kill"
+# a worker's first job stalls a minute: the cancel must kill it first
+POOL_STALL_SPEC = "worker.task@1@slow60000"
+
+
+def card_apps() -> list:
+    """(pid, used memory) of every process with a context on the card,
+    as ``nvidia-smi --query-compute-apps`` lists them."""
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout
+    return [tuple(part.strip() for part in line.split(",")) for line in out.splitlines() if line.strip()]
+
+
+class CancelAfterDispatch:
+    """A pool whose first ``run_task`` starts a timer that cancels query
+    ``query_id`` ``delay`` seconds later, while that job is in flight."""
+
+    def __init__(self, pool, query_id: str, delay: float):
+        self.pool, self.query_id, self.delay, self.timer = pool, query_id, delay, None
+
+    def __getattr__(self, name):
+        return getattr(self.pool, name)
+
+    def run_task(self, spec, worker, timeout=300.0, scope=None):
+        from blaze_tpu_torch.runtime.context import cancel_query
+
+        if self.timer is None:
+            self.timer = threading.Timer(self.delay, cancel_query, (self.query_id,))
+            self.timer.start()
+        return self.pool.run_task(spec, worker, timeout, scope)
+
+
+def pool_phase(torch, cuda_ops, card: str, data, sf1_files: dict, scale: float, n_parts: int,
+               batch_rows: int) -> tuple:
+    """TPC-H q03 at ``--scale`` from the file phase's SF1 parquet files
+    through ``run_stages``, unpooled and with a ``HostPool`` of two
+    ``--serve`` workers on the card (see the module docstring, step 10).
+    The unpooled run first; then three pools start at once (five worker
+    processes: the healthy pool, the killed one, the stalled one) and the
+    runs follow, each on its own pool.  (1) The pooled run: equal to the
+    oracle and the unpooled run, the eligible map tasks owned by the
+    workers, the driver's launches plus the workers' equal to the
+    unpooled run's, ``murmur3_pids`` and ``pid_histogram`` launched in
+    the workers; each worker's pid, spawn-to-ready seconds (its imports'
+    share apart), context memory (the card's free bytes before the
+    spawns against after ready, and each worker's own before and after
+    loading the library), launches and jobs.  (2) ``worker.task@2@kill``
+    with ``maxFailures=1``: equal to the oracle, recovered by partial
+    re-runs, both slots blacklisted, degraded to in process.  (3) A
+    cancel 1 s after a job stalled in a worker: ``QueryCancelledError``,
+    the worker killed, no loss, no blacklist.  After the pools'
+    ``close()`` the card holds the contexts it held before them, and no
+    worker pid is alive or on the card.  Returns the launches of each
+    run and the phase's seconds."""
+    from blaze_tpu_torch import conf
+    from blaze_tpu_torch.runtime.context import RESOURCES, QueryCancelledError, cancel_scope
+    from blaze_tpu_torch.runtime.hostpool import HostPool
+    from blaze_tpu_torch.runtime.scheduler import RunStats, ipc_readers, run_stages, split_stages
+
+    t_phase = time.perf_counter()
+    launches_of: Dict[str, dict] = {}
+    records = []
+    env = {"BLAZE_BATCHSIZE": str(batch_rows)}  # the workers decode the scans' batches as the driver does
+    scans = file_scans(sf1_files, "parquet", batch_rows)
+    label = f"q03 SF{scale} from parquet"
+
+    def run(pool=None, clean: bool = True) -> tuple:
+        """(rows, wall, the driver's launches, the workers', stats, the
+        task counts of the stages the pool may host)."""
+        from blaze_tpu_torch import batch as B
+
+        before = pool.launches() if pool is not None else {}
+        cuda_ops.reset_launch_counts()
+        stages, manager = split_stages(build_plan("q3", scans, n_parts))
+        eligible = [s.n_tasks for s in stages if s.kind == "map" and not ipc_readers(s.plan, "broadcast_")]
+        stats = RunStats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if clean:
+            batches = run_clean(label, stages, manager, stats, pool=pool)
+        else:
+            batches = list(run_stages(stages, manager, stats, pool=pool))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if len(RESOURCES) or os.path.exists(manager.root):
+            raise AssertionError(f"{label}: run_stages left resources {RESOURCES.keys()} or {manager.root}")
+        driver = dict(cuda_ops.LAUNCHES)
+        after = pool.launches() if pool is not None else {}
+        workers = {k: after.get(k, 0) - before.get(k, 0) for k in driver}
+        rows = {f.name: [] for f in stages[-1].plan.schema.fields}
+        for b in batches:
+            for k, v in B.batch_to_pydict(b).items():
+                rows[k].extend(v)
+        return rows, wall, driver, workers, stats, eligible
+
+    def total(a: dict, b: dict) -> dict:
+        return {k: a.get(k, 0) + b.get(k, 0) for k in a}
+
+    conf.BATCH_SIZE.set(batch_rows)
+    pools = []
+    try:
+        base, base_wall, base_launches, _, base_stats, eligible = run()
+        said = check_oracle(data, "q3", base)
+        if not eligible:
+            raise AssertionError(f"{label}: no map stage the pool may host")
+        launches_of[f"pool: {label}, unpooled"] = base_launches
+        # ---- the three pools start at once; each keeps the settings it started with
+        apps_before = card_apps()
+        torch.cuda.synchronize()
+        free0 = torch.cuda.mem_get_info()[0]
+        t0 = time.perf_counter()
+        healthy = HostPool(POOL_WORKERS, env=env)
+        pools.append(healthy)
+        conf.HOST_BLACKLIST_MAX_FAILURES.set(1)
+        try:
+            killed = HostPool(POOL_WORKERS, env={**env, "BLAZE_FAULTS_SPEC": POOL_KILL_SPEC})
+            pools.append(killed)
+        finally:
+            conf.HOST_BLACKLIST_MAX_FAILURES.set(conf.HOST_BLACKLIST_MAX_FAILURES.default)
+        stalled = HostPool(1, env={**env, "BLAZE_FAULTS_SPEC": POOL_STALL_SPEC})
+        pools.append(stalled)
+        for pool in pools:
+            if not pool.wait_ready(180.0):
+                raise AssertionError(f"a worker never became ready: {pool.worker_telemetry()}")
+        ready_s = time.perf_counter() - t0
+        n_workers = sum(len(pool.pids()) for pool in pools)
+        took = free0 - torch.cuda.mem_get_info()[0]
+        pids = [pid for pool in pools for pid in pool.pids().values()]
+        apps_alive = card_apps()
+        if len(apps_alive) != len(apps_before) + n_workers:
+            raise AssertionError(f"{n_workers} workers ready, but the card lists {apps_alive} against "
+                                 f"{apps_before} before them")
+        # ---- (1) q03 through the healthy pool
+        got, wall, driver, workers, stats, _ = run(healthy)
+        check_oracle(data, "q3", got)
+        if got != base:
+            raise AssertionError(f"{label} through the pool: {got} != unpooled {base}")
+        summed = total(driver, workers)
+        if summed != base_launches:
+            raise AssertionError(f"{label} through the pool launched {driver} on the driver and {workers} in the "
+                                 f"workers, unpooled {base_launches}")
+        if not (workers["murmur3_pids"] and workers["pid_histogram"]):
+            raise AssertionError(f"{label}: the workers launched {workers}: no murmur3_pids or pid_histogram")
+        if healthy.owned_map_outputs() != sum(eligible) or healthy.blacklisted() or healthy.degraded():
+            raise AssertionError(f"{label}: the pool owns {healthy.owned_map_outputs()} map outputs of "
+                                 f"{sum(eligible)} eligible, blacklisted {healthy.blacklisted()}, degraded "
+                                 f"{healthy.degraded()}")
+        launches_of[f"pool: {label}, pooled"] = summed
+        per_worker = [{"worker": r["worker"], "pid": r["pid"], "spawn_to_ready_s": r["ready_s"],
+                       "imported_s": r["init"]["imported_s"], "init_s": r["init"]["init_s"],
+                       "library_and_allocator_mib": (r["init"]["free_at_context"] - r["init"]["free_after_init"])
+                       / 2**20, "jobs_ok": r["jobs_ok"], "jobs_failed": r["jobs_failed"],
+                       "peak_allocated_mib": r["mem_peak"] / 2**20, "launches": r["launches"]}
+                      for r in healthy.worker_telemetry()]
+        spawns = [r["ready_s"] for pool in pools for r in pool.worker_telemetry()]
+        records.append({"run": f"{label}, HostPool({POOL_WORKERS}) against unpooled", "said": said,
+                        "wall_s": wall, "unpooled_wall_s": base_wall, "eligible_stage_tasks": eligible,
+                        "owned_map_outputs": sum(eligible), "tasks": stats.tasks, "unpooled_tasks": base_stats.tasks,
+                        "data_bytes": stats.data_bytes, "launches_driver": driver, "launches_workers": workers,
+                        "launches_unpooled": base_launches, "workers_started_at_once": n_workers,
+                        "all_ready_s": ready_s, "spawn_to_ready_s": [min(spawns), max(spawns)],
+                        "card_mib_per_worker": took / n_workers / 2**20, "workers": per_worker,
+                        "card_apps_before": apps_before, "card_apps_alive": apps_alive, "card": card})
+        # ---- (2) a worker killed as its second job starts, in each slot
+        got, wall, driver, workers, stats, _ = run(killed, clean=False)
+        check_oracle(data, "q3", got)
+        if got != base:
+            raise AssertionError(f"{label} under {POOL_KILL_SPEC}: rows differ from the unpooled run's")
+        state = (killed.blacklisted(), killed.degraded(), killed.stats())
+        if (stats.worker_lost, stats.map_stage_reruns, stats.map_tasks_rerun) != (2, 2, 2) \
+                or stats.map_tasks_rerun >= min(eligible) or state[0] != ["w0", "w1"] or not state[1]:
+            raise AssertionError(f"{label} under {POOL_KILL_SPEC}: worker_lost {stats.worker_lost}, map stage "
+                                 f"re-runs {stats.map_stage_reruns} of {stats.map_tasks_rerun} tasks, blacklisted "
+                                 f"{state[0]}, degraded {state[1]}")
+        launches_of[f"pool: {label}, {POOL_KILL_SPEC}"] = total(driver, workers)
+        records.append({"run": f"{label}, {POOL_KILL_SPEC}, maxFailures=1 (partial re-runs, then in process)",
+                        "equal_to": "the oracle and the unpooled run", "wall_s": wall,
+                        "worker_lost": stats.worker_lost, "map_stage_reruns": stats.map_stage_reruns,
+                        "map_tasks_rerun": stats.map_tasks_rerun, "map_stage_tasks": min(eligible),
+                        "task_retries": stats.task_retries, "blacklisted": state[0], "degraded": state[1],
+                        "pool_stats": state[2], "launches_driver": driver, "launches_workers": workers,
+                        "card": card})
+        # ---- (3) a cancel while a job stalls in a worker
+        stuck = stalled.pids()["w0"]
+        t0 = time.perf_counter()
+        try:
+            with cancel_scope("pool cancel"):
+                run(CancelAfterDispatch(stalled, "pool cancel", 1.0), clean=False)
+            raise AssertionError(f"{label}: the cancelled query ran to its end")
+        except QueryCancelledError as e:
+            cancelled = str(e)
+        cancel_s = time.perf_counter() - t0
+        state = (stalled.stats(), stalled.blacklisted(), stalled.lost_counts())
+        if len(RESOURCES) or state[0]["worker_kills"] != 1 or state[1] or state[2]:
+            raise AssertionError(f"{label}: the cancel left resources {RESOURCES.keys()}, pool {state}")
+        try:
+            os.kill(stuck, 0)
+            raise AssertionError(f"{label}: the stalled worker {stuck} outlived the cancel")
+        except ProcessLookupError:
+            pass
+        records.append({"run": f"{label}, cancelled 1 s after a job stalled in a worker ({POOL_STALL_SPEC})",
+                        "raised": cancelled, "seconds_to_cancel": cancel_s, "pool_stats": state[0], "card": card})
+    finally:
+        conf.BATCH_SIZE.set(conf.BATCH_SIZE.default)
+        for pool in pools:
+            pool.close()
+    apps = card_apps()
+    for _ in range(20):  # a context goes with its process's exit: give the driver up to 10 s
+        if len(apps) == len(apps_before):
+            break
+        time.sleep(0.5)
+        apps = card_apps()
+    alive = []
+    for p in pids:
+        try:
+            os.kill(p, 0)
+            alive.append(p)
+        except ProcessLookupError:
+            pass
+    on_card = [p for p in pids if any(str(p) == a[0] for a in apps)]
+    if alive or on_card or len(apps) != len(apps_before):
+        raise AssertionError(f"after close(): worker pids {alive} alive, {on_card} on the card; the card lists "
+                             f"{apps} against {apps_before} before the pools")
+    records.append({"run": "after every pool's close()", "worker_pids": pids, "card_apps": apps, "card": card})
+    for rec in records:
+        log("pool " + json.dumps(rec))
+    seconds = time.perf_counter() - t_phase
+    log(f"pool phase: {seconds:.1f} s (budget {POOL_BUDGET_S:.0f} s)")
+    return launches_of, seconds
+
+
 def kept_scheduled(queries) -> tuple:
     """Those of ``queries`` that keep their run_stages path."""
     return tuple(q for q in queries if q not in SCHEDULED_CUT)
@@ -4601,6 +4857,10 @@ def main() -> int:
     shutil.rmtree(zstd_dir)
 
     end_phase(phases, "map mode and zstd")
+    # ---- q03's map tasks in worker processes, a killed worker, a cancel
+    pool_launches, _ = pool_phase(torch, cuda_ops, card, data, sf1_files, args.scale, n_parts, batch_rows)
+
+    end_phase(phases, "worker pool")
     # ---- real null foreign keys through run_stages, and the kernels on them
     null_runs, null_checks = null_key_phase(torch, cuda_ops, flush, card, ds_data, args.ds_scale, n_parts,
                                             batch_rows)
@@ -4707,7 +4967,8 @@ def main() -> int:
             + sum(run[name] for label, run in nested_launches.items() if not label.endswith("(run_stages)"))
             + sum(run[name] for label, run in exchange_launches.items() if not label.endswith("(run_stages)"))
             + sum(run[name] for run in fault_launches.values())
-            + sum(run[name] for run in map_zstd_launches.values()),
+            + sum(run[name] for run in map_zstd_launches.values())
+            + sum(run[name] for label, run in pool_launches.items() if not label.endswith("unpooled")),
             "launches_null_keys": {check: run[name] for check, run in null_runs.items()},
             "launches_by_query": {query_label(q): run[name] for q, run in runs.items()},
             "launches_run_stages": {query_label(q): run[name] for q, run in sched_runs.items()},
@@ -4717,6 +4978,7 @@ def main() -> int:
             "launches_exchanges": {label: run[name] for label, run in exchange_launches.items()},
             "launches_faults": {label: run[name] for label, run in fault_launches.items()},
             "launches_map_zstd": {label: run[name] for label, run in map_zstd_launches.items()},
+            "launches_pool": {label: run[name] for label, run in pool_launches.items()},
             "shape": r["shape"], "max_abs_err": errs[name], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "device_ms": r.get("device_ms"),
@@ -4731,6 +4993,7 @@ def main() -> int:
     log("launches_exchanges " + json.dumps(exchange_launches))
     log("launches_faults " + json.dumps(fault_launches))
     log("launches_map_zstd " + json.dumps(map_zstd_launches))
+    log("launches_pool " + json.dumps(pool_launches))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

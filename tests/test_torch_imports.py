@@ -63,7 +63,8 @@ def test_no_protobuf_or_zstandard_import(path):
 def test_importing_the_port_loads_no_jax():
     code = (
         "import sys, blaze_tpu_torch, blaze_tpu_torch.tpch, blaze_tpu_torch.kernels.cuda_ops, "
-        "blaze_tpu_torch.kernels.build, blaze_tpu_torch.serde, blaze_tpu_torch.runtime.scheduler; "
+        "blaze_tpu_torch.kernels.build, blaze_tpu_torch.serde, blaze_tpu_torch.runtime.scheduler, "
+        "blaze_tpu_torch.runtime.worker, blaze_tpu_torch.runtime.hostpool; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'blaze_tpu') "
         "or m.startswith('google.protobuf') or m == 'zstandard']; "
         "print(bad); sys.exit(1 if bad else 0)"
